@@ -9,22 +9,39 @@ nothing of JAX or of `vamb_tpu`. Phases, each of which fails the run:
 
 1. setup: print the card's name and power limit; build the kernels.
 2. kernels: every hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes and around them, then timed with
+   the card, at the main paths' shapes and around them, then timed with
    CUDA events beside its bound, its plain version and a library yardstick.
 3. engine: the clustering engine on the card against the same engine on
-   the CPU (the path the CPU tests hold against `vamb_tpu`), on a small
-   clumpy latent: the emissions must be identical.
-4. main path: `vamb_torch bin default` through its CLI entry point on a
-   synthetic 100,000-contig dataset (VAE 512-512-32, 2 epochs, clustering
-   capped at 2,000 clusters). Every kernel's launch counter is set to 0 just
-   before and read just after; each must be > 0. The stage artifacts and
-   TSVs are read back and checked.
-5. profile: on the main path's own data, 100 clusters of the engine and
+   the CPU (the path the CPU tests hold against `vamb_tpu`), on small
+   clumpy latents at full scope, with the subset wander forced (also on a
+   512-column ball, where its overflow and drift fallbacks run) and with
+   the compaction ladder forced: the emissions must be identical.
+4. main path at 100,000 contigs: `vamb_torch bin default` through its CLI
+   entry point on a synthetic dataset (VAE 512-512-32, 2 epochs,
+   clustering capped at 2,000 clusters), full-scope wander. Every kernel's
+   launch counter is set to 0 just before and read just after;
+   `row_sweep` and `candidate_density_sweep` must be > 0. The stage
+   artifacts and TSVs are read back and checked.
+5. main path at 300,000 contigs from 3,000 genomes (6 samples, 2 epochs,
+   `-c 4096`): the subset wander with `gather_blocks`, at least one logged
+   compaction and the switch back to full sweeps. Counters as in phase 4;
+   every kernel of the path must be > 0 (`medoid_sweep` lies on no path of
+   `bin default`; phase 2 launches it).
+6. profile: on each main path's own data, 100 clusters of the engine and
    100 training steps under torch.profiler: time per cluster and per step,
-   the device's busy share and the kernels that take the most device time.
+   the device's busy share and the ops that take the most device time.
 
-The last three lines of standard output are the kernels JSON object, the
-card's `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`.
+The last three lines of standard output are the kernels JSON object (its
+`launches` are the 300,000-contig path's), the card's `nvidia-smi` name
+and power limit, and `{"ok": true, "device": ...}`.
+
+    python3 chip_smoke.py --engine-ab DIR [DIR ...]
+
+times the clustering engine of each checkout DIR in turn, each in a
+process of its own, on one synthetic 300,000-point latent at subset
+scope (list a parent and a change alternately, e.g. P C C P), and prints
+one JSON line per run: ms per cluster over 200 clusters, and a hash of
+the emitted medoids, which must agree between checkouts that emit alike.
 """
 
 import itertools
@@ -50,8 +67,14 @@ F32_FLOPS_PER_S = 67e12
 N_CONTIGS = 100_000
 N_GENOMES = 1_000
 N_SAMPLES = 6
+BIG_CONTIGS = 300_000  # above the subset wander's 262,144-column floor
+BIG_PAD = -(-BIG_CONTIGS // 128) * 128  # 300,032 columns
+BIG_HALF = BIG_PAD // 2 // 128 * 128  # 150,016: the ladder's first width
+BIG_GENOMES = 3_000
+BIG_CLUSTERS = 4096
 F_PAD = 32  # the latent width 32, padded to a multiple of 8
 MAXSTEPS = 25  # the engine's candidates per wander step
+BALL_KB = 64  # blocks of 128 columns in a subset ball (Q = 8,192)
 SEED = 1
 
 
@@ -139,7 +162,10 @@ def check_kernels(dev) -> dict:
 
     err_row = 0.0
     err_dens = 0.0
-    for n in (N_CONTIGS, N_CONTIGS + 3):
+    # the 100k path's width and an unpadded one; the 300k path's widths
+    # before and after its compaction (the density pass-1 grid is capped
+    # at 300,032 columns, so its blocks stride); a subset ball's
+    for n in (N_CONTIGS, N_CONTIGS + 3, BIG_PAD, BIG_HALF, BALL_KB * 128):
         mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=n), device=dev)
         for idx in (0, 37, n - 1):
             d = K.row_sweep(mT, idx)
@@ -165,80 +191,188 @@ def check_kernels(dev) -> dict:
                         f"max abs err {e}, dens {dens.tolist()} vs {plain.tolist()}"
                     )
                 err_dens = max(err_dens, e)
+    err_sweep = 0.0
+    err_gather = 0.0
+    rel_sums = 0.0
+    for n in (N_CONTIGS, BIG_PAD):
+        mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=n), device=dev)
+        nb = n // 128 if n % 128 == 0 else None
+        if nb is not None:  # the ball gather needs whole 128-column blocks
+            rng = np.random.default_rng(n)
+            for ids in (np.sort(rng.choice(nb, BALL_KB, replace=False)), np.array([5, 0, 0, nb - 1])):
+                bids = torch.as_tensor(ids.astype(np.int32), device=dev)
+                g, g_p = K.gather_blocks(mT, bids), K.gather_blocks_plain(mT, bids)
+                if not torch.equal(g, g_p):
+                    raise AssertionError(f"gather_blocks n={n} ids={ids[:6]}...: not array-equal")
+                err_gather = max(err_gather, float((g - g_p).abs().max()))
+        for zero_half in (False, True):
+            w = torch.as_tensor(weights(n, seed=n + 1, zero_half=zero_half), device=dev)
+            for idx in (0, 37, n - 1):
+                d, hist, dens, n_close = K.medoid_sweep(mT, idx, w)
+                d_p, hist_p, dens_p, close_p = K.medoid_sweep_plain(mT, idx, w)
+                torch.cuda.synchronize()
+                e = float((d - d_p).abs().max())
+                ok = (torch.equal(d, K.row_sweep(mT, idx)) and float(d[idx]) == 0.0 and e <= 1e-6
+                      and torch.allclose(hist, hist_p, rtol=1e-5, atol=0.0)
+                      and torch.allclose(dens, dens_p, rtol=1e-5, atol=0.0)
+                      and int(n_close) == int(close_p))
+                if not ok:
+                    raise AssertionError(
+                        f"medoid_sweep n={n} idx={idx} zero_half={zero_half}: max|d-plain| {e}, "
+                        f"hist {hist.tolist()} vs {hist_p.tolist()}, density {float(dens)} vs "
+                        f"{float(dens_p)}, n_close {int(n_close)} vs {int(close_p)}")
+                err_sweep = max(err_sweep, e)
+                rel = float(((hist - hist_p).abs() / hist_p.abs().clamp_min(1e-30)).max())
+                rel_sums = max(rel_sums, rel, abs(float(dens) / float(dens_p) - 1) if float(dens_p) else 0.0)
     log(f"kernels agree with their plain versions: row_sweep max|err| {err_row} "
-        f"(atol 1e-6, d[idx] == 0), candidate_density_sweep max|err| {err_dens} (rtol 1e-5)")
-    return {"row_sweep": err_row, "candidate_density_sweep": err_dens}
+        f"(atol 1e-6, d[idx] == 0), candidate_density_sweep max|err| {err_dens} (rtol 1e-5), "
+        f"at N {N_CONTIGS}, {N_CONTIGS + 3}, {BIG_PAD}, {BIG_HALF} and {BALL_KB * 128}; "
+        f"gather_blocks array-equal (max|err| {err_gather}), medoid_sweep d bit-identical to "
+        f"row_sweep's, max|d-plain| "
+        f"{err_sweep}, histogram and density max relative error {rel_sums} (rtol 1e-5), "
+        "n_close exact")
+    return {"row_sweep": err_row, "candidate_density_sweep": err_dens,
+            "gather_blocks": err_gather, "medoid_sweep": err_sweep}
 
 
 def time_kernels(dev) -> dict:
-    "Times at the main path's shapes: (32, 100,096) after 128-column padding, C = 25."
+    """Times at the main paths' shapes: `row_sweep` and
+    `candidate_density_sweep` (C = 25) on the 100,000-contig path's
+    (32, 100,096), on the 300,000-contig path's (32, 300,032) and on a
+    subset ball's (32, 8,192); `gather_blocks` of 64 blocks and
+    `medoid_sweep` from (32, 300,032)."""
     from vamb_torch import kernels as K
 
-    n_pad = -(-N_CONTIGS // 128) * 128
-    mT = torch.as_tensor(clumpy_matrixT(n_pad, F_PAD, seed=5), device=dev)
-    w = torch.as_tensor(weights(n_pad, seed=5), device=dev)
-    cand = torch.as_tensor(np.random.default_rng(5).choice(n_pad, MAXSTEPS, replace=False), device=dev)
-    idx = 37
-    col = mT[:, idx].contiguous()
-    mTt = mT.T  # a (N, F) view: torch.mv reads the same bytes
-
     out = {}
-    for cold in (True, False):
-        tag = "" if cold else "_l2_warm"
-        out["row_sweep" + tag] = {
-            "ms": time_ms(lambda: K.row_sweep(mT, idx), cold_l2=cold),
-            "plain_ms": time_ms(lambda: K.row_sweep_plain(mT, idx), cold_l2=cold),
-            "library_ms": time_ms(lambda: torch.mv(mTt, col), cold_l2=cold),
+    shapes = {"": -(-N_CONTIGS // 128) * 128, "_300k": BIG_PAD, "_ball": BALL_KB * 128}
+    for tag, n_pad in shapes.items():
+        mT = torch.as_tensor(clumpy_matrixT(n_pad, F_PAD, seed=5), device=dev)
+        w = torch.as_tensor(weights(n_pad, seed=5), device=dev)
+        cand = torch.as_tensor(np.random.default_rng(5).choice(n_pad, MAXSTEPS, replace=False),
+                               device=dev)
+        idx = 37
+        col = mT[:, idx].contiguous()
+        mTt = mT.T  # a (N, F) view: torch.mv reads the same bytes
+        f, n = mT.shape
+        n_kept = int((w > 0).sum())
+        c = len(cand)
+        fns = {
+            "row_sweep": (lambda: K.row_sweep(mT, idx), lambda: K.row_sweep_plain(mT, idx),
+                          lambda: torch.mv(mTt, col), bound((f * n + n) * 4, 2 * f * n)),
+            # density work counts only the kept (w > 0) columns
+            "candidate_density_sweep": (
+                lambda: K.candidate_density_sweep(mT, cand, w),
+                lambda: K.candidate_density_plain(mT, cand, w), None,
+                bound((f * n_kept + n + 2 * c) * 4, 2 * c * f * n_kept + 4 * c * n_kept)),
         }
-        out["candidate_density_sweep" + tag] = {
-            "ms": time_ms(lambda: K.candidate_density_sweep(mT, cand, w), cold_l2=cold),
-            "plain_ms": time_ms(lambda: K.candidate_density_plain(mT, cand, w), cold_l2=cold),
-            "library_ms": None,  # no single PyTorch call computes it
-        }
-    # bounds from this run's inputs: each input byte read once, each output
-    # byte written once; density work counts only the kept (w > 0) columns
-    f, n = mT.shape
-    out["row_sweep"]["bound"] = bound((f * n + n) * 4, 2 * f * n)
-    n_kept = int((w > 0).sum())
-    c = len(cand)
-    out["candidate_density_sweep"]["bound"] = bound(
-        (f * n_kept + n + 2 * c) * 4, 2 * c * f * n_kept + 4 * c * n_kept
-    )
-    for name in ("row_sweep", "candidate_density_sweep"):
-        r, wr = out[name], out[name + "_l2_warm"]
-        lib = "n/a (no single PyTorch call)" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(f"{name} at F_pad {f}, N_pad {n}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {lib}, bound {r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), "
-            f"L2 cold; L2 warm: kernel {wr['ms']:.4f} ms, plain {wr['plain_ms']:.4f} ms")
+        if tag == "_300k":
+            bids = torch.as_tensor(np.sort(np.random.default_rng(6).choice(n // 128, BALL_KB, replace=False))
+                                   .astype(np.int32), device=dev)
+            q = BALL_KB * 128
+            fns["gather_blocks"] = (
+                lambda: K.gather_blocks(mT, bids), lambda: K.gather_blocks_plain(mT, bids),
+                lambda: mT.view(f, n // 128, 128).index_select(1, bids),
+                bound((2 * f * q + BALL_KB) * 4, 0))
+            # the row's products and sums, then a few compares and one
+            # multiply-add per column for the histogram, density and count
+            fns["medoid_sweep"] = (
+                lambda: K.medoid_sweep(mT, idx, w), lambda: K.medoid_sweep_plain(mT, idx, w), None,
+                bound((f * n + 2 * n + 62) * 4, 2 * f * n + 8 * n))
+        for name, (kern, plain, lib, bnd) in fns.items():
+            key = name if (tag == "" or name in ("gather_blocks", "medoid_sweep")) else name + tag
+            for cold in (True, False):
+                k = key if cold else key + "_l2_warm"
+                out[k] = {
+                    "ms": time_ms(kern, cold_l2=cold),
+                    "plain_ms": time_ms(plain, cold_l2=cold),
+                    "library_ms": None if lib is None else time_ms(lib, cold_l2=cold),
+                }
+            out[key]["bound"] = bnd
+            r, wr = out[key], out[key + "_l2_warm"]
+            libs = "n/a (no single PyTorch call)" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
+            log(f"{name} at F_pad {f}, N_pad {n}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+                f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), L2 cold; "
+                f"L2 warm: kernel {wr['ms']:.5f} ms, plain {wr['plain_ms']:.5f} ms")
     return out
 
 
 # -------------------------------------------------------- phase 3: engine
 
 
+def wide_clumps(n_clumps: int, per: int, scale: float, noise_frac: float, seed: int):
+    """32-wide latents in clumps wide enough (scale 0.06) that subset
+    climbs drift past the ball's guard, plus uniform noise; and lengths."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clumps, 32))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    rows = [c + rng.normal(scale=scale, size=(per, 32)) for c in centers]
+    rows.append(rng.normal(size=(int(noise_frac * n_clumps * per), 32)))
+    m = np.concatenate(rows).astype(np.float32)
+    return m, rng.integers(2000, 50_000, len(m)).astype(np.float32)
+
+
 def check_engine(dev) -> None:
-    "The engine on the card emits exactly what it emits on the CPU."
-    from vamb_torch.cluster import ClusterGenerator
+    """The engine on the card emits exactly what it emits on the CPU: at
+    full scope, with the subset wander forced, with the compaction ladder
+    forced down to 128 columns in batches of 8 clusters, and with the
+    subset wander on a 512-column ball (`_SUBSET_Q` patched) over wide
+    clumps, where balls overflow and climbs drift, so both fallbacks to
+    the full climb run on the card."""
+    from vamb_torch import cluster as engine
+    from vamb_torch.utils import threefry
 
     rng = np.random.default_rng(3)
     centers = rng.normal(size=(40, 32))
     centers /= np.linalg.norm(centers, axis=1, keepdims=True)
     m = np.concatenate([c + rng.normal(scale=0.04, size=(30, 32)) for c in centers]).astype(np.float32)
     lengths = rng.integers(2000, 50_000, len(m)).astype(np.float32)
-    on_card = list(ClusterGenerator(m.copy(), lengths, rng_seed=3, device=dev))
-    on_cpu = list(ClusterGenerator(m.copy(), lengths, rng_seed=3, device="cpu"))
-    if len(on_card) != len(on_cpu):
-        raise AssertionError(f"engine: {len(on_card)} clusters on the card, {len(on_cpu)} on the CPU")
-    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
-        same = (a.kind_str, a.medoid, a.seed, a.successes, a.attempts, a.radius, a.maximal_pvr) == (
-            b.kind_str, b.medoid, b.seed, b.successes, b.attempts, b.radius, b.maximal_pvr
-        ) and np.array_equal(a.members, b.members)
-        if not same:
-            raise AssertionError(f"engine: cluster {i} differs between the card and the CPU")
-    log(f"engine on the card is emission-identical to the CPU engine: {len(on_card)} clusters of {len(m)} points")
+    wide = wide_clumps(40, 30, scale=0.06, noise_frac=0.2, seed=4)
+    # label: (latent, lengths, rng seed, generator arguments, patched _SUBSET_Q)
+    cases = {
+        "full scope": (m, lengths, 3, {}, None),
+        "subset wander": (m, lengths, 3, {"wander_scope": "subset"}, None),
+        "compaction": (m, lengths, 3, {"compact_min_pad": 128, "batch_clusters": 8}, None),
+        "subset wander, 512-column ball": (
+            *wide, 13, {"wander_scope": "subset", "windowsize": 120}, 512),
+    }
+    for label, (mat, lens, seed, kw, subset_q) in cases.items():
+        saved_q = engine._SUBSET_Q
+        if subset_q is not None:
+            engine._SUBSET_Q = subset_q
+        try:
+            gens = [engine.ClusterGenerator(mat.copy(), lens, rng_seed=seed, device=d, **kw)
+                    for d in (dev, "cpu")]
+        finally:
+            engine._SUBSET_Q = saved_q
+        on_card, on_cpu = (list(g) for g in gens)
+        if len(on_card) != len(on_cpu):
+            raise AssertionError(f"engine, {label}: {len(on_card)} clusters on the card, {len(on_cpu)} on the CPU")
+        for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+            same = (a.kind_str, a.medoid, a.seed, a.successes, a.attempts, a.radius, a.maximal_pvr) == (
+                b.kind_str, b.medoid, b.seed, b.successes, b.attempts, b.radius, b.maximal_pvr
+            ) and np.array_equal(a.members, b.members)
+            if not same:
+                raise AssertionError(f"engine, {label}: cluster {i} differs between the card and the CPU")
+        if gens[0].compactions != gens[1].compactions or (label == "compaction" and not gens[0].compactions):
+            raise AssertionError(f"engine, {label}: compactions {gens[0].compactions} vs {gens[1].compactions}")
+        if gens[0].subset_counts != gens[1].subset_counts:
+            raise AssertionError(f"engine, {label}: subset counts {gens[0].subset_counts} on the card, "
+                                 f"{gens[1].subset_counts} on the CPU")
+        if subset_q is not None and not (gens[0].subset_counts["overflow"] > 0
+                                         and gens[0].subset_counts["drift"] > 0):
+            raise AssertionError(f"engine, {label}: no overflow or no drift fallback ran: "
+                                 f"{gens[0].subset_counts}")
+        log(f"engine on the card is emission-identical to the CPU engine, {label}: {len(on_card)} clusters "
+            f"of {len(mat)} points; compactions {gens[0].compactions}; subset {gens[0].subset_counts}")
+    # training eps: the card's erfinv polynomial runs on CUDA's log1p
+    keys = threefry.split(threefry.key(SEED), 64)
+    a = threefry.normal_batched(keys, 4096, dev).cpu().numpy()
+    b = threefry.normal_batched(keys, 4096, "cpu").numpy()
+    ulps = int(np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32)).max())
+    log(f"threefry normal on the card vs the CPU: max {ulps} ulps over {a.size} draws")
 
 
-# ----------------------------------------------------- phase 4: main path
+# ------------------------------------------------ phases 4 and 5: main paths
 
 
 def write_dataset(d: Path, n_contigs: int, n_genomes: int, n_samples: int, seed: int) -> np.ndarray:
@@ -289,19 +423,20 @@ def read_tsv(path: Path) -> list[list[str]]:
 
 def check_outputs(out: Path, genome: np.ndarray, max_clusters: int) -> dict:
     "Read every artifact back with the port's own loaders and check it."
+    n_contigs = len(genome)
     from vamb_torch.abundance import Abundance
     from vamb_torch.composition import Composition
     from vamb_torch.models import VAE
     from vamb_torch.utils import read_npz
 
     comp = Composition.load(out / "composition.npz")
-    check(comp.matrix.shape == (N_CONTIGS, 103) and np.isfinite(comp.matrix).all(), "composition.npz")
+    check(comp.matrix.shape == (n_contigs, 103) and np.isfinite(comp.matrix).all(), "composition.npz")
     ab = Abundance.load(out / "abundance.npz", comp.metadata.refhash)
-    check(ab.matrix.shape == (N_CONTIGS, N_SAMPLES) and np.isfinite(ab.matrix).all(), "abundance.npz")
+    check(ab.matrix.shape == (n_contigs, N_SAMPLES) and np.isfinite(ab.matrix).all(), "abundance.npz")
     vae = VAE.load(out / "model.npz", device="cpu")
     check(vae.nhiddens == [512, 512] and vae.nlatent == 32 and vae.nsamples == N_SAMPLES, "model.npz")
     latent = read_npz(out / "latent.npz")
-    check(latent.shape == (N_CONTIGS, 32) and latent.dtype == np.float32
+    check(latent.shape == (n_contigs, 32) and latent.dtype == np.float32
           and np.isfinite(latent).all() and not (latent.view(np.uint32) & 0xFFF).any(),
           "latent.npz: (N, 32) finite float32 with 12 low mantissa bits masked")
 
@@ -315,7 +450,7 @@ def check_outputs(out: Path, genome: np.ndarray, max_clusters: int) -> dict:
     clusters = {r[0] for r in unsplit[1:]}
     check(len(clusters) == len(meta) - 1 <= max_clusters, f"{len(clusters)} clusters, {len(meta) - 1} metadata rows")
     # below the cap the engine ran to the end: every contig is in a cluster
-    check(len(clusters) == max_clusters or len(members) == N_CONTIGS, "stopped below the cap with contigs left")
+    check(len(clusters) == max_clusters or len(members) == n_contigs, "stopped below the cap with contigs left")
     check(all(int(r[5]) >= 1 and r[3] in ("normal", "loner", "fallback") for r in meta[1:]), "metadata rows")
     # pairwise precision of the emitted clusters against the planted genomes
     ids = np.array([int(m.split("C")[1]) for m in members])
@@ -351,15 +486,19 @@ def stage_times(logfile: Path) -> dict:
     return out
 
 
-def run_main_path(dev, tmp: Path, max_clusters: int = 2000, epochs: int = 2) -> dict:
+def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: int,
+                  required: tuple, epochs: int = 2) -> dict:
+    """`bin default` through its CLI entry point on a fresh synthetic
+    dataset; the launch counters are set to 0 just before and read just
+    after, and each kernel in `required` must have launched."""
     from vamb_torch import kernels as K
     from vamb_torch.__main__ import main
 
     data = tmp / "data"
     data.mkdir()
     t = time.time()
-    genome = write_dataset(data, N_CONTIGS, N_GENOMES, N_SAMPLES, SEED)
-    log(f"wrote the synthetic dataset ({N_CONTIGS} contigs, {N_GENOMES} genomes, "
+    genome = write_dataset(data, n_contigs, n_genomes, N_SAMPLES, SEED)
+    log(f"wrote the synthetic dataset ({n_contigs} contigs, {n_genomes} genomes, "
         f"{N_SAMPLES} samples) in {time.time() - t:.1f} s")
     out = tmp / "run"
     argv = ["bin", "default", "--outdir", str(out), "--fasta", str(data / "contigs.fna"),
@@ -370,21 +509,25 @@ def run_main_path(dev, tmp: Path, max_clusters: int = 2000, epochs: int = 2) -> 
     main(argv, device=str(dev))
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = {"row_sweep": K.row_sweep.launches,
-                "candidate_density_sweep": K.candidate_density_sweep.launches}
-    log(f"bin default ran end to end in {wall:.2f} s; kernel launches {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    log(f"bin default on {n_contigs} contigs ran end to end in {wall:.2f} s; kernel launches {launches}")
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"the main path on {n_contigs} contigs never launched {name}")
     checked = check_outputs(out, genome, max_clusters)
     times = stage_times(out / "log.txt")
     times["total_s"] = wall
     times["clusters_per_s"] = checked["clusters"] / times["cluster_write_s"]
     log("stage times: " + json.dumps(times))
-    return {"launches": launches, **checked, "times": times, "profile": profile_stages(dev, out)}
+    compactions = [line.split("| ")[-1].strip() for line in (out / "log.txt").read_text().splitlines()
+                   if "Compacted the engine matrix" in line]
+    for line in compactions:
+        log("compaction: " + line)
+    return {"launches": launches, **checked, "times": times, "compactions": compactions,
+            "profile": profile_stages(dev, out)}
 
 
-# --------------------------------------------------- phase 5: profile
+# --------------------------------------------------- phase 6: profile
 
 
 def profiled(fn, label: str) -> dict:
@@ -418,10 +561,13 @@ def profiled(fn, label: str) -> dict:
 
 def profile_stages(dev, out: Path) -> dict:
     """Where the time of the two device stages goes, on the main path's own
-    data: 100 clusters of the engine on its latent (a unit is a cluster),
-    and one training epoch of 100 steps at batch 256 on its first 25,600
-    contigs (a unit is an optimizer step). Short windows: the profiler's
-    own bookkeeping grows with the number of events."""
+    data: 100 clusters of the engine on its latent (a unit is a cluster;
+    at 300,000 contigs these are subset-wander clusters, and 100 more at
+    full scope on the same latent follow for comparison), and one training
+    epoch of 100 steps at batch 256 on its first 25,600 contigs (a unit is
+    an optimizer step; the epoch's threefry draws are counted in). Short
+    windows: the profiler's own bookkeeping grows with the number of
+    events."""
     from vamb_torch.abundance import Abundance
     from vamb_torch.cluster import ClusterGenerator
     from vamb_torch.composition import Composition
@@ -437,6 +583,13 @@ def profile_stages(dev, out: Path) -> dict:
     def cluster_100():
         return sum(1 for _ in itertools.islice(gen, 100))
 
+    log(f"profiled engine: {gen.n_pad} columns, subset ball {gen.Q or 'none (full scope)'}")
+    result = {"cluster": profiled(cluster_100, "clustering")}
+    if gen.Q:  # the same latent at full scope: what the subset wander changes
+        gen = ClusterGenerator(read_npz(out / "latent.npz"), comp.metadata.lengths,
+                               rng_seed=SEED, device=dev, wander_scope="full")
+        next(gen)
+        result["cluster_full_scope"] = profiled(cluster_100, "clustering at full scope")
     ab = Abundance.load(out / "abundance.npz", comp.metadata.refhash)
     rows = 256 * 100
     ds = make_dataset(ab.matrix[:rows], comp.matrix[:rows], comp.metadata.lengths[:rows])
@@ -446,7 +599,48 @@ def profile_stages(dev, out: Path) -> dict:
         vae.trainmodel(ds, nepochs=1, batchsize=256, batchsteps=None)
         return num_batches(ds.n_obs, 256)
 
-    return {"cluster": profiled(cluster_100, "clustering"), "train": profiled(train_epoch, "training")}
+    result["train"] = profiled(train_epoch, "training")
+    return result
+
+
+# ------------------------------------------------- engine A/B across checkouts
+
+
+def engine_time(n_clusters: int = 200) -> dict:
+    """ms per cluster of the engine on the card, on a 300,000 x 32 latent
+    in 3,000 clumps (subset scope at 300,032 columns), after one warm-up
+    cluster; and a hash of the emitted medoids."""
+    import hashlib
+
+    from vamb_torch.cluster import ClusterGenerator
+
+    rng = np.random.default_rng(SEED)
+    centers = rng.normal(size=(BIG_GENOMES, 32))
+    latent = (centers[rng.integers(0, BIG_GENOMES, BIG_CONTIGS)]
+              + rng.normal(scale=0.1, size=(BIG_CONTIGS, 32))).astype(np.float32)
+    lengths = rng.integers(2000, 4001, BIG_CONTIGS).astype(np.float32)
+    gen = ClusterGenerator(latent, lengths, rng_seed=SEED, device="cuda")
+    next(gen)
+    torch.cuda.synchronize()
+    t = time.time()
+    medoids = [c.medoid for c in itertools.islice(gen, n_clusters)]
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    return {"ms_per_cluster": wall / len(medoids) * 1e3, "clusters": len(medoids),
+            "subset_ball": gen.Q, "subset_counts": gen.subset_counts,
+            "medoids_sha": hashlib.sha256(np.array(medoids).tobytes()).hexdigest()[:16]}
+
+
+def engine_ab(dirs: list[str]) -> int:
+    "Run `engine_time` once per checkout in `dirs`, each in its own process."
+    runs = []
+    for d in dirs:
+        out = subprocess.run([sys.executable, __file__, "--engine-time", d], capture_output=True,
+                             text=True, check=True, timeout=600)
+        runs.append({"checkout": d, **json.loads(out.stdout.strip().splitlines()[-1])})
+        log(json.dumps(runs[-1]))
+    print(nvidia_smi_line())
+    return 0
 
 
 # ------------------------------------------------------------------ main
@@ -473,24 +667,44 @@ def main() -> int:
     timed = time_kernels(dev)
     check_engine(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        main_run = run_main_path(dev, Path(tmp))
+        run_100k = run_main_path(dev, Path(tmp), N_CONTIGS, N_GENOMES, 2000,
+                                 ("row_sweep", "candidate_density_sweep"))
+    with tempfile.TemporaryDirectory() as tmp:
+        run_300k = run_main_path(dev, Path(tmp), BIG_CONTIGS, BIG_GENOMES, BIG_CLUSTERS,
+                                 ("row_sweep", "candidate_density_sweep", "gather_blocks"))
+    check(len(run_300k["compactions"]) >= 1, "the 300,000-contig path compacted no time")
+    check("wander scope full" in run_300k["compactions"][-1],
+          "the 300,000-contig path never went back to full sweeps")
 
     source = "vamb_torch/kernels/csrc/cluster_kernels.cu"
     replaces = {"row_sweep": "vamb_tpu/ops/pallas_cluster.py:219",
-                "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295"}
+                "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
+                "gather_blocks": "vamb_tpu/ops/pallas_cluster.py:368",
+                "medoid_sweep": "vamb_tpu/ops/pallas_cluster.py:140"}
     kernels = []
-    for name in ("row_sweep", "candidate_density_sweep"):
+    for name in replaces:
         r, warm = timed[name], timed[name + "_l2_warm"]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-            "launches": main_run["launches"][name], "max_abs_err": errs[name],
+            "launches": run_300k["launches"][name], "max_abs_err": errs[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
             "ms_l2_warm": warm["ms"], "plain_ms_l2_warm": warm["plain_ms"],
             "library_ms_l2_warm": warm["library_ms"],
-        })
-    print(json.dumps({"kernels": kernels, "main_path": {k: v for k, v in main_run.items() if k != "launches"}}))
+            "launches_100k_path": run_100k["launches"][name],
+        }
+        for tag in ("_300k", "_ball"):
+            if name + tag in timed:
+                t = timed[name + tag]
+                row["at" + tag] = {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                                   "library_ms": t["library_ms"],
+                                   "ms_l2_warm": timed[name + tag + "_l2_warm"]["ms"]}
+        kernels.append(row)
+    drop = ("launches",)
+    print(json.dumps({"kernels": kernels,
+                      "main_path_100k": {k: v for k, v in run_100k.items() if k not in drop},
+                      "main_path_300k": {k: v for k, v in run_300k.items() if k not in drop}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -498,4 +712,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--engine-time"]:  # one run of `engine_ab`, in the checkout named
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(engine_time()))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--engine-ab"]:
+        sys.exit(engine_ab(sys.argv[2:]))
     sys.exit(main())

@@ -5,11 +5,19 @@
   interpret mode, as tests/test_pallas.py runs the Pallas kernels, with that
   file's tolerances: d atol 2e-7 and d[idx] == 0.0 exactly, densities
   rtol 1e-5 (f32 sums in another order).
+* `gather_blocks` / `medoid_sweep` plain versions against the same
+  module's interpret-mode kernels: the gather array-equal, medoid_sweep
+  with test_pallas.py's tolerances (d atol 2e-7, hist rtol 1e-6, density
+  rtol 1e-5, n_close exact).
 * The engine on the CPU against `vamb_tpu.cluster.ClusterGenerator` with
-  the switches the port implements (full-scope wander, no attempt lanes,
-  no compaction), on the regimes of tests/test_parity_cluster.py, field by
-  field as its `assert_same_emission` compares: members (in emission
-  order), medoid, seed and kind exactly, radius atol 1e-7, observed pvr rtol 1e-5, pvr atol 1e-6.
+  `compact_async=False`, field by field as tests/test_parity_cluster.py's
+  `assert_same_emission` compares: members (in emission order), medoid,
+  seed and kind exactly, radius atol 1e-7, observed pvr rtol 1e-5, pvr
+  atol 1e-6. First the full-scope regimes of that file; then the subset
+  wander on its regimes (`vamb_tpu` with attempt lanes left at auto: they
+  are sequential-equivalent), the compaction ladder, and auto scope with
+  the subset floor patched low on both packages, so that the subset wander,
+  the ladder and the switch back to full sweeps all happen in one run.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py.
@@ -24,6 +32,7 @@ import jax.numpy as jnp
 from vamb_torch import kernels as K
 from vamb_torch.cluster import ClusterGenerator as TorchGenerator
 from vamb_torch.cluster import engine_order, normalize
+from vamb_torch import cluster as t_cluster
 
 from vamb_tpu import cluster as j_cluster
 from vamb_tpu.ops import pallas_cluster as P
@@ -79,6 +88,49 @@ def test_candidate_density_plain_matches_pallas(c, clumpy):
     np.testing.assert_allclose(got, expect, rtol=1e-5)
 
 
+@pytest.mark.parametrize("kb", [4, 64])
+def test_gather_blocks_plain_matches_pallas(kb):
+    "tests/test_pallas.py's gather contract: array-equal."
+    rng = np.random.default_rng(3)
+    f_pad, nb = 32, 256
+    mT = rng.normal(size=(f_pad, nb * 128)).astype(np.float32)
+    bids = np.sort(rng.choice(nb, kb, replace=False)).astype(np.int32)
+    expect = np.asarray(P.gather_blocks(jnp.asarray(mT), jnp.asarray(bids), block=128,
+                                        interpret=True))
+    got = K.gather_blocks(torch.from_numpy(mT), torch.from_numpy(bids)).numpy()
+    np.testing.assert_array_equal(got, expect)
+
+
+def test_gather_blocks_plain_repeated_ids():
+    "Overflow clamping repeats block 0; the copy must still be exact."
+    rng = np.random.default_rng(4)
+    mT = rng.normal(size=(32, 64 * 128)).astype(np.float32)
+    bids = np.array([5, 0, 0, 63], np.int32)
+    expect = np.asarray(P.gather_blocks(jnp.asarray(mT), jnp.asarray(bids), block=128,
+                                        interpret=True))
+    got = K.gather_blocks(torch.from_numpy(mT), torch.from_numpy(bids)).numpy()
+    np.testing.assert_array_equal(got, expect)
+
+
+@pytest.mark.parametrize("idx,removed", [(0, False), (37, False), (4095, False), (5, True)])
+def test_medoid_sweep_plain_matches_pallas(idx, removed):
+    """tests/test_pallas.py's tolerances: d atol 2e-7, hist rtol 1e-6,
+    density rtol 1e-5, n_close exact; d[idx] == 0.0."""
+    n = P.pallas_pad_multiple()
+    mT, wts = _data(n, seed=1 if removed else 0)
+    if removed:
+        wts[: n // 2] = 0.0  # half the points removed
+    d_j, hist_j, dens_j, close_j = P.medoid_sweep(jnp.asarray(mT), idx, jnp.asarray(wts),
+                                                  interpret=True)
+    d, hist, dens, n_close = K.medoid_sweep(torch.from_numpy(mT), idx, torch.from_numpy(wts))
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_j), atol=2e-7)
+    assert float(d[idx]) == 0.0
+    np.testing.assert_array_equal(d.numpy(), K.row_sweep(torch.from_numpy(mT), idx).numpy())
+    np.testing.assert_allclose(hist.numpy(), np.asarray(hist_j), rtol=1e-6)
+    np.testing.assert_allclose(float(dens), float(dens_j), rtol=1e-5)
+    assert int(n_close) == int(close_j) and n_close.dtype == torch.int32
+
+
 def test_wrappers_reject_bad_inputs():
     mT = torch.zeros(8, 256)
     with pytest.raises(IndexError):
@@ -87,16 +139,25 @@ def test_wrappers_reject_bad_inputs():
         K.candidate_density_sweep(mT, torch.arange(33), torch.ones(256))
     with pytest.raises(ValueError):
         K.row_sweep(mT.T, 0)  # not contiguous
+    with pytest.raises(ValueError):
+        K.gather_blocks(torch.zeros(8, 200), torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        K.medoid_sweep(mT, 0, torch.ones(255))
 
 
 # -------------------------------------------------------------- engine
 
 
-def _assert_same_emission(matrix, lengths, rng_seed=0, **kwargs):
+def _assert_same_emission(matrix, lengths, rng_seed=0, jax_kwargs=None, **kwargs):
+    """The port with `kwargs` against vamb_tpu with `kwargs` and
+    `jax_kwargs` (default: full scope, no lanes, no compaction). Returns
+    the port's generator, spent."""
+    if jax_kwargs is None:
+        jax_kwargs = {"wander_scope": "full", "attempt_batch": "off", "compact": False}
     jax_side = list(j_cluster.ClusterGenerator(
-        matrix.copy(), lengths, rng_seed=rng_seed, wander_scope="full",
-        attempt_batch="off", compact=False, **kwargs))
-    port = list(TorchGenerator(matrix.copy(), lengths, rng_seed=rng_seed, device="cpu", **kwargs))
+        matrix.copy(), lengths, rng_seed=rng_seed, **jax_kwargs, **kwargs))
+    gen = TorchGenerator(matrix.copy(), lengths, rng_seed=rng_seed, device="cpu", **kwargs)
+    port = list(gen)
     assert len(port) == len(jax_side)
     for i, (e, o) in enumerate(zip(jax_side, port)):
         ctx = f"cluster {i}/{len(port)}"
@@ -116,6 +177,30 @@ def _assert_same_emission(matrix, lengths, rng_seed=0, **kwargs):
         assert (o.successes, o.attempts) == (e.successes, e.attempts), ctx
     members = np.concatenate([c.members for c in port])
     np.testing.assert_array_equal(np.sort(members), np.arange(len(matrix)))
+    return gen
+
+
+_LIKE_JAX = {"compact_async": False}  # vamb_tpu's side beyond the shared switches
+
+
+@pytest.fixture
+def patch_both(monkeypatch):
+    "Set a module constant of both engines for the test's duration."
+    def patch(name, value):
+        monkeypatch.setattr(j_cluster, name, value)
+        monkeypatch.setattr(t_cluster, name, value)
+    return patch
+
+
+def _wide_clumps(n_clumps, per, dim, scale, noise_frac, seed):
+    "Clumps wide enough (scale 0.06) that subset climbs drift past the ball's guard."
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clumps, dim))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    rows = [c + rng.normal(scale=scale, size=(per, dim)) for c in centers]
+    rows.append(rng.normal(size=(int(noise_frac * n_clumps * per), dim)))
+    matrix = np.concatenate(rows).astype(np.float32)
+    return matrix, rng.integers(2000, 50_000, len(matrix)).astype(np.float32)
 
 
 def test_engine_clumpy_normal_regime():
@@ -156,10 +241,97 @@ def test_engine_order_matches():
     np.testing.assert_array_equal(ranks, np.asarray(j_ranks))
 
 
+def test_subset_clumpy_with_noise():
+    matrix, lengths = clumpy_latents(25, 25, 32, noise_frac=0.2, seed=2)
+    gen = _assert_same_emission(matrix, lengths, rng_seed=7, jax_kwargs=_LIKE_JAX,
+                                windowsize=60, wander_scope="subset")
+    assert gen.subset_counts["attempts"] > 0
+
+
+def test_subset_overflow_and_drift_fallbacks(patch_both):
+    """The fallbacks of the 10k regime at a CPU size: a 1,024-column ball
+    overflows on some attempts, and wide clumps drift past the guard."""
+    patch_both("_SUBSET_Q", 1 << 10)
+    matrix, lengths = _wide_clumps(40, 60, 32, scale=0.06, noise_frac=0.2, seed=4)
+    gen = _assert_same_emission(matrix, lengths, rng_seed=13, jax_kwargs=_LIKE_JAX,
+                                windowsize=120, wander_scope="subset")
+    assert gen.subset_counts["overflow"] > 0 and gen.subset_counts["drift"] > 0
+
+
+def test_subset_rejection_heavy_uniform():
+    rng = np.random.default_rng(31)
+    matrix = rng.normal(size=(900, 32)).astype(np.float32)
+    lengths = rng.integers(2000, 10_000, 900).astype(np.float32)
+    _assert_same_emission(matrix, lengths, rng_seed=11, jax_kwargs=_LIKE_JAX, windowsize=40,
+                          minsuccesses=5, wander_scope="subset")
+
+
+def test_subset_dense_overflow(patch_both):
+    "One dense clump larger than a 512-column ball: every climb overflows."
+    patch_both("_SUBSET_Q", 1 << 9)
+    rng = np.random.default_rng(8)
+    matrix = (rng.normal(size=(1, 16)) + 0.02 * rng.normal(size=(3000, 16))).astype(np.float32)
+    lengths = rng.integers(2000, 50_000, len(matrix)).astype(np.float32)
+    gen = _assert_same_emission(matrix, lengths, rng_seed=3, jax_kwargs=_LIKE_JAX,
+                                wander_scope="subset")
+    assert gen.subset_counts["overflow"] > 0
+
+
+@pytest.mark.parametrize("scope", ["full", "subset"])
+def test_vamb_tpu_batches_emit_exactly_k(scope):
+    """The ladder's clock: every `vamb_tpu` batch but the last emits exactly
+    `batch_clusters` clusters (its loop condition, cluster.py:1651-1653;
+    loner bursts and attempt lanes stop at the batch's capacity), on a
+    regime with loner runs. The port counts K clusters per batch."""
+    matrix, lengths = clumpy_latents(25, 25, 32, noise_frac=0.2, seed=2)
+    gen = j_cluster.ClusterGenerator(matrix, lengths, rng_seed=7, windowsize=60,
+                                     batch_clusters=8, compact=False, compact_async=False,
+                                     wander_scope=scope)
+    sizes = []
+    while gen._assigned_total < gen.n_points:
+        before = gen.emitted_total
+        gen._dispatch()
+        sizes.append(gen.emitted_total - before)
+    gen.drain()
+    assert len(sizes) > 10 and set(sizes[:-1]) == {8} and 1 <= sizes[-1] <= 8, sizes
+
+
+def test_compaction_ladder():
+    "Batches of 8 clusters; the ladder halves 2,176 columns twice."
+    matrix, lengths = clumpy_latents(70, 30, 32, seed=5)
+    gen = _assert_same_emission(matrix, lengths, rng_seed=5, jax_kwargs=_LIKE_JAX,
+                                compact=True, compact_min_pad=128, batch_clusters=8)
+    assert [c[1:] for c in gen.compactions] == [(2176, 1024), (1024, 512)]
+
+
+def test_auto_scope_through_the_ladder(patch_both):
+    """Auto scope with the floor at 1,024 columns: subset at 2,176 and
+    1,024 columns (a 512-column ball), full sweeps after the ladder drops
+    to 512."""
+    patch_both("_SUBSET_AUTO_MIN", 1 << 10)
+    patch_both("_SUBSET_Q", 1 << 9)
+    matrix, lengths = clumpy_latents(70, 30, 32, seed=5)
+    gen = _assert_same_emission(matrix, lengths, rng_seed=5, jax_kwargs=_LIKE_JAX,
+                                compact=True, compact_min_pad=128, batch_clusters=8)
+    assert [c[2] for c in gen.compactions] == [1024, 512]
+    assert gen.subset_counts["attempts"] > 0 and gen.Q == 0
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"wander_scope": "subset"}, {"compact": True, "compact_min_pad": 128, "batch_clusters": 1}],
+)
+def test_subset_and_compaction_switches_run(kwargs):
+    "The subset wander and the compaction ladder run to a full partition."
+    matrix, lengths = clumpy_latents(12, 30, 32, seed=8)
+    gen = TorchGenerator(matrix, lengths, device="cpu", **kwargs)
+    members = np.concatenate([c.members for c in gen])
+    np.testing.assert_array_equal(np.sort(members), np.arange(len(matrix)))
+
+
 @pytest.mark.parametrize(
     "kwargs,match",
-    [({"wander_scope": "subset"}, "subset"), ({"attempt_batch": "on"}, "attempt lanes"),
-     ({"compact": True}, "compaction"), ({"distance_dtype": "bfloat16"}, "bfloat16")],
+    [({"attempt_batch": "on"}, "attempt lanes"), ({"distance_dtype": "bfloat16"}, "bfloat16")],
 )
 def test_unported_switches_fail_loudly(kwargs, match):
     m = np.ones((4, 8), np.float32)

@@ -8,6 +8,15 @@
   port's VAE + `DAdaptAdam`, both fed the same injected eps and dropout
   masks: the gates of tests/test_parity_vae.py:182-341 (loss rtol 1e-4,
   d rtol 1e-4, weights and BatchNorm stats atol 3e-5).
+* random streams: one epoch's permutation and dropout bank are
+  bit-identical to those `vamb_tpu`'s key chain draws, its eps within the
+  3 ulps of tests/test_torch_threefry.py; a training step's forward on
+  those draws matches `apply(train=True, key=..., dropout_bank=...)` on
+  the same step of `vamb_tpu`'s chain (rtol 1e-5, atol 1e-6).
+* 10 optimizer steps of both packages' own `trainmodel` from one seed and
+  one set of weights, with nothing injected: every parameter and BatchNorm
+  statistic within rtol 1e-5, atol 1e-8 (measured: 3.6e-7 relative at
+  most; the f32 sums run in another order).
 * checkpoints: `params_from_jax` and its inverse round-trip exactly, and a
   port-written `model.npz` loads into `vamb_tpu.models.VAE.load`.
 * `encode` of one shared `model.npz`: latents within atol 1e-6 after both
@@ -22,12 +31,14 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from vamb_torch.models import VAE as TVAE
 from vamb_torch.models import dataset as t_dataset
 from vamb_torch.models import layers as t_layers
 from vamb_torch.models import training as t_training
 from vamb_torch.optim import DAdaptAdam
+from vamb_torch.utils import threefry
 from vamb_torch.utils.checkpoint import (
     flatten_tree,
     load_flat,
@@ -260,6 +271,74 @@ def test_trainmodel_runs_with_batch_doubling():
     buf.seek(0)
     back = TVAE.load(buf, device=CPU)
     np.testing.assert_array_equal(back.encode(ds), vae.encode(ds))
+
+
+def test_epoch_draws_match_jax_key_chain():
+    "Permutation and bank bit-identical, eps within 3 ulps, next key equal."
+    n, bs, nb, drop = 300, 32, 9, 0.2
+    tvae = TVAE(nsamples=S, nhiddens=NHIDDENS, nlatent=NLATENT, seed=7, dropout=drop,
+                device=CPU)
+    rng_t, perm, (bank, widths), eps = tvae.epoch_draws(tvae.rng, n, bs, nb)
+    rng, key = jax.random.split(jax.random.key(7))
+    perm_key, scan_key, bank_key = jax.random.split(key, 3)
+    assert np.array_equal(perm.numpy(), np.asarray(jax.random.permutation(perm_key, n)))
+    assert widths == NHIDDENS + NHIDDENS[::-1]
+    nwords = (sum(widths) + 3) // 4
+    words = jax.random.bits(bank_key, (bs, nwords), jnp.uint32)
+    bank_j = np.asarray(jax.lax.bitcast_convert_type(words, jnp.uint8)).reshape(bs, -1)
+    assert np.array_equal(bank.numpy(), bank_j[:, : sum(widths)])
+    key = scan_key
+    for i in range(nb):
+        key, sub = jax.random.split(key)
+        e = np.asarray(jax.random.normal(jax.random.split(sub, 3)[0], (bs, NLATENT)))
+        ulps = np.abs(e.view(np.int32).astype(np.int64) - eps[i].numpy().view(np.int32))
+        assert ulps.max() <= 3, (i, ulps.max())
+    assert np.array_equal(rng_t.numpy(), np.asarray(jax.random.key_data(rng)).astype(np.int64))
+
+
+@pytest.mark.parametrize("step", [0, 3])
+def test_training_step_forward_matches_apply(step):
+    """Step `step` of an epoch: the port's forward on its `epoch_draws` eps
+    and rotated bank against jax's on the same step of the key chain."""
+    bs, nb = 64, 4
+    ab, tnf, lengths = _raw(bs, S, seed=5)
+    ds = j_dataset.make_dataset(ab, tnf, lengths)
+    jvae = JVAE(nsamples=S, nhiddens=NHIDDENS, nlatent=NLATENT, seed=3, dropout=0.2)
+    tvae = TVAE(nsamples=S, nhiddens=NHIDDENS, nlatent=NLATENT, seed=3, dropout=0.2,
+                device=CPU)
+    _, _, bank, eps = tvae.epoch_draws(tvae.rng, bs, bs, nb)
+    _, key = jax.random.split(jax.random.key(3))
+    _, scan_key, _ = jax.random.split(key, 3)
+    for _ in range(step + 1):
+        scan_key, sub = jax.random.split(scan_key)
+    t_bank = tvae.step_bank(bank, step)
+    j_bank = {k: [np.asarray(b) for b in v] for k, v in t_bank.items()}
+    outs_j, _ = jvae.apply(jvae.params, jvae.bn_state, ds.depths, ds.tnf, ds.abundance,
+                           train=True, key=sub, dropout_bank=j_bank)
+    tvae.train()
+    with torch.no_grad():
+        outs_t = tvae(*(torch.from_numpy(a) for a in (ds.depths, ds.tnf, ds.abundance)),
+                      eps=eps[step], dropout_bank=t_bank)
+    for a, b in zip(outs_j, outs_t):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5, atol=1e-6)
+
+
+def test_ten_steps_of_trainmodel_match_vamb_tpu():
+    """Both packages' own epoch loops, one epoch of 10 steps at batch 32,
+    from the same seed and weights and with nothing injected."""
+    ab, tnf, lengths = _raw(320, S, seed=4)
+    kw = dict(nsamples=S, nhiddens=[64, 48], nlatent=NLATENT, seed=7, dropout=0.2)
+    jvae, tvae = JVAE(**kw), TVAE(**kw, device=CPU)
+    jvae.trainmodel(j_dataset.make_dataset(ab.copy(), tnf.copy(), lengths),
+                    nepochs=1, batchsize=32, batchsteps=None)
+    tvae.trainmodel(t_dataset.make_dataset(ab.copy(), tnf.copy(), lengths),
+                    nepochs=1, batchsize=32, batchsteps=None)
+    flat_j = flatten_tree({"params": jvae.params, "bn_state": jvae.bn_state})
+    flat_t = params_to_jax(tvae.state_dict())
+    for k in flat_j:
+        np.testing.assert_allclose(flat_t[k], flat_j[k], rtol=1e-5, atol=1e-8, err_msg=k)
+    assert np.array_equal(tvae.rng.numpy(),
+                          np.asarray(jax.random.key_data(jvae.rng)).astype(np.int64))
 
 
 # ---------------------------------------------------------- checkpoints

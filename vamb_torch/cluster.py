@@ -21,19 +21,36 @@ host drives the attempts, transcribing the sequential control flow of
 engine by tests/test_parity_cluster.py), and the numeric steps run on the
 device: seed rows and the medoid's row (`kernels.row_sweep`), the
 per-step Gumbel top-k over the threefry stream, candidate densities
-(`kernels.candidate_density_sweep`), the histogram, the banded smoothing
-product and the valley scan. This is the full-scope wander of
-`vamb_tpu` (`wander_scope="full"`, no attempt lanes, no compaction) on its
-kernel branch (cluster.py:765-842).
+(`kernels.candidate_density_sweep`), the subset wander's ball gather
+(`kernels.gather_blocks`), the histogram, the banded smoothing product and
+the valley scan.
 
-The speculative seed cache and loner bursts of `vamb_tpu` change no
-decision, so they are left out (ROADMAP queue 1, item 4, stage 3).
+It reproduces `vamb_tpu`'s `ClusterGenerator` run with
+`compact_async=False`, scope and compaction included:
+
+* wander scope: "full" climbs over all columns (cluster.py:765-858);
+  "subset" climbs first inside the seed's gathered radius-0.15 ball of
+  128-column blocks and falls back to the full climb on ball overflow or
+  drift (cluster.py:555-748, 860-935); "auto" is subset while the live
+  padded width is >= `_SUBSET_AUTO_MIN`, re-decided after each compaction;
+* the compaction ladder: clusters come in batches of `batch_clusters`,
+  and after batch i the surviving columns are gathered into half the live
+  padded width if the survivors after batch i-1 already fit it (the one
+  batch of lag of `vamb_tpu`'s pipelined dispatch, cluster.py:2257-2309).
+  `vamb_tpu`'s `compact_async=True` makes that timing depend on a compile
+  thread; the port has no compile step, so it has no counterpart.
+
+The speculative seed cache, loner bursts and attempt lanes of `vamb_tpu`
+change no decision (oracle_cluster.py:301-305), so they are left out
+(ROADMAP queue 1, item 4). Subset-wander attempts take the final row from
+`row_sweep`, not from `vamb_tpu`'s batched einsum: distances that differ
+in the last ulp, the divergence class the full path already has.
 
 Random stream. Columns are padded to a multiple of 128 on every device
-and the candidate Gumbel draws span the padded width, with one key split
-per attempt and one split + one uniform per wander step, from jax's
-threefry stream (utils/threefry.py) — so given a latent the port draws
-exactly the candidates `vamb_tpu` draws on the CPU.
+and the candidate Gumbel draws span the padded width (or the ball), with
+one key split per attempt and one split + one uniform per wander step,
+from jax's threefry stream (utils/threefry.py) — so given a latent the port
+draws exactly the candidates `vamb_tpu` draws on the CPU.
 """
 
 from collections import deque
@@ -44,7 +61,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .kernels import candidate_density_sweep, row_sweep
+from .kernels import candidate_density_sweep, gather_blocks, row_sweep
+from .log import logger
 from .utils import threefry
 
 _DEFAULT_RADIUS = 0.06
@@ -84,6 +102,15 @@ _SUBLANES = 8
 # masked-scan identity.
 RANK_PAD_BASE = 1 << 29
 RANK_NONE = 1 << 30
+
+# The subset wander's constants (vamb_tpu/cluster.py:417-427). Read at call
+# time, so a test can patch them on both packages alike.
+_SUBSET_BLOCK = 128  # ball gathers move whole 128-column blocks
+_SUBSET_Q = 1 << 13  # most columns a ball may hold
+_SUBSET_RADIUS = 0.15
+_SUBSET_ABORT = _SUBSET_RADIUS - 2 * _MEDOID_RADIUS  # drift boundary
+_SUBSET_AUTO_MIN = 1 << 18  # auto scope: subset at this live padded width and above
+_DEFAULT_BATCH = 1024  # clusters per batch, the compaction ladder's clock
 
 
 class Cluster:
@@ -255,12 +282,20 @@ class ClusterGenerator:
         destroy: normalize `matrix` in place to save memory
         normalized: matrix is already normalized
         rng_seed: seed for the candidate-sampling RNG
+        batch_clusters: clusters per batch, the compaction clock [1024]
+        compact: shrink the matrix as points are clustered [True]
+        compact_min_pad: never compact below this padded width [65536]
+        wander_scope: "auto", "subset" or "full" (see the module notes)
         device: "cuda" (default) or "cpu"
 
-    The remaining `vamb_tpu` switches are accepted only at the values this
-    port implements: `wander_scope` "auto"/"full" (auto means full until the
-    subset wander is ported), `attempt_batch` "auto"/"off",
-    `compact=False`, `distance_dtype="float32"`, `wander_kernel="auto"`.
+    With its defaults it emits what `vamb_tpu`'s generator emits with
+    `compact_async=False` on the CPU. `attempt_batch` takes "auto" and
+    "off" (both mean no attempt lanes, which change no decision);
+    `distance_dtype="float32"` and `wander_kernel="auto"` are the only
+    values ported. Each compaction is logged and recorded in `compactions`
+    as (clusters emitted, old width, new width); `subset_counts` counts the
+    subset wander's attempts and how many fell back to the full climb
+    because the ball overflowed or the medoid drifted.
     """
 
     def __init__(
@@ -274,11 +309,13 @@ class ClusterGenerator:
         normalized: bool = False,
         rng_seed: int = 0,
         device="cuda",
+        batch_clusters: int = _DEFAULT_BATCH,
         distance_dtype: str = "float32",
+        compact: bool = True,
+        compact_min_pad: int = 1 << 16,
         wander_kernel: str = "auto",
         wander_scope: str = "auto",
         attempt_batch: str = "auto",
-        compact: bool = False,
     ):
         if matrix.dtype != np.float32:
             raise ValueError("Matrix must be of dtype float32")
@@ -292,11 +329,13 @@ class ClusterGenerator:
             raise ValueError(
                 f"minsuccesses must be between 1 and windowsize, not {minsuccesses}"
             )
+        if batch_clusters < 1:
+            raise ValueError(f"batch_clusters must be at least 1, not {batch_clusters}")
         if len(matrix) < 1:
             raise ValueError("Matrix must have at least 1 observation.")
         if len(lengths) != len(matrix):
             raise ValueError("N sequences in lengths and matrix do not match")
-        _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch, compact)
+        _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch)
         self.device = resolve_device(device)
 
         if not normalized:
@@ -308,22 +347,15 @@ class ClusterGenerator:
         order, ranks_np = engine_order(matrix, lengths, rng_seed)
         padded_t = np.zeros((f_pad, n_pad), np.float32)
         padded_t[:f, :n] = matrix.T[:, order]
-        self.ranks = np.arange(n_pad, dtype=np.int64) + RANK_PAD_BASE
-        self.ranks[:n] = ranks_np
-
-        dev = self.device
-        self.matrixT = torch.as_tensor(padded_t, device=dev)
-        self.lengths = torch.as_tensor(
-            np.pad(lengths.astype(np.float32)[order], (0, n_pad - n)), device=dev
-        )
+        ranks = np.arange(n_pad, dtype=np.int64) + RANK_PAD_BASE
+        ranks[:n] = ranks_np
         kept = np.zeros(n_pad, bool)
         kept[:n] = True
-        self.kept = kept  # host mirror of kept_t
-        self.kept_t = torch.as_tensor(kept, device=dev)
-        self.iota = torch.arange(n_pad, device=dev)
+        lengths_pad = np.pad(lengths.astype(np.float32)[order], (0, n_pad - n))
+        self._set_columns(torch.as_tensor(padded_t, device=self.device), ranks,
+                          torch.as_tensor(lengths_pad, device=self.device), kept)
 
         self.n_points = n
-        self.n_pad = n_pad
         self.C = min(maxsteps, n_pad)
         self.maxsteps = maxsteps
         self.minsuccesses = minsuccesses
@@ -337,6 +369,22 @@ class ClusterGenerator:
         self.n_remaining = n
         self.n_emitted_clusters = 0
 
+        # scope: decided at construction, re-read at each live width
+        self._scope = wander_scope
+        self._use_subset = wander_scope == "subset" or (
+            wander_scope == "auto" and n_pad >= _SUBSET_AUTO_MIN
+        )
+        self._subset_q = min(_SUBSET_Q, n_pad)
+        self._set_scope()
+        # compaction ladder
+        self._batch_clusters = batch_clusters
+        self._compact = compact
+        self._compact_min_pad = compact_min_pad
+        self._in_batch = 0  # clusters emitted in the current batch
+        self._remaining_at_batch_start = n
+        self.compactions: list[tuple[int, int, int]] = []
+        self.subset_counts = {"attempts": 0, "overflow": 0, "drift": 0}
+
     def __repr__(self) -> str:
         return (
             f"ClusterGenerator({self.n_points} points, "
@@ -345,6 +393,69 @@ class ClusterGenerator:
 
     def __iter__(self):
         return self
+
+    # -- the live columns: the compaction ladder and the wander scope ------
+
+    def _set_columns(self, matrixT, ranks, lengths, kept) -> None:
+        "Install the live (F_pad, N_pad) matrix and its per-column arrays."
+        self.matrixT = matrixT
+        self.ranks = ranks  # host int64 seed ranks, travelling with columns
+        self.lengths = lengths
+        self.kept = kept  # host mirror of kept_t
+        self.kept_t = torch.as_tensor(kept, device=self.device)
+        self.n_pad = matrixT.shape[1]
+        self.iota = torch.arange(self.n_pad, device=self.device)
+
+    def _set_scope(self) -> None:
+        "The subset wander's ball size Q at the live width, 0 for full sweeps."
+        subset_here = self._scope == "subset" or (
+            self._use_subset and self.n_pad >= _SUBSET_AUTO_MIN
+        )
+        self.Q = min(self._subset_q, self.n_pad) if subset_here else 0
+
+    def _next_target(self) -> Optional[int]:
+        "Next (halved) padded width on the ladder, or None (cluster.py:2110-2116)."
+        t = self.n_pad // 2
+        t -= t % _LANES
+        return t if t >= max(self._compact_min_pad, _LANES) else None
+
+    def _end_batch(self) -> None:
+        """Close a batch of `batch_clusters` clusters: compact if the
+        survivors at the batch's start already fit the next ladder width
+        (`vamb_tpu` decides one batch late, cluster.py:2183-2197)."""
+        target = self._next_target()
+        start = self._remaining_at_batch_start
+        if self._compact and target is not None and 0 < start and _pad_to(start, _LANES) <= target:
+            self._compact_to(target)
+        self._remaining_at_batch_start = self.n_remaining
+        self._in_batch = 0
+
+    def _compact_to(self, target: int) -> None:
+        """Gather the surviving columns, in engine order, into a `target`-wide
+        matrix (`_compact_arrays`, cluster.py:1710-1738): ranks travel with
+        their columns, so `order_pos` stays a rank threshold; padding
+        columns repeat column 0, unkept and weightless."""
+        survivors = np.flatnonzero(self.kept)
+        n2 = len(survivors)
+        idx2old = np.zeros(target, np.int64)
+        idx2old[:n2] = survivors
+        ranks = np.arange(target, dtype=np.int64) + RANK_PAD_BASE
+        ranks[:n2] = self.ranks[survivors]
+        kept = np.zeros(target, bool)
+        kept[:n2] = True
+        idx_t = torch.as_tensor(idx2old, device=self.device)
+        lengths = torch.where(torch.as_tensor(kept, device=self.device),
+                              self.lengths[idx_t], 0.0)
+        old = self.n_pad
+        self._set_columns(self.matrixT[:, idx_t].contiguous(), ranks, lengths, kept)
+        self._order = self._order[survivors]
+        self._set_scope()
+        self.compactions.append((self.n_emitted_clusters, old, target))
+        logger.info(
+            f"\tCompacted the engine matrix from {old} to {target} columns after "
+            f"{self.n_emitted_clusters} clusters ({n2} points left); wander scope "
+            f"{'subset, Q ' + str(self.Q) if self.Q else 'full'}"
+        )
 
     # -- the reference control flow, one rule per method ------------------
 
@@ -374,55 +485,147 @@ class ClusterGenerator:
             self.successes = 0
             self.order_pos = 0
 
-    def _wander(self, seed: int, d0: torch.Tensor, key: torch.Tensor):
-        """First-improvement hill climb on local density (ref :415-450),
-        drawing the candidates of each step from the threefry stream.
+    def _step(self, key, d, kept, tried, medoid, n: int, matrixT, wk):
+        """One wander step's draws: split the key, Gumbel top-k over the n
+        eligible-untried columns, their densities in one sweep. Returns
+        (key, cand, cand_valid, dens)."""
+        key, k1 = threefry.split(key)
+        u = threefry.uniform(k1, n, self.device)
+        elig = (d <= _MEDOID_RADIUS) & kept & ~tried
+        elig[medoid] = False
+        gumbel = -torch.log(-torch.log(u + 1e-20) + 1e-20)
+        score = torch.where(elig, gumbel, -torch.inf)
+        cand = torch.topk(score, self.C, sorted=True).indices
+        return key, cand, elig[cand], candidate_density_sweep(matrixT, cand, wk)
 
-        Each step samples up to C eligible untried points by Gumbel top-k,
-        gets all their densities from one `candidate_density_sweep`, jumps
-        to the first candidate (in sampled order) that beats the current
-        density, and takes the new medoid's distance row from `row_sweep`.
-        Returns (medoid, d)."""
-        kept_t, lengths, iota = self.kept_t, self.lengths, self.iota
-        wk = torch.where(kept_t, lengths, 0.0)  # kept is frozen per attempt
-        tried = torch.zeros(self.n_pad, dtype=torch.bool, device=self.device)
-        tried[seed] = True
-        near = (d0 <= _MEDOID_RADIUS) & kept_t
-        density = torch.where(near, lengths * (_MEDOID_RADIUS - d0), 0.0).sum()
-        if int((near & ~tried).sum()) == 0:
-            return seed, d0
-
-        medoid, d = seed, d0
+    def _climb(self, medoid: int, d, density, tried, key):
+        """First-improvement hill climb over all columns (ref :415-450) from
+        any state: each step samples up to C eligible untried points, jumps
+        to the first (in sampled order) that beats the current density and
+        takes the new medoid's row from `row_sweep`. Returns (medoid, d)."""
+        kept_t = self.kept_t
+        wk = torch.where(kept_t, self.lengths, 0.0)  # kept is frozen per attempt
         while True:
-            key, k1 = threefry.split(key)
-            u = threefry.uniform(k1, self.n_pad, self.device)
-            elig = (d <= _MEDOID_RADIUS) & kept_t & ~tried & (iota != medoid)
-            gumbel = -torch.log(-torch.log(u + 1e-20) + 1e-20)
-            score = torch.where(elig, gumbel, -torch.inf)
-            cand = torch.topk(score, self.C, sorted=True).indices
-            cand_valid = elig[cand]
-            dens = candidate_density_sweep(self.matrixT, cand, wk)
+            key, cand, cand_valid, dens = self._step(
+                key, d, kept_t, tried, medoid, self.n_pad, self.matrixT, wk)
             better = cand_valid & (dens > density)
             # one host sync per step: which candidate (if any) won
             better_h = better.cpu().numpy()
-            if better_h.any():
-                j = int(np.argmax(better_h))
-                tried[cand[: j + 1]] = True
-                medoid = int(cand[j])
-                d = row_sweep(self.matrixT, medoid)
-                density = dens[j]
-            else:
+            if not better_h.any():
                 return medoid, d
+            j = int(np.argmax(better_h))
+            tried[cand[: j + 1]] = True
+            medoid = int(cand[j])
+            d = row_sweep(self.matrixT, medoid)
+            density = dens[j]
+
+    def _wander(self, seed: int, d0, key):
+        "The full-scope wander (cluster.py:850-858). Returns (medoid, d)."
+        tried = torch.zeros(self.n_pad, dtype=torch.bool, device=self.device)
+        tried[seed] = True
+        near = (d0 <= _MEDOID_RADIUS) & self.kept_t
+        density = torch.where(near, self.lengths * (_MEDOID_RADIUS - d0), 0.0).sum()
+        if int((near & ~tried).sum()) == 0:
+            return seed, d0
+        return self._climb(seed, d0, density, tried, key)
+
+    def _wander_subset(self, seed: int, d0, key):
+        """The two-phase subset wander (cluster.py:555-748, 860-935;
+        oracle_cluster.py:473-561). Phase 1 climbs inside the seed's ball:
+        the first KB = Q/128 blocks (ascending) holding a kept column within
+        0.15 of the seed, gathered by `gather_blocks`, each step's draw a
+        Q-wide uniform and its densities a `candidate_density_sweep` over
+        the ball. Phase 2, the full climb with `tried` and the density
+        carried over, runs if the ball overflowed or the medoid drifted past
+        `_SUBSET_ABORT` from the seed. Returns (medoid, d)."""
+        B = _SUBSET_BLOCK
+        Q, nblk = self.Q, self.n_pad // B
+        kb = Q // B
+        kept_t, lengths, dev = self.kept_t, self.lengths, self.device
+        near = (d0 <= _MEDOID_RADIUS) & kept_t
+        block_any = (kept_t & (d0 <= _SUBSET_RADIUS)).view(nblk, B).any(dim=1)
+        # one host sync: neighbours to climb to, flagged blocks, and flagged
+        # blocks before the seed's (its slot in the ball)
+        n_near, nb, before = torch.stack([
+            (near & (self.iota != seed)).sum(), block_any.sum(), block_any[: seed // B].sum()
+        ]).tolist()
+        if n_near == 0:
+            return seed, d0
+        self.subset_counts["attempts"] += 1
+        medoid = seed
+        if nb <= kb:
+            # the flagged block ids, ascending, built on the card with no
+            # host sync: block b goes to slot (flagged blocks up to b) - 1;
+            # unflagged blocks land in a spare slot kb that is cut off, and
+            # the ball's padding slots gather block 0 and are masked below
+            dest = torch.where(block_any, torch.cumsum(block_any, 0) - 1, kb)
+            bids = torch.zeros(kb + 1, dtype=torch.int32, device=dev)
+            bids.scatter_(0, dest, torch.arange(nblk, dtype=torch.int32, device=dev))
+            bids = bids[:kb]
+            xsT = gather_blocks(self.matrixT, bids)
+            cols = self.iota.view(nblk, B).index_select(0, bids).reshape(-1)  # slot -> column
+            tail = slice(nb * B, None)  # slots of padding blocks
+            kept_s = kept_t.view(nblk, B).index_select(0, bids).reshape(-1)
+            kept_s[tail] = False
+            w_s = lengths.view(nblk, B).index_select(0, bids).reshape(-1)
+            w_s[tail] = 0.0
+            d0_s = d0.view(nblk, B).index_select(0, bids).reshape(-1)
+            d0_s[tail] = torch.inf
+            wk_s = torch.where(kept_s, w_s, 0.0)
+            density = torch.where((d0_s <= _MEDOID_RADIUS) & kept_s,
+                                  w_s * (_MEDOID_RADIUS - d0_s), 0.0).sum()
+            slot = before * B + seed % B
+            tried_s = torch.zeros(Q, dtype=torch.bool, device=dev)
+            tried_s[slot] = True
+            d_s, drifted = d0_s, False
+            while True:
+                key, cand, cand_valid, dens = self._step(
+                    key, d_s, kept_s, tried_s, slot, Q, xsT, wk_s)
+                better = cand_valid & (dens > density)
+                # one host sync per step: the winner, its slot and column,
+                # and its drift (float64 holds all of them exactly)
+                better_h, cand_h, col_h, drift_h = torch.stack(
+                    [better.to(torch.float64), cand.to(torch.float64),
+                     cols[cand].to(torch.float64), d0_s[cand].to(torch.float64)]
+                ).cpu().numpy()
+                if not better_h.any():
+                    break
+                j = int(np.argmax(better_h))
+                tried_s[cand[: j + 1]] = True
+                slot, medoid = int(cand_h[j]), int(col_h[j])
+                d_s = row_sweep(xsT, slot)
+                density = dens[j]
+                if drift_h[j] > np.float32(_SUBSET_ABORT):
+                    drifted = True
+                    break
+            if not drifted:
+                d = d0 if medoid == seed else row_sweep(self.matrixT, medoid)
+                return medoid, d
+            self.subset_counts["drift"] += 1
+            tried = torch.zeros(self.n_pad, dtype=torch.bool, device=dev)
+            tried[cols[: nb * B]] = tried_s[: nb * B]
+        else:  # the ball overflows: climb over all columns from the seed
+            self.subset_counts["overflow"] += 1
+            tried = torch.zeros(self.n_pad, dtype=torch.bool, device=dev)
+            tried[seed] = True
+            density = torch.where(near, lengths * (_MEDOID_RADIUS - d0), 0.0).sum()
+        d_init = d0 if medoid == seed else row_sweep(self.matrixT, medoid)
+        return self._climb(medoid, d_init, density, tried, key)
 
     def __next__(self) -> Cluster:
         if self.n_remaining == 0:
             raise StopIteration
+        if self._in_batch == self._batch_clusters:
+            self._end_batch()
         while True:
             seed, seed_rank = self._next_seed()
             self.order_pos = seed_rank + 1
             d0 = row_sweep(self.matrixT, seed)
             self.key, sub = threefry.split(self.key)
-            medoid, d = self._wander(seed, d0, sub)
+            if self.Q:
+                medoid, d = self._wander_subset(seed, d0, sub)
+            else:
+                medoid, d = self._wander(seed, d0, sub)
 
             kept_t = self.kept_t
             n_close_t = ((d < _MEDOID_RADIUS) & kept_t).sum()
@@ -470,10 +673,11 @@ class ClusterGenerator:
         self.kept_t[torch.as_tensor(members_rows, device=self.device)] = False
         self.n_remaining -= len(members_rows)
         self.n_emitted_clusters += 1
+        self._in_batch += 1
         return rec
 
 
-def _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch, compact):
+def _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch):
     "Reject the `vamb_tpu` engine switches this port does not implement yet."
     if distance_dtype != "float32":
         if distance_dtype == "bfloat16":
@@ -489,22 +693,12 @@ def _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch, 
                 "port always uses its CUDA kernels on the card (pass 'auto')"
             )
         raise ValueError(f"wander_kernel must be auto/pallas/xla, not {wander_kernel}")
-    if wander_scope not in ("auto", "full"):
-        if wander_scope == "subset":
-            raise NotImplementedError(
-                "wander_scope='subset' is not ported yet (ROADMAP queue 1, item 4, "
-                "stage 5: subset wander with gather_blocks)"
-            )
+    if wander_scope not in ("auto", "subset", "full"):
         raise ValueError(f"wander_scope must be auto/subset/full, not {wander_scope}")
     if attempt_batch not in ("auto", "off"):
         if attempt_batch == "on":
             raise NotImplementedError(
-                "attempt_batch='on' is not ported yet (ROADMAP queue 1, item 4, "
-                "stage 5: attempt lanes)"
+                "attempt_batch='on' is not ported yet (ROADMAP queue 1, item 4: "
+                "attempt lanes and the speculative seed cache)"
             )
         raise ValueError(f"attempt_batch must be auto/on/off, not {attempt_batch}")
-    if compact:
-        raise NotImplementedError(
-            "compaction is not ported yet (ROADMAP queue 1, item 4, stage 4: "
-            "compaction ladder)"
-        )

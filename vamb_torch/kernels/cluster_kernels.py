@@ -1,16 +1,23 @@
-"""The clustering engine's wander-step kernels: wrappers, plain versions,
-launch counters and the on-demand build.
+"""The clustering engine's kernels: wrappers, plain versions, launch
+counters and the on-demand build.
 
-Two CUDA C++ kernels for sm_90a live in `csrc/cluster_kernels.cu` (whose
-header notes say which TPU kernel each replaces, what bounds it on the
-H100 and what its design does about it):
+Four CUDA C++ kernels for sm_90a live in `csrc/cluster_kernels.cu` (whose
+notes say which TPU kernel each replaces, what bounds it on the H100 and
+what its design does about it):
 
 * `row_sweep(matrixT, idx)` replaces `vamb_tpu/ops/pallas_cluster.py`
   `row_sweep`: the distance row `0.5 - M^T M[:, idx]` of one medoid with
   `d[idx] = 0.0` exactly;
 * `candidate_density_sweep(matrixT, cand, wts)` replaces
   `candidate_density_sweep` there: the local densities of C <= 32 wander
-  candidates in one matrix pass, no (C, N) matrix in device memory.
+  candidates in one matrix pass, no (C, N) matrix in device memory;
+* `gather_blocks(matrixT, bids)` replaces `gather_blocks` there: the
+  subset wander's ball, KB blocks of 128 columns copied by device-resident
+  block id;
+* `medoid_sweep(matrixT, idx, wts)` replaces `medoid_sweep` there: one
+  medoid's distance row with its 60-bin histogram, density and close count
+  in one pass. As in `vamb_tpu` no engine path calls it (its path is the
+  attempt-payload A/B of bench.py:884-954).
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
 PyTorch version beside it only for a CPU tensor. The source is compiled by
@@ -31,6 +38,12 @@ _MEDOID_RADIUS = 0.05
 _MAX_CAND = 32  # kMaxCand in the CUDA source
 _DENS_THREADS = 256  # kDensThreads in the CUDA source
 _DENS_MAX_BLOCKS = 1024
+_BLOCK = 128  # kBlockCols: the subset wander's block width
+_SWEEP_THREADS = 256  # kSweepThreads
+_SWEEP_SLOTS = 64  # kSweepSlots
+_NBINS = 60
+_DELTA_X = 0.005
+_XMAX = 0.3
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "cluster_kernels.cu"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -89,11 +102,18 @@ def _load():
             lib.vt_row_sweep.restype = ci
             lib.vt_candidate_density.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp, vp]
             lib.vt_candidate_density.restype = ci
-            lib.vt_max_candidates.argtypes = lib.vt_density_threads.argtypes = []
-            lib.vt_max_candidates.restype = lib.vt_density_threads.restype = ci
-            # the scratch shape and grid size below assume the source's constants
-            if (lib.vt_max_candidates(), lib.vt_density_threads()) != (_MAX_CAND, _DENS_THREADS):
-                raise RuntimeError(f"{_SOURCE.name} and {__name__} disagree on kMaxCand/kDensThreads")
+            lib.vt_gather_blocks.argtypes = [vp, ci, ci, vp, ci, vp, vp]
+            lib.vt_gather_blocks.restype = ci
+            lib.vt_medoid_sweep.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp]
+            lib.vt_medoid_sweep.restype = ci
+            consts = (lib.vt_max_candidates, lib.vt_density_threads,
+                      lib.vt_sweep_threads, lib.vt_sweep_slots)
+            for fn in consts:
+                fn.argtypes, fn.restype = [], ci
+            # the scratch shapes and grid sizes below assume the source's constants
+            if tuple(fn() for fn in consts) != (_MAX_CAND, _DENS_THREADS, _SWEEP_THREADS,
+                                                _SWEEP_SLOTS):
+                raise RuntimeError(f"{_SOURCE.name} and {__name__} disagree on its constants")
             _lib = lib
     return _lib
 
@@ -225,6 +245,121 @@ def candidate_density_sweep(
 candidate_density_sweep.launches = 0
 
 
+# --------------------------------------------------------- gather_blocks
+
+
+def gather_blocks_plain(matrixT: torch.Tensor, bids: torch.Tensor) -> torch.Tensor:
+    """Plain version of `gather_blocks`: the XLA take of cluster.py:648-650
+    as one `index_select` over the (F, NB, 128) view."""
+    f_pad, n_pad = matrixT.shape
+    return matrixT.view(f_pad, n_pad // _BLOCK, _BLOCK).index_select(1, bids).reshape(f_pad, -1)
+
+
+def gather_blocks(matrixT: torch.Tensor, bids: torch.Tensor) -> torch.Tensor:
+    """Copy KB column blocks of width 128 by block id: (F_pad, N_pad) f32,
+    (KB,) integer ids in [0, N_pad / 128) -> (F_pad, KB * 128) f32,
+    bit-exact, repeated ids included. Launches the CUDA kernel for a CUDA
+    tensor (counted in `gather_blocks.launches`; no host sync on the ids;
+    int32 ids go in as they are), runs the plain version for a CPU
+    tensor."""
+    _check_matrix(matrixT)
+    f_pad, n_pad = matrixT.shape
+    if n_pad % _BLOCK:
+        raise ValueError(f"N_pad {n_pad} is not a multiple of {_BLOCK}")
+    if bids.dim() != 1 or bids.shape[0] < 1:
+        raise ValueError("bids must be a non-empty 1-D tensor")
+    if matrixT.device.type == "cpu":
+        return gather_blocks_plain(matrixT, bids)
+    if matrixT.device.type != "cuda":
+        raise ValueError(f"gather_blocks runs on cuda or cpu, not {matrixT.device}")
+    if bids.device != matrixT.device:
+        raise ValueError("matrixT and bids must be on one device")
+    if matrixT.data_ptr() % 16:
+        raise ValueError("matrixT must be 16-byte aligned for the vector loads")
+    lib = _load()
+    kb = int(bids.shape[0])
+    bids32 = bids.to(torch.int32).contiguous()
+    out = torch.empty((f_pad, kb * _BLOCK), dtype=torch.float32, device=matrixT.device)
+    stream = torch.cuda.current_stream(matrixT.device).cuda_stream
+    err = lib.vt_gather_blocks(matrixT.data_ptr(), f_pad, n_pad, bids32.data_ptr(), kb,
+                               out.data_ptr(), stream)
+    _raise_on(err, "gather_blocks")
+    gather_blocks.launches += 1
+    return out
+
+
+gather_blocks.launches = 0
+
+
+# ---------------------------------------------------------- medoid_sweep
+
+
+def medoid_sweep_plain(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
+    """Plain version of `medoid_sweep` (the XLA contract of
+    tests/test_pallas.py:40-55): `row_sweep_plain`'s row, then the
+    histogram as a compare-and-reduce, the density and the close count."""
+    d = row_sweep_plain(matrixT, idx)
+    kept = wts > 0.0
+    bins = torch.clamp((d / _DELTA_X).to(torch.int32), 0, _NBINS - 1)
+    w = torch.where((d >= 0.0) & (d <= _XMAX) & kept, wts, 0.0)
+    onehot = bins[:, None] == torch.arange(_NBINS, device=d.device)[None, :]
+    hist = torch.where(onehot, w[:, None], 0.0).sum(dim=0)
+    dens = torch.where((d <= _MEDOID_RADIUS) & kept, wts * (_MEDOID_RADIUS - d), 0.0).sum()
+    n_close = ((d < _MEDOID_RADIUS) & kept).sum().to(torch.int32)
+    return d, hist, dens, n_close
+
+
+def sweep_blocks(n_pad: int) -> int:
+    "medoid_sweep's pass-1 grid: a function of N only, so the sum order is fixed."
+    return max(1, min(-(-n_pad // _SWEEP_THREADS), _DENS_MAX_BLOCKS))
+
+
+def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
+    """One medoid's fused sweep: (F_pad, N_pad) f32, column `idx`, (N_pad,)
+    f32 weights (lengths where kept, else 0) -> (d (N_pad,) with d[idx] =
+    0, hist (60,) f32 over 0 <= d <= 0.3, density f32 over d <= 0.05,
+    n_close int32 over d < 0.05). Launches the two-pass CUDA kernel for a
+    CUDA tensor (counted in `medoid_sweep.launches`); its d equals
+    `row_sweep`'s bit for bit. Runs the plain version for a CPU tensor."""
+    _check_matrix(matrixT)
+    f_pad, n_pad = matrixT.shape
+    idx = int(idx)
+    if not 0 <= idx < n_pad:
+        raise IndexError(f"idx {idx} outside [0, {n_pad})")
+    if wts.shape != (n_pad,) or wts.dtype != torch.float32:
+        raise ValueError("wts must be a float32 tensor of shape (N_pad,)")
+    if matrixT.device.type == "cpu":
+        return medoid_sweep_plain(matrixT, idx, wts)
+    if matrixT.device.type != "cuda":
+        raise ValueError(f"medoid_sweep runs on cuda or cpu, not {matrixT.device}")
+    if wts.device != matrixT.device:
+        raise ValueError("matrixT and wts must be on one device")
+    lib = _load()
+    dev = matrixT.device
+    wts = wts.contiguous()
+    nblocks = sweep_blocks(n_pad)
+    d = torch.empty(n_pad, dtype=torch.float32, device=dev)
+    partials = torch.empty((nblocks, _SWEEP_SLOTS), dtype=torch.float32, device=dev)
+    close_partials = torch.empty(nblocks, dtype=torch.int32, device=dev)
+    hist = torch.empty(_NBINS, dtype=torch.float32, device=dev)
+    dens = torch.empty((), dtype=torch.float32, device=dev)
+    n_close = torch.empty((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vt_medoid_sweep(
+        matrixT.data_ptr(), f_pad, n_pad, idx, wts.data_ptr(), d.data_ptr(),
+        partials.data_ptr(), close_partials.data_ptr(), nblocks, hist.data_ptr(),
+        dens.data_ptr(), n_close.data_ptr(), stream,
+    )
+    _raise_on(err, "medoid_sweep")
+    medoid_sweep.launches += 1
+    return d, hist, dens, n_close
+
+
+medoid_sweep.launches = 0
+
+KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep)
+
+
 def reset_launch_counts() -> None:
-    row_sweep.launches = 0
-    candidate_density_sweep.launches = 0
+    for kernel in KERNELS:
+        kernel.launches = 0

@@ -13,9 +13,17 @@ Behavioral spec: `vamb_tpu/models/vae.py` (reference vamb/encode.py:149-610):
   single-sample);
 * training: D-Adaptation Adam, batch-size doubling at batchsteps, drop-last
   shuffled batches, and one dropout byte bank per epoch rotated by `i*97`
-  per step (vamb_tpu vae.py:414-475). The bank, the epoch permutation and
-  the latent eps come from one `torch.Generator` on the device, so runs
-  are reproducible per seed and device but draw other numbers than jax;
+  per step (vamb_tpu vae.py:414-475);
+* random streams: jax's threefry (utils/threefry.py) at the points of
+  `vamb_tpu`'s key chain. The model key is `key(seed)`; each epoch takes
+  `rng, key = split(rng)` and `perm_key, scan_key, bank_key =
+  split(key, 3)`; the permutation is `permutation(perm_key, n)`, the bank
+  `bits(bank_key, (B, (sum(widths) + 3) // 4))` read as little-endian
+  bytes; step i takes `key, sub = split(key)` from `scan_key` and its eps
+  is `normal(split(sub, 3)[0], (B, nlatent))`. So the port trains on the
+  same batches and dropout masks as `vamb_tpu`, and its eps differs only
+  by the few ulps of `log1p` inside erfinv. The step keys are split on the
+  host and the whole epoch's eps is drawn in one call;
 * `encode` returns `mu` with the 12 low mantissa bits masked (vae.py:684);
 * `save`/`load` use `vamb_tpu`'s `model.npz` flat-key format.
 """
@@ -30,7 +38,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..optim import DAdaptAdam
-from ..utils import mask_lower_bits
+from ..utils import mask_lower_bits, threefry
 from ..utils.checkpoint import load_flat, params_from_jax, params_to_jax, save_flat
 from . import layers
 from .dataset import VAEDataset, batchsize_at_epoch, num_batches
@@ -100,6 +108,7 @@ class VAE(nn.Module):
         self.dropout = dropout
         self.seed = seed
         self.device = resolve_device(device)
+        self.rng = threefry.key(seed)  # the training key chain, as vamb_tpu's
 
         rng = np.random.default_rng(seed)
         dims_enc = [self.nfeatures] + self.nhiddens
@@ -142,39 +151,34 @@ class VAE(nn.Module):
         tnf: torch.Tensor,
         abundance: torch.Tensor,
         *,
+        eps: Optional[torch.Tensor] = None,
         inject: Optional[dict] = None,
         dropout_bank: Optional[dict] = None,
-        generator: Optional[torch.Generator] = None,
     ):
         """Full forward pass; returns (depths_out, tnf_out, abundance_out, mu).
 
-        In training mode the decoder sees `mu + eps`, eps ~ N(0, 1) drawn
-        from `generator`. `inject` replaces every draw with caller-supplied
-        tensors: {"eps": (B, nlatent), "enc_masks"/"dec_masks": per-layer
-        pre-scaled dropout masks} (the seam of vamb_tpu vae.py:186-201, so a
-        test can drive both packages with one random stream).
-        `dropout_bank` supplies dropout bytes instead: {"enc"/"dec": list of
-        (B, width) uint8 per layer}. With neither, there is no dropout."""
+        In training mode the decoder sees `mu + eps`: `eps` (B, nlatent)
+        and the dropout bytes `dropout_bank` ({"enc"/"dec": list of (B,
+        width) uint8 per layer}) are drawn by the caller, as `trainmodel`
+        draws them from the epoch's key chain (`epoch_draws`, `step_bank`).
+        `inject` replaces both with caller-supplied tensors: {"eps": (B,
+        nlatent), "enc_masks"/"dec_masks": per-layer pre-scaled dropout
+        masks} (the seam of vamb_tpu vae.py:186-201)."""
         x = torch.cat((depths, tnf, abundance), dim=1)
-        return self._forward(x, inject=inject, dropout_bank=dropout_bank,
-                             generator=generator)
+        return self._forward(x, eps=eps, inject=inject, dropout_bank=dropout_bank)
 
-    def _forward(self, x, *, inject=None, dropout_bank=None, generator=None):
+    def _forward(self, x, *, eps=None, inject=None, dropout_bank=None):
         enc_masks = dec_masks = enc_bits = dec_bits = None
         if inject is not None:
             enc_masks, dec_masks = inject["enc_masks"], inject["dec_masks"]
+            eps = inject["eps"]
         elif dropout_bank is not None:
             enc_bits, dec_bits = dropout_bank["enc"], dropout_bank["dec"]
+        if self.training and eps is None:
+            raise ValueError("a training-mode forward needs `eps` or `inject`")
         h = self._stack(self.enc, x, enc_masks, enc_bits)
         mu = self.mu(h)
-        if self.training:
-            if inject is not None:
-                eps = inject["eps"]
-            else:
-                eps = torch.randn(mu.shape, generator=generator, device=mu.device)
-            latent = mu + eps
-        else:
-            latent = mu
+        latent = mu + eps if self.training else mu
         h = self._stack(self.dec, latent, dec_masks, dec_bits)
         rec = self.out(h)
         S, T = self.nsamples, self.ntnf
@@ -210,14 +214,40 @@ class VAE(nn.Module):
 
     # ------------------------------------------------------------ training
 
-    def _draw_bank(self, batchsize: int, generator: torch.Generator):
-        "One epoch's dropout bytes for every layer, in a single draw."
+    def _draw_bank(self, bank_key, batchsize: int):
+        """One epoch's dropout bytes for every layer, in a single draw:
+        `bits(bank_key, (B, nwords))` as little-endian bytes (vae.py:356-384)."""
         if self.dropout == 0.0:
             return None
         widths = self.nhiddens + self.nhiddens[::-1]
-        bits = torch.randint(0, 256, (batchsize, sum(widths)), dtype=torch.uint8,
-                             generator=generator, device=self.device)
-        return bits, widths
+        nwords = (sum(widths) + 3) // 4
+        words = threefry.bits(bank_key, (batchsize, nwords), self.device)
+        return threefry.words_to_bytes(words)[:, : sum(widths)], widths
+
+    def epoch_draws(self, rng, n: int, batchsize: int, nbatches: int):
+        """The random draws of one epoch from the key chain `rng`, as
+        `vamb_tpu`'s `one_epoch` makes them (vae.py:414-453). Returns
+        (next rng, permutation (n,), bank or None, eps (nbatches, B, nlatent))."""
+        rng, key = threefry.split_host(rng)
+        perm_key, scan_key, bank_key = threefry.split_host(key, 3)
+        perm = threefry.permutation(perm_key, n, self.device)
+        bank = self._draw_bank(bank_key, batchsize)
+        eps_keys = []
+        for _ in range(nbatches):
+            scan_key, sub = threefry.split_host(scan_key)
+            eps_keys.append(threefry.split_host(sub, 3)[0])
+        eps = threefry.normal_batched(eps_keys, batchsize * self.nlatent, self.device)
+        return torch.tensor(rng), perm, bank, eps.reshape(nbatches, batchsize, self.nlatent)
+
+    def step_bank(self, bank, i: int) -> Optional[dict]:
+        """Step i's dropout bytes: the epoch's bank rotated by `i * 97`
+        (uint8 add wraps; vae.py:458-462), so every step gets distinct masks
+        from one draw per epoch. None without dropout."""
+        if bank is None:
+            return None
+        slices = torch.split(bank[0] + (i * 97) % 256, bank[1], dim=1)
+        k = len(self.nhiddens)
+        return {"enc": slices[:k], "dec": slices[k:]}
 
     def trainmodel(
         self,
@@ -263,30 +293,19 @@ class VAE(nn.Module):
         # ONE packed buffer [depths | tnf | abundance | weights] on the card:
         # an epoch is one row gather, a step one slice
         packed = torch.as_tensor(np.concatenate(dataset, axis=1), device=dev)
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(self.seed)
         optimizer = DAdaptAdam(self.parameters_flat_order())
         self.train()
         for epoch in range(nepochs):
             bs = min(batchsize_at_epoch(batchsize, batchsteps_list, epoch), n)
             nb = num_batches(n, bs)
             wall = time.time()
-            perm = torch.randperm(n, generator=generator, device=dev)
+            self.rng, perm, bank, eps = self.epoch_draws(self.rng, n, bs, nb)
             shuf = packed[perm[: nb * bs]].reshape(nb, bs, -1)
-            bank = self._draw_bank(bs, generator)
             comps = torch.zeros(5, device=dev)
             for i in range(nb):
                 batch = shuf[i]
-                step_bank = None
-                if bank is not None:
-                    # rotate the epoch's bytes per step (uint8 add wraps):
-                    # distinct masks every step from one draw per epoch
-                    bits = bank[0] + (i * 97) % 256
-                    slices = torch.split(bits, bank[1], dim=1)
-                    k = len(self.nhiddens)
-                    step_bank = {"enc": slices[:k], "dec": slices[k:]}
                 d_out, t_out, a_out, mu = self._forward(
-                    batch[:, : S + T + 1], dropout_bank=step_bank, generator=generator
+                    batch[:, : S + T + 1], eps=eps[i], dropout_bank=self.step_bank(bank, i)
                 )
                 loss, w_ab, w_ce, w_sse, w_kld = self.calc_loss(
                     batch[:, :S], d_out, batch[:, S : S + T], t_out,
