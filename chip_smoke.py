@@ -7,10 +7,14 @@ Needs one CUDA card, `nvcc` and the checkout this file sits in; it builds
 the port's CUDA kernels from `vamb_torch/kernels/csrc/` itself. It imports
 nothing of JAX or of `vamb_tpu`. Phases, each of which fails the run:
 
-1. setup: print the card's name and power limit; build the kernels.
+1. setup: print the card's name and power limit; build the kernels (with
+   ptxas' register and spill report) and count each kernel's SASS
+   instructions by opcode family.
 2. kernels: every hand-written kernel against its plain PyTorch version on
-   the card, at the main paths' shapes and around them, then timed with
-   CUDA events beside its bound, its plain version and a library yardstick.
+   the card, at the main paths' shapes and around them (`row_sweep` and
+   `candidate_density_sweep` bit for bit), then timed with CUDA events at
+   every width the main paths give it, beside its bound, its plain version
+   and a library yardstick.
 3. engine: the clustering engine on the card against the same engine on
    the CPU (the path the CPU tests hold against `vamb_tpu`), on small
    clumpy latents at full scope, with the subset wander forced (also on a
@@ -19,9 +23,9 @@ nothing of JAX or of `vamb_tpu`. Phases, each of which fails the run:
 4. main path at 100,000 contigs: `vamb_torch bin default` through its CLI
    entry point on a synthetic dataset (VAE 512-512-32, 2 epochs,
    clustering capped at 2,000 clusters), full-scope wander. Every kernel's
-   launch counter is set to 0 just before and read just after;
-   `row_sweep` and `candidate_density_sweep` must be > 0. The stage
-   artifacts and TSVs are read back and checked.
+   launch counter and its tally by N_pad are set to 0 just before and read
+   just after; `row_sweep` and `candidate_density_sweep` must be > 0. The
+   stage artifacts and TSVs are read back and checked.
 5. main path at 300,000 contigs from 3,000 genomes (6 samples, 2 epochs,
    `-c 4096`): the subset wander with `gather_blocks`, at least one logged
    compaction and the switch back to full sweeps. Counters as in phase 4;
@@ -29,11 +33,14 @@ nothing of JAX or of `vamb_tpu`. Phases, each of which fails the run:
    `bin default`; phase 2 launches it).
 6. profile: on each main path's own data, 100 clusters of the engine and
    100 training steps under torch.profiler: time per cluster and per step,
-   the device's busy share and the ops that take the most device time.
+   device kernels per wander step, the device's busy share and the ops that
+   take the most device time.
 
-The last three lines of standard output are the kernels JSON object (its
-`launches` are the 300,000-contig path's), the card's `nvidia-smi` name
-and power limit, and `{"ok": true, "device": ...}`.
+Each kernel's launches x (ms - bound) on each path, summed over widths, is
+logged after phase 6. The last three lines of standard output are the
+kernels JSON object (its `launches` are the 300,000-contig path's; each
+row also holds every timed width under `at_widths`), the card's
+`nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`.
 
     python3 chip_smoke.py --engine-ab DIR [DIR ...]
 
@@ -42,6 +49,14 @@ process of its own, on one synthetic 300,000-point latent at subset
 scope (list a parent and a change alternately, e.g. P C C P), and prints
 one JSON line per run: ms per cluster over 200 clusters, and a hash of
 the emitted medoids, which must agree between checkouts that emit alike.
+
+    python3 chip_smoke.py --density-layouts
+
+builds layout variants of the density kernel (threads a CTA, columns a
+thread, chunk buffers, the chunk loop unrolled) beside the committed one,
+and times each at every
+path width for several candidate-group counts, each held bit for bit
+against its plain version: the measurement behind the committed layout.
 """
 
 import itertools
@@ -59,10 +74,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-# H100 SXM data-sheet peaks (dense): HBM3 bytes/s and float32 FLOP/s outside
-# the tensor cores. The kernels' arithmetic is plain f32 FMA-free math.
+# H100 SXM data-sheet peaks (dense): HBM3 bytes/s, and f32 operations/s
+# outside the tensor cores for FMA-free code. The data sheet's 67 TFLOP/s
+# counts an FMA as two operations; the kernels never fuse a multiply and an
+# add (bit-identical distances), so each FMUL or FADD is one instruction a
+# lane and the card issues them at half that: 33.5e12 a second.
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+F32_OPS_PER_S = 33.5e12
 
 N_CONTIGS = 100_000
 N_GENOMES = 1_000
@@ -125,10 +143,10 @@ def time_ms(fn, iters: int = 50, cold_l2: bool = True) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound(nbytes: float, nflops: float) -> tuple[float, str]:
-    "Least ms for the work: bytes over HBM rate vs f32 ops over f32 rate."
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    "Least ms for the work: bytes over HBM rate vs f32 ops over the FMA-free rate."
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nflops / F32_FLOPS_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -172,7 +190,7 @@ def check_kernels(dev) -> dict:
             p = K.row_sweep_plain(mT, idx)
             torch.cuda.synchronize()
             e = float((d - p).abs().max())
-            if not (e <= 1e-6 and float(d[idx]) == 0.0 and bool(torch.isfinite(d).all())):
+            if not (torch.equal(d, p) and float(d[idx]) == 0.0 and bool(torch.isfinite(d).all())):
                 raise AssertionError(f"row_sweep n={n} idx={idx}: max|d-plain|={e}, d[idx]={float(d[idx])}")
             err_row = max(err_row, e)
         rng = np.random.default_rng(n)
@@ -181,10 +199,11 @@ def check_kernels(dev) -> dict:
             for c in (1, 25, 32):
                 cand = torch.as_tensor(rng.choice(n, size=c, replace=False), device=dev)
                 dens = K.candidate_density_sweep(mT, cand, w)
+                dens32 = K.candidate_density_sweep(mT, cand.to(torch.int32), w)
                 plain = K.candidate_density_plain(mT, cand, w)
                 torch.cuda.synchronize()
                 e = float((dens - plain).abs().max())
-                ok = torch.allclose(dens, plain, rtol=1e-5, atol=0.0)
+                ok = torch.equal(dens, plain) and torch.equal(dens32, dens)
                 if not (ok and bool(torch.isfinite(dens).all())):
                     raise AssertionError(
                         f"candidate_density_sweep n={n} C={c} zero_half={zero_half}: "
@@ -225,7 +244,8 @@ def check_kernels(dev) -> dict:
                 rel = float(((hist - hist_p).abs() / hist_p.abs().clamp_min(1e-30)).max())
                 rel_sums = max(rel_sums, rel, abs(float(dens) / float(dens_p) - 1) if float(dens_p) else 0.0)
     log(f"kernels agree with their plain versions: row_sweep max|err| {err_row} "
-        f"(atol 1e-6, d[idx] == 0), candidate_density_sweep max|err| {err_dens} (rtol 1e-5), "
+        f"(bit-identical, d[idx] == 0), candidate_density_sweep max|err| {err_dens} "
+        "(bit-identical, C 1, 25 and 32, int64 and int32 ids, all and half the weights), "
         f"at N {N_CONTIGS}, {N_CONTIGS + 3}, {BIG_PAD}, {BIG_HALF} and {BALL_KB * 128}; "
         f"gather_blocks array-equal (max|err| {err_gather}), medoid_sweep d bit-identical to "
         f"row_sweep's, max|d-plain| "
@@ -235,37 +255,46 @@ def check_kernels(dev) -> dict:
             "gather_blocks": err_gather, "medoid_sweep": err_sweep}
 
 
+PATH_WIDTHS = (BALL_KB * 128, -(-N_CONTIGS // 128) * 128, BIG_HALF, BIG_PAD)
+
+
 def time_kernels(dev) -> dict:
-    """Times at the main paths' shapes: `row_sweep` and
-    `candidate_density_sweep` (C = 25) on the 100,000-contig path's
-    (32, 100,096), on the 300,000-contig path's (32, 300,032) and on a
-    subset ball's (32, 8,192); `gather_blocks` of 64 blocks and
-    `medoid_sweep` from (32, 300,032)."""
+    """Times at every width the main paths give `row_sweep` and
+    `candidate_density_sweep` (C = 25): a subset ball's 8,192 columns, the
+    100,000-contig path's 100,096, the 300,000-contig path's 300,032 and,
+    after its compaction, 150,016; `gather_blocks` of 64 blocks and
+    `medoid_sweep` from (32, 300,032). Each L2 cold and warm. Returns
+    {(name, N_pad): {"ms", "plain_ms", "library_ms", "bound", and the same
+    with an "_l2_warm" suffix}}."""
     from vamb_torch import kernels as K
 
     out = {}
-    shapes = {"": -(-N_CONTIGS // 128) * 128, "_300k": BIG_PAD, "_ball": BALL_KB * 128}
-    for tag, n_pad in shapes.items():
-        mT = torch.as_tensor(clumpy_matrixT(n_pad, F_PAD, seed=5), device=dev)
-        w = torch.as_tensor(weights(n_pad, seed=5), device=dev)
-        cand = torch.as_tensor(np.random.default_rng(5).choice(n_pad, MAXSTEPS, replace=False),
+    for n in PATH_WIDTHS:
+        mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=5), device=dev)
+        w = torch.as_tensor(weights(n, seed=5), device=dev)
+        cand = torch.as_tensor(np.random.default_rng(5).choice(n, MAXSTEPS, replace=False),
                                device=dev)
         idx = 37
         col = mT[:, idx].contiguous()
         mTt = mT.T  # a (N, F) view: torch.mv reads the same bytes
-        f, n = mT.shape
-        n_kept = int((w > 0).sum())
+        f = mT.shape[0]
+        kept = w > 0
+        n_kept = int(kept.sum())
         c = len(cand)
+        # the density's terms that this data needs: every kept (c, n) pair
+        # costs F multiplies and F adds and the subtraction from 0.5; pairs
+        # within the radius one more subtraction, a multiply and an add
+        D = 0.5 - mT[:, cand].T @ mT
+        n_within = int(((D <= 0.05) & kept[None, :]).sum())
         fns = {
             "row_sweep": (lambda: K.row_sweep(mT, idx), lambda: K.row_sweep_plain(mT, idx),
                           lambda: torch.mv(mTt, col), bound((f * n + n) * 4, 2 * f * n)),
-            # density work counts only the kept (w > 0) columns
             "candidate_density_sweep": (
                 lambda: K.candidate_density_sweep(mT, cand, w),
                 lambda: K.candidate_density_plain(mT, cand, w), None,
-                bound((f * n_kept + n + 2 * c) * 4, 2 * c * f * n_kept + 4 * c * n_kept)),
+                bound((f * n_kept + n + 2 * c) * 4, (2 * f + 1) * c * n_kept + 3 * n_within)),
         }
-        if tag == "_300k":
+        if n == BIG_PAD:
             bids = torch.as_tensor(np.sort(np.random.default_rng(6).choice(n // 128, BALL_KB, replace=False))
                                    .astype(np.int32), device=dev)
             q = BALL_KB * 128
@@ -279,21 +308,56 @@ def time_kernels(dev) -> dict:
                 lambda: K.medoid_sweep(mT, idx, w), lambda: K.medoid_sweep_plain(mT, idx, w), None,
                 bound((f * n + 2 * n + 62) * 4, 2 * f * n + 8 * n))
         for name, (kern, plain, lib, bnd) in fns.items():
-            key = name if (tag == "" or name in ("gather_blocks", "medoid_sweep")) else name + tag
-            for cold in (True, False):
-                k = key if cold else key + "_l2_warm"
-                out[k] = {
-                    "ms": time_ms(kern, cold_l2=cold),
-                    "plain_ms": time_ms(plain, cold_l2=cold),
-                    "library_ms": None if lib is None else time_ms(lib, cold_l2=cold),
-                }
-            out[key]["bound"] = bnd
-            r, wr = out[key], out[key + "_l2_warm"]
-            libs = "n/a (no single PyTorch call)" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
+            r = {"bound": bnd}
+            for sfx, cold in (("", True), ("_l2_warm", False)):
+                r["ms" + sfx] = time_ms(kern, cold_l2=cold)
+                r["plain_ms" + sfx] = time_ms(plain, cold_l2=cold)
+                r["library_ms" + sfx] = None if lib is None else time_ms(lib, cold_l2=cold)
+            out[(name, n)] = r
+            libs = "n/a (no single PyTorch call)" if lib is None else f"{r['library_ms']:.5f} ms"
             log(f"{name} at F_pad {f}, N_pad {n}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-                f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), L2 cold; "
-                f"L2 warm: kernel {wr['ms']:.5f} ms, plain {wr['plain_ms']:.5f} ms")
+                f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share "
+                f"{bnd[0] / r['ms']:.3f}, L2 cold; L2 warm: kernel {r['ms_l2_warm']:.5f} ms, "
+                f"plain {r['plain_ms_l2_warm']:.5f} ms")
     return out
+
+
+def launch_gaps(timed: dict, tally: dict) -> dict:
+    """Per kernel, the sum over widths of launches x (ms - bound ms), L2
+    cold, from one main path's tally {name: {N_pad: launches}}: the time the
+    path lost to each kernel beyond its bound, the ranking of kernels to
+    redesign. A width that was not timed is listed apart."""
+    out = {}
+    for name, by_width in tally.items():
+        gap, untimed = 0.0, {}
+        for n, count in by_width.items():
+            t = timed.get((name, n))
+            if t is None:
+                untimed[n] = count
+            else:
+                gap += count * (t["ms"] - t["bound"][0])
+        out[name] = {"gap_s": gap * 1e-3, "untimed_launches": untimed}
+    return out
+
+
+def sass_counts(lib_path) -> None:
+    """Print the instruction counts of each kernel's SASS by opcode family
+    (cuobjdump from the CUDA toolkit), for the loads, stores and f32 ops
+    that bound the kernels. Skipped where cuobjdump is missing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("sass counts: cuobjdump not found, not measured")
+        return
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    families = ("FADD", "FMUL", "FFMA", "LDG", "LDS", "LDC", "STG", "STS", "SHFL", "ATOM", "RED")
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", chunk)
+        counts = {fam: sum(1 for o in ops if o == fam) for fam in families}
+        log(f"sass {name[:90]}: {len(ops)} instructions, " + json.dumps({k: v for k, v in counts.items() if v}))
 
 
 # -------------------------------------------------------- phase 3: engine
@@ -510,7 +574,9 @@ def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: 
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = {k.__name__: k.launches for k in K.KERNELS}
+    tally = {k.__name__: dict(sorted(k.launches_by_width.items())) for k in K.KERNELS}
     log(f"bin default on {n_contigs} contigs ran end to end in {wall:.2f} s; kernel launches {launches}")
+    log(f"kernel launches by N_pad on the {n_contigs}-contig path: {json.dumps(tally)}")
     for name in required:
         if launches[name] <= 0:
             raise AssertionError(f"the main path on {n_contigs} contigs never launched {name}")
@@ -523,7 +589,8 @@ def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: 
                    if "Compacted the engine matrix" in line]
     for line in compactions:
         log("compaction: " + line)
-    return {"launches": launches, **checked, "times": times, "compactions": compactions,
+    return {"launches": launches, "launches_by_width": tally, **checked, "times": times,
+            "compactions": compactions,
             "profile": profile_stages(dev, out)}
 
 
@@ -568,6 +635,7 @@ def profile_stages(dev, out: Path) -> dict:
     an optimizer step; the epoch's threefry draws are counted in). Short
     windows: the profiler's own bookkeeping grows with the number of
     events."""
+    from vamb_torch import kernels as K
     from vamb_torch.abundance import Abundance
     from vamb_torch.cluster import ClusterGenerator
     from vamb_torch.composition import Composition
@@ -583,13 +651,24 @@ def profile_stages(dev, out: Path) -> dict:
     def cluster_100():
         return sum(1 for _ in itertools.islice(gen, 100))
 
+    def per_step(label: str) -> dict:
+        """Profile 100 clusters and count their wander steps: each step
+        launches `candidate_density_sweep` once."""
+        K.reset_launch_counts()
+        r = profiled(cluster_100, label)
+        steps = K.candidate_density_sweep.launches
+        r["wander_steps"] = steps
+        r["kernels_per_wander_step"] = r["kernels_per_unit"] * r["units"] / steps if steps else None
+        log(f"{label}: {steps} wander steps, {r['kernels_per_wander_step']} device kernels a step")
+        return r
+
     log(f"profiled engine: {gen.n_pad} columns, subset ball {gen.Q or 'none (full scope)'}")
-    result = {"cluster": profiled(cluster_100, "clustering")}
+    result = {"cluster": per_step("clustering")}
     if gen.Q:  # the same latent at full scope: what the subset wander changes
         gen = ClusterGenerator(read_npz(out / "latent.npz"), comp.metadata.lengths,
                                rng_seed=SEED, device=dev, wander_scope="full")
         next(gen)
-        result["cluster_full_scope"] = profiled(cluster_100, "clustering at full scope")
+        result["cluster_full_scope"] = per_step("clustering at full scope")
     ab = Abundance.load(out / "abundance.npz", comp.metadata.refhash)
     rows = 256 * 100
     ds = make_dataset(ab.matrix[:rows], comp.matrix[:rows], comp.metadata.lengths[:rows])
@@ -643,6 +722,138 @@ def engine_ab(dirs: list[str]) -> int:
     return 0
 
 
+def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list:
+    """The kernels JSON line's rows, from phase 2's checks and times and
+    the two main paths' launch counts."""
+    source = "vamb_torch/kernels/csrc/cluster_kernels.cu"
+    replaces = {"row_sweep": "vamb_tpu/ops/pallas_cluster.py:219",
+                "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
+                "gather_blocks": "vamb_tpu/ops/pallas_cluster.py:368",
+                "medoid_sweep": "vamb_tpu/ops/pallas_cluster.py:140"}
+    gaps_300k = launch_gaps(timed, run_300k["launches_by_width"])
+    gaps_100k = launch_gaps(timed, run_100k["launches_by_width"])
+    log("launches x (ms - bound), L2 cold, summed over widths: 300k path "
+        + json.dumps(gaps_300k) + "; 100k path " + json.dumps(gaps_100k))
+    kernels = []
+    for name in replaces:
+        # the headline width: the 100k path's for the sweeps (as in earlier
+        # runs), the 300k path's for the gather and medoid_sweep
+        main_n = PATH_WIDTHS[1] if (name, PATH_WIDTHS[1]) in timed else BIG_PAD
+        r = timed[(name, main_n)]
+        row = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
+            "launches": run_300k["launches"][name], "max_abs_err": errs[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"], "n_pad": main_n,
+            "ms_l2_warm": r["ms_l2_warm"], "plain_ms_l2_warm": r["plain_ms_l2_warm"],
+            "library_ms_l2_warm": r["library_ms_l2_warm"],
+            "launches_100k_path": run_100k["launches"][name],
+            "gap_s_300k_path": gaps_300k[name]["gap_s"],
+            "gap_s_100k_path": gaps_100k[name]["gap_s"],
+            "at_widths": {
+                n: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                    "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                    "ms_l2_warm": t["ms_l2_warm"], "plain_ms_l2_warm": t["plain_ms_l2_warm"],
+                    "library_ms_l2_warm": t["library_ms_l2_warm"],
+                    "launches_300k_path": run_300k["launches_by_width"][name].get(n, 0),
+                    "launches_100k_path": run_100k["launches_by_width"][name].get(n, 0)}
+                for (kname, n), t in timed.items() if kname == name},
+        }
+        kernels.append(row)
+    return kernels
+
+
+# -------------------------------------------- density layouts in one call
+
+# Layout variants of the density kernel: source edits and the matching
+# constants of its plain version (the layout fixes the summation order).
+DENSITY_LAYOUTS = {
+    "T128 V2 ring4": ([], {}),
+    "T128 V2 ring4, chunk loop unrolled": (
+        [("#pragma unroll 1\n    for (int q = 0;", "#pragma unroll\n    for (int q = 0;")], {}),
+    "T256 V2 ring2": ([("kDensThreads = 128;", "kDensThreads = 256;"),
+                       ("kDensRing = kDensChunks;", "kDensRing = 2;")], {"_DENS_THREADS": 256}),
+    "T128 V4 ring2": ([("kDensVec = 2;", "kDensVec = 4;"), ("kDensRing = kDensChunks;", "kDensRing = 2;")],
+                      {"_DENS_VEC": 4}),
+    "T64 V4 ring4": ([("kDensThreads = 128;", "kDensThreads = 64;"), ("kDensVec = 2;", "kDensVec = 4;")],
+                     {"_DENS_THREADS": 64, "_DENS_VEC": 4}),
+}
+
+
+def density_layouts() -> int:
+    """Build each layout of `DENSITY_LAYOUTS` (threads a CTA, columns a
+    thread, chunk buffers) beside the committed one and time it at every
+    path width, C = 25, L2 cold, for several candidate-group counts G; each
+    result must equal the plain version computed with the layout's own
+    constants. One JSON line per (width, layout)."""
+    import ctypes
+
+    from vamb_torch.kernels import cluster_kernels as CK
+
+    src = CK._SOURCE.read_text()
+    out = ROOT / "vamb_torch" / "kernels" / "_build" / "layouts"
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for name, (edits, consts) in DENSITY_LAYOUTS.items():
+        text = src
+        for a, b in edits:
+            check(a in text, f"layout {name}: {a!r} not in the source")
+            text = text.replace(a, b)
+        tag = re.sub(r"\W+", "_", name)
+        (out / f"{tag}.cu").write_text(text)
+        proc = subprocess.run([CK._nvcc(), *CK.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / f"{tag}.so"),
+                               str(out / f"{tag}.cu")], capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"layout {name} failed to build: {proc.stderr[-2000:]}")
+        regs = [ln.split(":")[-1].strip() for ln in (proc.stdout + proc.stderr).splitlines() if "Used" in ln]
+        log(f"layout {name}: density kernels (any width, F_pad 32): {regs[:2]}")
+        lib = ctypes.CDLL(str(out / f"{tag}.so"))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.vt_candidate_density.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp]
+        lib.vt_candidate_density.restype = ci
+        libs[name] = (lib, consts)
+
+    def with_consts(consts, fn):
+        saved = {k: getattr(CK, k) for k in ("_DENS_THREADS", "_DENS_VEC", "_DENS_TILE_COLS")}
+        for k, v in consts.items():
+            setattr(CK, k, v)
+        CK._DENS_TILE_COLS = CK._DENS_THREADS * CK._DENS_VEC
+        try:
+            return fn()
+        finally:
+            for k, v in saved.items():
+                setattr(CK, k, v)
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    partials, ticket, sms = CK._density_workspace(dev, stream)
+    for n in PATH_WIDTHS:
+        mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=5), device=dev)
+        w = torch.as_tensor(weights(n, seed=5), device=dev)
+        cand = torch.as_tensor(np.random.default_rng(5).choice(n, MAXSTEPS, replace=False), device=dev)
+        for name, (lib, consts) in libs.items():
+            plain = with_consts(consts, lambda: CK.candidate_density_plain(mT, cand, w))
+            b = with_consts(consts, lambda: CK.density_col_blocks(n)[1])
+            default_g = CK.density_groups(MAXSTEPS, b, sms)
+            ms = {}
+            for g in sorted({default_g, 2, 3, 4, 7, 13, 25}):
+                dens = torch.empty(MAXSTEPS, device=dev)
+
+                def run():
+                    err = lib.vt_candidate_density(
+                        mT.data_ptr(), F_PAD, n, cand.data_ptr(), 1, MAXSTEPS, w.data_ptr(), g,
+                        partials.data_ptr(), ticket.data_ptr(), dens.data_ptr(), stream)
+                    check(err == 0, f"layout {name}: launch error {err}")
+                run()
+                torch.cuda.synchronize()
+                check(torch.equal(dens, plain), f"layout {name}, N {n}, G {g}: differs from its plain version")
+                ms[g] = time_ms(run)
+            log(json.dumps({"n_pad": n, "layout": name, "column_ctas": b, "default_g": default_g,
+                            "ms_by_g": ms}))
+    print(nvidia_smi_line())
+    return 0
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -658,50 +869,37 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t = time.time()
-    K.build(verbose=True)
+    lib_path = K.build(verbose=True)
     log(f"built the CUDA kernels in {time.time() - t:.1f} s")
+    sass_counts(lib_path)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t0 = time.time()
+
+    def phase_done(name: str) -> None:
+        log(f"phase {name} done at {time.time() - t0:.1f} s")
+
     errs = check_kernels(dev)
+    phase_done("2 (kernel checks)")
     timed = time_kernels(dev)
+    phase_done("2 (kernel times)")
     check_engine(dev)
+    phase_done("3 (engine)")
     with tempfile.TemporaryDirectory() as tmp:
         run_100k = run_main_path(dev, Path(tmp), N_CONTIGS, N_GENOMES, 2000,
                                  ("row_sweep", "candidate_density_sweep"))
+    phase_done("4 and 6 (100k path and its profile)")
     with tempfile.TemporaryDirectory() as tmp:
         run_300k = run_main_path(dev, Path(tmp), BIG_CONTIGS, BIG_GENOMES, BIG_CLUSTERS,
                                  ("row_sweep", "candidate_density_sweep", "gather_blocks"))
+    phase_done("5 and 6 (300k path and its profile)")
     check(len(run_300k["compactions"]) >= 1, "the 300,000-contig path compacted no time")
     check("wander scope full" in run_300k["compactions"][-1],
           "the 300,000-contig path never went back to full sweeps")
 
-    source = "vamb_torch/kernels/csrc/cluster_kernels.cu"
-    replaces = {"row_sweep": "vamb_tpu/ops/pallas_cluster.py:219",
-                "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
-                "gather_blocks": "vamb_tpu/ops/pallas_cluster.py:368",
-                "medoid_sweep": "vamb_tpu/ops/pallas_cluster.py:140"}
-    kernels = []
-    for name in replaces:
-        r, warm = timed[name], timed[name + "_l2_warm"]
-        row = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-            "launches": run_300k["launches"][name], "max_abs_err": errs[name],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"],
-            "ms_l2_warm": warm["ms"], "plain_ms_l2_warm": warm["plain_ms"],
-            "library_ms_l2_warm": warm["library_ms"],
-            "launches_100k_path": run_100k["launches"][name],
-        }
-        for tag in ("_300k", "_ball"):
-            if name + tag in timed:
-                t = timed[name + tag]
-                row["at" + tag] = {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                                   "library_ms": t["library_ms"],
-                                   "ms_l2_warm": timed[name + tag + "_l2_warm"]["ms"]}
-        kernels.append(row)
-    drop = ("launches",)
+    kernels = kernel_rows(timed, errs, run_100k, run_300k)
+    drop = ("launches", "launches_by_width")
     print(json.dumps({"kernels": kernels,
                       "main_path_100k": {k: v for k, v in run_100k.items() if k not in drop},
                       "main_path_300k": {k: v for k, v in run_300k.items() if k not in drop}}))
@@ -719,4 +917,6 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--engine-ab"]:
         sys.exit(engine_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--density-layouts"]:
+        sys.exit(density_layouts() if torch.cuda.is_available() else 1)
     sys.exit(main())

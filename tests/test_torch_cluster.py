@@ -4,7 +4,10 @@
   wrappers run for CPU tensors) against `vamb_tpu.ops.pallas_cluster` in
   interpret mode, as tests/test_pallas.py runs the Pallas kernels, with that
   file's tolerances: d atol 2e-7 and d[idx] == 0.0 exactly, densities
-  rtol 1e-5 (f32 sums in another order).
+  rtol 1e-5 (f32 sums in another order). The density's plain version sums
+  in the CUDA kernel's order: held against a float64 sum (rtol 1e-6) and,
+  on a case whose f32 sum depends on the order, against a scalar
+  simulation of the order the CUDA source describes.
 * `gather_blocks` / `medoid_sweep` plain versions against the same
   module's interpret-mode kernels: the gather array-equal, medoid_sweep
   with test_pallas.py's tolerances (d atol 2e-7, hist rtol 1e-6, density
@@ -86,6 +89,91 @@ def test_candidate_density_plain_matches_pallas(c, clumpy):
     got = K.candidate_density_sweep(
         torch.from_numpy(mT), torch.from_numpy(cand), torch.from_numpy(wts)).numpy()
     np.testing.assert_allclose(got, expect, rtol=1e-5)
+
+
+def _density_terms(mT, cand, wts):
+    "The masked density terms (C, N) in numpy f32, feature-ordered like the contract."
+    rows = mT[:, cand]
+    dot = np.zeros((len(cand), mT.shape[1]), np.float32)
+    for f in range(mT.shape[0]):
+        dot = dot + rows[f][:, None] * mT[f][None, :]
+    D = np.float32(0.5) - dot
+    D[np.arange(len(cand)), cand] = 0.0
+    within = (D <= np.float32(0.05)) & (wts > 0)[None, :]
+    return np.where(within, wts[None, :] * (np.float32(0.05) - D), np.float32(0.0))
+
+
+def _simulated_density_order(terms):
+    """Row sums of (C, N) f32 terms in the order the CUDA source's note
+    describes, one scalar add at a time: tiles of 256 columns (thread tid
+    owns columns 2*tid and 2*tid+1 of a tile), K = ceil(T/256) tiles a
+    column CTA, B = ceil(T/K) CTAs, CTA b taking tiles b, b+B, ...; each
+    thread adds in order from 0, then halving trees over 32 lanes, 4 warps
+    and 256 CTA slots (zeros past B)."""
+    def tree(xs):
+        while len(xs) > 1:
+            h = len(xs) // 2
+            xs = [np.float32(xs[i] + xs[i + h]) for i in range(h)]
+        return xs[0]
+
+    c, n = terms.shape
+    tiles = -(-n // 256)
+    k = -(-tiles // 256)
+    b_count = -(-tiles // k)
+    out = []
+    for row in terms:
+        ctas = []
+        for b in range(b_count):
+            threads = []
+            for tid in range(128):
+                acc = np.float32(0.0)
+                for t in range(b, tiles, b_count):
+                    for v in range(2):
+                        col = t * 256 + 2 * tid + v
+                        if col < n:
+                            acc = np.float32(acc + row[col])
+                threads.append(acc)
+            warps = [tree(threads[w * 32:(w + 1) * 32]) for w in range(4)]
+            ctas.append(tree(warps))
+        out.append(tree(ctas + [np.float32(0.0)] * (256 - b_count)))
+    return np.array(out, np.float32)
+
+
+@pytest.mark.parametrize("n", [1_000, 5 * 256 + 3, 140_000])
+def test_candidate_density_plain_sums_accurately(n):
+    """The ordered plain version against a float64 sum of the same f32
+    terms, at widths that pad the tile layout, span several column CTAs
+    and (140,000: 547 tiles) give a CTA more than one tile."""
+    mT, lengths = _clumpy_data(n, seed=n)
+    wts = np.where(np.arange(n) % 4 == 1, 0.0, lengths).astype(np.float32)
+    cand = np.random.default_rng(n).choice(n, size=6, replace=False)
+    got = K.candidate_density_plain(torch.from_numpy(mT), torch.from_numpy(cand),
+                                    torch.from_numpy(wts)).numpy()
+    expect = _density_terms(mT, cand, wts).astype(np.float64).sum(axis=1)
+    assert (expect > 0).all()
+    np.testing.assert_allclose(got, expect, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", [4 * 256 + 100, 140_000])
+def test_candidate_density_plain_sums_in_the_kernels_order(n):
+    """A constructed case whose f32 sum depends on the order: every column
+    equals the candidate's (D = 0 exactly), so the terms are w * 0.05 with
+    a few weights of 1e9 among small ones. The plain version must give the
+    bits of the order the CUDA source describes, which differ from a
+    left-to-right sum."""
+    rng = np.random.default_rng(n)
+    mT = np.zeros((8, n), np.float32)
+    mT[:2] = 0.5  # |x|^2 = 0.5 exactly, so D = 0.5 - 0.5 = 0
+    wts = rng.integers(1, 1000, n).astype(np.float32)
+    wts[rng.choice(n, 5, replace=False)] = 1e9
+    wts[rng.random(n) < 0.1] = 0.0
+    cand = np.array([0, n - 1])
+    terms = _density_terms(mT, cand, wts)
+    got = K.candidate_density_plain(torch.from_numpy(mT), torch.from_numpy(cand),
+                                    torch.from_numpy(wts)).numpy()
+    np.testing.assert_array_equal(got, _simulated_density_order(terms))
+    left_to_right = np.cumsum(terms, axis=1, dtype=np.float32)[:, -1]
+    assert not np.array_equal(got, left_to_right)
 
 
 @pytest.mark.parametrize("kb", [4, 64])

@@ -6,11 +6,14 @@ that has only PyTorch; there, skip the JAX test configuration:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Without a card each test skips: a CUDA kernel has no CPU mode. Tolerances
-are chip_smoke.py's: distances atol 1e-6 with d[idx] == 0.0 exactly (both
-sides add the same products in the same order), densities and histograms
-rtol 1e-5 (the kernels sum in another order than the plain versions), the
-gather array-equal, medoid_sweep's row equal to row_sweep's and its close
-count exact.
+are chip_smoke.py's: `row_sweep` and `candidate_density_sweep` equal their
+plain versions bit for bit (the same products added in the same order, and
+the plain density sum reproduces the kernel's summation order), d[idx] ==
+0.0 exactly; medoid_sweep's row equal to row_sweep's, its histogram and
+density rtol 1e-5 (it sums in another order than its plain version), its
+close count exact; the gather array-equal. The widths are every width the
+main paths give the kernels (a subset ball's 8,192; 100,096-wide paths;
+300,032 and, after compaction, 150,016) and an unaligned one.
 """
 
 import numpy as np
@@ -37,18 +40,29 @@ def _clumpy(n, f, seed):
     return np.ascontiguousarray(x.T.astype(np.float32)), lengths
 
 
+_WIDTHS = [8_192, 100_000, 100_003, 150_016, 300_032]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [100_000, 100_003, 300_032])
+@pytest.mark.parametrize("n", _WIDTHS)
 def test_row_sweep_matches_plain(cuda, n):
     mT = torch.as_tensor(_clumpy(n, 32, seed=n)[0], device=cuda)
     for idx in (0, 37, n - 1):
         d = K.row_sweep(mT, idx)
-        torch.testing.assert_close(d, K.row_sweep_plain(mT, idx), atol=1e-6, rtol=0)
+        assert torch.equal(d, K.row_sweep_plain(mT, idx))
         assert float(d[idx]) == 0.0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [100_000, 100_003, 300_032])
+def test_row_sweep_other_feature_width(cuda):
+    "F_pad 40 takes the generic kernel: still bit-identical."
+    mT_np, _ = _clumpy(4_096, 40, seed=2)
+    mT = torch.as_tensor(mT_np, device=cuda)
+    assert torch.equal(K.row_sweep(mT, 11), K.row_sweep_plain(mT, 11))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _WIDTHS)
 @pytest.mark.parametrize("zero_half", [False, True])
 def test_candidate_density_matches_plain(cuda, n, zero_half):
     mT_np, lengths = _clumpy(n, 32, seed=n)
@@ -59,9 +73,40 @@ def test_candidate_density_matches_plain(cuda, n, zero_half):
     w = torch.as_tensor(lengths, device=cuda)
     for c in (1, 25, 32):
         cand = torch.as_tensor(rng.choice(n, size=c, replace=False), device=cuda)
-        torch.testing.assert_close(
-            K.candidate_density_sweep(mT, cand, w), K.candidate_density_plain(mT, cand, w),
-            rtol=1e-5, atol=0)
+        dens = K.candidate_density_sweep(mT, cand, w)
+        assert torch.equal(dens, K.candidate_density_plain(mT, cand, w)), (c, dens)
+        # int32 ids go in as they are, with the same result
+        assert torch.equal(K.candidate_density_sweep(mT, cand.to(torch.int32), w), dens)
+
+
+@pytest.mark.cuda
+def test_candidate_density_other_feature_width(cuda):
+    "F_pad 40 takes the generic kernel: still bit-identical."
+    mT_np, lengths = _clumpy(10_000, 40, seed=3)
+    mT = torch.as_tensor(mT_np, device=cuda)
+    w = torch.as_tensor(lengths, device=cuda)
+    cand = torch.as_tensor(np.random.default_rng(3).choice(10_000, 25, replace=False), device=cuda)
+    assert torch.equal(K.candidate_density_sweep(mT, cand, w), K.candidate_density_plain(mT, cand, w))
+
+
+@pytest.mark.cuda
+def test_candidate_density_is_one_launch(cuda):
+    "One device kernel a call, with int64 ids: no second pass and no cast."
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mT_np, lengths = _clumpy(100_096, 32, seed=4)
+    mT = torch.as_tensor(mT_np, device=cuda)
+    w = torch.as_tensor(lengths, device=cuda)
+    cand = torch.arange(0, 2_500, 100, device=cuda)  # int64, as topk gives them
+    K.candidate_density_sweep(mT, cand, w)  # builds and makes the workspace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            K.candidate_density_sweep(mT, cand, w)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3, [e.name for e in kernels]
 
 
 @pytest.mark.cuda

@@ -7,10 +7,19 @@ what its design does about it):
 
 * `row_sweep(matrixT, idx)` replaces `vamb_tpu/ops/pallas_cluster.py`
   `row_sweep`: the distance row `0.5 - M^T M[:, idx]` of one medoid with
-  `d[idx] = 0.0` exactly;
+  `d[idx] = 0.0` exactly. Bound by bytes; at F_pad 32 a thread owns 4
+  columns and has all 32 of their 16-byte feature loads in flight as
+  cp.async copies, 64 threads a CTA;
 * `candidate_density_sweep(matrixT, cand, wts)` replaces
   `candidate_density_sweep` there: the local densities of C <= 32 wander
-  candidates in one matrix pass, no (C, N) matrix in device memory;
+  candidates in one matrix pass and one launch, no (C, N) matrix in device
+  memory. Bound by its FMA-free f32 operations; a thread computes a
+  (CT <= 16 candidates) x (2 columns) register tile, columns staged
+  through shared memory by cp.async, candidates split into as few CTA rows
+  as fill the card; the last CTA (an integer ticket) sums the CTAs' rows.
+  Its sums follow an order that depends on N_pad alone, which
+  `density_ordered_sum` reproduces, so kernel and plain version agree bit
+  for bit and the engine decides alike on the card and on the CPU;
 * `gather_blocks(matrixT, bids)` replaces `gather_blocks` there: the
   subset wander's ball, KB blocks of 128 columns copied by device-resident
   block id;
@@ -20,9 +29,11 @@ what its design does about it):
   attempt-payload A/B of bench.py:884-954).
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
-PyTorch version beside it only for a CPU tensor. The source is compiled by
-`nvcc` at first use into `kernels/_build/` and bound with ctypes; nothing
-is compiled or imported from CUDA while this module is imported.
+PyTorch version beside it only for a CPU tensor. It counts its launches in
+`<wrapper>.launches` and, by N_pad, in `<wrapper>.launches_by_width`. The
+source is compiled by `nvcc` at first use into `kernels/_build/` and bound
+with ctypes; nothing is compiled or imported from CUDA while this module
+is imported.
 """
 
 import ctypes
@@ -36,8 +47,12 @@ import torch
 
 _MEDOID_RADIUS = 0.05
 _MAX_CAND = 32  # kMaxCand in the CUDA source
-_DENS_THREADS = 256  # kDensThreads in the CUDA source
-_DENS_MAX_BLOCKS = 1024
+_DENS_THREADS = 128  # kDensThreads: 4 warps
+_DENS_VEC = 2  # kDensVec: neighbouring columns a thread owns in a tile
+_DENS_TILE_COLS = _DENS_THREADS * _DENS_VEC  # kDensTileCols
+_DENS_MAX_BLOCKS = 256  # kDensMaxBlocks: the width of the last CTA's tree
+_DENS_TILE = 16  # kDensTile: most candidates in one CTA's register tile
+_SWEEP_MAX_BLOCKS = 1024  # medoid_sweep's pass-1 grid cap
 _BLOCK = 128  # kBlockCols: the subset wander's block width
 _SWEEP_THREADS = 256  # kSweepThreads
 _SWEEP_SLOTS = 64  # kSweepSlots
@@ -100,18 +115,21 @@ def _load():
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.vt_row_sweep.argtypes = [vp, ci, ci, ci, vp, vp]
             lib.vt_row_sweep.restype = ci
-            lib.vt_candidate_density.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp, vp]
+            lib.vt_candidate_density.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp]
             lib.vt_candidate_density.restype = ci
             lib.vt_gather_blocks.argtypes = [vp, ci, ci, vp, ci, vp, vp]
             lib.vt_gather_blocks.restype = ci
             lib.vt_medoid_sweep.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp]
             lib.vt_medoid_sweep.restype = ci
-            consts = (lib.vt_max_candidates, lib.vt_density_threads,
-                      lib.vt_sweep_threads, lib.vt_sweep_slots)
+            consts = (lib.vt_max_candidates, lib.vt_density_threads, lib.vt_density_tile_cols,
+                      lib.vt_density_max_blocks, lib.vt_density_tile, lib.vt_sweep_threads,
+                      lib.vt_sweep_slots)
             for fn in consts:
                 fn.argtypes, fn.restype = [], ci
-            # the scratch shapes and grid sizes below assume the source's constants
-            if tuple(fn() for fn in consts) != (_MAX_CAND, _DENS_THREADS, _SWEEP_THREADS,
+            # the scratch shapes, grid sizes and the plain versions' sum order
+            # below assume the source's constants
+            if tuple(fn() for fn in consts) != (_MAX_CAND, _DENS_THREADS, _DENS_TILE_COLS,
+                                                _DENS_MAX_BLOCKS, _DENS_TILE, _SWEEP_THREADS,
                                                 _SWEEP_SLOTS):
                 raise RuntimeError(f"{_SOURCE.name} and {__name__} disagree on its constants")
             _lib = lib
@@ -128,6 +146,12 @@ def _check_matrix(matrixT: torch.Tensor) -> None:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
+
+
+def _count(kernel, n_pad: int) -> None:
+    "One launch of `kernel` on an (F_pad, n_pad) matrix: its count and tally."
+    kernel.launches += 1
+    kernel.launches_by_width[n_pad] = kernel.launches_by_width.get(n_pad, 0) + 1
 
 
 # ------------------------------------------------------------- row_sweep
@@ -166,11 +190,12 @@ def row_sweep(matrixT: torch.Tensor, idx: int) -> torch.Tensor:
     stream = torch.cuda.current_stream(matrixT.device).cuda_stream
     err = lib.vt_row_sweep(matrixT.data_ptr(), f_pad, n_pad, idx, d.data_ptr(), stream)
     _raise_on(err, "row_sweep")
-    row_sweep.launches += 1
+    _count(row_sweep, n_pad)
     return d
 
 
 row_sweep.launches = 0
+row_sweep.launches_by_width = {}  # N_pad -> launches
 
 
 # ---------------------------------------------- candidate_density_sweep
@@ -181,7 +206,8 @@ def candidate_density_plain(
 ) -> torch.Tensor:
     """Plain version of `candidate_density_sweep` (the XLA contract of
     tests/test_pallas.py:106-129): candidate distances with the kernel's
-    feature-ordered arithmetic, then one masked row sum per candidate."""
+    feature-ordered arithmetic, the masked terms, then `density_ordered_sum`,
+    the kernel's summation order, so it equals the kernel bit for bit."""
     rows = matrixT[:, cand.long()]  # (F, C)
     dot = torch.zeros(len(cand), matrixT.shape[1], dtype=torch.float32,
                       device=matrixT.device)
@@ -191,12 +217,69 @@ def candidate_density_plain(
     iota = torch.arange(matrixT.shape[1], device=matrixT.device)
     D = torch.where(iota[None, :] == cand.long()[:, None], 0.0, D)
     within = (D <= _MEDOID_RADIUS) & (wts > 0.0)[None, :]
-    return torch.where(within, wts[None, :] * (_MEDOID_RADIUS - D), 0.0).sum(dim=1)
+    return density_ordered_sum(torch.where(within, wts[None, :] * (_MEDOID_RADIUS - D), 0.0))
 
 
-def density_blocks(n_pad: int) -> int:
-    "Pass-1 grid size: a function of N only, so the sum order is fixed."
-    return max(1, min(-(-n_pad // _DENS_THREADS), _DENS_MAX_BLOCKS))
+def density_col_blocks(n_pad: int) -> tuple[int, int]:
+    """(K, B): the density kernel's tiles a column CTA and column CTAs at
+    width `n_pad`, for T tiles of 256 columns: K = ceil(T / 256), B =
+    ceil(T / K) <= 256. A function of N only, so the sum order is fixed."""
+    tiles = -(-n_pad // _DENS_TILE_COLS)
+    k = -(-tiles // _DENS_MAX_BLOCKS)
+    return k, -(-tiles // k)
+
+
+def density_ordered_sum(terms: torch.Tensor) -> torch.Tensor:
+    """(C, N) float32 terms, each >= +0 -> (C,) row sums in the density
+    kernel's order (csrc/cluster_kernels.cu): column n = ((i*B + b)*128 +
+    tid)*2 + v goes to thread tid of column CTA b, which adds its terms in
+    (i, v) order; then halving trees over the 32 lanes of a warp, the 4
+    warps and the B column CTAs padded with zeros to 256. Every stage is a
+    separately rounded f32 tensor add."""
+    c, n = terms.shape
+    k, b = density_col_blocks(n)
+    x = torch.nn.functional.pad(terms, (0, k * b * _DENS_TILE_COLS - n))
+    x = x.view(c, k, b, _DENS_THREADS, _DENS_VEC)
+    acc = torch.zeros((c, b, _DENS_THREADS), dtype=terms.dtype, device=terms.device)
+    for i in range(k):
+        for v in range(_DENS_VEC):
+            acc = acc + x[:, i, :, :, v]
+    acc = acc.view(c, b, _DENS_THREADS // 32, 32)
+    acc = _halving_tree(acc)  # lanes -> (c, b, warps)
+    acc = _halving_tree(acc)  # warps -> (c, b)
+    return _halving_tree(torch.nn.functional.pad(acc, (0, _DENS_MAX_BLOCKS - b)))
+
+
+def _halving_tree(x: torch.Tensor) -> torch.Tensor:
+    "Sum the last (power-of-two) axis: x[:h] + x[h:], halving h down to 1."
+    h = x.shape[-1]
+    while h > 1:
+        h //= 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def density_groups(c: int, col_blocks: int, sms: int) -> int:
+    """Candidate groups (CTA rows) of the density kernel: at least
+    ceil(C/16), more while the column CTAs alone are fewer than two an SM.
+    Any count gives the same sums."""
+    return min(c, max(-(-c // _DENS_TILE), -(-2 * sms // col_blocks)))
+
+
+_density_ws: dict = {}
+
+
+def _density_workspace(dev: torch.device, stream: int):
+    """The density kernel's per-stream (32, 256) partials and int32 ticket
+    (zeroed once; the kernel's last CTA resets it after every call)."""
+    key = (dev.index, stream)
+    ws = _density_ws.get(key)
+    if ws is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        ws = (torch.empty((_MAX_CAND, _DENS_MAX_BLOCKS), dtype=torch.float32, device=dev),
+              torch.zeros(1, dtype=torch.int32, device=dev), sms)
+        _density_ws[key] = ws
+    return ws
 
 
 def candidate_density_sweep(
@@ -204,11 +287,11 @@ def candidate_density_sweep(
 ) -> torch.Tensor:
     """Densities of C <= 32 candidate medoids in one matrix pass.
 
-    matrixT (F_pad, N_pad) f32, cand (C,) integer columns, wts (N_pad,) f32
-    (= lengths where kept, else 0) -> (C,) f32. Launches the two-pass CUDA
-    kernel for CUDA tensors (counted in
+    matrixT (F_pad, N_pad) f32, cand (C,) int64 or int32 columns, wts
+    (N_pad,) f32 (= lengths where kept, else 0) -> (C,) f32. Launches the
+    one-pass CUDA kernel for CUDA tensors (ids go in as they are; counted in
     `candidate_density_sweep.launches`), runs the plain version for CPU
-    tensors."""
+    tensors; both give the same bits."""
     _check_matrix(matrixT)
     f_pad, n_pad = matrixT.shape
     c = int(cand.shape[0])
@@ -222,27 +305,31 @@ def candidate_density_sweep(
         raise ValueError(
             f"candidate_density_sweep runs on cuda or cpu, not {matrixT.device}"
         )
-    if _MAX_CAND * f_pad * 4 > 48 * 1024:
+    if _DENS_TILE * f_pad * 4 > 48 * 1024:
         raise ValueError(f"F_pad {f_pad} exceeds the kernel's shared-memory tile")
     if cand.device != matrixT.device or wts.device != matrixT.device:
         raise ValueError("matrixT, cand and wts must be on one device")
+    if cand.dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"cand must be int64 or int32, not {cand.dtype}")
     lib = _load()
-    cand32 = cand.to(torch.int32).contiguous()
+    dev = matrixT.device
+    cand = cand.contiguous()
     wts = wts.contiguous()
-    nblocks = density_blocks(n_pad)
-    partials = torch.empty((nblocks, _MAX_CAND), dtype=torch.float32, device=matrixT.device)
-    dens = torch.empty(c, dtype=torch.float32, device=matrixT.device)
-    stream = torch.cuda.current_stream(matrixT.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partials, ticket, sms = _density_workspace(dev, stream)
+    groups = density_groups(c, density_col_blocks(n_pad)[1], sms)
+    dens = torch.empty(c, dtype=torch.float32, device=dev)
     err = lib.vt_candidate_density(
-        matrixT.data_ptr(), f_pad, n_pad, cand32.data_ptr(), c, wts.data_ptr(),
-        partials.data_ptr(), nblocks, dens.data_ptr(), stream,
+        matrixT.data_ptr(), f_pad, n_pad, cand.data_ptr(), int(cand.dtype == torch.int64), c,
+        wts.data_ptr(), groups, partials.data_ptr(), ticket.data_ptr(), dens.data_ptr(), stream,
     )
     _raise_on(err, "candidate_density_sweep")
-    candidate_density_sweep.launches += 1
+    _count(candidate_density_sweep, n_pad)
     return dens
 
 
 candidate_density_sweep.launches = 0
+candidate_density_sweep.launches_by_width = {}  # N_pad -> launches
 
 
 # --------------------------------------------------------- gather_blocks
@@ -284,11 +371,12 @@ def gather_blocks(matrixT: torch.Tensor, bids: torch.Tensor) -> torch.Tensor:
     err = lib.vt_gather_blocks(matrixT.data_ptr(), f_pad, n_pad, bids32.data_ptr(), kb,
                                out.data_ptr(), stream)
     _raise_on(err, "gather_blocks")
-    gather_blocks.launches += 1
+    _count(gather_blocks, n_pad)
     return out
 
 
 gather_blocks.launches = 0
+gather_blocks.launches_by_width = {}  # N_pad -> launches
 
 
 # ---------------------------------------------------------- medoid_sweep
@@ -311,7 +399,7 @@ def medoid_sweep_plain(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
 
 def sweep_blocks(n_pad: int) -> int:
     "medoid_sweep's pass-1 grid: a function of N only, so the sum order is fixed."
-    return max(1, min(-(-n_pad // _SWEEP_THREADS), _DENS_MAX_BLOCKS))
+    return max(1, min(-(-n_pad // _SWEEP_THREADS), _SWEEP_MAX_BLOCKS))
 
 
 def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
@@ -351,11 +439,12 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
         dens.data_ptr(), n_close.data_ptr(), stream,
     )
     _raise_on(err, "medoid_sweep")
-    medoid_sweep.launches += 1
+    _count(medoid_sweep, n_pad)
     return d, hist, dens, n_close
 
 
 medoid_sweep.launches = 0
+medoid_sweep.launches_by_width = {}  # N_pad -> launches
 
 KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep)
 
@@ -363,3 +452,4 @@ KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep)
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
+        kernel.launches_by_width = {}

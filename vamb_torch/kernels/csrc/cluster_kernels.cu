@@ -10,15 +10,27 @@
 // feature order with separately rounded multiplies and adds (__fmul_rn /
 // __fadd_rn, so nvcc does not contract them into FMAs). That is exactly
 // the arithmetic of the plain PyTorch versions beside the wrappers, so a
-// kernel's distances equal its plain version's bit for bit.
+// kernel's distances equal its plain version's bit for bit. Being FMA-free,
+// their f32 work issues at half the card's FMA peak: 33.5e12 operations a
+// second is the rate their bounds use.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRowThreads = 256;
-constexpr int kDensThreads = 256;
+constexpr int kEngineF = 32;  // the engine's F_pad (latent width 32), compiled in
+constexpr int kRowThreads = 64;  // row_sweep at F_pad 32: 64 threads x 4 columns
+constexpr int kRowVec = 4;
+constexpr int kRowAnyThreads = 256;  // row_sweep at other widths: a column a thread
+constexpr int kDensThreads = 128;  // candidate_density_sweep: 4 warps a CTA
+// kDensThreads, kDensVec and kDensMaxBlocks fix the density's summation
+// order; candidate_density_plain reads them (vt_density_* below)
+constexpr int kDensWarps = kDensThreads / 32;
+constexpr int kDensVec = 2;  // neighbouring columns a thread owns in one tile
+constexpr int kDensTileCols = kDensThreads * kDensVec;  // 256 columns a tile
+constexpr int kDensMaxBlocks = 256;  // column CTAs; the last CTA's tree spans 256
+constexpr int kDensTile = 16;  // most candidates in one CTA's register tile
 constexpr int kMaxCand = 32;
 constexpr float kMedoidRadius = 0.05f;
 constexpr int kGatherThreads = 256;
@@ -34,17 +46,153 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// acc + a * b with the product and the sum rounded separately (no FMA):
+// the plain versions' arithmetic, so distances agree bit for bit.
+__device__ __forceinline__ float mul_add_rn(float acc, float a, float b) {
+  return __fadd_rn(acc, __fmul_rn(a, b));
+}
+
+// The halving tree over a warp: lane l adds lane l + 16, then l + 8, ... 1,
+// so lane 0 ends with ((v0 + v16) + (v8 + v24)) + ... . Returns lane 0's sum.
+__device__ __forceinline__ float warp_tree(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+// cp.async: a 16-byte copy from device to shared memory that takes no
+// registers, so a thread can have all its loads in flight at once; the
+// copies of a thread commit in groups, and wait_group N waits until at
+// most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
+}
+
+// A thread's kDensVec neighbouring columns as one vector (8 or 16 bytes).
+template <int V> struct VecOf;
+template <> struct VecOf<2> { using T = float2; };
+template <> struct VecOf<4> { using T = float4; };
+
+template <class T, int N>
+__device__ __forceinline__ void unpack(const T& a, float (&x)[N]) {
+  static_assert(sizeof(T) == N * sizeof(float), "one float a column");
+  const float* f = reinterpret_cast<const float*>(&a);
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = f[k];
+}
+
+template <class T>
+__device__ __forceinline__ void cp_async_vec(T* smem, const float* gmem) {
+  if constexpr (sizeof(T) == 16) {
+    cp_async16(smem, gmem);
+  } else {
+    cp_async8(smem, gmem);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Column CTAs of candidate_density_sweep at width n_pad: K = ceil(T/256)
+// tiles each for T tiles of 256 columns, B = ceil(T/K) <= 256 CTAs.
+__host__ __device__ inline int density_col_blocks(int n_pad) {
+  const int tiles = (n_pad + kDensTileCols - 1) / kDensTileCols;
+  const int k = (tiles + kDensMaxBlocks - 1) / kDensMaxBlocks;
+  return (tiles + k - 1) / k;
+}
+
 // ---------------------------------------------------------------- row_sweep
 // Replaces vamb_tpu/ops/pallas_cluster.py:row_sweep (_row_sweep_kernel):
-// d[n] = 0.5 - sum_f M[f, n] * M[f, idx], with d[idx] = 0.0 exactly.
+// d[n] = 0.5 - sum_f M[f, n] * M[f, idx], with d[idx] = 0.0 exactly, the
+// products added in feature order (bit-identical to row_sweep_plain and to
+// medoid_sweep's row).
 //
 // Bound on the H100: bytes. It reads the matrix once (F_pad * N_pad * 4
-// bytes) and writes one float per column; 2 flops per byte read is far
-// below the card's ratio. Design: one thread per column, so a warp's loads
-// of one feature row are 128 contiguous bytes; the medoid's F_pad features
-// sit in shared memory and are broadcast to every thread.
-__global__ void row_sweep_kernel(const float* __restrict__ m, int f_pad,
-                                 int n_pad, int idx, float* __restrict__ d) {
+// bytes) and writes one float per column; 2 FMA-free f32 operations per 4
+// bytes read is far below the card's ratio of about 10 per byte. Design, for
+// F_pad = 32 (the engine's only width) and N_pad % 4 == 0: a thread owns 4
+// neighbouring columns and issues all 32 of its 16-byte feature loads as
+// cp.async copies into shared memory before any add chain starts (512 bytes
+// in flight a thread, and no registers held for them: loaded into registers,
+// ptxas traded loads in flight for fewer registers), in 4 groups of 8
+// features, so the adds of one group overlap the arrival of the next; 64
+// threads a CTA, so 100,096 columns give 391 CTAs on 132 SMs. The medoid's
+// features sit in shared memory, read as 16-byte broadcasts. Other widths
+// take row_sweep_any_kernel, one thread per column, runtime feature loop.
+__global__ void __launch_bounds__(kRowThreads)
+row_sweep_f32_kernel(const float* __restrict__ m, int n_pad, int idx,
+                     float* __restrict__ d) {
+  static_assert(kRowThreads >= kEngineF, "one thread per medoid feature");
+  __shared__ float4 col4[kEngineF / 4];
+  __shared__ float4 stage[kEngineF][kRowThreads];  // 32 KB: a thread's 4 columns
+  const int n0 = (blockIdx.x * kRowThreads + threadIdx.x) * kRowVec;
+  const bool active = n0 < n_pad;
+  // all 32 feature loads in flight first, in 4 groups of 8 features
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int f = 8 * g + k;
+        cp_async16(&stage[f][threadIdx.x], m + (size_t)f * n_pad + n0);
+      }
+    }
+    cp_async_commit();
+  }
+  if (threadIdx.x < kEngineF) {
+    reinterpret_cast<float*>(col4)[threadIdx.x] =
+        m[(size_t)threadIdx.x * n_pad + idx];
+  }
+  __syncthreads();
+  if (!active) return;
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  auto add_group = [&](int g) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int f = 8 * g + k;
+      const float4 v = stage[f][threadIdx.x];
+      const float4 c4 = col4[f / 4];
+      const float c = (f % 4 == 0) ? c4.x : (f % 4 == 1) ? c4.y : (f % 4 == 2) ? c4.z : c4.w;
+      a0 = mul_add_rn(a0, v.x, c);
+      a1 = mul_add_rn(a1, v.y, c);
+      a2 = mul_add_rn(a2, v.z, c);
+      a3 = mul_add_rn(a3, v.w, c);
+    }
+  };
+  cp_async_wait<3>();
+  add_group(0);
+  cp_async_wait<2>();
+  add_group(1);
+  cp_async_wait<1>();
+  add_group(2);
+  cp_async_wait<0>();
+  add_group(3);
+  float4 out;
+  out.x = (n0 == idx) ? 0.0f : __fsub_rn(0.5f, a0);
+  out.y = (n0 + 1 == idx) ? 0.0f : __fsub_rn(0.5f, a1);
+  out.z = (n0 + 2 == idx) ? 0.0f : __fsub_rn(0.5f, a2);
+  out.w = (n0 + 3 == idx) ? 0.0f : __fsub_rn(0.5f, a3);
+  *reinterpret_cast<float4*>(d + n0) = out;
+}
+
+__global__ void row_sweep_any_kernel(const float* __restrict__ m, int f_pad,
+                                     int n_pad, int idx, float* __restrict__ d) {
   extern __shared__ float col[];
   for (int f = threadIdx.x; f < f_pad; f += blockDim.x) {
     col[f] = m[(size_t)f * n_pad + idx];
@@ -54,7 +202,7 @@ __global__ void row_sweep_kernel(const float* __restrict__ m, int f_pad,
   if (n >= n_pad) return;
   float acc = 0.0f;
   for (int f = 0; f < f_pad; ++f) {
-    acc = __fadd_rn(acc, __fmul_rn(m[(size_t)f * n_pad + n], col[f]));
+    acc = mul_add_rn(acc, m[(size_t)f * n_pad + n], col[f]);
   }
   d[n] = (n == idx) ? 0.0f : __fsub_rn(0.5f, acc);
 }
@@ -64,90 +212,361 @@ __global__ void row_sweep_kernel(const float* __restrict__ m, int f_pad,
 // (_candidate_density_kernel): for C <= 32 candidates,
 //   dens[c] = sum_n [D[c,n] <= 0.05 and w[n] > 0] * w[n] * (0.05 - D[c,n]),
 //   D[c,n] = 0.5 - M[:, cand[c]] . M[:, n], with D[c, cand[c]] = 0,
-// without a (C, N) matrix in device memory.
+// D summed in feature order with separately rounded products and sums
+// (row_sweep's arithmetic), with no (C, N) matrix in device memory.
 //
-// Bound on the H100: bytes. It streams the matrix once, like row_sweep;
-// its 2*C*F*N flops run below the card's float32 rate at these widths.
-// Design: pass 1 keeps the C x F_pad candidate features in shared memory
-// (read as broadcasts), walks columns with a grid-stride loop and keeps
-// the C partial sums of each thread in registers. A block reduces its
-// threads' partials with warp shuffles and then across warps in a fixed
-// order, and writes one row of a (nblocks, 32) scratch. Pass 2 sums the
-// block rows in block order. There are no float atomics anywhere: the
-// engine's `dens > density` decision sits on knife edges, and a sum whose
-// order changed from run to run would make clusters unreproducible.
-__global__ void candidate_density_pass1(const float* __restrict__ m, int f_pad,
-                                        int n_pad, const int* __restrict__ cand,
-                                        int c, const float* __restrict__ w,
-                                        float* __restrict__ partials) {
-  extern __shared__ float rows[];  // kMaxCand * f_pad, candidate-major
-  __shared__ int cids[kMaxCand];
-  __shared__ float warp_part[kDensThreads / 32][kMaxCand];
-
-  for (int j = threadIdx.x; j < kMaxCand; j += blockDim.x) {
-    cids[j] = j < c ? cand[j] : -1;
+// Bound on the H100: operations. Each (candidate, column) pair costs F_pad
+// multiplies and F_pad adds, none fused, so 2*C*F*N f32 instructions at
+// 33.5e12 a second (half the FMA peak); at C = 25, F = 32 that takes about
+// 1.3x as long as reading the matrix once. Design:
+// * Register tile. A thread owns 2 neighbouring columns and CT <= 16
+//   candidates: per feature one 8-byte load of its columns and ceil(CT/4)
+//   16-byte shared-memory broadcasts of the candidates' features (stored
+//   feature-major, 16 slots a feature) feed 2*CT multiplies and 2*CT adds.
+// * Columns through shared memory. At F_pad 32 each thread copies its own
+//   columns with cp.async in chunks of 8 features into a ring of 4 chunk
+//   buffers, a whole tile ahead of its adds, so loads wait on no register
+//   (loaded straight into registers, ptxas kept one or two in flight). The
+//   chunk loop is not unrolled: 16 CT variants of 32 unrolled features
+//   thrashed the instruction cache. Other widths load columns directly.
+// * Work follows C. The C candidates are split into G balanced groups of at
+//   most 16 (25 -> 13, 12); each group is a row of CTAs (blockIdx.y) and
+//   runs code compiled for its exact CT, so no slot computes a missing
+//   candidate. Every group reads all columns again from L2, so G stays
+//   small: the wrapper takes ceil(C/16) and raises it only while the column
+//   CTAs alone are fewer than two an SM (8,192 columns: 32 CTAs, G = 9).
+// * One launch. Each CTA writes its CT partial sums; the CTA that draws the
+//   last ticket of an integer atomic counter adds the partial rows and
+//   writes dens, then resets the counter to 0 for the next call. Calls on
+//   one stream are serialized, and the wrapper keeps one counter and one
+//   partials buffer per stream. No float atomics: the engine's
+//   `dens > density` decides on knife edges.
+// * Summation order: a function of N_pad and the constants above alone (not
+//   of C, G or the card). Columns form tiles of 256: tile t holds column
+//   t*256 + 2*tid + v for thread tid < 128 and v < 2. With T tiles,
+//   K = ceil(T/256) and B = ceil(T/K) column CTAs, CTA b takes tiles b,
+//   b+B, b+2B, ... (the i-th is b + i*B). (1) Each thread adds its terms in
+//   (i, v) order into a float that starts at 0; (2) a halving tree over a
+//   warp's 32 lanes (lane l adds lane l+16, then l+8, ... l+1); (3) over the
+//   4 warps, (w0 + w2) + (w1 + w3); (4) over the B column CTAs padded with
+//   zeros to 256, the same halving tree (b adds b+128, then b+64, ... b+1).
+//   Columns past N_pad and removed points add nothing, exactly so: every
+//   term is >= +0. candidate_density_plain reproduces this order with
+//   tensor ops, so the two agree bit for bit.
+// Adds feature f of a thread's 2 columns (x) to its CT x 2 dot products;
+// the candidates' features come as 16-byte broadcasts.
+template <int CT>
+__device__ __forceinline__ void dot_feature(float (&dot)[CT][kDensVec],
+                                            const float* s_cand, int f,
+                                            const float (&x)[kDensVec]) {
+  constexpr int kQuads = (CT + 3) / 4;
+  float cv[4 * kQuads];
+  const float4* c4 = reinterpret_cast<const float4*>(s_cand + f * kDensTile);
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    const float4 q = c4[k];
+    cv[4 * k] = q.x;
+    cv[4 * k + 1] = q.y;
+    cv[4 * k + 2] = q.z;
+    cv[4 * k + 3] = q.w;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kMaxCand * f_pad; i += blockDim.x) {
-    const int j = i / f_pad;
-    const int f = i - j * f_pad;
-    rows[i] = j < c ? m[(size_t)f * n_pad + cids[j]] : 0.0f;
-  }
-  __syncthreads();
-
-  float acc[kMaxCand];
 #pragma unroll
-  for (int j = 0; j < kMaxCand; ++j) acc[j] = 0.0f;
-
-  const int stride = gridDim.x * blockDim.x;
-  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < n_pad; n += stride) {
-    const float wn = w[n];
-    if (!(wn > 0.0f)) continue;  // a removed point adds nothing
-    float dot[kMaxCand];
+  for (int j = 0; j < CT; ++j) {
 #pragma unroll
-    for (int j = 0; j < kMaxCand; ++j) dot[j] = 0.0f;
-    for (int f = 0; f < f_pad; ++f) {
-      const float x = m[(size_t)f * n_pad + n];
-#pragma unroll
-      for (int j = 0; j < kMaxCand; ++j) {
-        dot[j] = __fadd_rn(dot[j], __fmul_rn(rows[j * f_pad + f], x));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxCand; ++j) {
-      const float dist = (n == cids[j]) ? 0.0f : __fsub_rn(0.5f, dot[j]);
-      if (j < c && dist <= kMedoidRadius) {
-        acc[j] = __fadd_rn(acc[j], __fmul_rn(wn, __fsub_rn(kMedoidRadius, dist)));
-      }
-    }
-  }
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kMaxCand; ++j) {
-    float v = acc[j];
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    }
-    if (lane == 0) warp_part[warp][j] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kMaxCand) {
-    float s = 0.0f;
-    for (int k = 0; k < kDensThreads / 32; ++k) s += warp_part[k][threadIdx.x];
-    partials[(size_t)blockIdx.x * kMaxCand + threadIdx.x] = s;
+    for (int v = 0; v < kDensVec; ++v) dot[j][v] = mul_add_rn(dot[j][v], cv[j], x[v]);
   }
 }
 
-__global__ void candidate_density_pass2(const float* __restrict__ partials,
-                                        int nblocks, int c,
-                                        float* __restrict__ dens) {
-  const int j = threadIdx.x;
-  if (j >= c) return;
-  float s = 0.0f;
-  for (int b = 0; b < nblocks; ++b) s += partials[(size_t)b * kMaxCand + j];
-  dens[j] = s;
+// The density terms of a thread's 2 columns n0, n0 + 1 added to its CT
+// sums, in column order.
+template <int CT>
+__device__ __forceinline__ void add_terms(float (&acc)[CT],
+                                          const float (&dot)[CT][kDensVec],
+                                          const float (&wv)[kDensVec], int n0,
+                                          const int* s_cid) {
+#pragma unroll
+  for (int v = 0; v < kDensVec; ++v) {
+    if (wv[v] > 0.0f) {
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const float dist = (n0 + v == s_cid[j]) ? 0.0f : __fsub_rn(0.5f, dot[j][v]);
+        if (dist <= kMedoidRadius) {
+          acc[j] = mul_add_rn(acc[j], wv[v], __fsub_rn(kMedoidRadius, dist));
+        }
+      }
+    }
+  }
+}
+
+// The CTA's CT sums (a halving tree over each warp's lanes, then over the
+// warps: (w0 + w2) + (w1 + w3) for 4) into its column of the (32, 256)
+// partials.
+template <int CT>
+__device__ __forceinline__ void cta_partials(const float (&acc)[CT], float* s_red,
+                                             int c0, float* __restrict__ partials) {
+  static_assert((kDensWarps & (kDensWarps - 1)) == 0, "a halving tree over the warps");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    const float sum = warp_tree(acc[j]);
+    if (lane == 0) s_red[warp * kDensTile + j] = sum;
+  }
+  __syncthreads();
+  if (threadIdx.x < CT) {
+    float r[kDensWarps];
+#pragma unroll
+    for (int k = 0; k < kDensWarps; ++k) r[k] = s_red[k * kDensTile + threadIdx.x];
+#pragma unroll
+    for (int h = kDensWarps / 2; h > 0; h >>= 1) {
+#pragma unroll
+      for (int k = 0; k < h; ++k) r[k] = __fadd_rn(r[k], r[k + h]);
+    }
+    partials[(size_t)(c0 + threadIdx.x) * kDensMaxBlocks + blockIdx.x] = r[0];
+  }
+}
+
+// Any F_pad and N_pad: plain loads, a column a load.
+template <int CT>
+__device__ __forceinline__ void density_tile_any(
+    const float* __restrict__ m, int f_pad, int n_pad,
+    const float* __restrict__ w, const float* s_cand, const int* s_cid,
+    float* s_red, int c0, float* __restrict__ partials) {
+  float acc[CT];
+#pragma unroll
+  for (int j = 0; j < CT; ++j) acc[j] = 0.0f;
+  const int tiles = (n_pad + kDensTileCols - 1) / kDensTileCols;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n0 = t * kDensTileCols + threadIdx.x * kDensVec;
+    float wv[kDensVec];
+#pragma unroll
+    for (int v = 0; v < kDensVec; ++v) wv[v] = n0 + v < n_pad ? w[n0 + v] : 0.0f;
+    bool any = false;
+#pragma unroll
+    for (int v = 0; v < kDensVec; ++v) any = any || wv[v] > 0.0f;
+    if (!any) continue;
+    float dot[CT][kDensVec];
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+#pragma unroll
+      for (int v = 0; v < kDensVec; ++v) dot[j][v] = 0.0f;
+    }
+#pragma unroll 4
+    for (int f = 0; f < f_pad; ++f) {
+      float x[kDensVec];
+#pragma unroll
+      for (int v = 0; v < kDensVec; ++v) {
+        x[v] = n0 + v < n_pad ? m[(size_t)f * n_pad + n0 + v] : 0.0f;
+      }
+      dot_feature<CT>(dot, s_cand, f, x);
+    }
+    add_terms<CT>(acc, dot, wv, n0, s_cid);
+  }
+  cta_partials<CT>(acc, s_red, c0, partials);
+}
+
+// F_pad 32, N_pad % 2 == 0: stage s = 4*i + q of a thread is chunk q (8
+// features) of its i-th tile, copied by cp.async into ring buffer s % 4
+// (chunk 0 also brings the tile's 2 weights, into weight buffer i % 2).
+// Stage s + 4 is issued as soon as stage s is consumed, so a whole tile's
+// copies (256 bytes a thread) are always in flight. Each thread reads back
+// only what it copied, so the pipeline needs no barrier.
+constexpr int kDensChunk = 8;
+constexpr int kDensChunks = kEngineF / kDensChunk;
+constexpr int kDensRing = kDensChunks;  // chunk buffers: one tile ahead
+static_assert(kDensRing <= 2 * kDensChunks, "two weight buffers cover the ring");
+using DensVec = VecOf<kDensVec>::T;
+
+__device__ __forceinline__ void density_issue(const float* __restrict__ m, int n_pad,
+                                              const float* __restrict__ w, DensVec* stage,
+                                              DensVec* wstage, int tiles, int s) {
+  const int i = s / kDensChunks;
+  const int q = s % kDensChunks;
+  const int t = blockIdx.x + i * gridDim.x;
+  const int n0 = t * kDensTileCols + threadIdx.x * kDensVec;
+  if (t < tiles && n0 < n_pad) {
+    DensVec* dst = stage + (s % kDensRing) * kDensChunk * kDensThreads + threadIdx.x;
+    const float* src = m + (size_t)(q * kDensChunk) * n_pad + n0;
+#pragma unroll
+    for (int k = 0; k < kDensChunk; ++k) {
+      cp_async_vec(dst + k * kDensThreads, src + (size_t)k * n_pad);
+    }
+    if (q == 0) cp_async_vec(wstage + (i % 2) * kDensThreads + threadIdx.x, w + n0);
+  }
+  cp_async_commit();
+}
+
+template <int CT>
+__device__ __forceinline__ void density_tile_f32(
+    const float* __restrict__ m, int n_pad, const float* __restrict__ w,
+    DensVec* stage, DensVec* wstage, const float* s_cand, const int* s_cid,
+    float* s_red, int c0, float* __restrict__ partials) {
+  float acc[CT];
+#pragma unroll
+  for (int j = 0; j < CT; ++j) acc[j] = 0.0f;
+  const int tiles = (n_pad + kDensTileCols - 1) / kDensTileCols;
+  const int ntile = (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  for (int i = 0; i < ntile; ++i) {
+    const int n0 = (blockIdx.x + i * gridDim.x) * kDensTileCols + threadIdx.x * kDensVec;
+    float wv[kDensVec];
+    bool live = false;
+    float dot[CT][kDensVec];
+    // not unrolled: one chunk's code (8 features) is what the warps of an
+    // SM share; all 32 features unrolled in each CT variant thrashed the
+    // instruction cache
+#pragma unroll 1
+    for (int q = 0; q < kDensChunks; ++q) {
+      cp_async_wait<kDensRing - 1>();  // stage 4i + q has landed
+      if (q == 0) {
+        live = false;
+        if (n0 < n_pad) {
+          unpack(wstage[(i % 2) * kDensThreads + threadIdx.x], wv);
+#pragma unroll
+          for (int v = 0; v < kDensVec; ++v) live = live || wv[v] > 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+#pragma unroll
+          for (int v = 0; v < kDensVec; ++v) dot[j][v] = 0.0f;
+        }
+      }
+      if (live) {
+        const DensVec* src =
+            stage + ((kDensChunks * i + q) % kDensRing) * kDensChunk * kDensThreads + threadIdx.x;
+#pragma unroll
+        for (int k = 0; k < kDensChunk; ++k) {
+          float x[kDensVec];
+          unpack(src[k * kDensThreads], x);
+          dot_feature<CT>(dot, s_cand, q * kDensChunk + k, x);
+        }
+      }
+      density_issue(m, n_pad, w, stage, wstage, tiles, kDensChunks * i + q + kDensRing);
+    }
+    if (live) add_terms<CT>(acc, dot, wv, n0, s_cid);
+  }
+  cta_partials<CT>(acc, s_red, c0, partials);
+}
+
+template <bool kF32>
+__global__ void __launch_bounds__(kDensThreads)
+candidate_density_kernel(const float* __restrict__ m, int f_pad, int n_pad,
+                         const void* __restrict__ cand, int cand64, int n_cand,
+                         const float* __restrict__ w,
+                         float* __restrict__ partials,
+                         unsigned int* __restrict__ ticket,
+                         float* __restrict__ dens) {
+  // dynamic shared memory: F_pad x 8 candidate features, feature-major;
+  // with kF32 then the two chunk buffers and the weights of the pipeline
+  extern __shared__ float4 s_dyn[];
+  float* s_cand = reinterpret_cast<float*>(s_dyn);
+  DensVec* stage = reinterpret_cast<DensVec*>(s_dyn + kEngineF * kDensTile / 4);
+  DensVec* wstage = stage + kDensRing * kDensChunk * kDensThreads;
+  __shared__ int s_cid[kDensTile];
+  __shared__ float s_red[kDensWarps * kDensTile];
+  __shared__ bool s_last;
+  const int tiles = (n_pad + kDensTileCols - 1) / kDensTileCols;
+  if constexpr (kF32) {  // a tile's copies go out first and overlap the set-up
+#pragma unroll
+    for (int st = 0; st < kDensRing; ++st) {
+      density_issue(m, n_pad, w, stage, wstage, tiles, st);
+    }
+  }
+  // this CTA row's candidates: a balanced split of C over G groups
+  const int groups = gridDim.y;
+  const int g = blockIdx.y;
+  const int base = n_cand / groups;
+  const int rem = n_cand % groups;
+  const int ct = base + (g < rem ? 1 : 0);
+  const int c0 = g * base + min(g, rem);
+  if (threadIdx.x < kDensTile) {
+    const int j = threadIdx.x;
+    int id = -1;
+    if (j < ct) {
+      id = cand64 ? (int)static_cast<const long long*>(cand)[c0 + j]
+                  : static_cast<const int*>(cand)[c0 + j];
+    }
+    s_cid[j] = id;
+  }
+  __syncthreads();
+  const int nf = kF32 ? kEngineF : f_pad;
+  for (int i = threadIdx.x; i < nf * kDensTile; i += kDensThreads) {
+    const int f = i / kDensTile;
+    const int j = i - f * kDensTile;
+    s_cand[i] = j < ct ? m[(size_t)f * n_pad + s_cid[j]] : 0.0f;
+  }
+  __syncthreads();
+  switch (ct) {
+#define VT_DENSITY_TILE(K)                                                    \
+  case K:                                                                     \
+    if constexpr (kF32) {                                                     \
+      density_tile_f32<K>(m, n_pad, w, stage, wstage, s_cand, s_cid, s_red,   \
+                          c0, partials);                                      \
+    } else {                                                                  \
+      density_tile_any<K>(m, f_pad, n_pad, w, s_cand, s_cid, s_red, c0,       \
+                          partials);                                          \
+    }                                                                         \
+    break;
+    VT_DENSITY_TILE(1)
+    VT_DENSITY_TILE(2)
+    VT_DENSITY_TILE(3)
+    VT_DENSITY_TILE(4)
+    VT_DENSITY_TILE(5)
+    VT_DENSITY_TILE(6)
+    VT_DENSITY_TILE(7)
+    VT_DENSITY_TILE(8)
+    VT_DENSITY_TILE(9)
+    VT_DENSITY_TILE(10)
+    VT_DENSITY_TILE(11)
+    VT_DENSITY_TILE(12)
+    VT_DENSITY_TILE(13)
+    VT_DENSITY_TILE(14)
+    VT_DENSITY_TILE(15)
+    VT_DENSITY_TILE(16)
+#undef VT_DENSITY_TILE
+  }
+
+  // the ticket: publish this CTA's partials, then count it as done
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last CTA: warp w sums candidates w, w + 4, ... over the column CTAs
+  // with the 256-wide halving tree (lane l holds b = l + 32*k); all of a
+  // warp's loads are issued before any add
+  static_assert(kDensMaxBlocks == 8 * 32, "8 partials a lane");
+  constexpr int kPerWarp = kMaxCand / kDensWarps;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float v[kPerWarp][kDensMaxBlocks / 32];
+#pragma unroll
+  for (int r = 0; r < kPerWarp; ++r) {
+    const int c = warp + r * kDensWarps;
+#pragma unroll
+    for (int k = 0; k < kDensMaxBlocks / 32; ++k) {
+      const int b = lane + 32 * k;
+      v[r][k] = (c < n_cand && b < (int)gridDim.x)
+                    ? __ldcg(partials + (size_t)c * kDensMaxBlocks + b)
+                    : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kPerWarp; ++r) {
+    const int c = warp + r * kDensWarps;
+    if (c < n_cand) {
+#pragma unroll
+      for (int h = kDensMaxBlocks / 64; h > 0; h >>= 1) {
+#pragma unroll
+        for (int k = 0; k < h; ++k) v[r][k] = __fadd_rn(v[r][k], v[r][k + h]);
+      }
+      const float sum = warp_tree(v[r][0]);
+      if (lane == 0) dens[c] = sum;
+    }
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 // ------------------------------------------------------------ gather_blocks
@@ -295,23 +714,43 @@ extern "C" {
 
 int vt_row_sweep(const float* m, int f_pad, int n_pad, int idx, float* d,
                  void* stream) {
-  const int blocks = (n_pad + kRowThreads - 1) / kRowThreads;
-  row_sweep_kernel<<<blocks, kRowThreads, f_pad * sizeof(float),
-                     (cudaStream_t)stream>>>(m, f_pad, n_pad, idx, d);
+  if (f_pad == kEngineF && n_pad % kRowVec == 0 && (uintptr_t)m % 16 == 0 &&
+      (uintptr_t)d % 16 == 0) {
+    constexpr int cols = kRowThreads * kRowVec;
+    row_sweep_f32_kernel<<<(n_pad + cols - 1) / cols, kRowThreads, 0,
+                           (cudaStream_t)stream>>>(m, n_pad, idx, d);
+  } else {
+    row_sweep_any_kernel<<<(n_pad + kRowAnyThreads - 1) / kRowAnyThreads,
+                           kRowAnyThreads, f_pad * sizeof(float),
+                           (cudaStream_t)stream>>>(m, f_pad, n_pad, idx, d);
+  }
   return (int)cudaGetLastError();
 }
 
-int vt_candidate_density(const float* m, int f_pad, int n_pad, const int* cand,
-                         int c, const float* w, float* partials, int nblocks,
-                         float* dens, void* stream) {
-  const size_t smem = (size_t)kMaxCand * f_pad * sizeof(float);
-  candidate_density_pass1<<<nblocks, kDensThreads, smem,
-                            (cudaStream_t)stream>>>(m, f_pad, n_pad, cand, c, w,
-                                                    partials);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  candidate_density_pass2<<<1, kMaxCand, 0, (cudaStream_t)stream>>>(
-      partials, nblocks, c, dens);
+int vt_candidate_density(const float* m, int f_pad, int n_pad, const void* cand,
+                         int cand64, int c, const float* w, int groups,
+                         float* partials, unsigned int* ticket, float* dens,
+                         void* stream) {
+  if (c < 1 || c > kMaxCand || groups < 1 || groups > c ||
+      (c + groups - 1) / groups > kDensTile || n_pad < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(density_col_blocks(n_pad), groups);
+  const bool f32 = f_pad == kEngineF && n_pad % kDensVec == 0 &&
+                   (uintptr_t)m % sizeof(DensVec) == 0 && (uintptr_t)w % sizeof(DensVec) == 0;
+  if (f32) {
+    const size_t smem = kEngineF * kDensTile * sizeof(float) +
+                        (kDensRing * kDensChunk + 2) * kDensThreads * sizeof(DensVec);
+    static_assert((kEngineF * kDensTile * sizeof(float) +
+                   (kDensRing * kDensChunk + 2) * kDensThreads * sizeof(DensVec)) <= 48 * 1024,
+                  "more than 48 KB of dynamic shared memory needs cudaFuncSetAttribute");
+    candidate_density_kernel<true><<<grid, kDensThreads, smem, (cudaStream_t)stream>>>(
+        m, f_pad, n_pad, cand, cand64, c, w, partials, ticket, dens);
+  } else {
+    const size_t smem = (size_t)f_pad * kDensTile * sizeof(float);
+    candidate_density_kernel<false><<<grid, kDensThreads, smem, (cudaStream_t)stream>>>(
+        m, f_pad, n_pad, cand, cand64, c, w, partials, ticket, dens);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -340,6 +779,12 @@ int vt_medoid_sweep(const float* m, int f_pad, int n_pad, int idx,
 int vt_max_candidates() { return kMaxCand; }
 
 int vt_density_threads() { return kDensThreads; }
+
+int vt_density_tile_cols() { return kDensTileCols; }
+
+int vt_density_max_blocks() { return kDensMaxBlocks; }
+
+int vt_density_tile() { return kDensTile; }
 
 int vt_sweep_threads() { return kSweepThreads; }
 
