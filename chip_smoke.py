@@ -11,30 +11,35 @@ nothing of JAX or of `vamb_tpu`. Phases, each of which fails the run:
    ptxas' register and spill report) and count each kernel's SASS
    instructions by opcode family.
 2. kernels: every hand-written kernel against its plain PyTorch version on
-   the card, at the main paths' shapes and around them (`row_sweep` and
-   `candidate_density_sweep` bit for bit), then timed with CUDA events at
-   every width the main paths give it, beside its bound, its plain version
-   and a library yardstick.
+   the card, bit for bit, at the main paths' shapes and around them
+   (`medoid_sweep`'s row, histogram, density and close count included;
+   `gather_ball`'s side vectors), then timed with CUDA
+   events at every width the main paths give it, beside its bound, its
+   plain version and a library yardstick.
 3. engine: the clustering engine on the card against the same engine on
    the CPU (the path the CPU tests hold against `vamb_tpu`), on small
    clumpy latents at full scope, with the subset wander forced (also on a
    512-column ball, where its overflow and drift fallbacks run) and with
-   the compaction ladder forced: the emissions must be identical.
+   the compaction ladder forced: the emissions must be identical. The
+   VAE's eps drawn on the card must equal the CPU's bit for bit.
 4. main path at 100,000 contigs: `vamb_torch bin default` through its CLI
    entry point on a synthetic dataset (VAE 512-512-32, 2 epochs,
    clustering capped at 2,000 clusters), full-scope wander. Every kernel's
    launch counter and its tally by N_pad are set to 0 just before and read
-   just after; `row_sweep` and `candidate_density_sweep` must be > 0. The
-   stage artifacts and TSVs are read back and checked.
+   just after; `candidate_density_sweep` and `medoid_sweep` must be > 0.
+   The stage artifacts and TSVs are read back and checked. Then, a
+   measurement and not a gate: 50 clusters of the engine on this path's
+   latent on the card and on the CPU in lockstep, counting the clusters
+   emitted alike and which decision input (Gumbel scores, candidates,
+   their densities, histogram, smoothed densities) first differed.
 5. main path at 300,000 contigs from 3,000 genomes (6 samples, 2 epochs,
-   `-c 4096`): the subset wander with `gather_blocks`, at least one logged
-   compaction and the switch back to full sweeps. Counters as in phase 4;
-   every kernel of the path must be > 0 (`medoid_sweep` lies on no path of
-   `bin default`; phase 2 launches it).
+   `-c 4096`): the subset wander with `gather_ball` and `row_sweep` on the
+   ball, at least one logged compaction and the switch back to full
+   sweeps. Counters as in phase 4; all four kernels must be > 0.
 6. profile: on each main path's own data, 100 clusters of the engine and
    100 training steps under torch.profiler: time per cluster and per step,
-   device kernels per wander step, the device's busy share and the ops that
-   take the most device time.
+   device kernels per attempt and per wander step, the device's busy share
+   and the ops that take the most device time.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
@@ -42,13 +47,18 @@ kernels JSON object (its `launches` are the 300,000-contig path's; each
 row also holds every timed width under `at_widths`), the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`.
 
+    python3 chip_smoke.py --kernels
+
+runs phases 1 and 2 alone: the short first call after a kernel changes.
+
     python3 chip_smoke.py --engine-ab DIR [DIR ...]
 
 times the clustering engine of each checkout DIR in turn, each in a
 process of its own, on one synthetic 300,000-point latent at subset
 scope (list a parent and a change alternately, e.g. P C C P), and prints
-one JSON line per run: ms per cluster over 200 clusters, and a hash of
-the emitted medoids, which must agree between checkouts that emit alike.
+one JSON line per run: ms per cluster over 200 clusters, device kernels
+a cluster and an attempt over 50 more, and a hash of the emitted medoids,
+which must agree between checkouts that emit alike.
 
     python3 chip_smoke.py --density-layouts
 
@@ -57,6 +67,12 @@ thread, chunk buffers, the chunk loop unrolled) beside the committed one,
 and times each at every
 path width for several candidate-group counts, each held bit for bit
 against its plain version: the measurement behind the committed layout.
+
+    python3 chip_smoke.py --layouts
+
+does the same for the gather (copies a thread) and for `medoid_sweep`
+(its most CTAs, which fixes its summation order) at the widths the main
+paths give them.
 """
 
 import itertools
@@ -211,61 +227,97 @@ def check_kernels(dev) -> dict:
                     )
                 err_dens = max(err_dens, e)
     err_sweep = 0.0
-    err_gather = 0.0
-    rel_sums = 0.0
-    for n in (N_CONTIGS, BIG_PAD):
+    # medoid_sweep at every width the main paths give it (the 100k path's
+    # 100,096; the 300k path's 300,032 and 150,016) and an unpadded one:
+    # its row, histogram, density and close count bit for bit
+    for n in (N_CONTIGS + 3, PATH_WIDTHS[1], BIG_HALF, BIG_PAD):
         mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=n), device=dev)
-        nb = n // 128 if n % 128 == 0 else None
-        if nb is not None:  # the ball gather needs whole 128-column blocks
-            rng = np.random.default_rng(n)
-            for ids in (np.sort(rng.choice(nb, BALL_KB, replace=False)), np.array([5, 0, 0, nb - 1])):
-                bids = torch.as_tensor(ids.astype(np.int32), device=dev)
-                g, g_p = K.gather_blocks(mT, bids), K.gather_blocks_plain(mT, bids)
-                if not torch.equal(g, g_p):
-                    raise AssertionError(f"gather_blocks n={n} ids={ids[:6]}...: not array-equal")
-                err_gather = max(err_gather, float((g - g_p).abs().max()))
         for zero_half in (False, True):
             w = torch.as_tensor(weights(n, seed=n + 1, zero_half=zero_half), device=dev)
             for idx in (0, 37, n - 1):
-                d, hist, dens, n_close = K.medoid_sweep(mT, idx, w)
-                d_p, hist_p, dens_p, close_p = K.medoid_sweep_plain(mT, idx, w)
+                got = K.medoid_sweep(mT, idx, w)
+                expect = K.medoid_sweep_plain(mT, idx, w)
                 torch.cuda.synchronize()
-                e = float((d - d_p).abs().max())
-                ok = (torch.equal(d, K.row_sweep(mT, idx)) and float(d[idx]) == 0.0 and e <= 1e-6
-                      and torch.allclose(hist, hist_p, rtol=1e-5, atol=0.0)
-                      and torch.allclose(dens, dens_p, rtol=1e-5, atol=0.0)
-                      and int(n_close) == int(close_p))
-                if not ok:
+                e = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, expect))
+                same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, expect))
+                if not (same and torch.equal(got[0], K.row_sweep(mT, idx)) and float(got[0][idx]) == 0.0):
                     raise AssertionError(
-                        f"medoid_sweep n={n} idx={idx} zero_half={zero_half}: max|d-plain| {e}, "
-                        f"hist {hist.tolist()} vs {hist_p.tolist()}, density {float(dens)} vs "
-                        f"{float(dens_p)}, n_close {int(n_close)} vs {int(close_p)}")
+                        f"medoid_sweep n={n} idx={idx} zero_half={zero_half}: max|kernel-plain| {e}, "
+                        f"hist {got[1].tolist()} vs {expect[1].tolist()}, density {float(got[2])} vs "
+                        f"{float(expect[2])}, n_close {int(got[3])} vs {int(expect[3])}")
                 err_sweep = max(err_sweep, e)
-                rel = float(((hist - hist_p).abs() / hist_p.abs().clamp_min(1e-30)).max())
-                rel_sums = max(rel_sums, rel, abs(float(dens) / float(dens_p) - 1) if float(dens_p) else 0.0)
+    err_gather = check_gather(dev)
     log(f"kernels agree with their plain versions: row_sweep max|err| {err_row} "
         f"(bit-identical, d[idx] == 0), candidate_density_sweep max|err| {err_dens} "
         "(bit-identical, C 1, 25 and 32, int64 and int32 ids, all and half the weights), "
         f"at N {N_CONTIGS}, {N_CONTIGS + 3}, {BIG_PAD}, {BIG_HALF} and {BALL_KB * 128}; "
-        f"gather_blocks array-equal (max|err| {err_gather}), medoid_sweep d bit-identical to "
-        f"row_sweep's, max|d-plain| "
-        f"{err_sweep}, histogram and density max relative error {rel_sums} (rtol 1e-5), "
-        "n_close exact")
+        f"medoid_sweep max|err| {err_sweep} (row, histogram, density and close count "
+        f"bit-identical, row equal to row_sweep's, at N {N_CONTIGS + 3}, {PATH_WIDTHS[1]}, "
+        f"{BIG_HALF} and {BIG_PAD}, all and half the weights); gather_blocks and gather_ball "
+        f"array-equal (max|err| {err_gather}; padding slots, repeated ids)")
     return {"row_sweep": err_row, "candidate_density_sweep": err_dens,
             "gather_blocks": err_gather, "medoid_sweep": err_sweep}
+
+
+def ball_inputs(n: int, dev, seed: int):
+    "A ball's inputs at width n: matrix, weights, kept flags, seed row."
+    rng = np.random.default_rng(seed)
+    mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=n), device=dev)
+    w = torch.as_tensor(weights(n, seed=seed), device=dev)
+    kept = torch.as_tensor(rng.random(n) < 0.8, device=dev)
+    d0 = torch.as_tensor(rng.random(n).astype(np.float32), device=dev)
+    return mT, w, kept, d0
+
+
+def gather_cases(n: int, seed: int) -> list:
+    """(block ids, nb) of three balls at width n: all slots valid, a ball
+    of 40 blocks and 24 padding slots (which gather block 0), repeated ids."""
+    blocks = n // 128
+    rng = np.random.default_rng(seed)
+    part = BALL_KB * 5 // 8
+    picked = np.sort(rng.choice(blocks, part, replace=False))
+    return [(np.sort(rng.choice(blocks, BALL_KB, replace=False)), BALL_KB),
+            (np.concatenate([picked, np.zeros(BALL_KB - part, np.int64)]), part),
+            (np.array([5, 0, 0, blocks - 1]), 3)]
+
+
+def check_gather(dev) -> float:
+    """`gather_blocks` and `gather_ball` against their plain versions at the
+    300k path's width and the 100k path's (`gather_cases`)."""
+    from vamb_torch import kernels as K
+
+    err = 0.0
+    for n in (PATH_WIDTHS[1], BIG_PAD):
+        mT, w, kept, d0 = ball_inputs(n, dev, seed=n)
+        for ids, nb in gather_cases(n, seed=n + 1):
+            bids = torch.as_tensor(ids.astype(np.int32), device=dev)
+            g, g_p = K.gather_blocks(mT, bids), K.gather_blocks_plain(mT, bids)
+            got = K.gather_ball(mT, bids, nb, w, kept, d0)
+            expect = K.gather_ball_plain(mT, bids, nb, w, kept, d0)
+            torch.cuda.synchronize()
+            same = torch.equal(g, g_p) and all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, expect))
+            if not same:
+                raise AssertionError(f"gather n={n} nb={nb} ids={ids[:6]}...: not array-equal "
+                                     "to the plain version")
+            err = max(err, float((g - g_p).abs().max()), float((got[0] - expect[0]).abs().max()))
+    return err
 
 
 PATH_WIDTHS = (BALL_KB * 128, -(-N_CONTIGS // 128) * 128, BIG_HALF, BIG_PAD)
 
 
 def time_kernels(dev) -> dict:
-    """Times at every width the main paths give `row_sweep` and
-    `candidate_density_sweep` (C = 25): a subset ball's 8,192 columns, the
-    100,000-contig path's 100,096, the 300,000-contig path's 300,032 and,
-    after its compaction, 150,016; `gather_blocks` of 64 blocks and
-    `medoid_sweep` from (32, 300,032). Each L2 cold and warm. Returns
-    {(name, N_pad): {"ms", "plain_ms", "library_ms", "bound", and the same
-    with an "_l2_warm" suffix}}."""
+    """Times at every width the main paths give each kernel: `row_sweep`
+    and `candidate_density_sweep` (C = 25) at a subset ball's 8,192
+    columns, the 100,000-contig path's 100,096, the 300,000-contig path's
+    300,032 and, after its compaction, 150,016; `medoid_sweep` at the last
+    three; `gather_ball` (64 blocks with their side vectors, the call the
+    subset wander makes) from 300,032 columns, beside `index_select` of the
+    matrix alone. Each L2 cold and warm. Returns {(name, N_pad): {"ms",
+    "plain_ms", "library_ms", "bound", and the same with an "_l2_warm"
+    suffix}}. Logged beside them: `gather_blocks` (the matrix alone) and
+    an empty kernel, the harness's launch floor."""
     from vamb_torch import kernels as K
 
     out = {}
@@ -294,19 +346,28 @@ def time_kernels(dev) -> dict:
                 lambda: K.candidate_density_plain(mT, cand, w), None,
                 bound((f * n_kept + n + 2 * c) * 4, (2 * f + 1) * c * n_kept + 3 * n_within)),
         }
+        if n != PATH_WIDTHS[0]:
+            # the row's products and sums, and per kept column a division
+            # for its bin, its histogram add, and the density's subtraction,
+            # multiply and add where it lies within the radius
+            d_row = K.row_sweep(mT, idx)
+            near = int(((d_row <= 0.05) & kept).sum())
+            in_hist = int(((d_row >= 0) & (d_row <= 0.3) & kept).sum())
+            fns["medoid_sweep"] = (
+                lambda: K.medoid_sweep(mT, idx, w), lambda: K.medoid_sweep_plain(mT, idx, w), None,
+                bound((f * n + 2 * n + 62) * 4, 2 * f * n + n + 2 * in_hist + 3 * near))
         if n == BIG_PAD:
+            mTg, wg, keptg, d0g = ball_inputs(n, dev, seed=6)
             bids = torch.as_tensor(np.sort(np.random.default_rng(6).choice(n // 128, BALL_KB, replace=False))
                                    .astype(np.int32), device=dev)
             q = BALL_KB * 128
+            # the matrix's blocks read and written, the ids, and per slot
+            # w, kept and d0 read and its id, flag, weight and d0 written
             fns["gather_blocks"] = (
-                lambda: K.gather_blocks(mT, bids), lambda: K.gather_blocks_plain(mT, bids),
-                lambda: mT.view(f, n // 128, 128).index_select(1, bids),
-                bound((2 * f * q + BALL_KB) * 4, 0))
-            # the row's products and sums, then a few compares and one
-            # multiply-add per column for the histogram, density and count
-            fns["medoid_sweep"] = (
-                lambda: K.medoid_sweep(mT, idx, w), lambda: K.medoid_sweep_plain(mT, idx, w), None,
-                bound((f * n + 2 * n + 62) * 4, 2 * f * n + 8 * n))
+                lambda: K.gather_ball(mTg, bids, BALL_KB, wg, keptg, d0g),
+                lambda: K.gather_ball_plain(mTg, bids, BALL_KB, wg, keptg, d0g),
+                lambda: mTg.view(f, n // 128, 128).index_select(1, bids),
+                bound((2 * f * q + BALL_KB) * 4 + q * 22, 0))
         for name, (kern, plain, lib, bnd) in fns.items():
             r = {"bound": bnd}
             for sfx, cold in (("", True), ("_l2_warm", False)):
@@ -319,6 +380,11 @@ def time_kernels(dev) -> dict:
                 f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share "
                 f"{bnd[0] / r['ms']:.3f}, L2 cold; L2 warm: kernel {r['ms_l2_warm']:.5f} ms, "
                 f"plain {r['plain_ms_l2_warm']:.5f} ms")
+        if n == BIG_PAD:  # the matrix alone, and the launch floor of this harness
+            log(f"gather_blocks (the matrix alone) at N_pad {n}, KB {BALL_KB}: "
+                f"{time_ms(lambda: K.gather_blocks(mTg, bids)):.5f} ms; an empty kernel "
+                f"(torch.cuda._sleep(0), the launch floor) {time_ms(lambda: torch.cuda._sleep(0)):.5f} ms; "
+                "L2 cold")
     return out
 
 
@@ -428,12 +494,93 @@ def check_engine(dev) -> None:
                                  f"{gens[0].subset_counts}")
         log(f"engine on the card is emission-identical to the CPU engine, {label}: {len(on_card)} clusters "
             f"of {len(mat)} points; compactions {gens[0].compactions}; subset {gens[0].subset_counts}")
-    # training eps: the card's erfinv polynomial runs on CUDA's log1p
+    # training eps: XLA's erfinv and log1p transcribed op by op, so the card
+    # draws the CPU's bits (and jax's)
     keys = threefry.split(threefry.key(SEED), 64)
     a = threefry.normal_batched(keys, 4096, dev).cpu().numpy()
     b = threefry.normal_batched(keys, 4096, "cpu").numpy()
     ulps = int(np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32)).max())
     log(f"threefry normal on the card vs the CPU: max {ulps} ulps over {a.size} draws")
+    check(ulps == 0, f"eps on the card differ from the CPU's by up to {ulps} ulps")
+
+
+def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: int = 50) -> dict:
+    """A measurement: the engine on the card and on the CPU, cluster by
+    cluster in lockstep on one latent, both recording the inputs of their
+    decisions: each wander step's Gumbel scores (from the step's own
+    uniforms), its eligible candidates in drawn order and their densities
+    (the slots past them hold ineligible columns, whose order among equal
+    scores is the sort's own), and each attempt's histogram and its
+    smoothed densities. Counts the clusters emitted alike before the first
+    that differs, and for each input how often it differed between the two,
+    bit for bit, and by how much at most; names the first that did."""
+    from vamb_torch import cluster as engine
+    from vamb_torch.utils import threefry
+
+    def instrumented(device):
+        gen = engine.ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device=device)
+        events = []
+        step = gen._step
+
+        def recorded_step(key, d, kept, tried, medoid, n, matrixT, wk):
+            _, k1 = threefry.split(key)
+            u = threefry.uniform(k1, n, gen.device)
+            events.append(("gumbel scores", -torch.log(-torch.log(u + 1e-20) + 1e-20).cpu()))
+            out = step(key, d, kept, tried, medoid, n, matrixT, wk)
+            valid = out[2]
+            events.append(("candidates", out[1][valid].cpu()))
+            events.append(("candidate densities", out[3][valid].cpu()))
+            return out
+
+        gen._step = recorded_step
+        return gen, events
+
+    find_threshold = engine.find_threshold
+
+    def next_cluster(gen, events):
+        def recorded(hist, pvr):
+            events.append(("histogram", hist.cpu()))
+            events.append(("smoothed densities", engine.smooth_histogram(hist).cpu()))
+            return find_threshold(hist, pvr)
+
+        events.clear()
+        engine.find_threshold = recorded
+        try:
+            return next(gen)
+        finally:
+            engine.find_threshold = find_threshold
+
+    t = time.time()
+    card, cpu = instrumented(dev), instrumented("cpu")
+    kinds = ("gumbel scores", "candidates", "candidate densities", "histogram", "smoothed densities")
+    differed = {k: 0 for k in kinds}
+    seen = {k: 0 for k in kinds}
+    gap = {k: 0.0 for k in kinds}
+    identical, first_input, first_cluster = 0, None, None
+    for i in range(n_clusters):
+        a, b = next_cluster(*card), next_cluster(*cpu)
+        for (kind, x), (kind_b, y) in zip(card[1], cpu[1]):
+            if kind != kind_b:
+                break
+            seen[kind] += 1
+            if not torch.equal(x, y):
+                differed[kind] += 1
+                g = float((x.double() - y.double()).abs().max()) if x.shape == y.shape else None
+                gap[kind] = max(gap[kind], g) if g is not None else gap[kind]
+                if first_input is None:
+                    first_input = {"cluster": i, "input": kind, "max_abs_gap": g}
+        same = (a.kind_str, a.medoid, a.seed, a.radius, a.maximal_pvr) == (
+            b.kind_str, b.medoid, b.seed, b.radius, b.maximal_pvr) and np.array_equal(a.members, b.members)
+        if not same:
+            first_cluster = i
+            break
+        identical += 1
+    result = {"points": len(latent), "clusters_compared": n_clusters, "identical_clusters": identical,
+              "first_differing_cluster": first_cluster, "first_differing_input": first_input,
+              "inputs_seen": seen, "inputs_that_differed": differed, "max_abs_gaps": gap,
+              "seconds": time.time() - t}
+    log("engine on the card vs the CPU on the 100k path's latent: " + json.dumps(result))
+    return result
 
 
 # ------------------------------------------------ phases 4 and 5: main paths
@@ -551,10 +698,11 @@ def stage_times(logfile: Path) -> dict:
 
 
 def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: int,
-                  required: tuple, epochs: int = 2) -> dict:
+                  required: tuple, epochs: int = 2, agreement: bool = False) -> dict:
     """`bin default` through its CLI entry point on a fresh synthetic
     dataset; the launch counters are set to 0 just before and read just
-    after, and each kernel in `required` must have launched."""
+    after, and each kernel in `required` must have launched. With
+    `agreement`, `engine_agreement` on the path's latent follows."""
     from vamb_torch import kernels as K
     from vamb_torch.__main__ import main
 
@@ -589,12 +737,31 @@ def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: 
                    if "Compacted the engine matrix" in line]
     for line in compactions:
         log("compaction: " + line)
-    return {"launches": launches, "launches_by_width": tally, **checked, "times": times,
-            "compactions": compactions,
-            "profile": profile_stages(dev, out)}
+    result = {"launches": launches, "launches_by_width": tally, **checked, "times": times,
+              "compactions": compactions, "profile": profile_stages(dev, out)}
+    if agreement:
+        from vamb_torch.composition import Composition
+        from vamb_torch.utils import read_npz
+
+        result["card_vs_cpu"] = engine_agreement(
+            dev, read_npz(out / "latent.npz"), Composition.load(out / "composition.npz").metadata.lengths)
+    return result
 
 
 # --------------------------------------------------- phase 6: profile
+
+
+def count_attempts(gen) -> list:
+    "Count the generator's attempts (one seed chosen each) in the list's one item."
+    counter = [0]
+    pick = gen._next_seed
+
+    def counted():
+        counter[0] += 1
+        return pick()
+
+    gen._next_seed = counted
+    return counter
 
 
 def profiled(fn, label: str) -> dict:
@@ -652,14 +819,18 @@ def profile_stages(dev, out: Path) -> dict:
         return sum(1 for _ in itertools.islice(gen, 100))
 
     def per_step(label: str) -> dict:
-        """Profile 100 clusters and count their wander steps: each step
-        launches `candidate_density_sweep` once."""
+        """Profile 100 clusters and count their attempts (seeds tried) and
+        wander steps (each launches `candidate_density_sweep` once)."""
         K.reset_launch_counts()
+        attempts = count_attempts(gen)
         r = profiled(cluster_100, label)
         steps = K.candidate_density_sweep.launches
-        r["wander_steps"] = steps
-        r["kernels_per_wander_step"] = r["kernels_per_unit"] * r["units"] / steps if steps else None
-        log(f"{label}: {steps} wander steps, {r['kernels_per_wander_step']} device kernels a step")
+        kernels = r["kernels_per_unit"] * r["units"]
+        r["wander_steps"], r["attempts"] = steps, attempts[0]
+        r["kernels_per_wander_step"] = kernels / steps if steps else None
+        r["kernels_per_attempt"] = kernels / attempts[0]
+        log(f"{label}: {attempts[0]} attempts, {steps} wander steps; device kernels "
+            f"{r['kernels_per_attempt']} an attempt, {r['kernels_per_wander_step']} a step")
         return r
 
     log(f"profiled engine: {gen.n_pad} columns, subset ball {gen.Q or 'none (full scope)'}")
@@ -705,8 +876,19 @@ def engine_time(n_clusters: int = 200) -> dict:
     medoids = [c.medoid for c in itertools.islice(gen, n_clusters)]
     torch.cuda.synchronize()
     wall = time.time() - t
+    # then 50 clusters under the profiler: device kernels a cluster and an
+    # attempt (one seed chosen each; a wrapper that any checkout's engine takes)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    attempts = count_attempts(gen)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        more = [c.medoid for c in itertools.islice(gen, 50)]
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
     return {"ms_per_cluster": wall / len(medoids) * 1e3, "clusters": len(medoids),
             "subset_ball": gen.Q, "subset_counts": gen.subset_counts,
+            "kernels_per_cluster": kernels / len(more), "kernels_per_attempt": kernels / attempts[0],
             "medoids_sha": hashlib.sha256(np.array(medoids).tobytes()).hexdigest()[:16]}
 
 
@@ -764,10 +946,11 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list
     return kernels
 
 
-# -------------------------------------------- density layouts in one call
+# ----------------------------------------------- kernel layouts in one call
 
-# Layout variants of the density kernel: source edits and the matching
-# constants of its plain version (the layout fixes the summation order).
+# Layout variants of the kernels: source edits and the matching constants of
+# the plain versions (a layout can fix a summation order). The first of each
+# kind is the committed source.
 DENSITY_LAYOUTS = {
     "T128 V2 ring4": ([], {}),
     "T128 V2 ring4, chunk loop unrolled": (
@@ -779,14 +962,27 @@ DENSITY_LAYOUTS = {
     "T64 V4 ring4": ([("kDensThreads = 128;", "kDensThreads = 64;"), ("kDensVec = 2;", "kDensVec = 4;")],
                      {"_DENS_THREADS": 64, "_DENS_VEC": 4}),
 }
+GATHER_LAYOUTS = {
+    "1 copy a thread, a CTA per 8 rows": ([], {}),
+    "4 copies a thread, a CTA per 32 rows": ([("kGatherCopies = 1;", "kGatherCopies = 4;")], {}),
+}
+SWEEP_LAYOUTS = {
+    "128 CTAs at most": ([], {}),
+    "256 CTAs at most": ([("kSweepMaxBlocks = 128;", "kSweepMaxBlocks = 256;")],
+                         {"_SWEEP_MAX_BLOCKS": 256}),
+    "512 CTAs at most": ([("kSweepMaxBlocks = 128;", "kSweepMaxBlocks = 512;")],
+                         {"_SWEEP_MAX_BLOCKS": 512}),
+    # diagnostics, not checked against a plain version: where the time goes
+    "diagnostic: no histogram adds": ([("    if (d >= 0.0f && d <= kXmax) {", "    if (false) {")], None),
+    "diagnostic: no last CTA": ([("== gridDim.x - 1;\n  __syncthreads();\n  if (!s_last) return;",
+                                  "== gridDim.x - 1;\n  __syncthreads();\n  return;")], None),
+}
 
 
-def density_layouts() -> int:
-    """Build each layout of `DENSITY_LAYOUTS` (threads a CTA, columns a
-    thread, chunk buffers) beside the committed one and time it at every
-    path width, C = 25, L2 cold, for several candidate-group counts G; each
-    result must equal the plain version computed with the layout's own
-    constants. One JSON line per (width, layout)."""
+def build_layouts(layouts: dict) -> dict:
+    """Build each layout's edited source into its own library, one nvcc
+    each, all started together; log each kernel's registers. Returns
+    {name: (ctypes library, plain-version constants)}."""
     import ctypes
 
     from vamb_torch.kernels import cluster_kernels as CK
@@ -794,36 +990,55 @@ def density_layouts() -> int:
     src = CK._SOURCE.read_text()
     out = ROOT / "vamb_torch" / "kernels" / "_build" / "layouts"
     out.mkdir(parents=True, exist_ok=True)
-    libs = {}
-    for name, (edits, consts) in DENSITY_LAYOUTS.items():
+    procs = {}
+    for name, (edits, _) in layouts.items():
         text = src
         for a, b in edits:
             check(a in text, f"layout {name}: {a!r} not in the source")
             text = text.replace(a, b)
         tag = re.sub(r"\W+", "_", name)
         (out / f"{tag}.cu").write_text(text)
-        proc = subprocess.run([CK._nvcc(), *CK.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / f"{tag}.so"),
-                               str(out / f"{tag}.cu")], capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"layout {name} failed to build: {proc.stderr[-2000:]}")
-        regs = [ln.split(":")[-1].strip() for ln in (proc.stdout + proc.stderr).splitlines() if "Used" in ln]
-        log(f"layout {name}: density kernels (any width, F_pad 32): {regs[:2]}")
-        lib = ctypes.CDLL(str(out / f"{tag}.so"))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.vt_candidate_density.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp]
-        lib.vt_candidate_density.restype = ci
-        libs[name] = (lib, consts)
+        procs[name] = (tag, subprocess.Popen(
+            [CK._nvcc(), *CK.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / f"{tag}.so"), str(out / f"{tag}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (tag, proc) in procs.items():
+        text = proc.communicate(timeout=600)[0]
+        check(proc.returncode == 0, f"layout {name} failed to build: {text[-2000:]}")
+        regs = [ln.split(":")[-1].strip() for ln in text.splitlines() if "Used" in ln]
+        log(f"layout {name}: registers of its kernels {regs}")
+        libs[name] = (ctypes.CDLL(str(out / f"{tag}.so")), layouts[name][1])
+    return libs
 
-    def with_consts(consts, fn):
-        saved = {k: getattr(CK, k) for k in ("_DENS_THREADS", "_DENS_VEC", "_DENS_TILE_COLS")}
-        for k, v in consts.items():
+
+def with_consts(consts: dict, fn):
+    "Run `fn` with the plain versions' layout constants set to `consts`."
+    from vamb_torch.kernels import cluster_kernels as CK
+
+    saved = {k: getattr(CK, k) for k in ("_DENS_THREADS", "_DENS_VEC", "_DENS_TILE_COLS",
+                                         "_SWEEP_MAX_BLOCKS")}
+    for k, v in consts.items():
+        setattr(CK, k, v)
+    CK._DENS_TILE_COLS = CK._DENS_THREADS * CK._DENS_VEC
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
             setattr(CK, k, v)
-        CK._DENS_TILE_COLS = CK._DENS_THREADS * CK._DENS_VEC
-        try:
-            return fn()
-        finally:
-            for k, v in saved.items():
-                setattr(CK, k, v)
 
+
+def density_layouts() -> int:
+    """Time each layout of `DENSITY_LAYOUTS` (threads a CTA, columns a
+    thread, chunk buffers) at every path width, C = 25, L2 cold, for
+    several candidate-group counts G; each result must equal the plain
+    version computed with the layout's own constants. One JSON line per
+    (width, layout)."""
+    import ctypes
+
+    from vamb_torch.kernels import cluster_kernels as CK
+
+    libs = build_layouts(DENSITY_LAYOUTS)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     partials, ticket, sms = CK._density_workspace(dev, stream)
@@ -832,6 +1047,8 @@ def density_layouts() -> int:
         w = torch.as_tensor(weights(n, seed=5), device=dev)
         cand = torch.as_tensor(np.random.default_rng(5).choice(n, MAXSTEPS, replace=False), device=dev)
         for name, (lib, consts) in libs.items():
+            lib.vt_candidate_density.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp]
+            lib.vt_candidate_density.restype = ci
             plain = with_consts(consts, lambda: CK.candidate_density_plain(mT, cand, w))
             b = with_consts(consts, lambda: CK.density_col_blocks(n)[1])
             default_g = CK.density_groups(MAXSTEPS, b, sms)
@@ -854,10 +1071,81 @@ def density_layouts() -> int:
     return 0
 
 
+def gather_and_sweep_layouts() -> int:
+    """Time each layout of `GATHER_LAYOUTS` (`gather_ball` of 64 blocks from
+    300,032 columns) and of `SWEEP_LAYOUTS` (`medoid_sweep` at the widths
+    the main paths give it), L2 cold, each result equal to its plain
+    version (with the layout's own constants); `medoid_sweep` also at a
+    ball's 8,192 columns, where its fixed costs show. One JSON line per
+    (kernel, width, layout)."""
+    import ctypes
+
+    from vamb_torch.kernels import cluster_kernels as CK
+
+    libs = build_layouts({**GATHER_LAYOUTS, **SWEEP_LAYOUTS})
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    n = BIG_PAD
+    mT, w, kept, d0 = ball_inputs(n, dev, seed=6)
+    bids = torch.as_tensor(gather_cases(n, seed=7)[0][0].astype(np.int32), device=dev)
+    expect = CK.gather_ball_plain(mT, bids, BALL_KB, w, kept, d0)
+    for name in GATHER_LAYOUTS:
+        lib = libs[name][0]
+        lib.vt_gather_blocks.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+        lib.vt_gather_blocks.restype = ci
+        got = [torch.empty_like(t) for t in expect]
+
+        def run():
+            err = lib.vt_gather_blocks(mT.data_ptr(), F_PAD, n, bids.data_ptr(), BALL_KB,
+                                       got[0].data_ptr(), BALL_KB, w.data_ptr(), kept.data_ptr(),
+                                       d0.data_ptr(), *(t.data_ptr() for t in got[1:]), stream)
+            check(err == 0, f"layout {name}: launch error {err}")
+        run()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, expect)), f"layout {name}: differs from plain")
+        log(json.dumps({"kernel": "gather_ball", "n_pad": n, "kb": BALL_KB, "layout": name,
+                        "ms": time_ms(run)}))
+    for n in PATH_WIDTHS:
+        mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=5), device=dev)
+        w = torch.as_tensor(weights(n, seed=5), device=dev)
+        for name, (edits, consts) in SWEEP_LAYOUTS.items():
+            lib = libs[name][0]
+            lib.vt_medoid_sweep.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+            lib.vt_medoid_sweep.restype = ci
+            checked = consts is not None
+            consts = consts or {}
+            expect = with_consts(consts, lambda: CK.medoid_sweep_plain(mT, 37, w))
+            blocks = consts.get("_SWEEP_MAX_BLOCKS", CK._SWEEP_MAX_BLOCKS)
+            partials = torch.zeros((blocks, CK._SWEEP_SLOTS), device=dev)
+            close_partials = torch.zeros(blocks, dtype=torch.int32, device=dev)
+            ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+            d = torch.empty(n, device=dev)
+            sums = torch.empty(CK._NBINS + 1, device=dev)
+            n_close = torch.empty((), dtype=torch.int32, device=dev)
+
+            def run():
+                err = lib.vt_medoid_sweep(mT.data_ptr(), F_PAD, n, 37, w.data_ptr(), d.data_ptr(),
+                                          partials.data_ptr(), close_partials.data_ptr(), ticket.data_ptr(),
+                                          sums.data_ptr(), sums.data_ptr() + 4 * CK._NBINS,
+                                          n_close.data_ptr(), stream)
+                check(err == 0, f"layout {name}: launch error {err}")
+            run()
+            torch.cuda.synchronize()
+            got = (d, sums[:CK._NBINS], sums[CK._NBINS], n_close)
+            check(not checked or all(torch.equal(a, b) for a, b in zip(got, expect)),
+                  f"layout {name}, N {n}: differs from its plain version")
+            log(json.dumps({"kernel": "medoid_sweep", "n_pad": n, "layout": name, "checked": checked,
+                            "ctas": with_consts(consts, lambda: CK.sweep_col_blocks(n)[1]),
+                            "ms": time_ms(run)}))
+    print(nvidia_smi_line())
+    return 0
+
+
 # ------------------------------------------------------------------ main
 
 
-def main() -> int:
+def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -884,15 +1172,19 @@ def main() -> int:
     phase_done("2 (kernel checks)")
     timed = time_kernels(dev)
     phase_done("2 (kernel times)")
+    if kernels_only:
+        print(card)
+        return 0
     check_engine(dev)
     phase_done("3 (engine)")
     with tempfile.TemporaryDirectory() as tmp:
         run_100k = run_main_path(dev, Path(tmp), N_CONTIGS, N_GENOMES, 2000,
-                                 ("row_sweep", "candidate_density_sweep"))
+                                 ("candidate_density_sweep", "medoid_sweep"), agreement=True)
     phase_done("4 and 6 (100k path and its profile)")
     with tempfile.TemporaryDirectory() as tmp:
         run_300k = run_main_path(dev, Path(tmp), BIG_CONTIGS, BIG_GENOMES, BIG_CLUSTERS,
-                                 ("row_sweep", "candidate_density_sweep", "gather_blocks"))
+                                 ("row_sweep", "candidate_density_sweep", "gather_blocks",
+                                  "medoid_sweep"))
     phase_done("5 and 6 (300k path and its profile)")
     check(len(run_300k["compactions"]) >= 1, "the 300,000-contig path compacted no time")
     check("wander scope full" in run_300k["compactions"][-1],
@@ -919,4 +1211,6 @@ if __name__ == "__main__":
         sys.exit(engine_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--density-layouts"]:
         sys.exit(density_layouts() if torch.cuda.is_available() else 1)
-    sys.exit(main())
+    if sys.argv[1:2] == ["--layouts"]:
+        sys.exit(gather_and_sweep_layouts() if torch.cuda.is_available() else 1)
+    sys.exit(main(kernels_only=sys.argv[1:2] == ["--kernels"]))

@@ -11,7 +11,11 @@
 * `gather_blocks` / `medoid_sweep` plain versions against the same
   module's interpret-mode kernels: the gather array-equal, medoid_sweep
   with test_pallas.py's tolerances (d atol 2e-7, hist rtol 1e-6, density
-  rtol 1e-5, n_close exact).
+  rtol 1e-5, n_close exact). medoid_sweep's plain version sums in the CUDA
+  kernel's order: held against float64 sums (rtol 1e-6) and, on a case
+  whose f32 sums depend on the order, against a numpy simulation of the
+  order the CUDA source describes. `gather_ball`'s side vectors against
+  `vamb_tpu`'s takes and masks (cluster.py:604-606, 654-656), array-equal.
 * The engine on the CPU against `vamb_tpu.cluster.ClusterGenerator` with
   `compact_async=False`, field by field as tests/test_parity_cluster.py's
   `assert_same_emission` compares: members (in emission order), medoid,
@@ -217,6 +221,138 @@ def test_medoid_sweep_plain_matches_pallas(idx, removed):
     np.testing.assert_allclose(hist.numpy(), np.asarray(hist_j), rtol=1e-6)
     np.testing.assert_allclose(float(dens), float(dens_j), rtol=1e-5)
     assert int(n_close) == int(close_j) and n_close.dtype == torch.int32
+
+
+def _sweep_terms(mT, idx, wts):
+    """numpy f32: the medoid's row (feature-ordered, as the contract) and the
+    (61, N) terms of its 60 histogram bins and its density."""
+    col = mT[:, idx]
+    acc = np.zeros(mT.shape[1], np.float32)
+    for f in range(mT.shape[0]):
+        acc = acc + mT[f] * col[f]
+    d = np.float32(0.5) - acc
+    d[idx] = 0.0
+    pos = wts > 0
+    bins = np.clip((d / np.float32(0.005)).astype(np.int32), 0, 59)
+    in_hist = (d >= 0) & (d <= np.float32(0.3)) & pos
+    terms = np.zeros((61, len(d)), np.float32)
+    terms[bins[in_hist], np.flatnonzero(in_hist)] = wts[in_hist]
+    terms[60] = np.where((d <= np.float32(0.05)) & pos, wts * (np.float32(0.05) - d), 0)
+    return d, terms
+
+
+def _simulated_sweep_order(terms):
+    """Row sums of (R, N) f32 terms in the order medoid_sweep's CUDA note
+    describes, one f32 add at a time (all rows at once): tiles of 256
+    columns (thread tid owns columns 4*tid .. 4*tid+3 of a tile), K =
+    ceil(T/128) tiles a CTA, B = ceil(T/K) CTAs, CTA b taking tiles b, b+B,
+    ...; each thread adds in order from 0, then halving trees over its 64
+    threads and over 128 CTA slots (zeros past B)."""
+    def tree(xs):
+        while len(xs) > 1:
+            h = len(xs) // 2
+            xs = [xs[i] + xs[i + h] for i in range(h)]
+        return xs[0]
+
+    r, n = terms.shape
+    tiles = -(-n // 256)
+    k = -(-tiles // 128)
+    b_count = -(-tiles // k)
+    ctas = []
+    for b in range(b_count):
+        threads = []
+        for tid in range(64):
+            acc = np.zeros(r, np.float32)
+            for t in range(b, tiles, b_count):
+                for v in range(4):
+                    col = t * 256 + 4 * tid + v
+                    if col < n:
+                        acc = acc + terms[:, col]
+            threads.append(acc)
+        ctas.append(tree(threads))
+    return tree(ctas + [np.zeros(r, np.float32)] * (128 - b_count))
+
+
+@pytest.mark.parametrize("n", [4 * 256 + 100, 70_000])
+def test_medoid_sweep_plain_sums_in_the_kernels_order(n):
+    """A constructed case whose f32 sums depend on the order: columns on a
+    circle through the medoid at distances spread over every bin and past
+    0.3, weights of 1e9 among small ones. The plain version's histogram and
+    density must be the bits of the order the CUDA source describes, which
+    differ from left-to-right sums (70,000 columns: three tiles a CTA)."""
+    rng = np.random.default_rng(n)
+    d_target = rng.uniform(0.0, 0.4, n).astype(np.float64)
+    a = (0.5 - d_target) / np.sqrt(0.5)  # medoid (sqrt(.5), 0): d = 0.5 - sqrt(.5) a
+    mT = np.zeros((8, n), np.float32)
+    mT[0] = a
+    mT[1] = np.sqrt(np.maximum(0.5 - a * a, 0.0))
+    mT[:, 0] = (np.sqrt(0.5), 0.0, 0, 0, 0, 0, 0, 0)
+    wts = rng.integers(1, 1000, n).astype(np.float32)
+    wts[rng.choice(n, 40, replace=False)] = 1e9
+    wts[rng.random(n) < 0.1] = 0.0
+    d, terms = _sweep_terms(mT, 0, wts)
+    got_d, hist, dens, n_close = K.medoid_sweep_plain(torch.from_numpy(mT), 0, torch.from_numpy(wts))
+    np.testing.assert_array_equal(got_d.numpy(), d)
+    got = np.concatenate([hist.numpy(), [float(dens)]]).astype(np.float32)
+    np.testing.assert_array_equal(got, _simulated_sweep_order(terms))
+    assert int(n_close) == int(((d < np.float32(0.05)) & (wts > 0)).sum())
+    assert (hist.numpy() > 0).sum() == 60
+    left_to_right = np.cumsum(terms, axis=1, dtype=np.float32)[:, -1]
+    assert not np.array_equal(got, left_to_right)
+
+
+@pytest.mark.parametrize("n", [1_000, 5 * 256 + 3, 140_000])
+@pytest.mark.parametrize("zero_half", [False, True])
+def test_medoid_sweep_plain_sums_accurately(n, zero_half):
+    """The ordered plain version against float64 sums of the same f32
+    terms (rtol 1e-6), at widths that pad the tile layout, span several
+    CTAs and (140,000: 547 tiles) give a CTA five tiles; its row
+    equal to `row_sweep`'s; all and half the weights."""
+    mT, lengths = _clumpy_data(n, seed=n)
+    wts = lengths.astype(np.float32)
+    if zero_half:
+        wts[np.random.default_rng(n).permutation(n)[: n // 2]] = 0.0
+    idx = n // 3
+    d, terms = _sweep_terms(mT, idx, wts)
+    got_d, hist, dens, n_close = K.medoid_sweep_plain(torch.from_numpy(mT), idx,
+                                                      torch.from_numpy(wts))
+    np.testing.assert_array_equal(got_d.numpy(), K.row_sweep(torch.from_numpy(mT), idx).numpy())
+    expect = terms.astype(np.float64).sum(axis=1)
+    assert expect[60] > 0 and (expect[:60] > 0).sum() >= 3
+    np.testing.assert_allclose(hist.numpy(), expect[:60], rtol=1e-6)
+    np.testing.assert_allclose(float(dens), expect[60], rtol=1e-6)
+    assert int(n_close) == int(((d < np.float32(0.05)) & (wts > 0)).sum())
+
+
+@pytest.mark.parametrize("nb,kb", [(4, 4), (3, 8), (1, 64), (40, 64)])
+def test_gather_ball_plain_matches_vamb_tpu(nb, kb):
+    """The ball and its side vectors against vamb_tpu's subset gather: the
+    Pallas kernel (interpret mode) for the matrix, its takes of lengths,
+    kept and d0 and the masks of slots past nb blocks (cluster.py:603-606,
+    654-656), and the slot -> column ids; padding slots gather block 0."""
+    rng = np.random.default_rng(nb * 100 + kb)
+    f_pad, n_blocks = 32, 96
+    n_pad = n_blocks * 128
+    mT = rng.normal(size=(f_pad, n_pad)).astype(np.float32)
+    lengths = rng.integers(2000, 50_000, n_pad).astype(np.float32)
+    kept = rng.random(n_pad) < 0.8
+    d0 = rng.random(n_pad).astype(np.float32)
+    bids = np.zeros(kb, np.int32)
+    bids[:nb] = np.sort(rng.choice(n_blocks, nb, replace=False))
+    xs_j = np.asarray(P.gather_blocks(jnp.asarray(mT), jnp.asarray(bids), block=128,
+                                      interpret=True))
+    take = lambda v: np.asarray(jnp.take(jnp.asarray(v).reshape(n_blocks, 128),  # noqa: E731
+                                         jnp.asarray(bids), axis=0)).reshape(-1)
+    valid = np.repeat(np.arange(kb) < nb, 128)
+    idx_j = (bids[:, None] * 128 + np.arange(128)[None, :]).reshape(-1)
+    xs, cols, kept_s, w_s, d0_s = K.gather_ball(
+        torch.from_numpy(mT), torch.from_numpy(bids), nb, torch.from_numpy(lengths),
+        torch.from_numpy(kept), torch.from_numpy(d0))
+    np.testing.assert_array_equal(xs.numpy(), xs_j)
+    np.testing.assert_array_equal(cols.numpy(), idx_j)
+    np.testing.assert_array_equal(kept_s.numpy(), valid & take(kept))
+    np.testing.assert_array_equal(w_s.numpy(), np.where(valid, take(lengths), 0.0))
+    np.testing.assert_array_equal(d0_s.numpy(), np.where(valid, take(d0), np.inf))
 
 
 def test_wrappers_reject_bad_inputs():

@@ -9,11 +9,13 @@ Without a card each test skips: a CUDA kernel has no CPU mode. Tolerances
 are chip_smoke.py's: `row_sweep` and `candidate_density_sweep` equal their
 plain versions bit for bit (the same products added in the same order, and
 the plain density sum reproduces the kernel's summation order), d[idx] ==
-0.0 exactly; medoid_sweep's row equal to row_sweep's, its histogram and
-density rtol 1e-5 (it sums in another order than its plain version), its
-close count exact; the gather array-equal. The widths are every width the
-main paths give the kernels (a subset ball's 8,192; 100,096-wide paths;
-300,032 and, after compaction, 150,016) and an unaligned one.
+0.0 exactly; medoid_sweep's row, histogram, density and close count equal
+to its plain version's (`torch.equal`: the plain version sums in the
+kernel's order) and its row to row_sweep's; the gather and its side
+vectors array-equal. The widths are every width the main paths give the
+kernels (a subset ball's 8,192; 100,096-wide paths; 300,032 and, after
+compaction, 150,016) and an unaligned one. The one-pass kernels are one
+device kernel a call.
 """
 
 import numpy as np
@@ -121,7 +123,44 @@ def test_gather_blocks_matches_plain(cuda, n_pad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [100_000, 300_032])
+@pytest.mark.parametrize("n_pad", [128 * 64, 300_032])
+def test_gather_ball_matches_plain(cuda, n_pad):
+    """The ball and its side vectors from one launch, against index_select
+    plus the masks: all slots valid, padding slots past nb (gathering block
+    0 again), and repeated ids."""
+    rng = np.random.default_rng(n_pad + 1)
+    mT = torch.as_tensor(rng.normal(size=(32, n_pad)).astype(np.float32), device=cuda)
+    w = torch.as_tensor(rng.integers(2000, 50_000, n_pad).astype(np.float32), device=cuda)
+    kept = torch.as_tensor(rng.random(n_pad) < 0.8, device=cuda)
+    d0 = torch.as_tensor(rng.random(n_pad).astype(np.float32), device=cuda)
+    blocks = n_pad // 128
+    picked = np.sort(rng.choice(blocks, 40, replace=False))
+    for ids, nb in ((np.sort(rng.choice(blocks, 64, replace=False)), 64),
+                    (np.concatenate([picked, np.zeros(24, np.int64)]), 40),
+                    (np.array([5, 0, 0, blocks - 1]), 3)):
+        bids = torch.as_tensor(ids.astype(np.int32), device=cuda)
+        got = K.gather_ball(mT, bids, nb, w, kept, d0)
+        expect = K.gather_ball_plain(mT, bids, nb, w, kept, d0)
+        for name, a, b in zip(("xsT", "cols", "kept", "w", "d0"), got, expect):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, nb)
+
+
+def _one_launch(cuda, fn) -> list:
+    "The device kernels of 3 calls of `fn` after a first one (build, workspace)."
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100_000, 100_003, 100_096, 150_016, 300_032])
 @pytest.mark.parametrize("zero_half", [False, True])
 def test_medoid_sweep_matches_plain(cuda, n, zero_half):
     mT_np, lengths = _clumpy(n, 32, seed=n)
@@ -130,10 +169,41 @@ def test_medoid_sweep_matches_plain(cuda, n, zero_half):
     mT = torch.as_tensor(mT_np, device=cuda)
     w = torch.as_tensor(lengths, device=cuda)
     for idx in (0, 37, n - 1):
-        d, hist, dens, n_close = K.medoid_sweep(mT, idx, w)
-        d_p, hist_p, dens_p, close_p = K.medoid_sweep_plain(mT, idx, w)
-        assert torch.equal(d, K.row_sweep(mT, idx)) and float(d[idx]) == 0.0
-        torch.testing.assert_close(d, d_p, atol=1e-6, rtol=0)
-        torch.testing.assert_close(hist, hist_p, rtol=1e-5, atol=0)
-        torch.testing.assert_close(dens, dens_p, rtol=1e-5, atol=0)
-        assert int(n_close) == int(close_p)
+        got = K.medoid_sweep(mT, idx, w)
+        expect = K.medoid_sweep_plain(mT, idx, w)
+        assert torch.equal(got[0], K.row_sweep(mT, idx)) and float(got[0][idx]) == 0.0
+        for name, a, b in zip(("d", "hist", "density", "n_close"), got, expect):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, idx, a, b)
+
+
+@pytest.mark.cuda
+def test_medoid_sweep_other_feature_width(cuda):
+    "F_pad 40 takes the generic loads: the same order, still bit-identical."
+    mT_np, lengths = _clumpy(10_000, 40, seed=5)
+    mT = torch.as_tensor(mT_np, device=cuda)
+    w = torch.as_tensor(lengths, device=cuda)
+    for a, b in zip(K.medoid_sweep(mT, 17, w), K.medoid_sweep_plain(mT, 17, w)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_medoid_sweep_is_one_launch(cuda):
+    "One device kernel a call: the ticket's last CTA sums the partial rows."
+    mT_np, lengths = _clumpy(300_032, 32, seed=6)
+    mT = torch.as_tensor(mT_np, device=cuda)
+    w = torch.as_tensor(lengths, device=cuda)
+    kernels = _one_launch(cuda, lambda: K.medoid_sweep(mT, 11, w))
+    assert len(kernels) == 3, kernels
+
+
+@pytest.mark.cuda
+def test_gather_ball_is_one_launch(cuda):
+    "The ball and its four side vectors come from one device kernel."
+    n_pad = 300_032
+    rng = np.random.default_rng(7)
+    mT = torch.as_tensor(rng.normal(size=(32, n_pad)).astype(np.float32), device=cuda)
+    w = torch.ones(n_pad, device=cuda)
+    kept = torch.ones(n_pad, dtype=torch.bool, device=cuda)
+    bids = torch.arange(0, 640, 10, dtype=torch.int32, device=cuda)
+    kernels = _one_launch(cuda, lambda: K.gather_ball(mT, bids, 50, w, kept, w))
+    assert len(kernels) == 3, kernels

@@ -5,10 +5,11 @@ jax.random, for the calls the clustering engine and VAE training make.
   equal): PRNGKey(seed) and key(seed), split(key, num), fold_in,
   bits(key, shape, uint32) and its little-endian byte view, uniform(key,
   (n,)) float32 and permutation(key, n).
-* normal(key, (n,)) float32 (`normal_batched`) within 3 ulps: the erfinv
-  polynomial is XLA's, but `log1p` inside it is torch's, not XLA's CPU
-  one. Measured here: at most 3 ulps over 1,000,000 draws, with 4.7% of
-  values off by one ulp or more (and never a sign).
+* normal(key, (n,)) float32 (`normal_batched`), its erfinv polynomial and
+  the `log` / `log1p` of XLA's CPU code (`log_xla`, `log1p_xla`), bit for
+  bit: over 1,000,000 draws, and for the logs over every mantissa at a few
+  exponents, a stride of mantissas at every exponent, and 0, denormals, 1,
+  inf and nan (compared as int32 bit patterns, so NaN payloads count too).
 
 Seeds cover the CLI's range (`--seed` draws 7 random bytes, so up to
 2**56 - 1), both sides of the 32-bit boundaries and the seeds the parity
@@ -102,21 +103,20 @@ def test_permutation(n):
                           threefry.permutation(kt, n).numpy())
 
 
-def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32))
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, np.float32).view(np.int32)
 
 
 def test_normal_within_three_ulps():
+    "Bit for bit now: 1,000,000 draws of `normal` from ten folded keys."
     kj, kt = jax.random.key(41), threefry.key(41)
-    worst = 0
     draws = threefry.normal_batched(torch.stack([threefry.fold_in(kt, s) for s in range(10)]),
                                     100_000)
     for s in range(10):
         a = np.asarray(jax.random.normal(jax.random.fold_in(kj, s), (100_000,)))
         b = draws[s].numpy()
-        assert b.dtype == np.float32 and (np.sign(a) == np.sign(b)).all()
-        worst = max(worst, int(_ulps(a, b).max()))
-    assert worst <= 3, worst
+        assert b.dtype == np.float32
+        np.testing.assert_array_equal(_bits(b), _bits(a), err_msg=f"key {s}")
 
 
 def test_normal_batched_rows_are_single_draws():
@@ -128,7 +128,45 @@ def test_normal_batched_rows_are_single_draws():
 
 
 def test_erfinv_polynomial_within_three_ulps():
+    "Bit for bit now, both branches of the polynomial (w < 5 and w >= 5)."
     x = np.linspace(-0.9999999, 0.9999999, 200_001, dtype=np.float32)
     a = np.asarray(jax.lax.erf_inv(jnp.asarray(x)))
     b = threefry.erfinv_xla(torch.from_numpy(x)).numpy()
-    assert int(_ulps(a, b).max()) <= 3
+    np.testing.assert_array_equal(_bits(b), _bits(a))
+
+
+_LOGS = {"log": (jnp.log, threefry.log_xla), "log1p": (jnp.log1p, threefry.log1p_xla)}
+_SPECIALS = np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, -np.nan, 1e-40, -1e-40,
+                      1.4e-45, -1.4e-45, 1.1754942e-38, 1.1754944e-38, -1.1754944e-38, 0.5,
+                      -0.5, 2.0, 3.4028235e38, -3.4028235e38, 0.41421357, -0.41421357,
+                      0.41421354, -0.29289323, 0.70710677, -0.99999994], np.float32)
+
+
+def _assert_same_log(name: str, x: np.ndarray) -> None:
+    jfn, tfn = _LOGS[name]
+    expect = np.asarray(jax.jit(jfn)(x))
+    got = tfn(torch.from_numpy(x)).numpy()
+    bad = np.flatnonzero(_bits(got) != _bits(expect))
+    assert len(bad) == 0, (name, len(bad), x[bad[:5]], expect[bad[:5]], got[bad[:5]])
+
+
+@pytest.mark.parametrize("name", list(_LOGS))
+@pytest.mark.parametrize("sign,exponent", [(0, 125), (0, 126), (1, 126)])
+def test_log_xla_every_mantissa(name, sign, exponent):
+    """Every one of the 2^23 mantissas at a biased exponent: [0.25, 0.5)
+    holds log1p's switch between its two formulas at sqrt(2) - 1, [0.5, 1)
+    the log's fold at sqrt(1/2), and [-1, -0.5) log1p's steep end."""
+    m = np.arange(1 << 23, dtype=np.uint32)
+    _assert_same_log(name, ((np.uint32(sign) << 31) | (np.uint32(exponent) << 23) | m)
+                     .view(np.float32))
+
+
+@pytest.mark.parametrize("name", list(_LOGS))
+def test_log_xla_every_exponent_and_specials(name):
+    """A stride of 2,047 mantissas at every exponent and sign (denormals,
+    inf and nan payloads included), and the edge values."""
+    m = np.arange(0, 1 << 23, 4099, dtype=np.uint32)
+    e = np.arange(256, dtype=np.uint32)
+    words = (e[:, None] << 23) | m[None, :]
+    words = np.concatenate([words, words | np.uint32(1 << 31)]).ravel()
+    _assert_same_log(name, np.concatenate([words.view(np.float32), _SPECIALS]))

@@ -19,11 +19,17 @@ Structure. `vamb_tpu` fuses K clusters into one `lax.while_loop`. Here the
 host drives the attempts, transcribing the sequential control flow of
 `tests/oracle_cluster.SequentialOracle` (proven emission-identical to that
 engine by tests/test_parity_cluster.py), and the numeric steps run on the
-device: seed rows and the medoid's row (`kernels.row_sweep`), the
-per-step Gumbel top-k over the threefry stream, candidate densities
-(`kernels.candidate_density_sweep`), the subset wander's ball gather
-(`kernels.gather_blocks`), the histogram, the banded smoothing product and
-the valley scan.
+device: the seed's and each new medoid's row with its histogram, density
+and close count in one sweep (`kernels.medoid_sweep`), the per-step Gumbel
+top-k over the threefry stream, candidate densities
+(`kernels.candidate_density_sweep`), the subset wander's ball and its
+per-slot vectors in one gather (`kernels.gather_ball`), rows inside the
+ball (`kernels.row_sweep`), the banded smoothing product and the valley
+scan. The attempt's sums (histogram, close count, the seed's density) come
+from `medoid_sweep` in an order fixed by the width, which its plain version
+reproduces, so the engine decides alike on the card and on the CPU. That
+kernel counts a column as kept where its weight is > 0, so contig lengths
+must be positive, as they are.
 
 It reproduces `vamb_tpu`'s `ClusterGenerator` run with
 `compact_async=False`, scope and compaction included:
@@ -43,8 +49,9 @@ It reproduces `vamb_tpu`'s `ClusterGenerator` run with
 The speculative seed cache, loner bursts and attempt lanes of `vamb_tpu`
 change no decision (oracle_cluster.py:301-305), so they are left out
 (ROADMAP queue 1, item 4). Subset-wander attempts take the final row from
-`row_sweep`, not from `vamb_tpu`'s batched einsum: distances that differ
-in the last ulp, the divergence class the full path already has.
+`medoid_sweep` (`row_sweep`'s arithmetic), not from `vamb_tpu`'s batched
+einsum: distances that differ in the last ulp, the divergence class the
+full path already has.
 
 Random stream. Columns are padded to a multiple of 128 on every device
 and the candidate Gumbel draws span the padded width (or the ball), with
@@ -61,7 +68,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .kernels import candidate_density_sweep, gather_blocks, row_sweep
+from .kernels import candidate_density_sweep, gather_ball, medoid_sweep, row_sweep
 from .log import logger
 from .utils import threefry
 
@@ -258,16 +265,6 @@ def find_threshold(hist: torch.Tensor, pvr: float):
     found = (~dead) & (thr >= 0.0) & (thr <= 0.2 + pvr_t)
     observed_pvr = dam / torch.clamp_min(peak, 1e-30)
     return thr, observed_pvr, found
-
-
-def histogram(d: torch.Tensor, lengths: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
-    """Length-weighted 60-bin histogram of kept distances in [0, 0.3], as a
-    compare-and-reduce (a deterministic sum; no atomics)."""
-    bins = torch.clamp((d / _DELTA_X).to(torch.int32), 0, _NBINS - 1)
-    w = torch.where((d >= 0.0) & (d <= _XMAX) & kept, lengths, 0.0)
-    sel = torch.nonzero(w).squeeze(1)
-    onehot = bins[sel, None] == torch.arange(_NBINS, device=d.device)[None, :]
-    return torch.where(onehot, w[sel, None], 0.0).sum(dim=0)
 
 
 class ClusterGenerator:
@@ -498,50 +495,54 @@ class ClusterGenerator:
         cand = torch.topk(score, self.C, sorted=True).indices
         return key, cand, elig[cand], candidate_density_sweep(matrixT, cand, wk)
 
-    def _climb(self, medoid: int, d, density, tried, key):
+    def _climb(self, medoid: int, sweep, density, tried, key, wk):
         """First-improvement hill climb over all columns (ref :415-450) from
         any state: each step samples up to C eligible untried points, jumps
         to the first (in sampled order) that beats the current density and
-        takes the new medoid's row from `row_sweep`. Returns (medoid, d)."""
+        takes the new medoid's row and sums from `medoid_sweep`. `sweep` is
+        the current medoid's (d, hist, density, n_close). Returns (medoid,
+        sweep)."""
         kept_t = self.kept_t
-        wk = torch.where(kept_t, self.lengths, 0.0)  # kept is frozen per attempt
         while True:
             key, cand, cand_valid, dens = self._step(
-                key, d, kept_t, tried, medoid, self.n_pad, self.matrixT, wk)
+                key, sweep[0], kept_t, tried, medoid, self.n_pad, self.matrixT, wk)
             better = cand_valid & (dens > density)
             # one host sync per step: which candidate (if any) won
             better_h = better.cpu().numpy()
             if not better_h.any():
-                return medoid, d
+                return medoid, sweep
             j = int(np.argmax(better_h))
             tried[cand[: j + 1]] = True
             medoid = int(cand[j])
-            d = row_sweep(self.matrixT, medoid)
+            sweep = medoid_sweep(self.matrixT, medoid, wk)
             density = dens[j]
 
-    def _wander(self, seed: int, d0, key):
-        "The full-scope wander (cluster.py:850-858). Returns (medoid, d)."
+    def _wander(self, seed: int, sweep, wk, key):
+        """The full-scope wander (cluster.py:850-858) from the seed's sweep.
+        Returns (medoid, its sweep)."""
+        d0, _, density, _ = sweep
         tried = torch.zeros(self.n_pad, dtype=torch.bool, device=self.device)
         tried[seed] = True
-        near = (d0 <= _MEDOID_RADIUS) & self.kept_t
-        density = torch.where(near, self.lengths * (_MEDOID_RADIUS - d0), 0.0).sum()
-        if int((near & ~tried).sum()) == 0:
-            return seed, d0
-        return self._climb(seed, d0, density, tried, key)
+        if int(((d0 <= _MEDOID_RADIUS) & self.kept_t & ~tried).sum()) == 0:
+            return seed, sweep
+        return self._climb(seed, sweep, density, tried, key, wk)
 
-    def _wander_subset(self, seed: int, d0, key):
+    def _wander_subset(self, seed: int, sweep, wk, key):
         """The two-phase subset wander (cluster.py:555-748, 860-935;
         oracle_cluster.py:473-561). Phase 1 climbs inside the seed's ball:
         the first KB = Q/128 blocks (ascending) holding a kept column within
-        0.15 of the seed, gathered by `gather_blocks`, each step's draw a
-        Q-wide uniform and its densities a `candidate_density_sweep` over
-        the ball. Phase 2, the full climb with `tried` and the density
-        carried over, runs if the ball overflowed or the medoid drifted past
-        `_SUBSET_ABORT` from the seed. Returns (medoid, d)."""
+        0.15 of the seed, gathered with their per-slot vectors by
+        `gather_ball`, each step's draw a Q-wide uniform and its densities a
+        `candidate_density_sweep` over the ball. Phase 2, the full climb
+        with `tried` and the density carried over, runs if the ball
+        overflowed or the medoid drifted past `_SUBSET_ABORT` from the seed.
+        The seed's density is its sweep's: every column within 0.05 of the
+        seed lies in a flagged block. Returns (medoid, its sweep)."""
         B = _SUBSET_BLOCK
         Q, nblk = self.Q, self.n_pad // B
         kb = Q // B
-        kept_t, lengths, dev = self.kept_t, self.lengths, self.device
+        kept_t, dev = self.kept_t, self.device
+        d0, _, density, _ = sweep
         near = (d0 <= _MEDOID_RADIUS) & kept_t
         block_any = (kept_t & (d0 <= _SUBSET_RADIUS)).view(nblk, B).any(dim=1)
         # one host sync: neighbours to climb to, flagged blocks, and flagged
@@ -550,30 +551,18 @@ class ClusterGenerator:
             (near & (self.iota != seed)).sum(), block_any.sum(), block_any[: seed // B].sum()
         ]).tolist()
         if n_near == 0:
-            return seed, d0
+            return seed, sweep
         self.subset_counts["attempts"] += 1
         medoid = seed
         if nb <= kb:
             # the flagged block ids, ascending, built on the card with no
             # host sync: block b goes to slot (flagged blocks up to b) - 1;
             # unflagged blocks land in a spare slot kb that is cut off, and
-            # the ball's padding slots gather block 0 and are masked below
+            # the ball's padding slots gather block 0, masked by the gather
             dest = torch.where(block_any, torch.cumsum(block_any, 0) - 1, kb)
             bids = torch.zeros(kb + 1, dtype=torch.int32, device=dev)
             bids.scatter_(0, dest, torch.arange(nblk, dtype=torch.int32, device=dev))
-            bids = bids[:kb]
-            xsT = gather_blocks(self.matrixT, bids)
-            cols = self.iota.view(nblk, B).index_select(0, bids).reshape(-1)  # slot -> column
-            tail = slice(nb * B, None)  # slots of padding blocks
-            kept_s = kept_t.view(nblk, B).index_select(0, bids).reshape(-1)
-            kept_s[tail] = False
-            w_s = lengths.view(nblk, B).index_select(0, bids).reshape(-1)
-            w_s[tail] = 0.0
-            d0_s = d0.view(nblk, B).index_select(0, bids).reshape(-1)
-            d0_s[tail] = torch.inf
-            wk_s = torch.where(kept_s, w_s, 0.0)
-            density = torch.where((d0_s <= _MEDOID_RADIUS) & kept_s,
-                                  w_s * (_MEDOID_RADIUS - d0_s), 0.0).sum()
+            xsT, cols, kept_s, wk_s, d0_s = gather_ball(self.matrixT, bids[:kb], nb, wk, kept_t, d0)
             slot = before * B + seed % B
             tried_s = torch.zeros(Q, dtype=torch.bool, device=dev)
             tried_s[slot] = True
@@ -599,8 +588,7 @@ class ClusterGenerator:
                     drifted = True
                     break
             if not drifted:
-                d = d0 if medoid == seed else row_sweep(self.matrixT, medoid)
-                return medoid, d
+                return medoid, sweep if medoid == seed else medoid_sweep(self.matrixT, medoid, wk)
             self.subset_counts["drift"] += 1
             tried = torch.zeros(self.n_pad, dtype=torch.bool, device=dev)
             tried[cols[: nb * B]] = tried_s[: nb * B]
@@ -608,9 +596,9 @@ class ClusterGenerator:
             self.subset_counts["overflow"] += 1
             tried = torch.zeros(self.n_pad, dtype=torch.bool, device=dev)
             tried[seed] = True
-            density = torch.where(near, lengths * (_MEDOID_RADIUS - d0), 0.0).sum()
-        d_init = d0 if medoid == seed else row_sweep(self.matrixT, medoid)
-        return self._climb(medoid, d_init, density, tried, key)
+        if medoid != seed:
+            sweep = medoid_sweep(self.matrixT, medoid, wk)
+        return self._climb(medoid, sweep, density, tried, key, wk)
 
     def __next__(self) -> Cluster:
         if self.n_remaining == 0:
@@ -620,16 +608,15 @@ class ClusterGenerator:
         while True:
             seed, seed_rank = self._next_seed()
             self.order_pos = seed_rank + 1
-            d0 = row_sweep(self.matrixT, seed)
+            wk = torch.where(self.kept_t, self.lengths, 0.0)  # kept is frozen per attempt
+            sweep = medoid_sweep(self.matrixT, seed, wk)
             self.key, sub = threefry.split(self.key)
             if self.Q:
-                medoid, d = self._wander_subset(seed, d0, sub)
+                medoid, sweep = self._wander_subset(seed, sweep, wk, sub)
             else:
-                medoid, d = self._wander(seed, d0, sub)
+                medoid, sweep = self._wander(seed, sweep, wk, sub)
 
-            kept_t = self.kept_t
-            n_close_t = ((d < _MEDOID_RADIUS) & kept_t).sum()
-            hist = histogram(d, self.lengths, kept_t)
+            d, hist, _, n_close_t = sweep
             thr_t, opvr_t, found_t = find_threshold(hist, float(self.pvr))
             # one host sync for the attempt's decision
             n_close, thr, opvr, found = torch.stack(

@@ -5,6 +5,8 @@ from .cluster_kernels import (  # noqa: F401
     build,
     candidate_density_plain,
     candidate_density_sweep,
+    gather_ball,
+    gather_ball_plain,
     gather_blocks,
     gather_blocks_plain,
     medoid_sweep,

@@ -22,11 +22,17 @@ what its design does about it):
   for bit and the engine decides alike on the card and on the CPU;
 * `gather_blocks(matrixT, bids)` replaces `gather_blocks` there: the
   subset wander's ball, KB blocks of 128 columns copied by device-resident
-  block id;
+  block id, in a CTA per (block, 8 feature rows). Its sibling
+  `gather_ball(matrixT, bids, nb, w, kept, d0)` runs the same kernel and
+  launch, which also gathers each slot's column id, weight, kept flag and
+  seed distance, masked past nb blocks;
 * `medoid_sweep(matrixT, idx, wts)` replaces `medoid_sweep` there: one
   medoid's distance row with its 60-bin histogram, density and close count
-  in one pass. As in `vamb_tpu` no engine path calls it (its path is the
-  attempt-payload A/B of bench.py:884-954).
+  in one pass and one launch, the attempt's whole payload. A thread keeps
+  a private histogram row in shared memory; the sums follow an order that
+  depends on N_pad alone, which `sweep_ordered_sum` reproduces, so kernel
+  and plain version agree bit for bit. The engine takes the seed's and each
+  new medoid's row and sums from it.
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
 PyTorch version beside it only for a CPU tensor. It counts its launches in
@@ -52,10 +58,12 @@ _DENS_VEC = 2  # kDensVec: neighbouring columns a thread owns in a tile
 _DENS_TILE_COLS = _DENS_THREADS * _DENS_VEC  # kDensTileCols
 _DENS_MAX_BLOCKS = 256  # kDensMaxBlocks: the width of the last CTA's tree
 _DENS_TILE = 16  # kDensTile: most candidates in one CTA's register tile
-_SWEEP_MAX_BLOCKS = 1024  # medoid_sweep's pass-1 grid cap
 _BLOCK = 128  # kBlockCols: the subset wander's block width
-_SWEEP_THREADS = 256  # kSweepThreads
-_SWEEP_SLOTS = 64  # kSweepSlots
+_SWEEP_THREADS = 64  # kSweepThreads: medoid_sweep's threads a CTA
+_SWEEP_VEC = 4  # kSweepVec: neighbouring columns a thread owns in a tile
+_SWEEP_TILE_COLS = _SWEEP_THREADS * _SWEEP_VEC
+_SWEEP_MAX_BLOCKS = 128  # kSweepMaxBlocks: the width of the last CTA's tree
+_SWEEP_SLOTS = 64  # kSweepSlots: a CTA's partial row
 _NBINS = 60
 _DELTA_X = 0.005
 _XMAX = 0.3
@@ -117,20 +125,23 @@ def _load():
             lib.vt_row_sweep.restype = ci
             lib.vt_candidate_density.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp]
             lib.vt_candidate_density.restype = ci
-            lib.vt_gather_blocks.argtypes = [vp, ci, ci, vp, ci, vp, vp]
+            lib.vt_gather_blocks.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp, vp, vp, vp, vp, vp,
+                                             vp, vp]
             lib.vt_gather_blocks.restype = ci
-            lib.vt_medoid_sweep.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp]
+            lib.vt_medoid_sweep.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
             lib.vt_medoid_sweep.restype = ci
             consts = (lib.vt_max_candidates, lib.vt_density_threads, lib.vt_density_tile_cols,
                       lib.vt_density_max_blocks, lib.vt_density_tile, lib.vt_sweep_threads,
-                      lib.vt_sweep_slots)
+                      lib.vt_sweep_vec, lib.vt_sweep_max_blocks, lib.vt_sweep_slots,
+                      lib.vt_block_cols)
             for fn in consts:
                 fn.argtypes, fn.restype = [], ci
             # the scratch shapes, grid sizes and the plain versions' sum order
             # below assume the source's constants
             if tuple(fn() for fn in consts) != (_MAX_CAND, _DENS_THREADS, _DENS_TILE_COLS,
                                                 _DENS_MAX_BLOCKS, _DENS_TILE, _SWEEP_THREADS,
-                                                _SWEEP_SLOTS):
+                                                _SWEEP_VEC, _SWEEP_MAX_BLOCKS, _SWEEP_SLOTS,
+                                                _BLOCK):
                 raise RuntimeError(f"{_SOURCE.name} and {__name__} disagree on its constants")
             _lib = lib
     return _lib
@@ -342,6 +353,64 @@ def gather_blocks_plain(matrixT: torch.Tensor, bids: torch.Tensor) -> torch.Tens
     return matrixT.view(f_pad, n_pad // _BLOCK, _BLOCK).index_select(1, bids).reshape(f_pad, -1)
 
 
+def gather_ball_plain(matrixT, bids, nb: int, w, kept, d0):
+    """Plain version of `gather_ball`: `gather_blocks_plain`, then the takes
+    and masks of vamb_tpu/cluster.py:604-606 and 654-656 (slots past nb
+    blocks: weight 0, not kept, d0 inf) and each slot's column id."""
+    blocks = lambda v: v.view(-1, _BLOCK).index_select(0, bids).reshape(-1)  # noqa: E731
+    lane = torch.arange(_BLOCK, dtype=torch.int32, device=bids.device)
+    cols = (bids.to(torch.int32)[:, None] * _BLOCK + lane[None, :]).reshape(-1)
+    valid = (torch.arange(len(bids), device=bids.device) < nb).repeat_interleave(_BLOCK)
+    return (gather_blocks_plain(matrixT, bids), cols, blocks(kept) & valid,
+            torch.where(valid, blocks(w), 0.0), torch.where(valid, blocks(d0), torch.inf))
+
+
+def _check_gather(matrixT: torch.Tensor, bids: torch.Tensor) -> None:
+    _check_matrix(matrixT)
+    if matrixT.shape[1] % _BLOCK:
+        raise ValueError(f"N_pad {matrixT.shape[1]} is not a multiple of {_BLOCK}")
+    if bids.dim() != 1 or bids.shape[0] < 1:
+        raise ValueError("bids must be a non-empty 1-D tensor")
+    if matrixT.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gather_blocks runs on cuda or cpu, not {matrixT.device}")
+
+
+def _gather_launch(matrixT, bids, side=None):
+    """One launch of the gather kernel: the (F_pad, KB * 128) ball and, given
+    `side` = (nb, w, kept, d0), the slots' ids, flags, weights and seed
+    distances."""
+    if bids.device != matrixT.device:
+        raise ValueError("matrixT and bids must be on one device")
+    if matrixT.data_ptr() % 16:
+        raise ValueError("matrixT must be 16-byte aligned for the vector loads")
+    lib = _load()
+    dev = matrixT.device
+    f_pad, n_pad = matrixT.shape
+    kb = int(bids.shape[0])
+    bids32 = bids.to(torch.int32).contiguous()
+    out = torch.empty((f_pad, kb * _BLOCK), dtype=torch.float32, device=dev)
+    ptrs, outs = [0] * 8, ()
+    if side is not None:
+        nb, w, kept, d0 = side
+        if any(v.shape != (n_pad,) or v.device != dev for v in (w, kept, d0)):
+            raise ValueError("w, kept and d0 must be (N_pad,) tensors on matrixT's device")
+        if w.dtype != torch.float32 or d0.dtype != torch.float32 or kept.dtype != torch.bool:
+            raise ValueError("w and d0 must be float32 and kept bool")
+        w, kept, d0 = w.contiguous(), kept.contiguous(), d0.contiguous()
+        q = kb * _BLOCK
+        outs = (torch.empty(q, dtype=torch.int32, device=dev),
+                torch.empty(q, dtype=torch.bool, device=dev),
+                torch.empty(q, dtype=torch.float32, device=dev),
+                torch.empty(q, dtype=torch.float32, device=dev))
+        ptrs = [int(nb), w.data_ptr(), kept.data_ptr(), d0.data_ptr(), *(o.data_ptr() for o in outs)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vt_gather_blocks(matrixT.data_ptr(), f_pad, n_pad, bids32.data_ptr(), kb,
+                               out.data_ptr(), *ptrs, stream)
+    _raise_on(err, "gather_blocks")
+    _count(gather_blocks, n_pad)
+    return (out, *outs)
+
+
 def gather_blocks(matrixT: torch.Tensor, bids: torch.Tensor) -> torch.Tensor:
     """Copy KB column blocks of width 128 by block id: (F_pad, N_pad) f32,
     (KB,) integer ids in [0, N_pad / 128) -> (F_pad, KB * 128) f32,
@@ -349,30 +418,23 @@ def gather_blocks(matrixT: torch.Tensor, bids: torch.Tensor) -> torch.Tensor:
     tensor (counted in `gather_blocks.launches`; no host sync on the ids;
     int32 ids go in as they are), runs the plain version for a CPU
     tensor."""
-    _check_matrix(matrixT)
-    f_pad, n_pad = matrixT.shape
-    if n_pad % _BLOCK:
-        raise ValueError(f"N_pad {n_pad} is not a multiple of {_BLOCK}")
-    if bids.dim() != 1 or bids.shape[0] < 1:
-        raise ValueError("bids must be a non-empty 1-D tensor")
+    _check_gather(matrixT, bids)
     if matrixT.device.type == "cpu":
         return gather_blocks_plain(matrixT, bids)
-    if matrixT.device.type != "cuda":
-        raise ValueError(f"gather_blocks runs on cuda or cpu, not {matrixT.device}")
-    if bids.device != matrixT.device:
-        raise ValueError("matrixT and bids must be on one device")
-    if matrixT.data_ptr() % 16:
-        raise ValueError("matrixT must be 16-byte aligned for the vector loads")
-    lib = _load()
-    kb = int(bids.shape[0])
-    bids32 = bids.to(torch.int32).contiguous()
-    out = torch.empty((f_pad, kb * _BLOCK), dtype=torch.float32, device=matrixT.device)
-    stream = torch.cuda.current_stream(matrixT.device).cuda_stream
-    err = lib.vt_gather_blocks(matrixT.data_ptr(), f_pad, n_pad, bids32.data_ptr(), kb,
-                               out.data_ptr(), stream)
-    _raise_on(err, "gather_blocks")
-    _count(gather_blocks, n_pad)
-    return out
+    return _gather_launch(matrixT, bids)[0]
+
+
+def gather_ball(matrixT, bids, nb: int, w, kept, d0):
+    """The subset wander's ball and its per-slot vectors in one launch of
+    the gather kernel (counted in `gather_blocks.launches`): returns (xsT
+    (F_pad, KB * 128), cols int32 (the column of each slot), kept bool, w,
+    d0), where slots of the blocks past the first `nb` are not kept, weigh
+    0 and lie at distance inf. `w` (N_pad,) f32, `kept` (N_pad,) bool, `d0`
+    (N_pad,) f32. Runs the plain version for CPU tensors."""
+    _check_gather(matrixT, bids)
+    if matrixT.device.type == "cpu":
+        return gather_ball_plain(matrixT, bids, nb, w, kept, d0)
+    return _gather_launch(matrixT, bids, (nb, w, kept, d0))
 
 
 gather_blocks.launches = 0
@@ -382,33 +444,76 @@ gather_blocks.launches_by_width = {}  # N_pad -> launches
 # ---------------------------------------------------------- medoid_sweep
 
 
+def sweep_col_blocks(n_pad: int) -> tuple[int, int]:
+    """(K, B): medoid_sweep's tiles a CTA and CTAs at width `n_pad`, for T
+    tiles of 256 columns: K = ceil(T / 128), B = ceil(T / K) <= 128. A
+    function of N only, so the sum order is fixed."""
+    tiles = -(-n_pad // _SWEEP_TILE_COLS)
+    k = -(-tiles // _SWEEP_MAX_BLOCKS)
+    return k, -(-tiles // k)
+
+
+def sweep_ordered_sum(terms: torch.Tensor) -> torch.Tensor:
+    """(R, N) float32 terms, each >= +0 -> (R,) row sums in medoid_sweep's
+    order (csrc/cluster_kernels.cu): column n = ((i*B + b)*64 + tid)*4 + v
+    goes to thread tid of CTA b, which adds its terms in (i, v) order; then
+    halving trees over the 64 threads and over the B CTAs padded with zeros
+    to 128. Every stage is a separately rounded f32 tensor add."""
+    r, n = terms.shape
+    k, b = sweep_col_blocks(n)
+    x = torch.nn.functional.pad(terms, (0, k * b * _SWEEP_TILE_COLS - n))
+    x = x.view(r, k, b, _SWEEP_THREADS, _SWEEP_VEC)
+    acc = torch.zeros((r, b, _SWEEP_THREADS), dtype=terms.dtype, device=terms.device)
+    for i in range(k):
+        for v in range(_SWEEP_VEC):
+            acc = acc + x[:, i, :, :, v]
+    acc = _halving_tree(acc)  # threads -> (r, b)
+    return _halving_tree(torch.nn.functional.pad(acc, (0, _SWEEP_MAX_BLOCKS - b)))
+
+
 def medoid_sweep_plain(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
     """Plain version of `medoid_sweep` (the XLA contract of
     tests/test_pallas.py:40-55): `row_sweep_plain`'s row, then the
-    histogram as a compare-and-reduce, the density and the close count."""
+    histogram's and the density's terms summed by `sweep_ordered_sum`, the
+    kernel's order, so it equals the kernel bit for bit; the close count."""
     d = row_sweep_plain(matrixT, idx)
-    kept = wts > 0.0
+    pos = wts > 0.0
     bins = torch.clamp((d / _DELTA_X).to(torch.int32), 0, _NBINS - 1)
-    w = torch.where((d >= 0.0) & (d <= _XMAX) & kept, wts, 0.0)
-    onehot = bins[:, None] == torch.arange(_NBINS, device=d.device)[None, :]
-    hist = torch.where(onehot, w[:, None], 0.0).sum(dim=0)
-    dens = torch.where((d <= _MEDOID_RADIUS) & kept, wts * (_MEDOID_RADIUS - d), 0.0).sum()
-    n_close = ((d < _MEDOID_RADIUS) & kept).sum().to(torch.int32)
-    return d, hist, dens, n_close
+    in_hist = (d >= 0.0) & (d <= _XMAX) & pos
+    onehot = bins[None, :] == torch.arange(_NBINS, device=d.device)[:, None]
+    terms = torch.cat([
+        torch.where(onehot & in_hist[None, :], wts[None, :], 0.0),
+        torch.where((d <= _MEDOID_RADIUS) & pos, wts * (_MEDOID_RADIUS - d), 0.0)[None, :],
+    ])
+    sums = sweep_ordered_sum(terms)
+    n_close = ((d < _MEDOID_RADIUS) & pos).sum().to(torch.int32)
+    return d, sums[:_NBINS], sums[_NBINS], n_close
 
 
-def sweep_blocks(n_pad: int) -> int:
-    "medoid_sweep's pass-1 grid: a function of N only, so the sum order is fixed."
-    return max(1, min(-(-n_pad // _SWEEP_THREADS), _SWEEP_MAX_BLOCKS))
+_sweep_ws: dict = {}
+
+
+def _sweep_workspace(dev: torch.device, stream: int):
+    """medoid_sweep's per-stream (128, 64) partial rows, (128,) close counts
+    and int32 ticket (zeroed once; the last CTA resets the ticket)."""
+    key = (dev.index, stream)
+    ws = _sweep_ws.get(key)
+    if ws is None:
+        ws = (torch.zeros((_SWEEP_MAX_BLOCKS, _SWEEP_SLOTS), dtype=torch.float32, device=dev),
+              torch.zeros(_SWEEP_MAX_BLOCKS, dtype=torch.int32, device=dev),
+              torch.zeros(1, dtype=torch.int32, device=dev))
+        _sweep_ws[key] = ws
+    return ws
 
 
 def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
     """One medoid's fused sweep: (F_pad, N_pad) f32, column `idx`, (N_pad,)
     f32 weights (lengths where kept, else 0) -> (d (N_pad,) with d[idx] =
     0, hist (60,) f32 over 0 <= d <= 0.3, density f32 over d <= 0.05,
-    n_close int32 over d < 0.05). Launches the two-pass CUDA kernel for a
+    n_close int32 over d < 0.05). Launches the one-pass CUDA kernel for a
     CUDA tensor (counted in `medoid_sweep.launches`); its d equals
-    `row_sweep`'s bit for bit. Runs the plain version for a CPU tensor."""
+    `row_sweep`'s bit for bit and its sums the plain version's. Runs the
+    plain version for a CPU tensor."""
     _check_matrix(matrixT)
     f_pad, n_pad = matrixT.shape
     idx = int(idx)
@@ -425,22 +530,19 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
     lib = _load()
     dev = matrixT.device
     wts = wts.contiguous()
-    nblocks = sweep_blocks(n_pad)
-    d = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    partials = torch.empty((nblocks, _SWEEP_SLOTS), dtype=torch.float32, device=dev)
-    close_partials = torch.empty(nblocks, dtype=torch.int32, device=dev)
-    hist = torch.empty(_NBINS, dtype=torch.float32, device=dev)
-    dens = torch.empty((), dtype=torch.float32, device=dev)
-    n_close = torch.empty((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    partials, close_partials, ticket = _sweep_workspace(dev, stream)
+    d = torch.empty(n_pad, dtype=torch.float32, device=dev)
+    sums = torch.empty(_NBINS + 1, dtype=torch.float32, device=dev)  # histogram, density
+    n_close = torch.empty((), dtype=torch.int32, device=dev)
     err = lib.vt_medoid_sweep(
         matrixT.data_ptr(), f_pad, n_pad, idx, wts.data_ptr(), d.data_ptr(),
-        partials.data_ptr(), close_partials.data_ptr(), nblocks, hist.data_ptr(),
-        dens.data_ptr(), n_close.data_ptr(), stream,
+        partials.data_ptr(), close_partials.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
+        sums.data_ptr() + 4 * _NBINS, n_close.data_ptr(), stream,
     )
     _raise_on(err, "medoid_sweep")
     _count(medoid_sweep, n_pad)
-    return d, hist, dens, n_close
+    return d, sums[:_NBINS], sums[_NBINS], n_close
 
 
 medoid_sweep.launches = 0

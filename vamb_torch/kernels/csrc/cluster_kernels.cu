@@ -34,17 +34,19 @@ constexpr int kDensTile = 16;  // most candidates in one CTA's register tile
 constexpr int kMaxCand = 32;
 constexpr float kMedoidRadius = 0.05f;
 constexpr int kGatherThreads = 256;
+constexpr int kGatherCopies = 1;  // 16-byte copies a gather thread makes (measured against 4)
 constexpr int kBlockCols = 128;  // the subset wander's block width
-constexpr int kSweepThreads = 256;
 constexpr int kNbins = 60;
-constexpr int kSweepSlots = 64;  // per-block partials: 60 bins, density, pad
+// kSweepThreads, kSweepVec and kSweepMaxBlocks fix medoid_sweep's summation
+// order; medoid_sweep_plain reads them (vt_sweep_* below)
+constexpr int kSweepThreads = 64;  // medoid_sweep: 64 threads x 4 columns
+constexpr int kSweepVec = 4;
+constexpr int kSweepTileCols = kSweepThreads * kSweepVec;  // 256 columns a tile
+constexpr int kSweepMaxBlocks = 128;  // CTAs; the last CTA's tree spans 128
+constexpr int kSweepRows = kNbins + 1;  // a thread's sums: 60 bins, the density
+constexpr int kSweepSlots = 64;  // a CTA's partial row: its 61 sums, padded
 constexpr float kDeltaX = 0.005f;
 constexpr float kXmax = 0.3f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // acc + a * b with the product and the sum rounded separately (no FMA):
 // the plain versions' arithmetic, so distances agree bit for bit.
@@ -573,24 +575,52 @@ candidate_density_kernel(const float* __restrict__ m, int f_pad, int n_pad,
 // Replaces vamb_tpu/ops/pallas_cluster.py:gather_blocks (_block_gather_kernel):
 // out[:, k*128:(k+1)*128] = m[:, bids[k]*128:(bids[k]+1)*128] for k < KB, the
 // subset wander's ball gather. Pure data movement, so bit-exact, repeated ids
-// included.
+// included. In the same launch, when the side pointers are given, it gathers
+// by the same ids the per-column vectors the wander takes next (vamb_tpu/
+// cluster.py:604-606, 654-656): each slot's column id, and the weight, kept
+// flag and seed distance of its column, masked past the first nb blocks
+// (weight 0, not kept, distance inf).
 //
-// Bound on the H100: bytes (F_pad * KB * 128 * 4 read and written once).
-// Design: one CTA per gathered block; its threads copy the (F_pad, 128)
-// block as 16-byte float4 loads and stores, 32 per feature row, so a warp
-// moves one contiguous 512-byte row segment. The block ids are read on the
-// card, so the caller never syncs on them. Ids must lie in [0, N_pad/128).
-__global__ void gather_blocks_kernel(const float4* __restrict__ m, int f_pad,
-                                     int n_pad4, const int* __restrict__ bids,
-                                     float4* __restrict__ out, int out_n4) {
-  constexpr int kRow4 = kBlockCols / 4;
+// Bound on the H100: bytes (F_pad * KB * 128 * 4 read and written once, 2 MB
+// at F_pad 32, KB 64: 0.63 us), far below the ~5 us a launch takes to start
+// and drain, so the design fills the card at once: a CTA per (block, group of
+// 8 * kGatherCopies feature rows), 256 threads, a thread kGatherCopies 16-byte
+// copies with all its loads issued before its first store (F_pad 32, KB 64:
+// 256 CTAs; chip_smoke.py --gather-layouts times 4 copies a thread, 64 CTAs,
+// against it). The block id is read on the card, so the caller never syncs on
+// it. Ids must lie in [0, N_pad/128).
+__global__ void __launch_bounds__(kGatherThreads)
+gather_blocks_kernel(const float4* __restrict__ m, int f_pad, int n_pad4,
+                     const int* __restrict__ bids, float4* __restrict__ out, int out_n4,
+                     int nb, const float* __restrict__ w,
+                     const unsigned char* __restrict__ kept, const float* __restrict__ d0,
+                     int* __restrict__ cols, unsigned char* __restrict__ kept_out,
+                     float* __restrict__ w_out, float* __restrict__ d0_out) {
+  constexpr int kRow4 = kBlockCols / 4;  // float4s in a block's feature row
+  constexpr int kRowsPerPass = kGatherThreads / kRow4;
   const int k = blockIdx.x;
-  const size_t src = (size_t)bids[k] * kRow4;
-  const size_t dst = (size_t)k * kRow4;
-  for (int i = threadIdx.x; i < f_pad * kRow4; i += blockDim.x) {
-    const int f = i / kRow4;
-    const int c = i - f * kRow4;
-    out[(size_t)f * out_n4 + dst + c] = m[(size_t)f * n_pad4 + src + c];
+  const int bid = bids[k];
+  const int c = threadIdx.x % kRow4;
+  const int f0 = blockIdx.y * kRowsPerPass * kGatherCopies + threadIdx.x / kRow4;
+  float4 v[kGatherCopies];
+#pragma unroll
+  for (int j = 0; j < kGatherCopies; ++j) {
+    const int f = f0 + j * kRowsPerPass;
+    if (f < f_pad) v[j] = __ldg(m + (size_t)f * n_pad4 + (size_t)bid * kRow4 + c);
+  }
+#pragma unroll
+  for (int j = 0; j < kGatherCopies; ++j) {
+    const int f = f0 + j * kRowsPerPass;
+    if (f < f_pad) out[(size_t)f * out_n4 + (size_t)k * kRow4 + c] = v[j];
+  }
+  if (cols != nullptr && blockIdx.y == 0 && threadIdx.x < kBlockCols) {
+    const int slot = k * kBlockCols + threadIdx.x;
+    const int col = bid * kBlockCols + threadIdx.x;
+    const bool valid = k < nb;
+    cols[slot] = col;
+    kept_out[slot] = valid && kept[col];
+    w_out[slot] = valid ? w[col] : 0.0f;
+    d0_out[slot] = valid ? d0[col] : __int_as_float(0x7f800000);
   }
 }
 
@@ -598,113 +628,255 @@ __global__ void gather_blocks_kernel(const float4* __restrict__ m, int f_pad,
 // Replaces vamb_tpu/ops/pallas_cluster.py:medoid_sweep (_medoid_sweep_kernel):
 // one medoid's distance row d (d[idx] = 0 exactly), the 60-bin histogram of
 // w over the columns with 0 <= d <= 0.3 and w > 0 (bin clip(int(d/0.005),
-// 0, 59)), the density sum of w * (0.05 - d) over d <= 0.05, w > 0, and the
-// count of columns with d < 0.05, w > 0.
+// 0, 59), an IEEE division), the density sum of w * (0.05 - d) over d <=
+// 0.05, w > 0, and the count of columns with d < 0.05, w > 0: an attempt's
+// whole payload in one launch.
 //
 // Bound on the H100: bytes, like row_sweep (the matrix and w read once, d
-// written once). Design: row_sweep's arithmetic, one thread per column in a
-// grid-stride loop over a grid that depends on N only, so d is bit-identical
-// to row_sweep's. Sums take the density kernel's fixed-order two passes,
-// with no float atomics anywhere (the engine's valley scan decides on knife
-// edges): per loop step each warp sums every bin that any of its lanes hits
-// with a shuffle tree, lane 0 adds that into the warp's own shared-memory
-// row; the block then adds its warps' rows in warp order into one row of a
-// (blocks, 64) scratch, and pass 2 adds the rows in block order. The close
-// count is an integer sum.
-__global__ void medoid_sweep_pass1(const float* __restrict__ m, int f_pad,
-                                   int n_pad, int idx,
-                                   const float* __restrict__ w,
-                                   float* __restrict__ d_out,
-                                   float* __restrict__ partials,
-                                   int* __restrict__ close_partials) {
-  extern __shared__ float col[];  // f_pad medoid features
-  __shared__ float warp_acc[kSweepThreads / 32][kSweepSlots];
-  __shared__ int warp_close[kSweepThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int f = threadIdx.x; f < f_pad; f += blockDim.x) {
-    col[f] = m[(size_t)f * n_pad + idx];
-  }
-  for (int i = threadIdx.x; i < (kSweepThreads / 32) * kSweepSlots; i += blockDim.x) {
-    (&warp_acc[0][0])[i] = 0.0f;
-  }
-  __syncthreads();
+// written once). Design:
+// * Loads. row_sweep's scheme at F_pad 32: a thread owns 4 neighbouring
+//   columns, its 32 16-byte feature loads go out as cp.async copies, here
+//   into a ring of 4 chunk buffers of 8 features that is refilled a whole
+//   tile ahead (each thread reads back only what it copied, so no barrier),
+//   and its 4 weights are loaded a tile ahead into registers. The row has
+//   row_sweep's arithmetic, so d equals row_sweep's bit for bit. Other widths
+//   take plain loads in the same order.
+// * Histogram. Each thread keeps a private row per bin in shared memory,
+//   laid out [bin][thread], so the lanes of a warp never meet on a bank
+//   whatever their bins: a column costs one shared-memory add, with no warp
+//   loop over bins and no float atomic. The density is a register; the close
+//   count an integer.
+// * One launch. Each CTA writes its 61 sums and its count; the CTA that draws
+//   the last ticket of an integer atomic counter adds the CTAs' rows and
+//   resets the counter (the density kernel's scheme; the wrapper keeps the
+//   counter and the partial rows per stream).
+// * Summation order: a function of N_pad alone. Tiles of 256 columns: tile t
+//   holds column t*256 + 4*tid + v for thread tid < 64, v < 4. With T tiles,
+//   K = ceil(T/128) and B = ceil(T/K) CTAs, CTA b takes tiles b, b+B, ...
+//   (1) each thread adds its terms in (tile, v) order into a float that
+//   starts at 0; (2) a halving tree over the 64 threads (t adds t+32, then
+//   t+16, ... t+1); (3) the same halving tree over the B CTAs padded with
+//   zeros to 128. A thread sums one row in registers at each of (2) and (3)
+//   (`halving64`). Every term is >= +0, so skipped columns add nothing,
+//   exactly. medoid_sweep_plain reproduces the order with tensor adds, so
+//   the two agree bit for bit. The last CTA's sum is most of the kernel's
+//   fixed cost (the "no last CTA" diagnostic of chip_smoke.py --layouts)
+//   and grows with the CTAs it sums, hence at most 128 CTAs (10 tiles a CTA
+//   at 300,032 columns): faster than 256 or 512 at every path width.
+__host__ __device__ inline int sweep_col_blocks(int n_pad) {
+  const int tiles = (n_pad + kSweepTileCols - 1) / kSweepTileCols;
+  const int k = (tiles + kSweepMaxBlocks - 1) / kSweepMaxBlocks;
+  return (tiles + k - 1) / k;
+}
 
-  float dens_acc = 0.0f;  // lane 0's running warp sums
-  int close_acc = 0;
-  const int stride = gridDim.x * blockDim.x;
-  for (int base = blockIdx.x * blockDim.x; base < n_pad; base += stride) {
-    const int n = base + threadIdx.x;
-    float hv = 0.0f, dv = 0.0f;
-    bool close = false;
-    int bin = 0;
-    if (n < n_pad) {
-      float acc = 0.0f;
-      for (int f = 0; f < f_pad; ++f) {
-        acc = __fadd_rn(acc, __fmul_rn(m[(size_t)f * n_pad + n], col[f]));
-      }
-      const float d = (n == idx) ? 0.0f : __fsub_rn(0.5f, acc);
-      d_out[n] = d;
-      const float wn = w[n];
-      if (wn > 0.0f) {
-        if (d >= 0.0f && d <= kXmax) {
-          hv = wn;
-          bin = min(max((int)__fdiv_rn(d, kDeltaX), 0), kNbins - 1);
-        }
-        if (d <= kMedoidRadius) dv = __fmul_rn(wn, __fsub_rn(kMedoidRadius, d));
-        close = d < kMedoidRadius;
-      }
+constexpr int kSweepChunk = 8;  // features a cp.async group brings
+constexpr int kSweepChunks = kEngineF / kSweepChunk;  // = the ring's buffers
+
+// One column's terms, added to the thread's sums.
+__device__ __forceinline__ void sweep_column(float (*s_acc)[kSweepThreads], float d, float wv,
+                                             float& dens, int& close) {
+  if (wv > 0.0f) {
+    if (d >= 0.0f && d <= kXmax) {
+      const int bin = min(max((int)__fdiv_rn(d, kDeltaX), 0), kNbins - 1);
+      s_acc[bin][threadIdx.x] = __fadd_rn(s_acc[bin][threadIdx.x], wv);
     }
-    // histogram: one shuffle-tree sum per bin present in the warp
-    unsigned todo = __ballot_sync(0xffffffffu, hv > 0.0f);
-    while (todo) {
-      const int kb = __shfl_sync(0xffffffffu, bin, __ffs(todo) - 1);
-      const bool mine = hv > 0.0f && bin == kb;
-      const float v = warp_sum(mine ? hv : 0.0f);
-      if (lane == 0) warp_acc[warp][kb] += v;
-      todo &= ~__ballot_sync(0xffffffffu, mine);
+    if (d <= kMedoidRadius) {
+      dens = __fadd_rn(dens, __fmul_rn(wv, __fsub_rn(kMedoidRadius, d)));
+      close += d < kMedoidRadius;
     }
-    const float dsum = warp_sum(dv);
-    const int csum = __popc(__ballot_sync(0xffffffffu, close));
-    if (lane == 0) {
-      dens_acc += dsum;
-      close_acc += csum;
-    }
-  }
-  if (lane == 0) {
-    warp_acc[warp][kNbins] = dens_acc;
-    warp_close[warp] = close_acc;
-  }
-  __syncthreads();
-  if (threadIdx.x <= kNbins) {
-    float s = 0.0f;
-    for (int k = 0; k < kSweepThreads / 32; ++k) s += warp_acc[k][threadIdx.x];
-    partials[(size_t)blockIdx.x * kSweepSlots + threadIdx.x] = s;
-  } else if (threadIdx.x == kNbins + 1) {
-    int c = 0;
-    for (int k = 0; k < kSweepThreads / 32; ++k) c += warp_close[k];
-    close_partials[blockIdx.x] = c;
   }
 }
 
-__global__ void medoid_sweep_pass2(const float* __restrict__ partials,
-                                   const int* __restrict__ close_partials,
-                                   int nblocks, float* __restrict__ hist,
-                                   float* __restrict__ density,
-                                   int* __restrict__ n_close) {
-  const int j = threadIdx.x;
-  if (j <= kNbins) {
-    float s = 0.0f;
-    for (int b = 0; b < nblocks; ++b) s += partials[(size_t)b * kSweepSlots + j];
-    if (j < kNbins) {
-      hist[j] = s;
-    } else {
-      *density = s;
+// The halving tree of 64 values held in registers rotated by some r,
+// w[k] = v[(k + r) % 64]: a rotation keeps each level's pairs (t, t + h)
+// together as (k, k + h), so the sum is v's own halving tree (t + (t + 32),
+// then + 16, ... + 1), whatever r. A thread sums a row so: rotated loads
+// keep the lanes of a warp on distinct banks, and the adds of a level are
+// independent.
+__device__ __forceinline__ float halving64(float (&w)[64]) {
+#pragma unroll
+  for (int h = 32; h > 0; h >>= 1) {
+#pragma unroll
+    for (int k = 0; k < h; ++k) w[k] = __fadd_rn(w[k], w[k + h]);
+  }
+  return w[0];
+}
+
+// F_pad 32: stage s = 4*i + q of a thread is chunk q of its i-th tile, in
+// ring buffer q.
+__device__ __forceinline__ void sweep_issue(const float* __restrict__ m, int n_pad,
+                                            float4* stage, int ntile, int s) {
+  const int i = s / kSweepChunks;
+  const int q = s % kSweepChunks;
+  const int n0 = ((blockIdx.x + i * gridDim.x) * kSweepThreads + threadIdx.x) * kSweepVec;
+  if (i < ntile && n0 < n_pad) {
+    float4* dst = stage + q * kSweepChunk * kSweepThreads + threadIdx.x;
+    const float* src = m + (size_t)(q * kSweepChunk) * n_pad + n0;
+#pragma unroll
+    for (int k = 0; k < kSweepChunk; ++k) {
+      cp_async16(dst + k * kSweepThreads, src + (size_t)k * n_pad);
     }
-  } else if (j == kNbins + 1) {
-    int c = 0;
-    for (int b = 0; b < nblocks; ++b) c += close_partials[b];
-    *n_close = c;
+  }
+  cp_async_commit();
+}
+
+template <bool kF32>
+__global__ void __launch_bounds__(kSweepThreads)
+medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
+                    const float* __restrict__ w, float* __restrict__ d_out,
+                    float* __restrict__ partials, int* __restrict__ close_partials,
+                    unsigned int* __restrict__ ticket, float* __restrict__ hist,
+                    float* __restrict__ density, int* __restrict__ n_close) {
+  __shared__ float s_acc[kSweepRows][kSweepThreads];  // 60 bins and the density
+  __shared__ int s_close[kSweepThreads / 32];
+  __shared__ bool s_last;
+  // dynamic: with kF32 the ring (4 chunks of 8 features x 64 threads x 16
+  // bytes), then the medoid's features; else the medoid's f_pad features
+  extern __shared__ float4 s_dyn[];
+  float4* stage = s_dyn;
+  float* col = reinterpret_cast<float*>(kF32 ? s_dyn + kSweepChunks * kSweepChunk * kSweepThreads
+                                             : s_dyn);
+  const int tiles = (n_pad + kSweepTileCols - 1) / kSweepTileCols;
+  const int ntile = (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  auto first_col = [&](int i) {
+    return ((blockIdx.x + i * gridDim.x) * kSweepThreads + threadIdx.x) * kSweepVec;
+  };
+  if constexpr (kF32) {  // a tile's copies go out first and overlap the set-up
+#pragma unroll
+    for (int st = 0; st < kSweepChunks; ++st) sweep_issue(m, n_pad, stage, ntile, st);
+  }
+  const int nf = kF32 ? kEngineF : f_pad;
+  for (int f = threadIdx.x; f < nf; f += kSweepThreads) col[f] = m[(size_t)f * n_pad + idx];
+#pragma unroll 4
+  for (int r = 0; r < kSweepRows; ++r) s_acc[r][threadIdx.x] = 0.0f;
+  __syncthreads();
+
+  float dens = 0.0f;
+  int close = 0;
+  float4 w_next = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (kF32) {
+    if (first_col(0) < n_pad) w_next = *reinterpret_cast<const float4*>(w + first_col(0));
+  }
+  for (int i = 0; i < ntile; ++i) {
+    const int n0 = first_col(i);
+    float a[kSweepVec] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float wv[kSweepVec];
+    if constexpr (kF32) {
+      const float4 w4 = w_next;  // this tile's weights, loaded a tile ahead
+      if (i + 1 < ntile && first_col(i + 1) < n_pad) {
+        w_next = *reinterpret_cast<const float4*>(w + first_col(i + 1));
+      }
+      wv[0] = w4.x;
+      wv[1] = w4.y;
+      wv[2] = w4.z;
+      wv[3] = w4.w;
+#pragma unroll
+      for (int q = 0; q < kSweepChunks; ++q) {
+        cp_async_wait<kSweepChunks - 1>();  // stage 4i + q has landed
+        if (n0 < n_pad) {
+          const float4* src = stage + q * kSweepChunk * kSweepThreads + threadIdx.x;
+#pragma unroll
+          for (int k = 0; k < kSweepChunk; ++k) {
+            const float4 v = src[k * kSweepThreads];
+            const float c = col[q * kSweepChunk + k];
+            a[0] = mul_add_rn(a[0], v.x, c);
+            a[1] = mul_add_rn(a[1], v.y, c);
+            a[2] = mul_add_rn(a[2], v.z, c);
+            a[3] = mul_add_rn(a[3], v.w, c);
+          }
+        }
+        sweep_issue(m, n_pad, stage, ntile, kSweepChunks * (i + 1) + q);
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < kSweepVec; ++v) wv[v] = n0 + v < n_pad ? w[n0 + v] : 0.0f;
+      for (int f = 0; f < f_pad; ++f) {
+        const float c = col[f];
+#pragma unroll
+        for (int v = 0; v < kSweepVec; ++v) {
+          if (n0 + v < n_pad) a[v] = mul_add_rn(a[v], m[(size_t)f * n_pad + n0 + v], c);
+        }
+      }
+    }
+    float dv[kSweepVec];
+#pragma unroll
+    for (int v = 0; v < kSweepVec; ++v) {
+      dv[v] = (n0 + v == idx) ? 0.0f : __fsub_rn(0.5f, a[v]);
+    }
+    if (kF32 && n0 < n_pad) {
+      *reinterpret_cast<float4*>(d_out + n0) = make_float4(dv[0], dv[1], dv[2], dv[3]);
+    }
+#pragma unroll
+    for (int v = 0; v < kSweepVec; ++v) {
+      if (n0 + v < n_pad) {
+        if (!kF32) d_out[n0 + v] = dv[v];
+        sweep_column(s_acc, dv[v], wv[v], dens, close);
+      }
+    }
+  }
+
+  // this CTA's sums: row kNbins is the density; thread r sums row r over
+  // the 64 threads
+  static_assert(kSweepThreads == 64 && kSweepRows <= kSweepThreads, "a thread a row");
+  s_acc[kNbins][threadIdx.x] = dens;
+  const int warp_close = __reduce_add_sync(0xffffffffu, close);
+  if ((threadIdx.x & 31) == 0) s_close[threadIdx.x >> 5] = warp_close;
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r < kSweepRows) {
+    float w[kSweepThreads];
+#pragma unroll
+    for (int k = 0; k < kSweepThreads; ++k) w[k] = s_acc[r][(k + r) & (kSweepThreads - 1)];
+    partials[(size_t)blockIdx.x * kSweepSlots + r] = halving64(w);
+  }
+  if (threadIdx.x == 0) close_partials[blockIdx.x] = s_close[0] + s_close[1];
+
+  // the ticket: publish this CTA's partials, then count it as done
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last CTA: thread r sums row r over the CTAs, the halving tree over
+  // kSweepMaxBlocks rows (zeros past B): rows t and t + 64 fold first, then
+  // the tree over t
+  constexpr int kFold = kSweepMaxBlocks / kSweepThreads;  // partial rows a t
+  static_assert(kFold * kSweepThreads == kSweepMaxBlocks && (kFold & (kFold - 1)) == 0,
+                "a power-of-two number of partial rows a t");
+  const int nb = gridDim.x;
+  int c = 0;
+  for (int b = threadIdx.x; b < nb; b += kSweepThreads) c += __ldcg(close_partials + b);
+  c = __reduce_add_sync(0xffffffffu, c);
+  if (r < kSweepRows) {
+    float y[kSweepThreads];
+#pragma unroll
+    for (int t = 0; t < kSweepThreads; ++t) {
+      float x[kFold];
+#pragma unroll
+      for (int j = 0; j < kFold; ++j) {
+        const int b = t + j * kSweepThreads;
+        x[j] = b < nb ? __ldcg(partials + (size_t)b * kSweepSlots + r) : 0.0f;
+      }
+#pragma unroll
+      for (int h = kFold / 2; h > 0; h >>= 1) {
+#pragma unroll
+        for (int j = 0; j < h; ++j) x[j] = __fadd_rn(x[j], x[j + h]);
+      }
+      y[t] = x[0];
+    }
+    const float total = halving64(y);
+    if (r < kNbins) {
+      hist[r] = total;
+    } else {
+      *density = total;
+    }
+  }
+  if ((threadIdx.x & 31) == 0) s_close[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *n_close = s_close[0] + s_close[1];
+    *ticket = 0u;
   }
 }
 
@@ -754,25 +926,38 @@ int vt_candidate_density(const float* m, int f_pad, int n_pad, const void* cand,
   return (int)cudaGetLastError();
 }
 
-int vt_gather_blocks(const float* m, int f_pad, int n_pad, const int* bids,
-                     int kb, float* out, void* stream) {
-  gather_blocks_kernel<<<kb, kGatherThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)m, f_pad, n_pad / 4, bids, (float4*)out,
-      kb * (kBlockCols / 4));
+int vt_gather_blocks(const float* m, int f_pad, int n_pad, const int* bids, int kb,
+                     float* out, int nb, const float* w,
+                     const unsigned char* kept, const float* d0, int* cols,
+                     unsigned char* kept_out, float* w_out, float* d0_out, void* stream) {
+  if (kb < 1 || n_pad % kBlockCols) return (int)cudaErrorInvalidValue;
+  const int rows = (kGatherThreads / (kBlockCols / 4)) * kGatherCopies;
+  const dim3 grid(kb, (f_pad + rows - 1) / rows);
+  gather_blocks_kernel<<<grid, kGatherThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)m, f_pad, n_pad / 4, bids, (float4*)out, kb * (kBlockCols / 4), nb, w, kept,
+      d0, cols, kept_out, w_out, d0_out);
   return (int)cudaGetLastError();
 }
 
-int vt_medoid_sweep(const float* m, int f_pad, int n_pad, int idx,
-                    const float* w, float* d, float* partials,
-                    int* close_partials, int nblocks, float* hist,
+int vt_medoid_sweep(const float* m, int f_pad, int n_pad, int idx, const float* w, float* d,
+                    float* partials, int* close_partials, unsigned int* ticket, float* hist,
                     float* density, int* n_close, void* stream) {
-  medoid_sweep_pass1<<<nblocks, kSweepThreads, f_pad * sizeof(float),
-                       (cudaStream_t)stream>>>(m, f_pad, n_pad, idx, w, d,
-                                               partials, close_partials);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  medoid_sweep_pass2<<<1, kSweepSlots, 0, (cudaStream_t)stream>>>(
-      partials, close_partials, nblocks, hist, density, n_close);
+  if (n_pad < 1 || idx < 0 || idx >= n_pad) return (int)cudaErrorInvalidValue;
+  const int blocks = sweep_col_blocks(n_pad);
+  const bool f32 = f_pad == kEngineF && n_pad % kSweepVec == 0 && (uintptr_t)m % 16 == 0 &&
+                   (uintptr_t)w % 16 == 0 && (uintptr_t)d % 16 == 0;
+  if (f32) {
+    constexpr size_t smem = kSweepChunks * kSweepChunk * kSweepThreads * sizeof(float4) +
+                            kEngineF * sizeof(float);
+    static_assert(smem + sizeof(float) * kSweepRows * (kSweepThreads + 1) + 64 <= 48 * 1024,
+                  "more than 48 KB of shared memory needs cudaFuncSetAttribute");
+    medoid_sweep_kernel<true><<<blocks, kSweepThreads, smem, (cudaStream_t)stream>>>(
+        m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist, density, n_close);
+  } else {
+    medoid_sweep_kernel<false><<<blocks, kSweepThreads, f_pad * sizeof(float),
+                                 (cudaStream_t)stream>>>(
+        m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist, density, n_close);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -788,6 +973,12 @@ int vt_density_tile() { return kDensTile; }
 
 int vt_sweep_threads() { return kSweepThreads; }
 
+int vt_sweep_vec() { return kSweepVec; }
+
+int vt_sweep_max_blocks() { return kSweepMaxBlocks; }
+
 int vt_sweep_slots() { return kSweepSlots; }
+
+int vt_block_cols() { return kBlockCols; }
 
 }  // extern "C"

@@ -24,9 +24,9 @@ stages make, for the jax configuration the package is held against (jax
   rounds of a key split, 32-bit sort keys and a stable key-value sort.
 * `normal_batched(keys, n)`: `normal(key, (n,))` per key, a uniform on
   [nextafter(-1, 0), 1), then sqrt(2) times XLA's float32 `ErfInv`
-  polynomial (`erfinv_xla`). The polynomial is XLA's; `log1p` inside it
-  is torch's, so a value can differ from `jax.random.normal` on the CPU by
-  a few ulps (tests/test_torch_threefry.py states the bound it measures).
+  polynomial (`erfinv_xla`) with XLA's CPU `log1p` inside (`log1p_xla`),
+  rounded where XLA's object code rounds: bit for bit
+  `jax.random.normal` on the CPU, on the CPU and on the card alike.
 
 Keys are (2,) int64 tensors holding uint32 values. All arithmetic is int64
 with explicit 32-bit masks, so the same code runs on the CPU and the card.
@@ -148,6 +148,140 @@ def permutation(k, n: int, device=None) -> torch.Tensor:
     return x
 
 
+# XLA's float32 `log` and `log1p` on the CPU, transcribed from the code XLA
+# emits for them (`XLA_FLAGS=--xla_dump_to=DIR` on a jitted `jnp.log`,
+# `jnp.log1p` or `jax.random.normal`, whose fused kernel inlines the same
+# code): the operations and constants of `*.ir-with-opt.ll`, in its order.
+# That IR has separate multiplies and adds, but the object code
+# (`*.obj-file.*.o`, `objdump -d`) fuses every add whose operand is a
+# multiply with no other use into one FMA (LLVM's contraction): 11 in `log`,
+# 24 in `log1p`, 33 in the normal draw. `_fma` rounds those once, as the
+# FMA does; every other step is one torch op, rounded on its own. So the
+# same bits come out on the CPU and on the card. XLA's CPU code treats
+# denormal inputs as zero; `_flush_denormal` does that explicitly.
+
+
+def _f32(s: str) -> float:
+    return float(np.float32(s))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as an FMA instruction rounds it: the
+    product is exact in float64, TwoSum gives the float64 sum and its exact
+    error, and rounding that sum to odd (its last bit set when the error is
+    not 0) makes the final rounding to float32 the correct one."""
+    p = a.double() * b
+    c = c.double() if torch.is_tensor(c) else c
+    s = p + c
+    p1 = s - c
+    c1 = s - p1
+    err = (p - p1) + (c - c1)
+    bits = s.view(torch.int64)
+    to_odd = (err != 0.0) & ((bits & 1) == 0) & torch.isfinite(s)
+    bits = torch.where(to_odd, bits + torch.where((err > 0.0) == (s > 0.0), 1, -1), bits)
+    return bits.view(torch.float64).float()
+
+
+def _sqrt(w: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root (what `vsqrtps` and the
+    card's `sqrt.rn` give; torch's CPU sqrt can be an ulp off): a float64
+    root rounded to float32, then moved to the neighbour whose rounding
+    interval holds sqrt(w), judged by exact float64 squares of the interval's
+    ends."""
+    s = torch.sqrt(w.double()).float()
+    up = torch.nextafter(s, torch.full_like(s, float("inf")))
+    down = torch.nextafter(s, torch.zeros_like(s))
+    sd, wd = s.double(), w.double()
+    hi = sd + (up - s).double() * 0.5
+    lo = sd - (s - down).double() * 0.5
+    ok = (w > 0.0) & torch.isfinite(w)
+    s = torch.where(ok & (wd > hi * hi), up, s)
+    return torch.where(ok & (wd < lo * lo), down, s)
+
+
+_FLT_MIN = _f32("1.1754944e-38")
+_SQRT_HALF = _f32("0.70710677")
+# Cephes' logf polynomial, split by XLA into three interleaved chains
+_LOG_P = tuple(map(_f32, ("0.070376836", "-0.1151461", "-0.12420141", "0.14249323",
+                          "0.20000714", "-0.24999994", "0.116769984", "-0.16668057",
+                          "0.3333333")))
+_LOG_Q1 = _f32("-0.00021219444")  # ln 2 split in two: the small part,
+_LOG_Q2 = _f32("0.6933594")  # then the large part
+# log1p's rational approximation for |x| < sqrt(2) - 1: numerator, denominator
+_LOG1P_SMALL = _f32("0.41421357")
+_LOG1P_NUM = tuple(map(_f32, ("4.527e-05", "0.49854103", "6.5787325", "29.911919",
+                              "60.94967", "57.112965", "20.039553")))
+_LOG1P_DEN = tuple(map(_f32, ("15.062909", "83.04757", "221.7624", "309.09872",
+                              "216.42789", "60.11866")))
+_NAN_BITS = -1  # the NaN XLA writes: all 32 bits set
+_INF_BITS = 0x7F800000
+_NEG_INF_BITS = -0x800000  # 0xFF800000 as int32
+
+
+def _flush_denormal(x: torch.Tensor) -> torch.Tensor:
+    "Denormals to zero of the same sign, as XLA's CPU code reads them."
+    return torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
+
+
+def _log_core(y: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 log of a flushed `y`: exponent and mantissa by integer bit
+    operations, the mantissa folded into [sqrt(1/2) - 1, sqrt(2) - 1), the
+    polynomial, then -inf at 0, inf at inf and NaN below 0 or at NaN."""
+    not_pos = ~(y > 0.0)  # fcmp ule y, 0: <= 0 or NaN
+    ne0 = y != 0.0
+    ne_inf = y != float("inf")
+    bits = torch.where(y > _FLT_MIN, y, _FLT_MIN).view(torch.int32)
+    e = bits >> 23
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    ef = (e - 127).to(torch.float32) + 1.0
+    lt = m < _SQRT_HALF
+    t = torch.where(lt, m, 0.0)
+    xm = m + -1.0
+    e2 = ef - torch.where(lt, 1.0, 0.0)
+    x = xm + t
+    z = x * x
+    x3 = z * x
+    p = _LOG_P
+    a = _fma(x, p[0], p[1])
+    b = _fma(x, p[2], p[3])
+    c = _fma(x, p[4], p[5])
+    a = _fma(a, x, p[6])
+    b = _fma(b, x, p[7])
+    c = _fma(c, x, p[8])
+    r = _fma(a, x3, b)
+    r = _fma(r, x3, c)
+    s2 = _fma(r, x3, e2 * _LOG_Q1)
+    u = x - z * 0.5  # an FMA too, but z * 0.5 is exact
+    res = (u + s2) + e2 * _LOG_Q2  # likewise: e2 * _LOG_Q2 is exact
+    out = torch.where(not_pos, _NAN_BITS, res.view(torch.int32))
+    out = torch.where(ne_inf, out, _INF_BITS)
+    return torch.where(ne0, out, _NEG_INF_BITS).to(torch.int32).view(torch.float32)
+
+
+def log_xla(x: torch.Tensor) -> torch.Tensor:
+    "XLA's float32 `log` on the CPU (`jnp.log`), bit for bit."
+    return _log_core(_flush_denormal(x))
+
+
+def log1p_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 `log1p` on the CPU (`jnp.log1p`), bit for bit: the log
+    of 1 + x, or for |x| < sqrt(2) - 1 the rational approximation
+    x - x^2/2 + x^3 P(x)/Q(x)."""
+    x = _flush_denormal(x)
+    big = _log_core(x + 1.0)
+    x2 = x * x
+    zero = x * 0.0
+    den = zero + 1.0
+    for k in _LOG1P_DEN:
+        den = _fma(den, x, k)
+    num = zero + _LOG1P_NUM[0]
+    for k in _LOG1P_NUM[1:]:
+        num = _fma(num, x, k)
+    ratio = num / den
+    small = x + _fma(x2, -0.5, (x * x2) * ratio)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, big)
+
+
 # XLA's float32 ErfInv (Giles' single-precision approximation), the
 # constants of xla/client/lib/math.cc ErfInv32 and of CHLO's erf_inv
 # lowering, evaluated in the same order.
@@ -158,10 +292,10 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
 
 
 def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
-    "XLA's float32 erf_inv polynomial on a float32 tensor."
-    w = -torch.log1p(x * -x)
+    "XLA's float32 erf_inv polynomial on a float32 tensor, `log1p_xla` inside."
+    w = -log1p_xla(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
 
     def coef(i):
         return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=torch.float32, device=x.device),
@@ -169,7 +303,7 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
 
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
-        p = coef(i) + p * w
+        p = _fma(p, w, coef(i))  # fused in XLA's object code like the log's
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
