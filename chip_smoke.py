@@ -3,19 +3,26 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, `nvcc` and the checkout this file sits in; it builds
-the port's CUDA kernels from `vamb_torch/kernels/csrc/` itself. It imports
-nothing of JAX or of `vamb_tpu`. Phases, each of which fails the run:
+Needs one CUDA card, `nvcc`, `g++` with zlib's header and the checkout
+this file sits in; it builds the port's CUDA kernels from
+`vamb_torch/kernels/csrc/` (one nvcc a source, started together) and the
+native BAM reader and 4-mer counter itself. It imports nothing of JAX or
+of `vamb_tpu`. Phases, each of which fails the run:
 
 1. setup: print the card's name and power limit; build the kernels (with
-   ptxas' register and spill report) and count each kernel's SASS
-   instructions by opcode family.
+   ptxas' register and spill report) and the native libraries, and count
+   each kernel's SASS instructions by opcode family.
 2. kernels: every hand-written kernel against its plain PyTorch version on
    the card, bit for bit, at the main paths' shapes and around them
    (`medoid_sweep`'s row, histogram, density and close count included;
    `gather_ball`'s side vectors), then timed with CUDA
    events at every width the main paths give it, beside its bound, its
-   plain version and a library yardstick.
+   plain version and a library yardstick. The profile-HMM Forward kernel
+   `hmm_forward` against its plain version within 1e-3 + 1e-5 |score|
+   bits at M 50, 200, 600 and 1,000 on 256 genes of 30-1,000 residues
+   (null residues mid-sequence), timed there beside its bound (11
+   special-function results a DP cell at the SFU's rate, or its f32
+   operations) and its plain version; no PyTorch call computes Forward.
 3. engine: the clustering engine on the card against the same engine on
    the CPU (the path the CPU tests hold against `vamb_tpu`), on small
    clumpy latents at full scope, with the subset wander forced (also on a
@@ -33,23 +40,41 @@ nothing of JAX or of `vamb_tpu`. Phases, each of which fails the run:
    emitted alike and which decision input (Gumbel scores, candidates,
    their densities, histogram, smoothed densities) first differed.
 5. main path at 300,000 contigs from 3,000 genomes (6 samples, 2 epochs,
-   `-c 4096`): the subset wander with `gather_ball` and `row_sweep` on the
+   `-c 3200`): the subset wander with `gather_ball` and `row_sweep` on the
    ball, at least one logged compaction and the switch back to full
    sweeps. Counters as in phase 4; all four kernels must be > 0.
-6. profile: on each main path's own data, 100 clusters of the engine and
+6. profile: on each main path's own data, 40 clusters of the engine and
    100 training steps under torch.profiler: time per cluster and per step,
    device kernels per attempt and per wander step, the device's busy share
    and the ops that take the most device time.
+7. BAM input and recluster, through the CLI entry points on the card:
+   20,000 contigs from 200 genomes, each genome carrying a variant of each
+   of 40 synthetic marker profiles (M 100-600, trusted cutoffs calibrated
+   as tests/test_marker_fidelity.py does), half on the reverse strand; 3
+   BAMs of 150 bp reads at about 3x; `bin default --bamfiles` (VAE
+   512-512-32, 10 epochs, `-c 600`), then `recluster` k-means with
+   markers predicted from the profiles (`--hmm_path`) on that run's bins,
+   k-means with the saved markers on the planted genomes with 20 pairs
+   merged, and DBSCAN with the saved markers on a taxonomy of genera of
+   2-5 genomes (`--no_predictor`). Counters as in phase 4;
+   `hmm_forward` must be > 0. Gates: marker precision and recall against
+   the planted genes, every TSV read back, and k-means' pairwise precision
+   against the planted genomes not below its input's.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
-kernels JSON object (its `launches` are the 300,000-contig path's; each
-row also holds every timed width under `at_widths`), the card's
-`nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`.
+kernels JSON object (its `launches` are the 300,000-contig path's, and
+phase 7's for `hmm_forward`; each row also holds every timed width under
+`at_widths`), the card's `nvidia-smi` name and power limit, and
+`{"ok": true, "device": ...}`.
 
     python3 chip_smoke.py --kernels
 
 runs phases 1 and 2 alone: the short first call after a kernel changes.
+
+    python3 chip_smoke.py --recluster
+
+runs phase 1, the Forward kernel's check and times, and phase 7.
 
     python3 chip_smoke.py --engine-ab DIR [DIR ...]
 
@@ -105,7 +130,7 @@ BIG_CONTIGS = 300_000  # above the subset wander's 262,144-column floor
 BIG_PAD = -(-BIG_CONTIGS // 128) * 128  # 300,032 columns
 BIG_HALF = BIG_PAD // 2 // 128 * 128  # 150,016: the ladder's first width
 BIG_GENOMES = 3_000
-BIG_CLUSTERS = 4096
+BIG_CLUSTERS = 3200  # the compaction at cluster 3,072, then 128 clusters at full scope
 F_PAD = 32  # the latent width 32, padded to a multiple of 8
 MAXSTEPS = 25  # the engine's candidates per wander step
 BALL_KB = 64  # blocks of 128 columns in a subset ball (Q = 8,192)
@@ -586,15 +611,19 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
 # ------------------------------------------------ phases 4 and 5: main paths
 
 
-def write_dataset(d: Path, n_contigs: int, n_genomes: int, n_samples: int, seed: int) -> np.ndarray:
+def write_dataset(d: Path, n_contigs: int, n_genomes: int, n_samples: int, seed: int,
+                  plant=None) -> np.ndarray:
     """A FASTA of `n_contigs` contigs of 2,000-4,000 bp from `n_genomes`
     planted genomes, and an `n_samples`-sample abundance TSV. Each genome
     draws its sequence as 4-mer words from its own Dirichlet distribution
     (so TNF separates genomes) and has its own abundance profile. Names are
-    S{1..3}C{i}, for binsplitting. Returns each contig's genome."""
+    S{1..3}C{i}, for binsplitting. `plant(genome, lengths)`, if given,
+    returns {contig: (offset, bases)} to write over the contigs' sequence
+    (the marker genes of phase 7). Returns each contig's genome."""
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, n_genomes, n_contigs)
     lengths = rng.integers(2000, 4001, n_contigs)
+    planted = {} if plant is None else plant(genome, lengths)
     # per-genome word tables: 4096 slots quantize each genome's distribution
     probs = rng.dirichlet(np.full(256, 0.5), n_genomes)
     table = np.zeros((n_genomes, 4096), np.uint8)
@@ -613,9 +642,15 @@ def write_dataset(d: Path, n_contigs: int, n_genomes: int, n_samples: int, seed:
             ends = np.cumsum(nwords * 4)
             starts = ends - nwords * 4
             buf = bases.tobytes()
+            seqs = [buf[s : s + ln] for s, ln in zip(starts, lengths[lo:hi])]
+            for i in range(lo, hi):
+                if i in planted:
+                    off, gene = planted[i]
+                    seq = seqs[i - lo]
+                    seqs[i - lo] = seq[:off] + gene + seq[off + len(gene):]
             f.write(b"".join(
-                b">" + names[i].encode() + b"\n" + buf[s : s + ln] + b"\n"
-                for i, s, ln in zip(range(lo, hi), starts, lengths[lo:hi])
+                b">" + names[i].encode() + b"\n" + seq + b"\n"
+                for i, seq in zip(range(lo, hi), seqs)
             ))
     profiles = rng.lognormal(1.5, 1.0, (n_genomes, n_samples))
     depth = profiles[genome] * rng.uniform(0.7, 1.3, (n_contigs, n_samples))
@@ -748,7 +783,387 @@ def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: 
     return result
 
 
+# ------------------------------------------- phase 2: the Forward kernel
+
+# The SFU's rate for expf/log1pf's special-function results: 16 a clock an
+# SM (the CUDA programming guide's throughput table, compute capability
+# 9.0), 132 SMs at the H100 SXM's 1,980 MHz boost clock.
+SFU_PER_S = 16 * 132 * 1.98e9
+HMM_WIDTHS = (50, 200, 600, 1000)  # profile nodes M in phase 2
+HMM_GENES = 256  # genes a timed batch, 30-1,000 residues, padded to 1,024
+HMM_TOL_ABS, HMM_TOL_REL = 1e-3, 1e-5  # bits: |kernel - plain| <= abs + rel * |plain|
+# A DP cell (node, residue): 5 log-add-exps (3 for M, 1 for I, 1 in the
+# delete chain's scan), each an expf and a log1pf, and an expf for E: 11
+# special-function results; about 35 other f32 operations.
+HMM_SFU_PER_CELL, HMM_F32_PER_CELL = 11, 35
+
+
+def random_local_profile(rng, m: int):
+    """A random local profile as `hmm_forward` takes it (lom (M, 21), t and
+    tbm clamped at -1e30), made with the port's HMMER3 configuration."""
+    from vamb_torch.ops import hmm
+
+    def dirichlet(n, k):
+        x = rng.gamma(1.0, size=(n, k))
+        return x / x.sum(axis=1, keepdims=True)
+
+    trans = np.zeros((m + 1, 7))
+    trans[:, 0:3], trans[:, 3:5], trans[:, 5:7] = dirichlet(m + 1, 3), dirichlet(m + 1, 2), dirichlet(m + 1, 2)
+    trans[m] = [1.0, 0.0, 0.0, 1.0, 0.0, 1.0, 0.0]
+    trans[0, 2] = 0.0
+    trans[0, 0:2] /= trans[0, 0:2].sum()
+    local = hmm.configure_local(hmm.ProfileHMM("p", dirichlet(m, 20), np.tile(hmm.BACKGROUND, (m, 1)),
+                                               trans, 10.0))
+    lom = np.zeros((m, 21), np.float32)
+    lom[:, :20] = local.lom
+    return (lom, np.maximum(local.t, -1e30).astype(np.float32),
+            np.maximum(local.tbm, -1e30).astype(np.float32))
+
+
+def hmm_bound(codes: np.ndarray, m: int) -> tuple[float, str, int]:
+    """(bound ms, what bounds it, DP cells) of one launch: its cells are the
+    batch's non-null residues times M (the kernel skips null residues and
+    stops at each gene's last one); bytes read once and written once."""
+    cells = int((codes < 20).sum()) * m
+    nbytes = codes.size + 4 * (21 * m + 7 * (m + 1) + 2 * m) + 4 * 2 * len(codes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(cells * HMM_SFU_PER_CELL / SFU_PER_S, cells * HMM_F32_PER_CELL / F32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes", cells) if t_bytes >= t_ops else (t_ops, "operations", cells)
+
+
+def check_and_time_hmm(dev) -> dict:
+    """`hmm_forward` against `hmm_forward_plain` on the card at M in
+    HMM_WIDTHS, on 256 genes of 30-1,000 residues (3% null residues, mid-
+    sequence included) padded to 1,024, within HMM_TOL; then each timed
+    with CUDA events (L2 cold) beside its bound and the plain version's
+    time (3 calls: it launches ~30 ops a residue). No single PyTorch call
+    computes Forward, so there is no library time."""
+    from vamb_torch import kernels as K
+
+    out = {}
+    for m in HMM_WIDTHS:
+        rng = np.random.default_rng(m)
+        lom, t, tbm = (torch.as_tensor(a, device=dev) for a in random_local_profile(rng, m))
+        lengths = np.concatenate([[30, 1000], rng.integers(30, 1001, HMM_GENES - 2)])
+        codes = np.full((HMM_GENES, 1024), 20, np.int8)
+        for i, n in enumerate(lengths):
+            codes[i, :n] = rng.integers(0, 20, n)
+            codes[i, :n][rng.random(n) < 0.03] = 20
+        codes_t = torch.as_tensor(codes, device=dev)
+        len_t = torch.as_tensor(lengths.astype(np.float32), device=dev)
+        got = K.hmm_forward(lom, t, tbm, codes_t, len_t)
+        plain = K.hmm_forward_plain(lom, t, tbm, codes_t, len_t)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        if not (bool(torch.isfinite(got).all())
+                and bool(((got - plain).abs() <= HMM_TOL_ABS + HMM_TOL_REL * plain.abs()).all())):
+            raise AssertionError(f"hmm_forward M={m}: max |kernel - plain| {err} bits, outside "
+                                 f"{HMM_TOL_ABS} + {HMM_TOL_REL} |score|")
+        bnd = hmm_bound(codes, m)
+        ms = time_ms(lambda: K.hmm_forward(lom, t, tbm, codes_t, len_t), iters=20)
+        plain_ms = time_ms(lambda: K.hmm_forward_plain(lom, t, tbm, codes_t, len_t), iters=3)
+        out[m] = {"ms": ms, "plain_ms": plain_ms, "bound": bnd[:2], "cells": bnd[2],
+                  "max_abs_err": err, "max_score": float(plain.abs().max())}
+        log(f"hmm_forward at M {m}, {HMM_GENES} genes of 30-1,000 residues ({bnd[2]} DP cells): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+            f"roofline share {bnd[0] / ms:.4f}, {bnd[2] / ms / 1e6:.3f} G cells/s; "
+            f"max |kernel - plain| {err:.3g} bits (scores up to {out[m]['max_score']:.1f})")
+    return out
+
+
+# -------------------------------------- phase 7: BAM input and recluster
+
+RC_CONTIGS = 20_000
+RC_GENOMES = 200
+RC_SAMPLES = 3
+RC_MARKERS = 40
+RC_MERGED_PAIRS = 20
+RC_EPOCHS = 10  # two epochs are 117 optimizer steps at 20,000 contigs: too few to cluster
+RC_CLUSTERS = 600  # bin default's -c, a cap on the clustering's time
+READ_LEN = 150
+
+
+def marker_profiles(rng) -> tuple[list, list[str]]:
+    """RC_MARKERS synthetic single-copy profiles, M drawn from 100-600, whose
+    match states put 0.7 on a random consensus (as tests/test_marker_fidelity
+    .py builds them), and their consensus sequences."""
+    from vamb_torch.ops import hmm
+
+    aa = np.array(list(hmm.AMINO))
+    profiles, consensi = [], []
+    for i in range(RC_MARKERS):
+        m = int(rng.integers(100, 601))
+        cons = "M" + "".join(aa[rng.integers(0, 20, m - 1)])
+        match = np.full((m, 20), 0.3 / 19)
+        match[np.arange(m), [hmm.AMINO.index(c) for c in cons]] = 0.7
+        trans = np.zeros((m + 1, 7))
+        trans[:, 0], trans[:, 1], trans[:, 2] = 0.97, 0.015, 0.015
+        trans[:, 3], trans[:, 4], trans[:, 5], trans[:, 6] = 0.9, 0.1, 0.9, 0.1
+        trans[m] = [1.0, 0.0, 0.0, 1.0, 0.0, 1.0, 0.0]
+        trans[0] = [0.985, 0.015, 0.0, 0.9, 0.1, 0.9, 0.1]
+        profiles.append(hmm.ProfileHMM(f"SYN{i:03d}", match, np.tile(hmm.BACKGROUND, (m, 1)),
+                                       trans, 0.0))
+        consensi.append(cons)
+    return profiles, consensi
+
+
+def sample_variant(rng, cons: str) -> str:
+    "Each residue the consensus' with probability 0.7, else uniform; keep the M start."
+    from vamb_torch.ops import hmm
+
+    keep = rng.random(len(cons)) < 0.7
+    other = np.array(list(hmm.AMINO))[rng.integers(0, 20, len(cons))]
+    out = np.where(keep, np.array(list(cons)), other)
+    out[0] = "M"
+    return "".join(out)
+
+
+def encode_gene(prot: str) -> bytes:
+    "One codon a residue (table 11's first in ACGT order; ATG for M), then TAA."
+    from vamb_torch.ops.orf import _CODON_TABLE
+
+    codon_of = {}
+    for i in range(64):
+        codon_of.setdefault(chr(_CODON_TABLE[i]), "ACGT"[i // 16] + "ACGT"[(i // 4) % 4] + "ACGT"[i % 4])
+    codon_of["M"] = "ATG"
+    return ("".join(codon_of[c] for c in prot) + "TAA").encode()
+
+
+def revcomp(s: bytes) -> bytes:
+    return s[::-1].translate(bytes.maketrans(b"ACGT", b"TGCA"))
+
+
+def calibrate_cutoffs(rng, profiles, consensi, dev) -> None:
+    """HMMER-style trusted cutoffs, as tests/test_marker_fidelity.py sets
+    them: the lowest score of 16 held-out variants less 0.5 bits, which
+    must clear 16 random background proteins of the same length."""
+    from vamb_torch.ops import hmm
+
+    aa = np.array(list(hmm.AMINO))
+    for prof, cons in zip(profiles, consensi):
+        local = hmm.configure_local(prof)
+        true = hmm.forward_scores(local, [sample_variant(rng, cons) for _ in range(16)], device=dev)
+        bg = hmm.forward_scores(local, ["M" + "".join(aa[rng.integers(0, 20, len(cons) - 1)])
+                                        for _ in range(16)], device=dev)
+        prof.trusted_cutoff = float(true.min()) - 0.5
+        check(prof.trusted_cutoff > bg.max(), f"{prof.name}: background overlaps the true members")
+
+
+def marker_planter(rng, consensi):
+    """plant(genome, lengths) for `write_dataset`: each genome carries one
+    fresh variant of each marker, each on another of its contigs at a
+    random offset, every other one on the reverse strand. Records the
+    truth {contig: {marker ids}}."""
+    truth: dict = {}
+
+    def plant(genome, lengths):
+        out = {}
+        for g in range(RC_GENOMES):
+            contigs = rng.permutation(np.flatnonzero(genome == g))
+            for m, c in enumerate(contigs[:RC_MARKERS]):
+                gene = encode_gene(sample_variant(rng, consensi[m]))
+                if (g + m) % 2:
+                    gene = revcomp(gene)
+                off = int(rng.integers(0, int(lengths[c]) - len(gene) + 1))
+                out[int(c)] = (off, gene)
+                truth[int(c)] = {m}
+        return out
+
+    return plant, truth
+
+
+def write_bams(d: Path, lengths: np.ndarray, genome: np.ndarray, seed: int) -> list[Path]:
+    """RC_SAMPLES BAMs in tests/bamgen.py's format (one gzip member; 150M
+    reads with an NM tag, no sequence), by vectorised numpy: each genome
+    has a depth a sample (mean about 3x); each contig draws Poisson(depth x
+    length / 150) reads at uniform positions."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    profile = rng.lognormal(0.0, 0.8, (RC_GENOMES, RC_SAMPLES))
+    profile *= 3.0 / profile.mean()
+    names = [f"S{1 + i % 3}C{i}".encode() for i in range(len(lengths))]
+    header = [b"BAM\1", np.int32(11).tobytes(), b"@HD\tVN:1.6\n", np.int32(len(names)).tobytes()]
+    for name, ln in zip(names, lengths):
+        header += [np.int32(len(name) + 1).tobytes(), name + b"\0", np.int32(ln).tobytes()]
+    rec = np.dtype([("block_size", "<i4"), ("ref_id", "<i4"), ("pos", "<i4"), ("l_name", "u1"),
+                    ("mapq", "u1"), ("bin", "<u2"), ("n_cigar", "<u2"), ("flag", "<u2"),
+                    ("l_seq", "<i4"), ("next_ref", "<i4"), ("next_pos", "<i4"), ("tlen", "<i4"),
+                    ("name", "S2"), ("cigar", "<u4"), ("tag", "S3"), ("nm", "<i4")])
+    paths = []
+    for s in range(RC_SAMPLES):
+        depth = profile[genome, s] * rng.uniform(0.7, 1.3, len(lengths))
+        counts = rng.poisson(depth * lengths / READ_LEN)
+        ref = np.repeat(np.arange(len(lengths)), counts)
+        r = np.zeros(len(ref), rec)
+        r["block_size"] = rec.itemsize - 4
+        r["ref_id"] = ref
+        r["pos"] = (rng.random(len(ref)) * (lengths[ref] - READ_LEN + 1)).astype(np.int32)
+        r["l_name"], r["mapq"], r["n_cigar"] = 2, 60, 1
+        r["next_ref"], r["next_pos"] = -1, -1
+        r["name"], r["cigar"], r["tag"] = b"r", READ_LEN << 4, b"NMi"
+        r["nm"] = rng.integers(0, 6, len(ref))
+        paths.append(d / f"sample{s}.bam")
+        paths[-1].write_bytes(gzip.compress(b"".join(header) + r.tobytes(), compresslevel=1))
+    return paths
+
+
+def pairwise_precision(bins: dict, genome: np.ndarray) -> float:
+    "Of the contig pairs that share a bin, the share that share a planted genome."
+    same_bin = same_both = 0
+    for members in bins.values():
+        ids = np.array([int(c.split("C")[1]) for c in members])
+        same_bin += len(ids) * (len(ids) - 1) // 2
+        same_both += sum(int(k) * (int(k) - 1) // 2 for k in np.bincount(genome[ids]))
+    return same_both / same_bin if same_bin else 1.0
+
+
+def read_bins(path: Path, n_contigs: int) -> dict:
+    """A clusters TSV read back with the port's reader: each contig in at
+    most one bin, and in exactly one when `n_contigs` is given."""
+    from vamb_torch.utils import read_clusters
+
+    with open(path) as f:
+        bins = read_clusters(f)
+    members = [c for b in bins.values() for c in b]
+    check(len(members) == len(set(members)) > 0, f"{path.name}: a contig in two bins, or none")
+    check(n_contigs is None or len(members) == n_contigs, f"{path.name}: not every contig binned")
+    return bins
+
+
+def run_recluster_path(dev, tmp: Path) -> dict:
+    """Phase 7: `bin default --bamfiles` on RC_CONTIGS contigs from
+    RC_GENOMES genomes carrying RC_MARKERS planted marker genes, then
+    `recluster` k-means (markers predicted with --hmm_path, on the run's own
+    clusters; then with the saved markers on the planted genomes with
+    RC_MERGED_PAIRS pairs merged) and DBSCAN (--no_predictor, genera of 2-5
+    genomes), all through the CLI entry points on the card. The launch
+    counters are set to 0 just before and read just after."""
+    from vamb_torch import kernels as K
+    from vamb_torch.__main__ import main
+    from vamb_torch.markers import Markers
+    from vamb_torch.ops import hmm
+
+    times = {}
+    t = time.time()
+    rng = np.random.default_rng(SEED + 7)
+    profiles, consensi = marker_profiles(rng)
+    calibrate_cutoffs(rng, profiles, consensi, dev)
+    data = tmp / "data"
+    data.mkdir()
+    (data / "markers.hmm").write_text("".join(hmm.format_hmm(p) for p in profiles))
+    plant, truth = marker_planter(rng, consensi)
+    genome = write_dataset(data, RC_CONTIGS, RC_GENOMES, RC_SAMPLES, SEED + 7, plant=plant)
+    with open(data / "contigs.fna", "rb") as f:
+        from vamb_torch.utils import byte_iterfasta
+
+        lengths = np.array([len(r.sequence) for r in byte_iterfasta(f, None)])
+    bams = write_bams(data, lengths, genome, SEED + 8)
+    names = [f"S{1 + i % 3}C{i}" for i in range(RC_CONTIGS)]
+    with open(data / "merged.tsv", "w") as f:  # the planted genomes, 20 pairs merged
+        f.write("clustername\tcontigname\n")
+        f.writelines(f"g{g // 2 if g < 2 * RC_MERGED_PAIRS else g}\t{n}\n" for g, n in zip(genome, names))
+    genus, g = {}, 0
+    while g < RC_GENOMES:  # genera of 2-5 genomes
+        size = int(rng.integers(2, 6))
+        genus.update({x: len(set(genus.values())) for x in range(g, min(g + size, RC_GENOMES))})
+        g += size
+    with open(data / "taxonomy.tsv", "w") as f:
+        f.write("contigs\tpredictions\n")
+        f.writelines(f"{n}\tBacteria;P;C;O;F;G{genus[int(x)]};S{int(x)}\n" for x, n in zip(genome, names))
+    times["write_inputs_s"] = time.time() - t
+    log(f"phase 7 inputs: {RC_CONTIGS} contigs from {RC_GENOMES} genomes, {len(truth)} planted marker "
+        f"genes of {RC_MARKERS} profiles (M {min(p.m for p in profiles)}-{max(p.m for p in profiles)}), "
+        f"{RC_SAMPLES} BAMs of {sum(p.stat().st_size for p in bams) / 1e6:.1f} MB, "
+        f"{len(set(genus.values()))} genera, in {times['write_inputs_s']:.1f} s")
+
+    out = tmp / "bin"
+    fasta = str(data / "contigs.fna")
+    K.reset_launch_counts()
+    t0 = time.time()
+    main(["bin", "default", "--outdir", str(out), "--fasta", fasta, "--bamfiles", *map(str, bams),
+          "-e", str(RC_EPOCHS), "-q", "1", "-c", str(RC_CLUSTERS), "--seed", str(SEED)],
+         device=str(dev))
+    torch.cuda.synchronize()
+    times["bin_default_s"] = time.time() - t0
+    times["bin_default_stages"] = stage_times(out / "log.txt")
+    runs = {}
+    common = ["--fasta", fasta, "--latent_path", str(out / "latent.npz"), "--seed", str(SEED)]
+    for label, argv in (
+        ("kmeans_own", ["--algorithm", "kmeans", "--hmm_path", str(data / "markers.hmm"),
+                        "--clusters_path", str(out / "vae_clusters_unsplit.tsv")]),
+        ("kmeans_merged", ["--algorithm", "kmeans", "--markers", str(tmp / "kmeans_own" / "markers.npz"),
+                           "--clusters_path", str(data / "merged.tsv")]),
+        ("dbscan", ["--algorithm", "dbscan", "--markers", str(tmp / "kmeans_own" / "markers.npz"),
+                    "--taxonomy", str(data / "taxonomy.tsv"), "--no_predictor"]),
+    ):
+        t1 = time.time()
+        main(["recluster", "--outdir", str(tmp / label), *common, *argv], device=str(dev))
+        torch.cuda.synchronize()
+        times[f"{label}_s"] = time.time() - t1
+        logtext = (tmp / label / "log.txt").read_text()
+        found = re.search(r"Processed markers in ([\d.]+) seconds", logtext)
+        times[f"{label}_markers_s"] = float(found.group(1)) if found else None
+        genes = re.search(r"(\d+) candidate genes \((\d+) residues\) found in ([\d.]+) s, encoded in "
+                          r"([\d.]+) s, scored against \d+ profiles on \S+ in ([\d.]+) s", logtext)
+        if genes:
+            times[f"{label}_genes"], times[f"{label}_residues"] = int(genes.group(1)), int(genes.group(2))
+            times[f"{label}_orf_s"], times[f"{label}_encode_s"], times[f"{label}_forward_s"] = (
+                float(genes.group(k)) for k in (3, 4, 5))
+        n_in = None if label == "kmeans_own" else RC_CONTIGS  # -c leaves contigs unclustered
+        runs[label] = {kind: read_bins(tmp / label / f"clusters_reclustered_{kind}.tsv", n_in)
+                       for kind in ("unsplit", "split")}
+    wall = time.time() - t0
+    launches = {"hmm_forward": K.hmm_forward.launches, **{k.__name__: k.launches for k in K.KERNELS}}
+    log(f"phase 7 path ran in {wall:.1f} s; kernel launches {launches}")
+    check(launches["hmm_forward"] > 0, "phase 7 never launched hmm_forward")
+
+    # the predicted markers against the planted truth
+    markers = Markers.load(tmp / "kmeans_own" / "markers.npz", None)
+    check([n[0] for n in markers.marker_names] == [p.name for p in profiles], "marker names")
+    tp = fp = fn = 0
+    for i, got in enumerate(markers.markers):
+        got = set() if got is None else {int(x) for x in got}
+        want = truth.get(i, set())
+        tp, fp, fn = tp + len(got & want), fp + len(got - want), fn + len(want - got)
+    precision, recall = tp / max(tp + fp, 1), tp / max(tp + fn, 1)
+    log(f"markers against the planted truth: precision {precision:.4f}, recall {recall:.4f} "
+        f"(tp {tp}, fp {fp}, fn {fn})")
+    check(precision >= 0.9 and recall >= 0.8, "marker precision or recall below 0.9 / 0.8")
+
+    before = {"kmeans_own": read_bins(out / "vae_clusters_unsplit.tsv", None),
+              "kmeans_merged": read_bins(data / "merged.tsv", RC_CONTIGS)}
+    result = {"launches": launches, "marker_precision": precision, "marker_recall": recall,
+              "times": times, "wall_s": wall}
+    for label, bins in before.items():
+        p_in, p_out = pairwise_precision(bins, genome), pairwise_precision(runs[label]["unsplit"], genome)
+        log(f"recluster {label}: {len(bins)} bins in, {len(runs[label]['unsplit'])} out; pairwise "
+            f"precision against the planted genomes {p_in:.4f} -> {p_out:.4f}")
+        check(p_out >= p_in, f"recluster {label} lowered the pairwise precision")
+        result[label] = {"bins_in": len(bins), "bins_out": len(runs[label]["unsplit"]),
+                         "precision_in": p_in, "precision_out": p_out}
+    bin_of = {c: b for b, members in runs["kmeans_merged"]["unsplit"].items() for c in members}
+    split = 0
+    for k in range(RC_MERGED_PAIRS):
+        homes = []
+        for g in (2 * k, 2 * k + 1):
+            owned = [bin_of[names[i]] for i in np.flatnonzero(genome == g)]
+            homes.append(max(set(owned), key=owned.count))
+        split += homes[0] != homes[1]
+    result["merged_pairs_split"] = split
+    result["dbscan"] = {"bins": len(runs["dbscan"]["unsplit"]),
+                        "precision": pairwise_precision(runs["dbscan"]["unsplit"], genome)}
+    log(f"merged pairs that came back split: {split} of {RC_MERGED_PAIRS}; dbscan "
+        f"{result['dbscan']['bins']} bins, pairwise precision {result['dbscan']['precision']:.4f}")
+    log("phase 7 stage times: " + json.dumps(times))
+    return result
+
+
 # --------------------------------------------------- phase 6: profile
+
+# Clusters a profiled window (was 100): a smaller window keeps the
+# profiler's events, and the run's time, down.
+PROFILE_CLUSTERS = 40
 
 
 def count_attempts(gen) -> list:
@@ -795,9 +1210,10 @@ def profiled(fn, label: str) -> dict:
 
 def profile_stages(dev, out: Path) -> dict:
     """Where the time of the two device stages goes, on the main path's own
-    data: 100 clusters of the engine on its latent (a unit is a cluster;
-    at 300,000 contigs these are subset-wander clusters, and 100 more at
-    full scope on the same latent follow for comparison), and one training
+    data: PROFILE_CLUSTERS clusters of the engine on its latent (a unit is
+    a cluster; at 300,000 contigs these are subset-wander clusters, and as
+    many more at full scope on the same latent follow for comparison), and
+    one training
     epoch of 100 steps at batch 256 on its first 25,600 contigs (a unit is
     an optimizer step; the epoch's threefry draws are counted in). Short
     windows: the profiler's own bookkeeping grows with the number of
@@ -815,15 +1231,15 @@ def profile_stages(dev, out: Path) -> dict:
                            rng_seed=SEED, device=dev)
     next(gen)  # the first cluster loads the modules lazily
 
-    def cluster_100():
-        return sum(1 for _ in itertools.islice(gen, 100))
+    def clusters():
+        return sum(1 for _ in itertools.islice(gen, PROFILE_CLUSTERS))
 
     def per_step(label: str) -> dict:
-        """Profile 100 clusters and count their attempts (seeds tried) and
+        """Profile PROFILE_CLUSTERS clusters and count their attempts (seeds tried) and
         wander steps (each launches `candidate_density_sweep` once)."""
         K.reset_launch_counts()
         attempts = count_attempts(gen)
-        r = profiled(cluster_100, label)
+        r = profiled(clusters, label)
         steps = K.candidate_density_sweep.launches
         kernels = r["kernels_per_unit"] * r["units"]
         r["wander_steps"], r["attempts"] = steps, attempts[0]
@@ -904,9 +1320,28 @@ def engine_ab(dirs: list[str]) -> int:
     return 0
 
 
+HMM_HEADLINE = 200  # the M of hmm_forward's headline row
+
+
+def hmm_row(hmm_timed: dict, run_rc: dict) -> dict:
+    "hmm_forward's row of the kernels JSON line: phase 2's times, phase 7's launches."
+    h = hmm_timed[HMM_HEADLINE]
+    return {
+        "name": "hmm_forward", "route": "cuda", "source": "vamb_torch/kernels/csrc/hmm_forward.cu",
+        "replaces": "vamb_tpu/ops/hmm.py:229", "replaces_kind": "lax.scan (_forward_batch), not Pallas",
+        "launches": run_rc["launches"]["hmm_forward"],
+        "max_abs_err": max(t["max_abs_err"] for t in hmm_timed.values()),
+        "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound"][0], "bound_by": h["bound"][1],
+        "library_ms": None, "m": HMM_HEADLINE, "genes": HMM_GENES,
+        "at_widths": {m: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                          "bound_by": t["bound"][1], "cells": t["cells"], "max_abs_err": t["max_abs_err"]}
+                      for m, t in hmm_timed.items()},
+    }
+
+
 def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list:
-    """The kernels JSON line's rows, from phase 2's checks and times and
-    the two main paths' launch counts."""
+    """The kernels JSON line's rows of the clustering kernels, from phase
+    2's checks and times and the two main paths' launch counts."""
     source = "vamb_torch/kernels/csrc/cluster_kernels.cu"
     replaces = {"row_sweep": "vamb_tpu/ops/pallas_cluster.py:219",
                 "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
@@ -1145,21 +1580,40 @@ def gather_and_sweep_layouts() -> int:
 # ------------------------------------------------------------------ main
 
 
-def main(kernels_only: bool = False) -> int:
+def build_all() -> Path:
+    """Build both CUDA sources (one nvcc each, started together, with
+    ptxas' register report) and both native host libraries from the
+    checkout's sources. Returns the libraries to count SASS in."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vamb_torch import kernels as K
+    from vamb_torch.native import autobuild
+
+    t = time.time()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(K.build, True), pool.submit(K.build_hmm, True),
+                pool.submit(autobuild.build_bamcov)]
+        autobuild.ensure_built()
+        libs = [j.result() for j in jobs]
+    check((ROOT / "vamb_torch" / "native" / "libvambops.so").exists(), "libvambops.so did not build")
+    log(f"built the CUDA kernels and the native libraries in {time.time() - t:.1f} s")
+    return libs[:2]
+
+
+def main(mode: str = "full") -> int:
+    """mode "full" runs phases 1-7; "kernels" phases 1-2; "recluster"
+    phase 1, the Forward kernel's check and phase 7."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
     import vamb_torch  # noqa: F401  (fails outside a checkout)
-    from vamb_torch import kernels as K
 
     dev = torch.device("cuda")
     card = nvidia_smi_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    t = time.time()
-    lib_path = K.build(verbose=True)
-    log(f"built the CUDA kernels in {time.time() - t:.1f} s")
-    sass_counts(lib_path)
+    for lib_path in build_all():
+        sass_counts(lib_path)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1168,11 +1622,21 @@ def main(kernels_only: bool = False) -> int:
     def phase_done(name: str) -> None:
         log(f"phase {name} done at {time.time() - t0:.1f} s")
 
-    errs = check_kernels(dev)
-    phase_done("2 (kernel checks)")
+    if mode != "recluster":
+        errs = check_kernels(dev)
+        phase_done("2 (kernel checks)")
+    hmm_timed = check_and_time_hmm(dev)
+    phase_done("2 (hmm_forward check and times)")
+    if mode == "recluster":
+        with tempfile.TemporaryDirectory() as tmp:
+            run_rc = run_recluster_path(dev, Path(tmp))
+        phase_done("7 (BAM input and recluster)")
+        print(json.dumps({"kernels": [hmm_row(hmm_timed, run_rc)], "recluster_path": run_rc}))
+        print(card)
+        return 0
     timed = time_kernels(dev)
     phase_done("2 (kernel times)")
-    if kernels_only:
+    if mode == "kernels":
         print(card)
         return 0
     check_engine(dev)
@@ -1189,12 +1653,16 @@ def main(kernels_only: bool = False) -> int:
     check(len(run_300k["compactions"]) >= 1, "the 300,000-contig path compacted no time")
     check("wander scope full" in run_300k["compactions"][-1],
           "the 300,000-contig path never went back to full sweeps")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_rc = run_recluster_path(dev, Path(tmp))
+    phase_done("7 (BAM input and recluster)")
 
-    kernels = kernel_rows(timed, errs, run_100k, run_300k)
+    kernels = kernel_rows(timed, errs, run_100k, run_300k) + [hmm_row(hmm_timed, run_rc)]
     drop = ("launches", "launches_by_width")
     print(json.dumps({"kernels": kernels,
                       "main_path_100k": {k: v for k, v in run_100k.items() if k not in drop},
-                      "main_path_300k": {k: v for k, v in run_300k.items() if k not in drop}}))
+                      "main_path_300k": {k: v for k, v in run_300k.items() if k not in drop},
+                      "recluster_path": run_rc}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -1213,4 +1681,5 @@ if __name__ == "__main__":
         sys.exit(density_layouts() if torch.cuda.is_available() else 1)
     if sys.argv[1:2] == ["--layouts"]:
         sys.exit(gather_and_sweep_layouts() if torch.cuda.is_available() else 1)
-    sys.exit(main(kernels_only=sys.argv[1:2] == ["--kernels"]))
+    modes = {"--kernels": "kernels", "--recluster": "recluster"}
+    sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

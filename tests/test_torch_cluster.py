@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vamb_torch import kernels as K
@@ -353,6 +354,34 @@ def test_gather_ball_plain_matches_vamb_tpu(nb, kb):
     np.testing.assert_array_equal(kept_s.numpy(), valid & take(kept))
     np.testing.assert_array_equal(w_s.numpy(), np.where(valid, take(lengths), 0.0))
     np.testing.assert_array_equal(d0_s.numpy(), np.where(valid, take(d0), np.inf))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_smooth_histogram_is_xlas_bit_for_bit(seed):
+    """The smoothing of the 60-bin histogram sums in XLA's CPU order for
+    the (60,) x (60, 60) product with the constant band matrix (its GEMV
+    emitter's 8 lanes, FMAs and lane folds, read from the object code), so
+    it equals vamb_tpu's `smooth_histogram` under `jax.jit` bit for bit (as
+    tests/oracle_cluster.py runs it; vamb_tpu's engine compiles the same
+    instructions inside `emit_batch`), one histogram at a time and batched,
+    on the kind of histograms the engine makes: length-weighted counts,
+    many bins empty. (Dispatched eagerly, jax passes the matrix as an
+    argument rather than a constant and XLA picks another emitter.)"""
+    rng = np.random.default_rng(seed)
+    n = 300
+    hist = (rng.integers(0, 60, (n, 60)) * rng.integers(2000, 60_000, (n, 60))).astype(np.float32)
+    hist *= rng.random((n, 1)).astype(np.float32)
+    hist[rng.random((n, 60)) < 0.4] = 0.0
+    hist[0] = 0.0
+    smooth = jax.jit(j_cluster.smooth_histogram)
+    want = np.stack([np.asarray(smooth(jnp.asarray(h))) for h in hist])
+    got = t_cluster.smooth_histogram(torch.as_tensor(hist)).numpy()
+    assert got.tobytes() == want.tobytes()
+    one = t_cluster.smooth_histogram(torch.as_tensor(hist[7])).numpy()
+    assert one.tobytes() == want[7].tobytes()
+    # the banded product's value, whatever the order
+    np.testing.assert_allclose(got, hist.astype(np.float64) @ t_cluster._SMOOTH_MATRIX,
+                               rtol=1e-5, atol=1e-3)
 
 
 def test_wrappers_reject_bad_inputs():

@@ -207,3 +207,67 @@ def test_gather_ball_is_one_launch(cuda):
     bids = torch.arange(0, 640, 10, dtype=torch.int32, device=cuda)
     kernels = _one_launch(cuda, lambda: K.gather_ball(mT, bids, 50, w, kept, w))
     assert len(kernels) == 3, kernels
+
+
+@pytest.mark.cuda
+def test_smooth_histogram_card_equals_cpu(cuda):
+    """The engine's histogram smoothing is elementwise ops in a fixed order
+    with each FMA rounded once, so the card gives the CPU's bits."""
+    from vamb_torch import cluster
+
+    rng = np.random.default_rng(3)
+    hist = (rng.integers(0, 60, (500, 60)) * rng.integers(2000, 60_000, (500, 60))).astype(np.float32)
+    hist[rng.random((500, 60)) < 0.4] = 0.0
+    cpu = cluster.smooth_histogram(torch.as_tensor(hist))
+    card = cluster.smooth_histogram(torch.as_tensor(hist, device=cuda)).cpu()
+    assert torch.equal(card, cpu)
+    assert torch.equal(cluster.smooth_histogram(torch.as_tensor(hist[5], device=cuda)).cpu(), cpu[5])
+
+
+# Forward scores: the kernel's expf/log1pf and its block-wide orders differ
+# from torch's, so kernel and plain version are held within
+# HMM_TOL_ABS + HMM_TOL_REL * |score| bits (chip_smoke.py's tolerance).
+HMM_TOL_ABS, HMM_TOL_REL = 1e-3, 1e-5
+
+
+def _random_local(rng, m):
+    "A random local profile as the kernel takes it: lom (M, 21), t, tbm."
+    from vamb_torch.ops import hmm
+
+    def dirichlet(n, k):
+        x = rng.gamma(1.0, size=(n, k))
+        return x / x.sum(axis=1, keepdims=True)
+
+    trans = np.zeros((m + 1, 7))
+    trans[:, 0:3], trans[:, 3:5], trans[:, 5:7] = dirichlet(m + 1, 3), dirichlet(m + 1, 2), dirichlet(m + 1, 2)
+    trans[m] = [1.0, 0.0, 0.0, 1.0, 0.0, 1.0, 0.0]
+    trans[0, 2] = 0.0
+    trans[0, 0:2] /= trans[0, 0:2].sum()
+    prof = hmm.ProfileHMM("p", dirichlet(m, 20), np.tile(hmm.BACKGROUND, (m, 1)), trans, 10.0)
+    local = hmm.configure_local(prof)
+    lom = np.zeros((m, 21), np.float32)
+    lom[:, :20] = local.lom
+    return (lom, np.maximum(local.t, -1e30).astype(np.float32),
+            np.maximum(local.tbm, -1e30).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 50, 257, 600, 1000, 2048])
+def test_hmm_forward_matches_plain(cuda, m):
+    """Genes of 30-1,000 residues with null residues mid-sequence, in a
+    batch padded to 1,024; widths on every per-thread node count."""
+    rng = np.random.default_rng(m)
+    lom, t, tbm = (torch.as_tensor(a) for a in _random_local(rng, m))
+    lengths = np.concatenate([[30, 1000, 1], rng.integers(30, 1001, 13)])
+    codes = np.full((len(lengths), 1024), 20, np.int8)
+    for i, n in enumerate(lengths):
+        codes[i, :n] = rng.integers(0, 20, n)
+        codes[i, :n][rng.random(n) < 0.03] = 20
+    codes_t, len_t = torch.as_tensor(codes), torch.as_tensor(lengths.astype(np.float32))
+    plain = K.hmm_forward_plain(lom, t, tbm, codes_t, len_t)
+    before = K.hmm_forward.launches
+    got = K.hmm_forward(*(v.to(cuda) for v in (lom, t, tbm, codes_t, len_t))).cpu()
+    assert K.hmm_forward.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert ((got - plain).abs() <= HMM_TOL_ABS + HMM_TOL_REL * plain.abs()).all(), \
+        float((got - plain).abs().max())

@@ -102,9 +102,30 @@ def test_composition_load_roundtrip(compositions, tmp_path):
     assert list(back.metadata.identifiers) == list(ref.metadata.identifiers)
 
 
-def test_bam_input_fails_loudly():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_abundance.Abundance.from_files([], None, None, True, 0.0, 1)
+def test_bam_input_matches_vamb_tpu(data, tmp_path):
+    """`Abundance.from_files` on BAMs over the make_golden catalogue (short
+    contigs masked by the composition) gives vamb_tpu's matrix, sample
+    names, minid and refhash."""
+    from .bamgen import alignment, cigar_op, write_bam
+
+    with open(data / "contigs.fna", "rb") as f:
+        records = list(t_utils.byte_iterfasta(f, None))
+    refs = [(r.identifier, len(r.sequence)) for r in records]
+    rng = np.random.default_rng(8)
+    paths = []
+    for i in range(2):
+        reads = [alignment(int(k), int(rng.integers(0, max(1, refs[k][1] - 150))), [cigar_op(150, "M")],
+                           nm=int(rng.integers(0, 20)), read_name=b"r%d" % j)
+                 for j, k in enumerate(rng.integers(0, len(refs), 3000))]
+        paths.append(tmp_path / f"s{i}.bam")
+        write_bam(paths[-1], refs, reads)
+    with open(data / "contigs.fna", "rb") as f:
+        meta = j_composition.Composition.from_file(f, "contigs", minlength=2400).metadata
+    got = t_abundance.Abundance.from_files(paths, None, meta, True, 0.9, 2)
+    want = j_abundance.Abundance.from_files(paths, None, meta, True, 0.9, 2)
+    assert got.matrix.tobytes() == want.matrix.tobytes() and got.matrix.any()
+    assert (list(got.samplenames), got.minid, got.refhash) == (
+        list(want.samplenames), want.minid, want.refhash)
 
 
 @pytest.mark.parametrize(
@@ -204,6 +225,9 @@ def test_import_without_jax_or_vamb_tpu(tmp_path):
         "import vamb_torch, vamb_torch.__main__, vamb_torch.pipeline, vamb_torch.cluster\n"
         "import vamb_torch.kernels, vamb_torch.models.vae, vamb_torch.utils.checkpoint\n"
         "import vamb_torch.utils.threefry, vamb_torch.abundance, vamb_torch.composition\n"
+        "import vamb_torch.bam, vamb_torch.markers, vamb_torch.ops.hmm, vamb_torch.ops.orf\n"
+        "import vamb_torch.ops.kmeans, vamb_torch.reclustering, vamb_torch.taxonomy\n"
+        "import vamb_torch.kernels.hmm_kernels\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vamb_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -1,11 +1,14 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 Mirrors `vamb_tpu`'s CLI (itself the reference's, vamb/__main__.py) for the
-subcommand this port runs so far, `bin default`, with the same flag names
-and defaults:
+subcommands this port runs so far, `bin default` and `recluster`, with the
+same flag names and defaults:
 
     python -m vamb_torch bin default --outdir out --fasta contigs.fna \\
-        --abundance_tsv abundance.tsv
+        --bamfiles s1.bam s2.bam
+    python -m vamb_torch recluster --outdir re --fasta contigs.fna \\
+        --hmm_path markers.hmm --latent_path out/latent.npz \\
+        --clusters_path out/vae_clusters_unsplit.tsv
 
 It runs on the CUDA card. `main(argv, device="cpu")` runs the same path on
 the CPU (the tests do). The other subcommands and the flags of paths not
@@ -33,7 +36,6 @@ _UNPORTED = {
     ("bin", "avamb"): "ROADMAP queue 1, item 9 (bin avamb)",
     ("taxometer",): "ROADMAP queue 1, item 7 (taxonomy models)",
     ("taxonomy_benchmark",): "ROADMAP queue 1, item 7 (taxonomy models)",
-    ("recluster",): "ROADMAP queue 1, item 6 (recluster)",
     ("avamb_ensemble",): "ROADMAP queue 1, item 9 (avamb_ensemble)",
 }
 
@@ -119,7 +121,8 @@ def add_abundance_arguments(subparser):
         help=argparse.SUPPRESS, nargs="+",
     )
     abundanceos.add_argument(
-        "--bamdir", metavar="", type=Path, help=argparse.SUPPRESS,
+        "--bamdir", metavar="", type=Path,
+        help="Directory of BAM files mapped against the contig catalogue",
     )
     abundanceos.add_argument(
         "--abundance_tsv",
@@ -224,24 +227,143 @@ def _reject_unported_general(args) -> None:
             "multi-process runs are not ported yet (ROADMAP queue 1, item 10: "
             "multi-device)"
         )
-    if args.bampaths is not None or args.bamdir is not None or args.min_alignment_id is not None:
-        raise NotImplementedError(
-            "BAM input is not ported yet (ROADMAP queue 1, item 1: the BAM "
-            "path); pass --abundance_tsv or --abundance"
-        )
+
+
+def add_taxonomy_arguments(subparser):
+    taxonomys = subparser.add_argument_group(title="Taxonomy input")
+    taxonomys.add_argument(
+        "--taxonomy", metavar="", type=Path, help="Taxonomy TSV (contigs + predictions[ + scores])"
+    )
+    taxonomys.add_argument(
+        "--no_predictor",
+        help="Use the taxonomy as given instead of refining it with Taxometer first [False]",
+        action="store_true",
+    )
+    return subparser
+
+
+def add_predictor_arguments(subparser):
+    "Taxometer's training flags: accepted; the predictor branch is not ported yet."
+    pred_trainos = subparser.add_argument_group(
+        title="Training options for the taxonomy predictor"
+    )
+    pred_trainos.add_argument("-pe", dest="pred_nepochs", metavar="", type=int, default=100,
+                              help=argparse.SUPPRESS)
+    pred_trainos.add_argument("-pt", dest="pred_batchsize", metavar="", type=int, default=1024,
+                              help=argparse.SUPPRESS)
+    pred_trainos.add_argument("-pthr", dest="pred_softmax_threshold", metavar="", type=float,
+                              default=0.5, help=argparse.SUPPRESS)
+    pred_trainos.add_argument("-ploss", dest="ploss", metavar="", type=str,
+                              choices=["flat_softmax", "cond_softmax", "soft_margin"],
+                              default="flat_softmax", help=argparse.SUPPRESS)
+    return subparser
+
+
+def add_recluster_arguments(recluster_parser):
+    add_general_arguments(recluster_parser)
+    add_composition_arguments(recluster_parser)
+    add_abundance_arguments(recluster_parser)
+    marker_s = recluster_parser.add_argument_group(title="Marker gene input")
+    marker_s.add_argument(
+        "--markers", metavar="", type=Path, help="Reuse a markers.npz from a previous run"
+    )
+    marker_s.add_argument(
+        "--hmm_path", metavar="", type=Path,
+        help="HMMER3 .hmm profile database of single-copy marker genes",
+    )
+    add_bin_output_arguments(recluster_parser)
+    reclusters = recluster_parser.add_argument_group(title="K-means reclustering arguments")
+    reclusters.add_argument(
+        "--latent_path", metavar="", type=Path, help="latent.npz emitted by a previous bin run",
+    )
+    reclusters.add_argument(
+        "--clusters_path", metavar="", type=Path, help="Cluster TSV emitted by a previous bin run",
+    )
+    reclusters.add_argument(
+        "--algorithm", metavar="", type=str, default="kmeans", choices=["kmeans", "dbscan"],
+        help="Refinement algorithm: 'kmeans' or 'dbscan' [kmeans]",
+    )
+    add_predictor_arguments(recluster_parser)
+    add_taxonomy_arguments(recluster_parser)
+    return recluster_parser
+
+
+def _general_options_from_args(args, device):
+    from .pipeline import GeneralOptions
+
+    return GeneralOptions(
+        outdir=args.outdir,
+        min_contig_length=args.minlength,
+        nthreads=args.nthreads,
+        refcheck=not args.norefcheck,
+        seed=args.seed,
+        device=device,
+    )
+
+
+def _abundance_options_from_args(args):
+    from .pipeline import AbundanceOptions
+
+    bampaths = args.bampaths
+    if args.bamdir is not None:
+        if bampaths is not None:
+            raise ValueError("Cannot pass both --bamfiles and --bamdir")
+        bampaths = sorted(args.bamdir.glob("*.bam"))
+        if not bampaths:
+            raise ValueError(f"No .bam files found in {args.bamdir}")
+    minid = args.min_alignment_id
+    if minid is not None and bampaths is None:
+        raise ValueError("If minid is set, abundance must be computed from bam files")
+    return AbundanceOptions(
+        bampaths=bampaths,
+        abundance_tsv=args.abundance_tsv,
+        abundancepath=args.abundancepath,
+        min_alignment_id=0.0 if minid is None else minid,
+    )
+
+
+def _output_options_from_args(args):
+    from .pipeline import BinOutputOptions
+    from .utils import BinSplitter
+
+    return BinOutputOptions(
+        binsplitter=BinSplitter(args.binsplit_separator),
+        min_fasta_output_size=args.min_fasta_output_size,
+        compress_fasta_output=args.compress_fasta_output,
+    )
+
+
+def _recluster_options_from_args(args, device):
+    from .pipeline import CompositionOptions, MarkerOptions, ReclusteringOptions
+
+    abundance = None
+    try:
+        abundance = _abundance_options_from_args(args)
+    except ValueError:
+        pass  # abundance only needed for dbscan-with-predictor
+    return ReclusteringOptions(
+        general=_general_options_from_args(args, device),
+        comp=CompositionOptions(fasta=args.fasta, composition=args.composition),
+        markers=MarkerOptions(
+            markers_path=args.markers, hmm_path=args.hmm_path, fasta_path=args.fasta
+        ),
+        output=_output_options_from_args(args),
+        latent_path=args.latent_path,
+        algorithm=args.algorithm,
+        clusters_path=args.clusters_path,
+        taxonomy_path=args.taxonomy,
+        no_predictor=args.no_predictor,
+        abundance=abundance,
+    )
 
 
 def _options_from_args(args, device):
     from .pipeline import (
-        AbundanceOptions,
         BinDefaultOptions,
-        BinOutputOptions,
         ClusterOptions,
         CompositionOptions,
-        GeneralOptions,
         VAEOptions,
     )
-    from .utils import BinSplitter
 
     if args.lrate is not None:
         raise ValueError(
@@ -249,18 +371,9 @@ def _options_from_args(args, device):
             "effect: training uses the learning-rate-free D-Adaptation Adam"
         )
     return BinDefaultOptions(
-        general=GeneralOptions(
-            outdir=args.outdir,
-            min_contig_length=args.minlength,
-            nthreads=args.nthreads,
-            refcheck=not args.norefcheck,
-            seed=args.seed,
-            device=device,
-        ),
+        general=_general_options_from_args(args, device),
         comp=CompositionOptions(fasta=args.fasta, composition=args.composition),
-        abundance=AbundanceOptions(
-            abundance_tsv=args.abundance_tsv, abundancepath=args.abundancepath
-        ),
+        abundance=_abundance_options_from_args(args),
         vae=VAEOptions(
             nhiddens=args.nhiddens,
             nlatent=args.nlatent,
@@ -280,11 +393,7 @@ def _options_from_args(args, device):
             wander_kernel=args.wander_kernel,
             wander_scope=args.wander_scope,
         ),
-        output=BinOutputOptions(
-            binsplitter=BinSplitter(args.binsplit_separator),
-            min_fasta_output_size=args.min_fasta_output_size,
-            compress_fasta_output=args.compress_fasta_output,
-        ),
+        output=_output_options_from_args(args),
     )
 
 
@@ -347,6 +456,21 @@ Requires --outdir, one composition input and one abundance input.""",
     add_bin_output_arguments(vae_parser)
     add_vae_arguments(vae_parser)
     add_clustering_arguments(vae_parser)
+    recluster_parser = subparsers.add_parser(
+        "recluster",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        help="marker-gene-guided refinement of an existing binning",
+        add_help=False,
+        usage="%(prog)s [options]",
+        description="""Refine an existing binning using single-copy marker genes: split bins with
+duplicated markers via seeded K-means, or re-cluster per genus via DBSCAN.
+
+Required arguments:
+  K-means algorithm: Outdir, at least one composition input, at least one marker gene input,
+    latent path and clusters path
+  DBScan algorithm: also requires a taxonomy input""",
+    )
+    add_recluster_arguments(recluster_parser)
     for names in _UNPORTED:
         sub = subparsers_model if names[0] == "bin" else subparsers
         sub.add_parser(names[-1], help="not ported yet", add_help=False)
@@ -364,12 +488,16 @@ Requires --outdir, one composition input and one abundance input.""",
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
 
     from .device import resolve_device
-    from .pipeline import run_bin_default
+    from .pipeline import run_bin_default, run_reclustering
 
     _reject_unported_general(args)
     device = str(resolve_device(device))
-    opt = _options_from_args(args, device)
-    run(partial(run_bin_default, opt), opt.general)
+    if command == ("recluster",):
+        opt = _recluster_options_from_args(args, device)
+        run(partial(run_reclustering, opt), opt.general)
+    else:
+        opt = _options_from_args(args, device)
+        run(partial(run_bin_default, opt), opt.general)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Abundance: per-sample, per-contig depth matrix.
 
-Host-side copy of `vamb_tpu/abundance.py`, TSV path only: the merged
-`strobealign --aemb` format, strict header `contigname\\t<sample...>`; rows
-validated against the composition mask and refhash (reference
-parsebam.py:239-311). The BAM path (`from_files`) is not ported yet and
-raises.
+Host-side copy of `vamb_tpu/abundance.py`: the merged `strobealign
+--aemb` TSV, strict header `contigname\\t<sample...>`, with rows validated
+against the composition mask and refhash (reference parsebam.py:239-311),
+and BAM files through the native coverage reader (`bam.py`), in chunks of
+at most 16 files that can spill to a cache directory.
 """
 
 from itertools import zip_longest
@@ -16,7 +16,7 @@ import numpy as np
 
 from .composition import CompositionMetaData
 from .utils import RefHasher
-from .utils.arrays import validate_input_array
+from .utils.arrays import mask_lower_bits, validate_input_array
 
 A = TypeVar("A", bound="Abundance")
 
@@ -174,9 +174,92 @@ class Abundance:
         return cls(matrix, samples, 0.0, comp_metadata.refhash)
 
     @classmethod
-    def from_files(cls: type[A], *args, **kwargs) -> A:
-        "BAM input is not ported yet (ROADMAP queue 1, item 1: `bam.py`)."
-        raise NotImplementedError(
-            "vamb_torch does not read BAM files yet (ROADMAP queue 1, item 1: "
-            "the BAM path); pass --abundance_tsv or --abundance instead"
-        )
+    def from_files(
+        cls: type[A],
+        paths: list[Path],
+        cache_directory: Optional[Path],
+        comp_metadata: CompositionMetaData,
+        verify_refhash: bool,
+        minid: float,
+        nthreads: int,
+    ) -> A:
+        """Compute depths from BAM files via the native coverage reader.
+
+        Per-contig depth is the 10%/10% trimmed mean of per-position coverage,
+        counting only reads with nucleotide identity >= minid (reference
+        parsebam.py:195-237 semantics via pycoverm/CoverM).
+        """
+        if minid < 0 or minid > 1:
+            raise ValueError(f"minid must be between 0 and 1, not {minid}")
+        if nthreads < 1:
+            raise ValueError(f"nthreads must be > 0, not {nthreads}")
+
+        from .bam import coverage_from_bams
+
+        # Out-of-core: at most min(nthreads, 16) BAMs at a time (reference
+        # parsebam.py:117-122); with a cache directory each chunk's columns
+        # spill to npz and are reassembled at the end (parsebam.py:151-193),
+        # so peak RAM is one chunk.
+        chunksize = min(nthreads, 16)
+        chunks = [paths[i : i + chunksize] for i in range(0, len(paths), chunksize)]
+        headers: Optional[list[str]] = None
+        chunk_results: list = []  # matrices, or cache paths when spilling
+        spill = cache_directory is not None and len(chunks) > 1
+        if spill:
+            Path(cache_directory).mkdir(parents=True, exist_ok=True)
+        for chunk_i, chunk in enumerate(chunks):
+            chunk_headers, chunk_matrix = coverage_from_bams(
+                [str(p) for p in chunk], minid=minid, nthreads=chunksize,
+                trim_lower=0.1, trim_upper=0.1,
+            )
+            if headers is None:
+                headers = chunk_headers
+            elif chunk_headers != headers:
+                raise ValueError(
+                    f"BAM files {chunk} have different reference sequences "
+                    "than earlier files; all BAMs must be mapped to the same "
+                    "contig catalogue"
+                )
+            if spill:
+                spill_path = Path(cache_directory).joinpath(f"chunk_{chunk_i}.npz")
+                np.savez(spill_path, matrix=chunk_matrix)
+                chunk_results.append(spill_path)
+            else:
+                chunk_results.append(chunk_matrix)
+        assert headers is not None
+        if spill:
+            matrix = np.empty((len(headers), len(paths)), dtype=np.float32)
+            col = 0
+            for spill_path in chunk_results:
+                with np.load(spill_path) as arrs:
+                    block = arrs["matrix"]
+                matrix[:, col : col + block.shape[1]] = block
+                col += block.shape[1]
+                spill_path.unlink()
+        else:
+            matrix = np.concatenate(chunk_results, axis=1)
+
+        if len(comp_metadata.mask) != len(headers):
+            raise ValueError(
+                f"CompositionMetaData used to create Abundance object was created "
+                f"with {len(comp_metadata.mask)} sequences, but number of reference "
+                f"sequences in BAM files are {len(headers)}. Make sure the BAM files "
+                "were created by mapping to the same FASTA file which you used to "
+                "create the Composition object."
+            )
+
+        kept_headers = [h for (h, m) in zip(headers, comp_metadata.mask) if m]
+        matrix = matrix[np.asarray(comp_metadata.mask, dtype=bool)]
+        refhash = RefHasher.hash_refnames(kept_headers)
+        if verify_refhash:
+            RefHasher.verify_refhash(
+                refhash,
+                comp_metadata.refhash,
+                "FASTA file",
+                "BAM",
+                (kept_headers, comp_metadata.identifiers),
+            )
+
+        matrix = np.ascontiguousarray(matrix, dtype=np.float32)
+        mask_lower_bits(matrix, 12)
+        return cls(matrix, [str(p) for p in paths], minid, refhash)

@@ -27,7 +27,8 @@ per-slot vectors in one gather (`kernels.gather_ball`), rows inside the
 ball (`kernels.row_sweep`), the banded smoothing product and the valley
 scan. The attempt's sums (histogram, close count, the seed's density) come
 from `medoid_sweep` in an order fixed by the width, which its plain version
-reproduces, so the engine decides alike on the card and on the CPU. That
+reproduces, and the smoothing sums in XLA's CPU order, so the engine
+decides alike on the card and on the CPU. That
 kernel counts a column as kept where its weight is > 0, so contig lengths
 must be positive, as they are.
 
@@ -85,14 +86,26 @@ _NORMALPDF = (
     _DELTA_X / (0.01 * np.sqrt(2 * np.pi)) * np.exp(-0.5 * (_PDF_X / 0.01) ** 2)
 ).astype(np.float32)
 
-# Histogram smoothing as one (60,)x(60,60) product with the banded Toeplitz
-# matrix of the 31-tap kernel, as vamb_tpu/cluster.py:107-131 does.
+# Histogram smoothing: the (60,)x(60,60) product with the banded Toeplitz
+# matrix of the 31-tap kernel (vamb_tpu/cluster.py:107-131), summed in the
+# order of XLA's CPU code for it (its row-major GEMV emitter, 8x8 tiles, as
+# the object code shows). Output j adds hist[k] * M[k, j] for k < 56 in 8
+# lanes (lane l takes k = l, l + 8, ..., l + 48, each step one FMA) and
+# k = 56..59 in a ninth FMA chain; then the lanes fold as
+# ((x0+x1)+(x2+x3))+((x4+x5)+(x6+x7)) for j < 56 and, in the emitter's
+# 4-row tail tile, ((x0+x4)+(x2+x6))+((x1+x5)+(x3+x7)); the ninth chain is
+# added last. `_SMOOTH_W[t]` holds step t's weights for the 9 chains.
 _SMOOTH_MATRIX = np.zeros((_NBINS, _NBINS), np.float32)
 for _i in range(_NBINS):
     for _j in range(_NBINS):
         if abs(_j - _i) <= 15:
             _SMOOTH_MATRIX[_i, _j] = _NORMALPDF[_j - _i + 15]
 del _i, _j
+_SMOOTH_LANES, _SMOOTH_STEPS, _SMOOTH_TAIL = 8, 7, 56
+_SMOOTH_W = np.zeros((_SMOOTH_STEPS, _NBINS, _SMOOTH_LANES + 1), np.float32)
+_SMOOTH_W[:, :, :_SMOOTH_LANES] = _SMOOTH_MATRIX[:_SMOOTH_TAIL].reshape(
+    _SMOOTH_STEPS, _SMOOTH_LANES, _NBINS).transpose(0, 2, 1)
+_SMOOTH_W[: _NBINS - _SMOOTH_TAIL, :, _SMOOTH_LANES] = _SMOOTH_MATRIX[_SMOOTH_TAIL:]
 
 # The valley scan's x grid, replicating the reference's float64 accumulation
 # `x += XMAX / len(histogram)` (vamb_tpu/cluster.py:134-141): the `x > 0.1`
@@ -206,8 +219,22 @@ def normalize(matrix: np.ndarray, inplace: bool = False) -> np.ndarray:
 
 
 def smooth_histogram(hist: torch.Tensor) -> torch.Tensor:
-    "The banded-matrix smoothing of the 60-bin histogram."
-    return hist @ torch.as_tensor(_SMOOTH_MATRIX, device=hist.device)
+    """The banded-matrix smoothing of the 60-bin histogram (..., 60) in XLA's
+    CPU order (`_SMOOTH_W`): elementwise ops, each FMA rounded once by
+    `threefry._fma`, so the card, the CPU and `vamb_tpu` give the same bits."""
+    lead = hist.shape[:-1]
+    tail = torch.nn.functional.pad(hist[..., _SMOOTH_TAIL:], (0, _SMOOTH_STEPS - _NBINS + _SMOOTH_TAIL))
+    h = torch.cat([hist[..., :_SMOOTH_TAIL].reshape(*lead, _SMOOTH_STEPS, _SMOOTH_LANES),
+                   tail[..., None]], -1)  # (..., step, chain)
+    w = torch.as_tensor(_SMOOTH_W, device=hist.device)
+    acc = torch.zeros((*lead, _NBINS, _SMOOTH_LANES + 1), dtype=torch.float32, device=hist.device)
+    for t in range(_SMOOTH_STEPS):
+        acc = threefry._fma(h[..., t, None, :], w[t], acc)
+    x = [acc[..., lane] for lane in range(_SMOOTH_LANES)]
+    pairs = ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]))
+    halves = ((x[0] + x[4]) + (x[2] + x[6])) + ((x[1] + x[5]) + (x[3] + x[7]))
+    folded = torch.cat([pairs[..., :_SMOOTH_TAIL], halves[..., _SMOOTH_TAIL:]], -1)
+    return folded + acc[..., _SMOOTH_LANES]
 
 
 def find_threshold(hist: torch.Tensor, pvr: float):

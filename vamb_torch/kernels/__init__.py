@@ -11,7 +11,14 @@ from .cluster_kernels import (  # noqa: F401
     gather_blocks_plain,
     medoid_sweep,
     medoid_sweep_plain,
-    reset_launch_counts,
     row_sweep,
     row_sweep_plain,
 )
+from .cluster_kernels import reset_launch_counts as _reset_cluster_counts
+from .hmm_kernels import build_hmm, hmm_forward, hmm_forward_plain  # noqa: F401
+
+
+def reset_launch_counts() -> None:
+    "Set every kernel's launch counter (and tally by width) to 0."
+    _reset_cluster_counts()
+    hmm_forward.launches = 0

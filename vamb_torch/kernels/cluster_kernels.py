@@ -85,28 +85,30 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
-def library_path() -> Path:
-    "Where the built library lives; its name carries the source's hash."
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"libcluster_kernels_{digest.hexdigest()[:16]}.so"
+def library_path(source: Path = _SOURCE) -> Path:
+    "Where the library built from `source` lives; its name carries the source's hash."
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the CUDA source with nvcc unless an up-to-date build exists.
+def build(verbose: bool = False, source: Path = _SOURCE) -> Path:
+    """Compile a CUDA source of `csrc/` (default: the clustering kernels)
+    with nvcc unless an up-to-date build exists; raises with nvcc's output
+    if it fails.
 
     With `verbose`, ptxas reports each kernel's registers and shared memory
-    (printed by the caller from the returned CompletedProcess output)."""
-    out = library_path()
+    (printed here). Builds of different sources may run at once."""
+    out = library_path(source)
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(_SOURCE)]
+           "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n"
+            f"nvcc failed ({proc.returncode}) building {source}:\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
     if verbose:

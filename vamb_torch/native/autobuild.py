@@ -1,16 +1,20 @@
-"""Best-effort on-demand build of the native host-side 4-mer counter.
+"""On-demand build of the native host-side libraries.
 
-A fresh checkout has only the C++ source; the shared object is built by
-`native/build.sh` with the system C++ compiler. `utils.kmers` calls
-`ensure_built()` before giving up when the `.so` is missing, so tests and
-the CLI work out of the box on any machine with a toolchain. The build is
-attempted at most once per process and never raises: without it the
-numpy counter is used.
+A fresh checkout has only the C++ sources; `native/build.sh` builds the
+shared objects with the system C++ compiler.
+
+* `ensure_built()` builds the 4-mer counter (`libvambops.so`) at most once
+  a process and never raises: without it `utils.kmers` counts in numpy.
+* `build_bamcov()` builds the BAM coverage reader (`libbamcov.so`) when it
+  is missing and raises with the compiler's message when the build fails
+  (a missing zlib header, say): BAM input has no other reader.
 """
 
 import os
 import subprocess
 
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SCRIPT = os.path.join(_HERE, "build.sh")
 _ATTEMPTED = False
 
 
@@ -20,13 +24,11 @@ def ensure_built() -> None:
     if _ATTEMPTED:
         return
     _ATTEMPTED = True
-    here = os.path.dirname(os.path.abspath(__file__))
-    if os.path.exists(os.path.join(here, "libvambops.so")):
+    if os.path.exists(os.path.join(_HERE, "libvambops.so")):
         return
-    script = os.path.join(here, "build.sh")
     try:
         subprocess.run(
-            ["sh", script],
+            ["sh", _SCRIPT, "vambops"],
             check=False,
             timeout=120,
             stdout=subprocess.DEVNULL,
@@ -34,3 +36,19 @@ def ensure_built() -> None:
         )
     except (OSError, subprocess.TimeoutExpired):
         pass
+
+
+def build_bamcov() -> str:
+    "Path of libbamcov.so, built first if it is missing; raises if the build fails."
+    path = os.path.join(_HERE, "libbamcov.so")
+    if os.path.exists(path):
+        return path
+    proc = subprocess.run(
+        ["sh", _SCRIPT, "bamcov"], capture_output=True, text=True, timeout=300
+    )
+    if proc.returncode != 0 or not os.path.exists(path):
+        raise RuntimeError(
+            f"building {path} from bamcov.cpp failed ({proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    return path

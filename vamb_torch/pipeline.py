@@ -3,10 +3,12 @@
 Port of `vamb_tpu/pipeline.py`'s `bin default` path (reference
 vamb/__main__.py stage functions calc_tnf :885, calc_abundance :944,
 trainvae :1065, cluster_and_write_files :1254, create_cluster_fasta_files
-:1407, run_bin_default :1451). Stage artifacts (`composition.npz`,
-`abundance.npz`, `latent.npz`, `model.npz`) and the output TSVs have
-`vamb_tpu`'s formats. The VAE and the clustering engine run on
-`GeneralOptions.device` ("cuda" unless the caller asks for "cpu").
+:1407, run_bin_default :1451) and of `recluster` (load_markers :1030,
+run_reclustering :2071). Stage artifacts (`composition.npz`,
+`abundance.npz`, `latent.npz`, `model.npz`, `markers.npz`) and the output
+TSVs have `vamb_tpu`'s formats. The VAE, the clustering engine, the marker
+genes' Forward scores and k-means run on `GeneralOptions.device` ("cuda"
+unless the caller asks for "cpu").
 """
 
 import itertools
@@ -202,10 +204,20 @@ def calc_abundance(
         abundance.save(outdir.joinpath("abundance.npz"))
         _log_samples(abundance)
     else:
-        abundance = Abundance.from_files(
-            list(options.bampaths), None, comp_metadata, refcheck,
-            options.min_alignment_id, nthreads,
+        logger.info(
+            f"\tParsing {len(options.bampaths)} BAM files with {nthreads} threads"
         )
+        logger.info(f"\tMin identity: {options.min_alignment_id}")
+        abundance = Abundance.from_files(
+            list(options.bampaths),
+            outdir.joinpath("tmp").joinpath("coverage"),
+            comp_metadata,
+            refcheck,
+            options.min_alignment_id,
+            nthreads,
+        )
+        abundance.save(outdir.joinpath("abundance.npz"))
+        _log_samples(abundance)
 
     elapsed = round(time.time() - begintime, 2)
     logger.info(f"\tProcessed abundance in {elapsed} seconds.")
@@ -483,4 +495,244 @@ def run_bin_default(opt: BinDefaultOptions) -> None:
         min_fasta_size=opt.output.min_fasta_output_size or 0,
         compress_fasta=opt.output.compress_fasta_output,
         device=opt.general.device,
+    )
+
+
+def export_clusters(
+    binsplitter: BinSplitter,
+    clusters: Collection[tuple[str, Collection[str]]],
+    base_clusters_name: str,
+    fasta_output=None,  # (fasta_path, bins_dir, min_size, compress, names, lens)
+) -> None:
+    "Write precomputed clusters (reference __main__.py:1189-1252)."
+    from .utils.io import CLUSTERS_HEADER
+
+    begintime = time.time()
+    split_file = None
+    if not binsplitter.is_disabled():
+        split_file = open(base_clusters_name + "_split.tsv", "w")
+        print(CLUSTERS_HEADER, file=split_file)
+    n_split = 0
+    n_unsplit = len(clusters)
+    n_total = sum(len(cl) for (_, cl) in clusters)
+    try:
+        with open(base_clusters_name + "_unsplit.tsv", "w") as unsplit:
+            print(CLUSTERS_HEADER, file=unsplit)
+            for name, contigs in clusters:
+                for contig in contigs:
+                    print(name, contig, sep="\t", file=unsplit)
+                if split_file is not None:
+                    for split_name, split_members in binsplitter.split_bin(
+                        name, contigs
+                    ):
+                        n_split += 1
+                        for member in split_members:
+                            print(split_name, member, sep="\t", file=split_file)
+    finally:
+        if split_file is not None:
+            split_file.close()
+    binsplitter.log_clustering_result(n_total, n_split, n_unsplit, begintime)
+
+    if fasta_output is not None:
+        fasta_path, bins_dir, min_size, compress, names, lens = fasta_output
+        create_cluster_fasta_files(
+            bins_dir, clusters, fasta_path, lens, names, min_size, compress
+        )
+
+
+# ------------------------------------------------------------ reclustering
+
+
+@dataclass
+class MarkerOptions:
+    "Markers from a precomputed file, or predicted from FASTA + .hmm."
+    markers_path: Optional[Path] = None
+    hmm_path: Optional[Path] = None
+    fasta_path: Optional[Path] = None
+
+    def __post_init__(self):
+        if self.markers_path is None and self.hmm_path is None:
+            raise ValueError(
+                "Either --markers, or --hmm_path (with a FASTA input) "
+                "must be specified"
+            )
+        if self.markers_path is None and (
+            self.hmm_path is not None and self.fasta_path is None
+        ):
+            raise ValueError(
+                "If markers are to be predicted with --hmm_path, the "
+                "composition must be given as --fasta"
+            )
+        for p in (self.markers_path, self.hmm_path):
+            if p is not None and not p.is_file():
+                raise FileNotFoundError(p)
+
+
+def load_markers(
+    options: MarkerOptions,
+    comp_metadata,
+    existing_outdir: Path,
+    n_threads: int,
+    device="cuda",
+):
+    "Load or predict markers (reference __main__.py:1030-1062)."
+    from .markers import Markers
+
+    begin_time = time.time()
+    logger.info("Loading markers")
+    if options.markers_path is not None:
+        logger.info(
+            f'\tLoading markers from existing `markers.npz` at "{options.markers_path}"'
+        )
+        markers = Markers.load(options.markers_path, comp_metadata.refhash)
+    else:
+        logger.info("\tPredicting markers. This might take some time")
+        logger.info(f"\t\tFASTA file located at {options.fasta_path}")
+        logger.info(f"\t\tHMM profile file (.hmm file) located at {options.hmm_path}")
+        markers = Markers.from_files(
+            options.fasta_path,
+            options.hmm_path,
+            list(comp_metadata.identifiers),
+            existing_outdir.joinpath("tmp_markers"),
+            n_threads,
+            comp_metadata.refhash,
+            device=device,
+        )
+        markers.save(existing_outdir.joinpath("markers.npz"))
+    elapsed = round(time.time() - begin_time, 2)
+    logger.info(f"\tProcessed markers in {elapsed} seconds.")
+    return markers
+
+
+@dataclass
+class ReclusteringOptions:
+    general: GeneralOptions
+    comp: CompositionOptions
+    markers: MarkerOptions
+    output: BinOutputOptions
+    latent_path: Path = None
+    algorithm: str = "kmeans"
+    clusters_path: Optional[Path] = None
+    taxonomy_path: Optional[Path] = None
+    no_predictor: bool = False
+    abundance: Optional[AbundanceOptions] = None
+
+    def __post_init__(self):
+        if self.latent_path is None or not Path(self.latent_path).is_file():
+            raise FileNotFoundError(self.latent_path)
+        if self.algorithm not in ("kmeans", "dbscan"):
+            raise ValueError(f"Unknown reclustering algorithm {self.algorithm}")
+        if self.algorithm == "kmeans" and self.clusters_path is None:
+            raise ValueError(
+                "If --algorithm is set to 'kmeans', --clusters_path must be set"
+            )
+        if self.algorithm == "dbscan" and self.taxonomy_path is None:
+            raise ValueError(
+                "If --algorithm is set to 'dbscan', --taxonomy must be set"
+            )
+
+
+def _taxonomy_is_refined(path: Path) -> bool:
+    with open(path) as f:
+        return f.readline().rstrip() == "contigs\tpredictions\tscores"
+
+
+def run_reclustering(opt: ReclusteringOptions) -> None:
+    "The `recluster` subcommand (reference __main__.py:2071-2184)."
+    from . import reclustering
+    from .taxonomy import Taxonomy
+    from .utils import read_clusters, read_npz
+
+    is_refined = opt.algorithm == "dbscan" and _taxonomy_is_refined(opt.taxonomy_path)
+    if opt.algorithm == "dbscan" and not (
+        is_refined or opt.no_predictor or opt.abundance is None
+    ):
+        raise NotImplementedError(
+            "`recluster --algorithm dbscan` refines an unrefined taxonomy with "
+            "Taxometer first, which is not ported yet (ROADMAP queue 1, item 7: "
+            "taxonomy models); pass --no_predictor or a refined taxonomy"
+        )
+    composition = calc_tnf(
+        opt.comp, opt.general.min_contig_length, opt.general.outdir,
+        opt.output.binsplitter,
+    )
+    markers = load_markers(
+        opt.markers, composition.metadata, opt.general.outdir, opt.general.nthreads,
+        opt.general.device,
+    )
+    latent = read_npz(opt.latent_path)
+
+    if opt.algorithm == "dbscan":
+        if is_refined:
+            logger.info(f'Loading refined taxonomy from file "{opt.taxonomy_path}"')
+            taxonomy = Taxonomy.from_refined_file(
+                opt.taxonomy_path, composition.metadata, True
+            )
+        else:
+            logger.info(f'Loading unrefined taxonomy from file "{opt.taxonomy_path}"')
+            taxonomy = Taxonomy.from_file(
+                opt.taxonomy_path, composition.metadata, True
+            )
+        alg = reclustering.DBScanAlgorithm(
+            composition.metadata, taxonomy, opt.general.nthreads
+        )
+        logger.info("Reclustering")
+        logger.info("\tAlgorithm: DBSCAN")
+    else:
+        with open(opt.clusters_path) as file:
+            clusters = read_clusters(file)
+        contig_to_id = {
+            c: i for (i, c) in enumerate(composition.metadata.identifiers)
+        }
+        clusters_as_ids: list[set[int]] = []
+        for cluster in clusters.values():
+            s = set()
+            for contig in cluster:
+                i = contig_to_id.get(contig)
+                if i is None:
+                    raise ValueError(
+                        f'Contig "{contig}" found in the provided clusters file '
+                        "is not found in the provided composition."
+                    )
+                s.add(i)
+            clusters_as_ids.append(s)
+        alg = reclustering.KmeansAlgorithm(
+            clusters_as_ids,
+            abs(opt.general.seed) % 4294967295,
+            composition.metadata.lengths,
+            opt.general.device,
+        )
+        logger.info("Reclustering")
+        logger.info("\tAlgorithm: KMeans")
+
+    reclustered = reclustering.recluster_bins(markers, latent, alg)
+    logger.info("\tReclustering complete")
+
+    identifiers = composition.metadata.identifiers
+    clusters_dict = [
+        (str(i), {identifiers[c] for c in cluster})
+        for i, cluster in enumerate(reclustered)
+    ]
+
+    fasta_output = None
+    if opt.output.min_fasta_output_size is not None:
+        if opt.comp.fasta is None:
+            raise ValueError(
+                "FASTA output requested (--minfasta) but composition was not "
+                "given as FASTA"
+            )
+        fasta_output = (
+            opt.comp.fasta,
+            opt.general.outdir.joinpath("bins"),
+            opt.output.min_fasta_output_size,
+            opt.output.compress_fasta_output,
+            list(identifiers),
+            composition.metadata.lengths,
+        )
+
+    export_clusters(
+        opt.output.binsplitter,
+        clusters_dict,
+        str(opt.general.outdir.joinpath("clusters_reclustered")),
+        fasta_output,
     )
