@@ -15,14 +15,16 @@ of `vamb_tpu`. Phases, each of which fails the run:
 2. kernels: every hand-written kernel against its plain PyTorch version on
    the card, bit for bit, at the main paths' shapes and around them
    (`medoid_sweep`'s row, histogram, density and close count included;
-   `gather_ball`'s side vectors), then timed with CUDA
-   events at every width the main paths give it, beside its bound, its
-   plain version and a library yardstick. The profile-HMM Forward kernel
-   `hmm_forward` against its plain version within 1e-3 + 1e-5 |score|
-   bits at M 50, 200, 600 and 1,000 on 256 genes of 30-1,000 residues
-   (null residues mid-sequence), timed there beside its bound (11
-   special-function results a DP cell at the SFU's rate, or its f32
-   operations) and its plain version; no PyTorch call computes Forward.
+   `gather_ball`'s side vectors; `gumbel_scores`' bits with no, some and
+   all columns eligible), then timed with CUDA events at every width the
+   main paths give it, beside its bound (bytes, f32 or, for
+   `gumbel_scores`, int32 operations), its plain version and a library
+   yardstick. The profile-HMM Forward kernel `hmm_forward` against its
+   plain version within 1e-3 + 1e-5 |score| bits at M 50, 200, 600 and
+   1,000 on 256 genes of 30-1,000 residues (null residues mid-sequence)
+   and on phase 7's shape, 8,192 length-sorted genes at M 350, timed there
+   beside its bound (11 f32 instructions a DP cell) and its plain version;
+   no PyTorch call computes Forward or draws jax's bits.
 3. engine: the clustering engine on the card against the same engine on
    the CPU (the path the CPU tests hold against `vamb_tpu`), on small
    clumpy latents at full scope, with the subset wander forced (also on a
@@ -33,16 +35,18 @@ of `vamb_tpu`. Phases, each of which fails the run:
    entry point on a synthetic dataset (VAE 512-512-32, 2 epochs,
    clustering capped at 2,000 clusters), full-scope wander. Every kernel's
    launch counter and its tally by N_pad are set to 0 just before and read
-   just after; `candidate_density_sweep` and `medoid_sweep` must be > 0.
-   The stage artifacts and TSVs are read back and checked. Then, a
-   measurement and not a gate: 50 clusters of the engine on this path's
-   latent on the card and on the CPU in lockstep, counting the clusters
-   emitted alike and which decision input (Gumbel scores, candidates,
-   their densities, histogram, smoothed densities) first differed.
+   just after; `candidate_density_sweep`, `medoid_sweep` and
+   `gumbel_scores` must be > 0. The stage artifacts and TSVs are read back
+   and checked. Then 50 clusters of the engine on this path's latent on
+   the card and on the CPU in lockstep, counting the clusters emitted alike
+   and how often each decision input (the engine's Gumbel scores,
+   candidates, their densities, histogram, smoothed densities) differed:
+   the Gumbel scores must differ in no step and the 50 clusters must be
+   identical.
 5. main path at 300,000 contigs from 3,000 genomes (6 samples, 2 epochs,
    `-c 3200`): the subset wander with `gather_ball` and `row_sweep` on the
    ball, at least one logged compaction and the switch back to full
-   sweeps. Counters as in phase 4; all four kernels must be > 0.
+   sweeps. Counters as in phase 4; all five clustering kernels must be > 0.
 6. profile: on each main path's own data, 40 clusters of the engine and
    100 training steps under torch.profiler: time per cluster and per step,
    device kernels per attempt and per wander step, the device's busy share
@@ -58,8 +62,12 @@ of `vamb_tpu`. Phases, each of which fails the run:
    merged, and DBSCAN with the saved markers on a taxonomy of genera of
    2-5 genomes (`--no_predictor`). Counters as in phase 4;
    `hmm_forward` must be > 0. Gates: marker precision and recall against
-   the planted genes, every TSV read back, and k-means' pairwise precision
-   against the planted genomes not below its input's.
+   the planted genes; on a sample of the encoded gene batches (the longest
+   genes' included), every profile's scores from the kernel within the
+   tolerance of the plain version's on the card and no marker call that
+   differs outside that band around the cutoff (the calls inside it are
+   counted); every TSV read back; and k-means' pairwise precision against
+   the planted genomes not below its input's.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
@@ -122,6 +130,15 @@ sys.path.insert(0, str(ROOT))
 # lane and the card issues them at half that: 33.5e12 a second.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 33.5e12
+# int32 operations: 64 a clock an SM (the CUDA programming guide's throughput
+# table, compute capability 9.0), 132 SMs at the 1,980 MHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# gumbel_scores' work a column: the threefry hash's 20 rounds of an add, a
+# rotate (one funnel shift) and a xor, its 5 two-add key injections, the
+# initial adds and the final xor, and the unit float's shift and or: 75 int32
+# operations; the two logs and the score's adds: about 55 f32 operations;
+# d, kept and tried read and the score written: 10 bytes
+GUMBEL_INT_OPS, GUMBEL_F32_OPS, GUMBEL_BYTES = 75, 55, 10
 
 N_CONTIGS = 100_000
 N_GENOMES = 1_000
@@ -184,10 +201,11 @@ def time_ms(fn, iters: int = 50, cold_l2: bool = True) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    "Least ms for the work: bytes over HBM rate vs f32 ops over the FMA-free rate."
+def bound(nbytes: float, nops: float, int_ops: float = 0.0) -> tuple[float, str]:
+    """Least ms for the work: bytes over HBM rate vs f32 ops over the FMA-free
+    rate and int32 ops over the int32 rate, whichever of those two is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = max(nops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -272,6 +290,7 @@ def check_kernels(dev) -> dict:
                         f"{float(expect[2])}, n_close {int(got[3])} vs {int(expect[3])}")
                 err_sweep = max(err_sweep, e)
     err_gather = check_gather(dev)
+    err_gumbel = check_gumbel(dev)
     log(f"kernels agree with their plain versions: row_sweep max|err| {err_row} "
         f"(bit-identical, d[idx] == 0), candidate_density_sweep max|err| {err_dens} "
         "(bit-identical, C 1, 25 and 32, int64 and int32 ids, all and half the weights), "
@@ -279,9 +298,52 @@ def check_kernels(dev) -> dict:
         f"medoid_sweep max|err| {err_sweep} (row, histogram, density and close count "
         f"bit-identical, row equal to row_sweep's, at N {N_CONTIGS + 3}, {PATH_WIDTHS[1]}, "
         f"{BIG_HALF} and {BIG_PAD}, all and half the weights); gather_blocks and gather_ball "
-        f"array-equal (max|err| {err_gather}; padding slots, repeated ids)")
+        f"array-equal (max|err| {err_gather}; padding slots, repeated ids); gumbel_scores "
+        f"bit-identical (max|err| {err_gumbel}) at N {', '.join(map(str, PATH_WIDTHS))}, "
+        "no, some and all columns eligible, one launch a call")
     return {"row_sweep": err_row, "candidate_density_sweep": err_dens,
-            "gather_blocks": err_gather, "medoid_sweep": err_sweep}
+            "gather_blocks": err_gather, "medoid_sweep": err_sweep, "gumbel_scores": err_gumbel}
+
+
+def gumbel_inputs(n: int, dev, seed: int, mask: str = "some"):
+    """A wander step's inputs at width n: a key from the engine's split
+    chain, distances, kept and tried flags leaving no, some or all columns
+    eligible, and a medoid."""
+    from vamb_torch.utils import threefry
+
+    rng = np.random.default_rng(seed)
+    key = threefry.split_host(threefry.split_host(threefry.key(seed))[0])[1]
+    d = rng.random(n).astype(np.float32) * 0.1
+    kept, tried = rng.random(n) < 0.8, rng.random(n) < 0.1
+    if mask == "none":
+        kept[:] = False
+    elif mask == "all":
+        d[:], kept[:], tried[:] = 0.0, True, False
+    return (key, *(torch.as_tensor(a, device=dev) for a in (d, kept, tried)), int(rng.integers(n)))
+
+
+def check_gumbel(dev) -> float:
+    """`gumbel_scores` against its plain version at every width the wander
+    draws at (`PATH_WIDTHS`), bit for bit (as int32 bit patterns), one
+    launch a call."""
+    from vamb_torch import kernels as K
+
+    for n in PATH_WIDTHS:
+        for i, mask in enumerate(("none", "some", "all")):
+            key, d, kept, tried, medoid = gumbel_inputs(n, dev, seed=n + i, mask=mask)
+            before = K.gumbel_scores.launches
+            got = K.gumbel_scores(key, d, kept, tried, medoid)
+            expect = K.gumbel_scores_plain(key, d, kept, tried, medoid)
+            torch.cuda.synchronize()
+            check(K.gumbel_scores.launches == before + 1, "gumbel_scores: not one launch a call")
+            if not torch.equal(got.view(torch.int32), expect.view(torch.int32)):
+                bad = int((got.view(torch.int32) != expect.view(torch.int32)).sum())
+                raise AssertionError(f"gumbel_scores n={n} mask={mask}: {bad} scores differ from the plain "
+                                     "version's bits")
+            eligible = int(torch.isfinite(got).sum())
+            want = {"none": eligible == 0, "some": 0 < eligible < n, "all": eligible == n - 1}[mask]
+            check(want, f"gumbel_scores n={n} mask={mask}: {eligible} eligible columns")
+    return 0.0
 
 
 def ball_inputs(n: int, dev, seed: int):
@@ -330,6 +392,13 @@ def check_gather(dev) -> float:
 
 
 PATH_WIDTHS = (BALL_KB * 128, -(-N_CONTIGS // 128) * 128, BIG_HALF, BIG_PAD)
+# why a kernel's library time is null: no single PyTorch call computes its function
+LIBRARY_NOTES = {
+    "candidate_density_sweep": "none: no single call computes the weighted close-neighbour densities",
+    "medoid_sweep": "none: no single call computes the row with its histogram, density and close count",
+    "gumbel_scores": "none: no single call draws jax's bits",
+    "hmm_forward": "none: no single call computes the Forward recurrence",
+}
 
 
 def time_kernels(dev) -> dict:
@@ -381,6 +450,11 @@ def time_kernels(dev) -> dict:
             fns["medoid_sweep"] = (
                 lambda: K.medoid_sweep(mT, idx, w), lambda: K.medoid_sweep_plain(mT, idx, w), None,
                 bound((f * n + 2 * n + 62) * 4, 2 * f * n + n + 2 * in_hist + 3 * near))
+        gkey, gd, gkept, gtried, gmedoid = gumbel_inputs(n, dev, seed=8)
+        fns["gumbel_scores"] = (
+            lambda: K.gumbel_scores(gkey, gd, gkept, gtried, gmedoid),
+            lambda: K.gumbel_scores_plain(gkey, gd, gkept, gtried, gmedoid), None,
+            bound(GUMBEL_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n))
         if n == BIG_PAD:
             mTg, wg, keptg, d0g = ball_inputs(n, dev, seed=6)
             bids = torch.as_tensor(np.sort(np.random.default_rng(6).choice(n // 128, BALL_KB, replace=False))
@@ -400,7 +474,7 @@ def time_kernels(dev) -> dict:
                 r["plain_ms" + sfx] = time_ms(plain, cold_l2=cold)
                 r["library_ms" + sfx] = None if lib is None else time_ms(lib, cold_l2=cold)
             out[(name, n)] = r
-            libs = "n/a (no single PyTorch call)" if lib is None else f"{r['library_ms']:.5f} ms"
+            libs = LIBRARY_NOTES.get(name, "none") if lib is None else f"{r['library_ms']:.5f} ms"
             log(f"{name} at F_pad {f}, N_pad {n}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
                 f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share "
                 f"{bnd[0] / r['ms']:.3f}, L2 cold; L2 warm: kernel {r['ms_l2_warm']:.5f} ms, "
@@ -530,17 +604,17 @@ def check_engine(dev) -> None:
 
 
 def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: int = 50) -> dict:
-    """A measurement: the engine on the card and on the CPU, cluster by
-    cluster in lockstep on one latent, both recording the inputs of their
-    decisions: each wander step's Gumbel scores (from the step's own
-    uniforms), its eligible candidates in drawn order and their densities
-    (the slots past them hold ineligible columns, whose order among equal
-    scores is the sort's own), and each attempt's histogram and its
-    smoothed densities. Counts the clusters emitted alike before the first
-    that differs, and for each input how often it differed between the two,
-    bit for bit, and by how much at most; names the first that did."""
+    """The engine on the card and on the CPU, cluster by cluster in
+    lockstep on one latent, both recording the inputs of their decisions:
+    each wander step's Gumbel scores (the engine's own, as `gumbel_scores`
+    returned them), its eligible candidates in drawn order and their
+    densities (the slots past them hold ineligible columns, whose order
+    among equal scores is the sort's own), and each attempt's histogram and
+    its smoothed densities. Counts the clusters emitted alike before the
+    first that differs, and for each input how often it differed between
+    the two, bit for bit, and by how much at most; names the first that
+    did. The caller gates on the result (phase 4)."""
     from vamb_torch import cluster as engine
-    from vamb_torch.utils import threefry
 
     def instrumented(device):
         gen = engine.ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device=device)
@@ -548,9 +622,6 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
         step = gen._step
 
         def recorded_step(key, d, kept, tried, medoid, n, matrixT, wk):
-            _, k1 = threefry.split(key)
-            u = threefry.uniform(k1, n, gen.device)
-            events.append(("gumbel scores", -torch.log(-torch.log(u + 1e-20) + 1e-20).cpu()))
             out = step(key, d, kept, tried, medoid, n, matrixT, wk)
             valid = out[2]
             events.append(("candidates", out[1][valid].cpu()))
@@ -561,6 +632,7 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
         return gen, events
 
     find_threshold = engine.find_threshold
+    gumbel_scores = engine.gumbel_scores
 
     def next_cluster(gen, events):
         def recorded(hist, pvr):
@@ -568,12 +640,17 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
             events.append(("smoothed densities", engine.smooth_histogram(hist).cpu()))
             return find_threshold(hist, pvr)
 
+        def recorded_scores(*args):
+            score = gumbel_scores(*args)
+            events.append(("gumbel scores", score.cpu()))
+            return score
+
         events.clear()
-        engine.find_threshold = recorded
+        engine.find_threshold, engine.gumbel_scores = recorded, recorded_scores
         try:
             return next(gen)
         finally:
-            engine.find_threshold = find_threshold
+            engine.find_threshold, engine.gumbel_scores = find_threshold, gumbel_scores
 
     t = time.time()
     card, cpu = instrumented(dev), instrumented("cpu")
@@ -785,17 +862,19 @@ def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: 
 
 # ------------------------------------------- phase 2: the Forward kernel
 
-# The SFU's rate for expf/log1pf's special-function results: 16 a clock an
-# SM (the CUDA programming guide's throughput table, compute capability
-# 9.0), 132 SMs at the H100 SXM's 1,980 MHz boost clock.
-SFU_PER_S = 16 * 132 * 1.98e9
 HMM_WIDTHS = (50, 200, 600, 1000)  # profile nodes M in phase 2
 HMM_GENES = 256  # genes a timed batch, 30-1,000 residues, padded to 1,024
+# phase 7's shape: a batch of 8,192 length-sorted genes (its batch size) of
+# 30-1,000 residues, against a profile of M 350 (phase 7's M 100-600)
+HMM_BATCH_GENES, HMM_BATCH_M = 8192, 350
 HMM_TOL_ABS, HMM_TOL_REL = 1e-3, 1e-5  # bits: |kernel - plain| <= abs + rel * |plain|
-# A DP cell (node, residue): 5 log-add-exps (3 for M, 1 for I, 1 in the
-# delete chain's scan), each an expf and a log1pf, and an expf for E: 11
-# special-function results; about 35 other f32 operations.
-HMM_SFU_PER_CELL, HMM_F32_PER_CELL = 11, 35
+# A DP cell (node, residue), as the recurrence needs it in scaled
+# probabilities: M's three FMAs and two multiplies (B x tbm, the emission),
+# I's FMA and multiply, the delete chain's term multiply, the FMA that folds
+# it into the lane's map and the FMA that applies the scan (the maps' slopes
+# are the profile's, formed once), and E's add: 11 f32 instructions, no
+# transcendental.
+HMM_F32_PER_CELL = 11
 
 
 def random_local_profile(rng, m: int):
@@ -825,49 +904,59 @@ def hmm_bound(codes: np.ndarray, m: int) -> tuple[float, str, int]:
     batch's non-null residues times M (the kernel skips null residues and
     stops at each gene's last one); bytes read once and written once."""
     cells = int((codes < 20).sum()) * m
-    nbytes = codes.size + 4 * (21 * m + 7 * (m + 1) + 2 * m) + 4 * 2 * len(codes)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(cells * HMM_SFU_PER_CELL / SFU_PER_S, cells * HMM_F32_PER_CELL / F32_OPS_PER_S) * 1e3
-    return (t_bytes, "bytes", cells) if t_bytes >= t_ops else (t_ops, "operations", cells)
+    nbytes = codes.size + 4 * (21 * m + 7 * (m + 1) + m) + 4 * 2 * len(codes)
+    return (*bound(nbytes, cells * HMM_F32_PER_CELL), cells)
+
+
+def hmm_case(m: int, n_genes: int, sort: bool, dev, seed: int):
+    """A profile of M nodes and n_genes genes of 30-1,000 residues (the
+    first two 30 and 1,000; 3% null residues, mid-sequence included) padded
+    to 1,024, length-sorted when `sort`, as tensors on `dev`; and the codes."""
+    rng = np.random.default_rng(seed)
+    lom, t, tbm = (torch.as_tensor(a, device=dev) for a in random_local_profile(rng, m))
+    lengths = np.concatenate([[30, 1000], rng.integers(30, 1001, n_genes - 2)])
+    if sort:
+        lengths = np.sort(lengths)
+    codes = np.full((n_genes, 1024), 20, np.int8)
+    for i, n in enumerate(lengths):
+        codes[i, :n] = rng.integers(0, 20, n)
+        codes[i, :n][rng.random(n) < 0.03] = 20
+    return (lom, t, tbm, torch.as_tensor(codes, device=dev),
+            torch.as_tensor(lengths.astype(np.float32), device=dev)), codes
 
 
 def check_and_time_hmm(dev) -> dict:
-    """`hmm_forward` against `hmm_forward_plain` on the card at M in
-    HMM_WIDTHS, on 256 genes of 30-1,000 residues (3% null residues, mid-
-    sequence included) padded to 1,024, within HMM_TOL; then each timed
-    with CUDA events (L2 cold) beside its bound and the plain version's
-    time (3 calls: it launches ~30 ops a residue). No single PyTorch call
-    computes Forward, so there is no library time."""
+    """`hmm_forward` against `hmm_forward_plain` on the card within HMM_TOL
+    at M in HMM_WIDTHS on 256 genes (`hmm_case`), and on phase 7's shape,
+    8,192 length-sorted genes at M 350; then each timed with CUDA events (L2
+    cold) beside its bound and the plain version's time (3 calls: it
+    launches ~30 ops a residue). No single PyTorch call computes Forward, so
+    there is no library time. Keys: M, and "batch" for phase 7's shape."""
     from vamb_torch import kernels as K
 
     out = {}
-    for m in HMM_WIDTHS:
-        rng = np.random.default_rng(m)
-        lom, t, tbm = (torch.as_tensor(a, device=dev) for a in random_local_profile(rng, m))
-        lengths = np.concatenate([[30, 1000], rng.integers(30, 1001, HMM_GENES - 2)])
-        codes = np.full((HMM_GENES, 1024), 20, np.int8)
-        for i, n in enumerate(lengths):
-            codes[i, :n] = rng.integers(0, 20, n)
-            codes[i, :n][rng.random(n) < 0.03] = 20
-        codes_t = torch.as_tensor(codes, device=dev)
-        len_t = torch.as_tensor(lengths.astype(np.float32), device=dev)
-        got = K.hmm_forward(lom, t, tbm, codes_t, len_t)
-        plain = K.hmm_forward_plain(lom, t, tbm, codes_t, len_t)
+    # the 256-gene cases on the inputs of earlier runs (seed M), so their times compare
+    cases = [(m, m, HMM_GENES, False, m) for m in HMM_WIDTHS]
+    cases.append(("batch", HMM_BATCH_M, HMM_BATCH_GENES, True, 7))
+    for key, m, n_genes, sort, seed in cases:
+        args, codes = hmm_case(m, n_genes, sort, dev, seed)
+        got = K.hmm_forward(*args)
+        plain = K.hmm_forward_plain(*args)
         torch.cuda.synchronize()
         err = float((got - plain).abs().max())
         if not (bool(torch.isfinite(got).all())
                 and bool(((got - plain).abs() <= HMM_TOL_ABS + HMM_TOL_REL * plain.abs()).all())):
-            raise AssertionError(f"hmm_forward M={m}: max |kernel - plain| {err} bits, outside "
-                                 f"{HMM_TOL_ABS} + {HMM_TOL_REL} |score|")
+            raise AssertionError(f"hmm_forward M={m}, {n_genes} genes: max |kernel - plain| {err} bits, "
+                                 f"outside {HMM_TOL_ABS} + {HMM_TOL_REL} |score|")
         bnd = hmm_bound(codes, m)
-        ms = time_ms(lambda: K.hmm_forward(lom, t, tbm, codes_t, len_t), iters=20)
-        plain_ms = time_ms(lambda: K.hmm_forward_plain(lom, t, tbm, codes_t, len_t), iters=3)
-        out[m] = {"ms": ms, "plain_ms": plain_ms, "bound": bnd[:2], "cells": bnd[2],
-                  "max_abs_err": err, "max_score": float(plain.abs().max())}
-        log(f"hmm_forward at M {m}, {HMM_GENES} genes of 30-1,000 residues ({bnd[2]} DP cells): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
-            f"roofline share {bnd[0] / ms:.4f}, {bnd[2] / ms / 1e6:.3f} G cells/s; "
-            f"max |kernel - plain| {err:.3g} bits (scores up to {out[m]['max_score']:.1f})")
+        ms = time_ms(lambda: K.hmm_forward(*args), iters=20)
+        plain_ms = time_ms(lambda: K.hmm_forward_plain(*args), iters=3)
+        out[key] = {"m": m, "genes": n_genes, "ms": ms, "plain_ms": plain_ms, "bound": bnd[:2],
+                    "cells": bnd[2], "max_abs_err": err, "max_score": float(plain.abs().max())}
+        log(f"hmm_forward at M {m}, {n_genes} {'length-sorted ' if sort else ''}genes of 30-1,000 residues "
+            f"({bnd[2]} DP cells): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.5f} ms "
+            f"({bnd[1]}), roofline share {bnd[0] / ms:.4f}, {bnd[2] / ms / 1e6:.3f} G cells/s; "
+            f"max |kernel - plain| {err:.3g} bits (scores up to {out[key]['max_score']:.1f})")
     return out
 
 
@@ -880,6 +969,10 @@ RC_MARKERS = 40
 RC_MERGED_PAIRS = 20
 RC_EPOCHS = 10  # two epochs are 117 optimizer steps at 20,000 contigs: too few to cluster
 RC_CLUSTERS = 600  # bin default's -c, a cap on the clustering's time
+# the padded lengths phase 7's sample of gene batches may sum to: the plain
+# Forward takes some 0.5 ms a residue step and profile on the card, so 2,048
+# steps x 40 profiles are some 40 s
+RC_SAMPLE_PADS = 2048
 READ_LEN = 150
 
 
@@ -1031,6 +1124,64 @@ def read_bins(path: Path, n_contigs: int) -> dict:
     return bins
 
 
+def compare_marker_calls(encoded, profiles) -> dict:
+    """Fault check at scale: the card's marker calls against the plain
+    version's. Scores every one of phase 7's encoded gene batches against
+    every profile with `hmm_forward`, then picks the sample by content: the
+    batch of the longest genes, then the batches with the most of the
+    kernel's marker calls (score >= the profile's trusted cutoff), as long
+    as the sample's padded lengths sum to at most RC_SAMPLE_PADS (the plain
+    version's time goes with them). Scores the sample again with
+    `hmm_forward` and with `hmm_forward_plain`, both on the card. Counts the
+    scores outside the tolerance band (must be 0), the marker calls that
+    differ while the plain score lies outside the band around the cutoff
+    (must be 0), and the genes whose plain score lies inside that band; and
+    gives the largest |kernel - plain| / band."""
+    from vamb_torch import kernels as K
+    from vamb_torch.ops import hmm
+
+    t0 = time.time()
+    tensors = [hmm.profile_tensors(hmm.configure_local(p), encoded.device) for p in profiles]
+    per_batch = torch.zeros(len(encoded.batches), dtype=torch.int64, device=encoded.device)
+    for (lom, t, tbm), prof in zip(tensors, profiles):
+        per_batch += torch.stack([(K.hmm_forward(lom, t, tbm, seqs, lengths, nres) >= prof.trusted_cutoff).sum()
+                                  for _, seqs, lengths, nres in encoded.batches])
+    per_batch = per_batch.cpu().numpy()
+    pads = [int(seqs.shape[1]) for _, seqs, _, _ in encoded.batches]
+    picks = [len(pads) - 1]
+    for b in np.argsort(-per_batch, kind="stable"):
+        if b not in picks and sum(pads[i] for i in picks) + pads[b] <= RC_SAMPLE_PADS:
+            picks.append(int(b))
+    picks.sort()
+    r = {"batches": [int(encoded.batches[b][1].shape[0]) for b in picks], "pads": [pads[b] for b in picks],
+         "kernel_calls_in_sample": int(per_batch[picks].sum()), "kernel_calls_in_all": int(per_batch.sum()),
+         "profiles": len(profiles), "scores": 0, "outside_tolerance": 0, "max_abs_err": 0.0,
+         "worst_err_over_band": 0.0, "calls": 0, "calls_differ": 0, "calls_differ_outside_band": 0,
+         "near_cutoff": 0}
+    for (lom, t, tbm), prof in zip(tensors, profiles):
+        cut = prof.trusted_cutoff
+        for b in picks:
+            _, seqs, lengths, nres = encoded.batches[b]
+            got = K.hmm_forward(lom, t, tbm, seqs, lengths, nres)
+            plain = K.hmm_forward_plain(lom, t, tbm, seqs, lengths)
+            band = HMM_TOL_ABS + HMM_TOL_REL * plain.abs()
+            near = (plain - cut).abs() <= band
+            differ = (got >= cut) != (plain >= cut)
+            r["scores"] += int(plain.numel())
+            r["outside_tolerance"] += int(((got - plain).abs() > band).sum())
+            r["max_abs_err"] = max(r["max_abs_err"], float((got - plain).abs().max()))
+            r["worst_err_over_band"] = max(r["worst_err_over_band"], float(((got - plain).abs() / band).max()))
+            r["calls"] += int((plain >= cut).sum())
+            r["calls_differ"] += int(differ.sum())
+            r["calls_differ_outside_band"] += int((differ & ~near).sum())
+            r["near_cutoff"] += int(near.sum())
+    r["seconds"] = time.time() - t0
+    log("phase 7 marker calls, card kernel vs plain version on the card: " + json.dumps(r))
+    check(r["outside_tolerance"] == 0, "phase 7: Forward scores outside the tolerance band")
+    check(r["calls_differ_outside_band"] == 0, "phase 7: marker calls differ outside the tolerance band")
+    return r
+
+
 def run_recluster_path(dev, tmp: Path) -> dict:
     """Phase 7: `bin default --bamfiles` on RC_CONTIGS contigs from
     RC_GENOMES genomes carrying RC_MARKERS planted marker genes, then
@@ -1088,6 +1239,13 @@ def run_recluster_path(dev, tmp: Path) -> dict:
     times["bin_default_s"] = time.time() - t0
     times["bin_default_stages"] = stage_times(out / "log.txt")
     runs = {}
+    encoded, encoded_cls = [], hmm.EncodedProteins
+
+    class recorded_encoded(encoded_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            encoded.append(self)
+
     common = ["--fasta", fasta, "--latent_path", str(out / "latent.npz"), "--seed", str(SEED)]
     for label, argv in (
         ("kmeans_own", ["--algorithm", "kmeans", "--hmm_path", str(data / "markers.hmm"),
@@ -1098,7 +1256,13 @@ def run_recluster_path(dev, tmp: Path) -> dict:
                     "--taxonomy", str(data / "taxonomy.tsv"), "--no_predictor"]),
     ):
         t1 = time.time()
-        main(["recluster", "--outdir", str(tmp / label), *common, *argv], device=str(dev))
+        # keep the encoded gene batches the marker pipeline builds, for the
+        # comparison with the plain version after the counters are read
+        hmm.EncodedProteins = recorded_encoded
+        try:
+            main(["recluster", "--outdir", str(tmp / label), *common, *argv], device=str(dev))
+        finally:
+            hmm.EncodedProteins = encoded_cls
         torch.cuda.synchronize()
         times[f"{label}_s"] = time.time() - t1
         logtext = (tmp / label / "log.txt").read_text()
@@ -1117,6 +1281,8 @@ def run_recluster_path(dev, tmp: Path) -> dict:
     launches = {"hmm_forward": K.hmm_forward.launches, **{k.__name__: k.launches for k in K.KERNELS}}
     log(f"phase 7 path ran in {wall:.1f} s; kernel launches {launches}")
     check(launches["hmm_forward"] > 0, "phase 7 never launched hmm_forward")
+    check(len(encoded) == 1, f"phase 7 encoded {len(encoded)} gene sets, not one")
+    calls = compare_marker_calls(encoded[0], profiles)
 
     # the predicted markers against the planted truth
     markers = Markers.load(tmp / "kmeans_own" / "markers.npz", None)
@@ -1134,7 +1300,7 @@ def run_recluster_path(dev, tmp: Path) -> dict:
     before = {"kmeans_own": read_bins(out / "vae_clusters_unsplit.tsv", None),
               "kmeans_merged": read_bins(data / "merged.tsv", RC_CONTIGS)}
     result = {"launches": launches, "marker_precision": precision, "marker_recall": recall,
-              "times": times, "wall_s": wall}
+              "marker_calls_vs_plain": calls, "times": times, "wall_s": wall}
     for label, bins in before.items():
         p_in, p_out = pairwise_precision(bins, genome), pairwise_precision(runs[label]["unsplit"], genome)
         log(f"recluster {label}: {len(bins)} bins in, {len(runs[label]['unsplit'])} out; pairwise "
@@ -1332,10 +1498,12 @@ def hmm_row(hmm_timed: dict, run_rc: dict) -> dict:
         "launches": run_rc["launches"]["hmm_forward"],
         "max_abs_err": max(t["max_abs_err"] for t in hmm_timed.values()),
         "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound"][0], "bound_by": h["bound"][1],
-        "library_ms": None, "m": HMM_HEADLINE, "genes": HMM_GENES,
-        "at_widths": {m: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                          "bound_by": t["bound"][1], "cells": t["cells"], "max_abs_err": t["max_abs_err"]}
-                      for m, t in hmm_timed.items()},
+        "library_ms": None, "library_note": LIBRARY_NOTES["hmm_forward"], "m": HMM_HEADLINE,
+        "genes": HMM_GENES,
+        "at_widths": {k: {"m": t["m"], "genes": t["genes"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                          "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "cells": t["cells"],
+                          "max_abs_err": t["max_abs_err"]}
+                      for k, t in hmm_timed.items()},
     }
 
 
@@ -1346,7 +1514,8 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list
     replaces = {"row_sweep": "vamb_tpu/ops/pallas_cluster.py:219",
                 "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
                 "gather_blocks": "vamb_tpu/ops/pallas_cluster.py:368",
-                "medoid_sweep": "vamb_tpu/ops/pallas_cluster.py:140"}
+                "medoid_sweep": "vamb_tpu/ops/pallas_cluster.py:140",
+                "gumbel_scores": "vamb_tpu/cluster.py:775"}
     gaps_300k = launch_gaps(timed, run_300k["launches_by_width"])
     gaps_100k = launch_gaps(timed, run_100k["launches_by_width"])
     log("launches x (ms - bound), L2 cold, summed over widths: 300k path "
@@ -1363,6 +1532,9 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "n_pad": main_n,
+            **({"library_note": LIBRARY_NOTES[name]} if r["library_ms"] is None else {}),
+            **({"replaces_kind": "eager threefry uniform and two jnp.log (also :674), not Pallas"}
+               if name == "gumbel_scores" else {}),
             "ms_l2_warm": r["ms_l2_warm"], "plain_ms_l2_warm": r["plain_ms_l2_warm"],
             "library_ms_l2_warm": r["library_ms_l2_warm"],
             "launches_100k_path": run_100k["launches"][name],
@@ -1643,12 +1815,18 @@ def main(mode: str = "full") -> int:
     phase_done("3 (engine)")
     with tempfile.TemporaryDirectory() as tmp:
         run_100k = run_main_path(dev, Path(tmp), N_CONTIGS, N_GENOMES, 2000,
-                                 ("candidate_density_sweep", "medoid_sweep"), agreement=True)
+                                 ("candidate_density_sweep", "medoid_sweep", "gumbel_scores"),
+                                 agreement=True)
     phase_done("4 and 6 (100k path and its profile)")
+    agree = run_100k["card_vs_cpu"]
+    check(agree["inputs_seen"]["gumbel scores"] > 0 and agree["inputs_that_differed"]["gumbel scores"] == 0,
+          "phase 4: the card's Gumbel scores differ from the CPU's")
+    check(agree["identical_clusters"] == agree["clusters_compared"],
+          "phase 4: the card and the CPU emitted different clusters")
     with tempfile.TemporaryDirectory() as tmp:
         run_300k = run_main_path(dev, Path(tmp), BIG_CONTIGS, BIG_GENOMES, BIG_CLUSTERS,
                                  ("row_sweep", "candidate_density_sweep", "gather_blocks",
-                                  "medoid_sweep"))
+                                  "medoid_sweep", "gumbel_scores"))
     phase_done("5 and 6 (300k path and its profile)")
     check(len(run_300k["compactions"]) >= 1, "the 300,000-contig path compacted no time")
     check("wander scope full" in run_300k["compactions"][-1],

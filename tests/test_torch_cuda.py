@@ -15,7 +15,10 @@ kernel's order) and its row to row_sweep's; the gather and its side
 vectors array-equal. The widths are every width the main paths give the
 kernels (a subset ball's 8,192; 100,096-wide paths; 300,032 and, after
 compaction, 150,016) and an unaligned one. The one-pass kernels are one
-device kernel a call.
+device kernel a call. `gumbel_scores` equals its plain version bit for bit
+(as int32 bit patterns) at the wander's widths, in one launch;
+`hmm_forward` is within 1e-3 + 1e-5 |score| bits of its plain version
+(the card's SFU exponentials and logarithms in base 2, its scan orders).
 """
 
 import numpy as np
@@ -145,8 +148,14 @@ def test_gather_ball_matches_plain(cuda, n_pad):
             assert a.dtype == b.dtype and torch.equal(a, b), (name, nb)
 
 
-def _one_launch(cuda, fn) -> list:
-    "The device kernels of 3 calls of `fn` after a first one (build, workspace)."
+def _one_launch(cuda, fn, kernel: str) -> list:
+    """The kernel launches of 3 calls of `fn` after a first one (build,
+    workspace), counted as the profiler's launch API calls
+    (`cudaLaunchKernel` and its kin); the device kernels it recorded must
+    all be one kernel, named `kernel`, and there must be at least one.
+    Launches are counted on the host: late in a long run of these tests on
+    the card (after the Forward tests) the profiler was seen to drop some of
+    a window's kernel records, never its launch calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -156,7 +165,10 @@ def _one_launch(cuda, fn) -> list:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    kernels = {e.name for e in events if e.device_type == DeviceType.CUDA}
+    assert len(kernels) == 1 and kernel in kernels.pop(), kernels
+    return [e.name for e in events if e.device_type == DeviceType.CPU and "Launch" in e.name]
 
 
 @pytest.mark.cuda
@@ -192,7 +204,7 @@ def test_medoid_sweep_is_one_launch(cuda):
     mT_np, lengths = _clumpy(300_032, 32, seed=6)
     mT = torch.as_tensor(mT_np, device=cuda)
     w = torch.as_tensor(lengths, device=cuda)
-    kernels = _one_launch(cuda, lambda: K.medoid_sweep(mT, 11, w))
+    kernels = _one_launch(cuda, lambda: K.medoid_sweep(mT, 11, w), "medoid_sweep_kernel")
     assert len(kernels) == 3, kernels
 
 
@@ -205,7 +217,8 @@ def test_gather_ball_is_one_launch(cuda):
     w = torch.ones(n_pad, device=cuda)
     kept = torch.ones(n_pad, dtype=torch.bool, device=cuda)
     bids = torch.arange(0, 640, 10, dtype=torch.int32, device=cuda)
-    kernels = _one_launch(cuda, lambda: K.gather_ball(mT, bids, 50, w, kept, w))
+    kernels = _one_launch(cuda, lambda: K.gather_ball(mT, bids, 50, w, kept, w),
+                           "gather_blocks_kernel")
     assert len(kernels) == 3, kernels
 
 
@@ -252,10 +265,11 @@ def _random_local(rng, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 50, 257, 600, 1000, 2048])
+@pytest.mark.parametrize("m", [1, 32, 33, 50, 256, 257, 600, 1000, 2048])
 def test_hmm_forward_matches_plain(cuda, m):
     """Genes of 30-1,000 residues with null residues mid-sequence, in a
-    batch padded to 1,024; widths on every per-thread node count."""
+    batch padded to 1,024; widths on each side of every node count a lane
+    (1, 2, 4, 8) and of every warp count a gene (M 256 / 257)."""
     rng = np.random.default_rng(m)
     lom, t, tbm = (torch.as_tensor(a) for a in _random_local(rng, m))
     lengths = np.concatenate([[30, 1000, 1], rng.integers(30, 1001, 13)])
@@ -271,3 +285,56 @@ def test_hmm_forward_matches_plain(cuda, m):
     assert torch.isfinite(got).all()
     assert ((got - plain).abs() <= HMM_TOL_ABS + HMM_TOL_REL * plain.abs()).all(), \
         float((got - plain).abs().max())
+
+
+@pytest.mark.cuda
+def test_hmm_forward_phase7_batch(cuda):
+    """Phase 7's shape: 8,192 length-sorted genes of 30-1,000 residues with
+    null residues mid-sequence, M 350 (two warps a gene), in one launch:
+    the persistent CTAs walk every gene."""
+    rng = np.random.default_rng(11)
+    lom, t, tbm = (torch.as_tensor(a, device=cuda) for a in _random_local(rng, 350))
+    lengths = np.sort(np.concatenate([[30, 1000], rng.integers(30, 1001, 8190)]))
+    codes = np.full((len(lengths), 1024), 20, np.int8)
+    for i, n in enumerate(lengths):
+        codes[i, :n] = rng.integers(0, 20, n)
+        codes[i, :n][rng.random(n) < 0.03] = 20
+    codes_t = torch.as_tensor(codes, device=cuda)
+    len_t = torch.as_tensor(lengths.astype(np.float32), device=cuda)
+    before = K.hmm_forward.launches
+    got = K.hmm_forward(lom, t, tbm, codes_t, len_t)
+    assert K.hmm_forward.launches == before + 1
+    plain = K.hmm_forward_plain(lom, t, tbm, codes_t, len_t)
+    assert torch.isfinite(got).all()
+    assert ((got - plain).abs() <= HMM_TOL_ABS + HMM_TOL_REL * plain.abs()).all(), \
+        float((got - plain).abs().max())
+
+
+def _gumbel_inputs(n, seed, mask):
+    from vamb_torch.utils import threefry
+
+    rng = np.random.default_rng(seed)
+    key = threefry.split_host(threefry.key(seed))[1]
+    d = rng.random(n).astype(np.float32) * 0.1
+    kept, tried = rng.random(n) < 0.8, rng.random(n) < 0.1
+    if mask == "none":
+        kept[:] = False
+    elif mask == "all":
+        d[:], kept[:], tried[:] = 0.0, True, False
+    return key, d, kept, tried, int(rng.integers(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8_192, 100_096, 300_032])
+@pytest.mark.parametrize("mask", ["none", "some", "all"])
+def test_gumbel_scores_matches_plain(cuda, n, mask):
+    """The card's scores equal the plain version's bit for bit (jax's
+    threefry bits and XLA's CPU log, every rounding spelled out), from one
+    device kernel a call."""
+    key, *arrays, medoid = _gumbel_inputs(n, n + len(mask), mask)
+    d, kept, tried = (torch.as_tensor(a, device=cuda) for a in arrays)
+    got = K.gumbel_scores(key, d, kept, tried, medoid)
+    expect = K.gumbel_scores_plain(key, d.cpu(), kept.cpu(), tried.cpu(), medoid)
+    assert torch.equal(got.cpu().view(torch.int32), expect.view(torch.int32))
+    assert len(_one_launch(cuda, lambda: K.gumbel_scores(key, d, kept, tried, medoid),
+                           "gumbel_scores_kernel")) == 3

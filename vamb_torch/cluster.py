@@ -21,7 +21,9 @@ host drives the attempts, transcribing the sequential control flow of
 engine by tests/test_parity_cluster.py), and the numeric steps run on the
 device: the seed's and each new medoid's row with its histogram, density
 and close count in one sweep (`kernels.medoid_sweep`), the per-step Gumbel
-top-k over the threefry stream, candidate densities
+scores over the threefry stream in one launch (`kernels.gumbel_scores`,
+XLA's CPU log, so bit for bit `vamb_tpu`'s) and their top-k, candidate
+densities
 (`kernels.candidate_density_sweep`), the subset wander's ball and its
 per-slot vectors in one gather (`kernels.gather_ball`), rows inside the
 ball (`kernels.row_sweep`), the banded smoothing product and the valley
@@ -69,7 +71,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .kernels import candidate_density_sweep, gather_ball, medoid_sweep, row_sweep
+from .kernels import candidate_density_sweep, gather_ball, gumbel_scores, medoid_sweep, row_sweep
 from .log import logger
 from .utils import threefry
 
@@ -513,14 +515,11 @@ class ClusterGenerator:
         """One wander step's draws: split the key, Gumbel top-k over the n
         eligible-untried columns, their densities in one sweep. Returns
         (key, cand, cand_valid, dens)."""
-        key, k1 = threefry.split(key)
-        u = threefry.uniform(k1, n, self.device)
-        elig = (d <= _MEDOID_RADIUS) & kept & ~tried
-        elig[medoid] = False
-        gumbel = -torch.log(-torch.log(u + 1e-20) + 1e-20)
-        score = torch.where(elig, gumbel, -torch.inf)
-        cand = torch.topk(score, self.C, sorted=True).indices
-        return key, cand, elig[cand], candidate_density_sweep(matrixT, cand, wk)
+        key, k1 = threefry.split_host(key)
+        # -inf exactly where a column is not eligible: an eligible score is finite
+        score = gumbel_scores(k1, d, kept, tried, medoid)
+        top, cand = torch.topk(score, self.C, sorted=True)
+        return key, cand, top > -torch.inf, candidate_density_sweep(matrixT, cand, wk)
 
     def _climb(self, medoid: int, sweep, density, tried, key, wk):
         """First-improvement hill climb over all columns (ref :415-450) from

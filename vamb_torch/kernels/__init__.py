@@ -9,6 +9,8 @@ from .cluster_kernels import (  # noqa: F401
     gather_ball_plain,
     gather_blocks,
     gather_blocks_plain,
+    gumbel_scores,
+    gumbel_scores_plain,
     medoid_sweep,
     medoid_sweep_plain,
     row_sweep,

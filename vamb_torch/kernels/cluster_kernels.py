@@ -1,7 +1,7 @@
 """The clustering engine's kernels: wrappers, plain versions, launch
 counters and the on-demand build.
 
-Four CUDA C++ kernels for sm_90a live in `csrc/cluster_kernels.cu` (whose
+Five CUDA C++ kernels for sm_90a live in `csrc/cluster_kernels.cu` (whose
 notes say which TPU kernel each replaces, what bounds it on the H100 and
 what its design does about it):
 
@@ -32,7 +32,13 @@ what its design does about it):
   a private histogram row in shared memory; the sums follow an order that
   depends on N_pad alone, which `sweep_ordered_sum` reproduces, so kernel
   and plain version agree bit for bit. The engine takes the seed's and each
-  new medoid's row and sums from it.
+  new medoid's row and sums from it;
+* `gumbel_scores(key, d, kept, tried, medoid)` replaces the eager threefry
+  uniform and the two `jnp.log`s of a wander step (`vamb_tpu/cluster.py`
+  :674-677, :775-777): every column's masked Gumbel score in one launch, a
+  thread a column, with jax's threefry bits and XLA's CPU log spelled out
+  rounding by rounding, so the card gives `vamb_tpu`'s scores bit for bit.
+  Bound by its integer operations (the hash).
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
 PyTorch version beside it only for a CPU tensor. It counts its launches in
@@ -50,6 +56,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from ..utils import threefry
 
 _MEDOID_RADIUS = 0.05
 _MAX_CAND = 32  # kMaxCand in the CUDA source
@@ -132,6 +140,9 @@ def _load():
             lib.vt_gather_blocks.restype = ci
             lib.vt_medoid_sweep.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
             lib.vt_medoid_sweep.restype = ci
+            cu = ctypes.c_uint
+            lib.vt_gumbel_scores.argtypes = [cu, cu, ci, vp, vp, vp, ci, vp, vp]
+            lib.vt_gumbel_scores.restype = ci
             consts = (lib.vt_max_candidates, lib.vt_density_threads, lib.vt_density_tile_cols,
                       lib.vt_density_max_blocks, lib.vt_density_tile, lib.vt_sweep_threads,
                       lib.vt_sweep_vec, lib.vt_sweep_max_blocks, lib.vt_sweep_slots,
@@ -550,7 +561,61 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
 medoid_sweep.launches = 0
 medoid_sweep.launches_by_width = {}  # N_pad -> launches
 
-KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep)
+# --------------------------------------------------------- gumbel_scores
+
+
+def gumbel_scores_plain(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
+                        medoid: int) -> torch.Tensor:
+    """Plain version of `gumbel_scores`: `vamb_tpu`'s expression with jax's
+    threefry uniform and XLA's CPU log (`threefry.log_xla`), bit for bit."""
+    n = d.shape[0]
+    u = threefry.uniform(key, n, d.device)
+    g = -threefry.log_xla(-threefry.log_xla(u + 1e-20) + 1e-20)
+    elig = (d <= _MEDOID_RADIUS) & kept & ~tried
+    elig[medoid] = False
+    return torch.where(elig, g, -torch.inf)
+
+
+def gumbel_scores(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
+                  medoid: int) -> torch.Tensor:
+    """A wander step's candidate scores: for each of the n columns the
+    Gumbel score `-log(-log(u + 1e-20) + 1e-20)` of u =
+    `jax.random.uniform(key, (n,))`, with XLA's CPU log, where the column is
+    eligible ((d <= 0.05) & kept & ~tried, not `medoid`), else -inf.
+
+    `key` is a threefry key (two uint32 words), d (n,) f32, kept and tried
+    (n,) bool. Launches the CUDA kernel for CUDA tensors (one launch,
+    counted in `gumbel_scores.launches`), runs the plain version for CPU
+    tensors; both give `vamb_tpu`'s bits."""
+    n = d.shape[0]
+    if d.dim() != 1 or d.dtype != torch.float32:
+        raise ValueError("d must be a 1-D float32 tensor")
+    if any(v.shape != (n,) or v.dtype != torch.bool for v in (kept, tried)):
+        raise ValueError("kept and tried must be bool tensors of d's shape")
+    medoid = int(medoid)
+    if not 0 <= medoid < n:
+        raise IndexError(f"medoid {medoid} outside [0, {n})")
+    k0, k1 = (int(w) & 0xFFFFFFFF for w in key)
+    if d.device.type == "cpu":
+        return gumbel_scores_plain((k0, k1), d, kept, tried, medoid)
+    if d.device.type != "cuda":
+        raise ValueError(f"gumbel_scores runs on cuda or cpu, not {d.device}")
+    if kept.device != d.device or tried.device != d.device:
+        raise ValueError("d, kept and tried must be on one device")
+    lib = _load()
+    d, kept, tried = d.contiguous(), kept.contiguous(), tried.contiguous()
+    score = torch.empty(n, dtype=torch.float32, device=d.device)
+    err = lib.vt_gumbel_scores(k0, k1, n, d.data_ptr(), kept.data_ptr(), tried.data_ptr(), medoid,
+                               score.data_ptr(), torch.cuda.current_stream(d.device).cuda_stream)
+    _raise_on(err, "gumbel_scores")
+    _count(gumbel_scores, n)
+    return score
+
+
+gumbel_scores.launches = 0
+gumbel_scores.launches_by_width = {}  # n -> launches
+
+KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep, gumbel_scores)
 
 
 def reset_launch_counts() -> None:

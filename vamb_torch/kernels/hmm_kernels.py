@@ -5,16 +5,20 @@
 (not a Pallas kernel): HMMER3's multihit-local Forward bit scores of a
 batch of encoded genes against one local profile. The CUDA C++ kernel for
 sm_90a is `csrc/hmm_forward.cu`, whose note says what bounds it on the
-H100 (its transcendentals) and what its design does about that: one CTA a
-gene, threads over the M nodes, a block-wide scan for the delete chain and
-a block-wide log-sum-exp for E at each residue.
+H100 and what its design does about that: the recurrence in probabilities
+scaled by exact powers of two (HMMER3's own scaled Forward), so a DP cell
+is a dozen f32 operations and no transcendental; a group of ceil(M / 256)
+warps a gene in persistent CTAs; the emission odds staged in shared memory
+once a CTA; the delete chain as a shuffle scan of affine maps; at most one
+named barrier a residue.
 
 `hmm_forward_plain` is the same recurrence as a Python loop over residues,
 vectorised over (genes, nodes) in torch, in JAX's formulation (the delete
 chain as an inclusive prefix log-sum-exp of a - s, then + s). The wrapper
 runs it for a CPU tensor and launches the kernel for a CUDA tensor; it
-counts launches in `hmm_forward.launches`. Scores are not bit-equal across
-`expf`/`log1pf` implementations; the tests state the tolerance.
+counts launches in `hmm_forward.launches`. The kernel sums probabilities
+where the plain version adds logarithms, so its scores are not bit-equal
+to the plain version's; the tests state the tolerance.
 """
 
 import ctypes
@@ -46,18 +50,13 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build_hmm()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.vt_hmm_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp]
+            lib.vt_hmm_forward.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp]
             lib.vt_hmm_forward.restype = ci
             lib.vt_hmm_max_nodes.argtypes, lib.vt_hmm_max_nodes.restype = [], ci
             if lib.vt_hmm_max_nodes() != _MAX_NODES:
                 raise RuntimeError(f"{_SOURCE.name} and {__name__} disagree on its constants")
             _lib = lib
     return _lib
-
-
-def delete_offsets(t: torch.Tensor) -> torch.Tensor:
-    "s = [0, cumsum(tdd)]: the delete chain's offsets, tdd = t[1:-1, 6]."
-    return torch.cat([t.new_zeros(1), torch.cumsum(t[1:-1, 6], 0)])
 
 
 def last_residues(codes: torch.Tensor) -> torch.Tensor:
@@ -77,7 +76,7 @@ def hmm_forward_plain(lom, t, tbm, codes, lengths) -> torch.Tensor:
     dev = lom.device
     tmm, tmi, tmd = t[1:-1, 0], t[1:, 1], t[1:-1, 2]
     tim, tii, tdm = t[1:, 3], t[1:, 4], t[1:-1, 5]
-    s = delete_offsets(t)
+    s = torch.cat([t.new_zeros(1), torch.cumsum(t[1:-1, 6], 0)])  # the delete chain's offsets
     L = lengths.to(torch.float32)
     loop = torch.log(L / (L + 3.0))
     move = torch.log(3.0 / (L + 3.0))
@@ -153,11 +152,10 @@ def hmm_forward(lom, t, tbm, codes, lengths, nres=None) -> torch.Tensor:
         raise ValueError("t, tbm, codes, lengths and nres must be contiguous")
     lib = _load()
     lomT = lom.T.contiguous()  # (21, M): a residue's emissions side by side
-    s = delete_offsets(t).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vt_hmm_forward(lomT.data_ptr(), t.data_ptr(), tbm.data_ptr(), s.data_ptr(),
-                             codes.data_ptr(), lengths.data_ptr(), nres.data_ptr(), m, b_count, L,
-                             out.data_ptr(), stream)
+    err = lib.vt_hmm_forward(lomT.data_ptr(), t.data_ptr(), tbm.data_ptr(), codes.data_ptr(),
+                             lengths.data_ptr(), nres.data_ptr(), m, b_count, L, out.data_ptr(),
+                             stream)
     if err != 0:
         raise RuntimeError(f"hmm_forward kernel launch failed with cudaError {err}")
     hmm_forward.launches += 1

@@ -280,6 +280,20 @@ class EncodedProteins:
             self.batches.append((idx, seqs, lengths, last_residues(seqs)))
 
 
+def profile_tensors(profile: LocalProfile, device):
+    """A local profile as `hmm_forward` takes it, on `device`: lom (M, 21)
+    f32 (the 20 match log-odds and a zero column for the null residue), t
+    and tbm f32 clamped at -1e30."""
+    import torch
+
+    m = profile.lom.shape[0]
+    lom = np.zeros((m, 21), dtype=np.float32)
+    lom[:, :20] = profile.lom
+    return (torch.as_tensor(lom, device=device),
+            torch.as_tensor(np.maximum(profile.t, -1e30).astype(np.float32), device=device),
+            torch.as_tensor(np.maximum(profile.tbm, -1e30).astype(np.float32), device=device))
+
+
 def forward_scores(
     profile: LocalProfile,
     proteins: Union[Sequence[str], EncodedProteins],
@@ -296,14 +310,10 @@ def forward_scores(
         proteins = EncodedProteins(proteins, batch=batch, device=device)
     if proteins.n == 0:
         return np.empty(0, dtype=np.float32)
-    dev = proteins.device
-    m = profile.lom.shape[0]
-    lom = np.zeros((m, 21), dtype=np.float32)
-    lom[:, :20] = profile.lom
-    lom = torch.as_tensor(lom, device=dev)
-    t = torch.as_tensor(np.maximum(profile.t, -1e30).astype(np.float32), device=dev)
-    tbm = torch.as_tensor(np.maximum(profile.tbm, -1e30).astype(np.float32), device=dev)
+    lom, t, tbm = profile_tensors(profile, proteins.device)
+    # the batches' scores stay on the device: one copy (and one sync) a profile
+    scores = [hmm_forward(lom, t, tbm, seqs, lengths, nres)
+              for _, seqs, lengths, nres in proteins.batches]
     out = np.empty(proteins.n, dtype=np.float32)
-    for idx, seqs, lengths, nres in proteins.batches:
-        out[idx] = hmm_forward(lom, t, tbm, seqs, lengths, nres).cpu().numpy()
+    out[np.concatenate([b[0] for b in proteins.batches])] = torch.cat(scores).cpu().numpy()
     return out
