@@ -16,11 +16,16 @@ of `vamb_tpu`. Phases, each of which fails the run:
    the card, bit for bit, at the main paths' shapes and around them
    (`medoid_sweep`'s row, histogram, density and close count included;
    `gather_ball`'s side vectors; `gumbel_scores`' bits with no, some and
-   all columns eligible), then timed with CUDA events at every width the
-   main paths give it, beside its bound (bytes, f32 or, for
-   `gumbel_scores`, int32 operations), its plain version and a library
-   yardstick. The profile-HMM Forward kernel `hmm_forward` against its
-   plain version within 1e-3 + 1e-5 |score| bits at M 50, 200, 600 and
+   all columns eligible; `gumbel_topc`'s candidates and their validity
+   array-equal and its optional scores bit for bit, with no, some and all
+   columns eligible and at two keys whose top 25 hold tied scores, at C 1,
+   25 and 32, one launch a call), then timed with CUDA events at every
+   width the main paths give it, beside its bound (bytes, f32 or, for
+   `gumbel_topc`, int32 operations), its plain version and a library
+   yardstick (for `gumbel_topc`, the scores-only launch and `torch.topk`,
+   the step as it was before the kernel took the selection, also on the
+   host's clock). The profile-HMM Forward kernel `hmm_forward` against
+   its plain version within 1e-3 + 1e-5 |score| bits at M 50, 200, 600 and
    1,000 on 256 genes of 30-1,000 residues (null residues mid-sequence)
    and on phase 7's shape, 8,192 length-sorted genes at M 350, timed there
    beside its bound (11 f32 instructions a DP cell) and its plain version;
@@ -36,12 +41,13 @@ of `vamb_tpu`. Phases, each of which fails the run:
    clustering capped at 2,000 clusters), full-scope wander. Every kernel's
    launch counter and its tally by N_pad are set to 0 just before and read
    just after; `candidate_density_sweep`, `medoid_sweep` and
-   `gumbel_scores` must be > 0. The stage artifacts and TSVs are read back
+   `gumbel_topc` must be > 0. The stage artifacts and TSVs are read back
    and checked. Then 50 clusters of the engine on this path's latent on
    the card and on the CPU in lockstep, counting the clusters emitted alike
-   and how often each decision input (the engine's Gumbel scores,
-   candidates, their densities, histogram, smoothed densities) differed:
-   the Gumbel scores must differ in no step and the 50 clusters must be
+   and how often each decision input (the engine's Gumbel scores, through
+   `gumbel_topc`'s optional output, its candidates, their densities,
+   histogram, smoothed densities) differed: the Gumbel scores and the
+   candidates must differ in no step and the 50 clusters must be
    identical.
 5. main path at 300,000 contigs from 3,000 genomes (6 samples, 2 epochs,
    `-c 3200`): the subset wander with `gather_ball` and `row_sweep` on the
@@ -50,7 +56,8 @@ of `vamb_tpu`. Phases, each of which fails the run:
 6. profile: on each main path's own data, 40 clusters of the engine and
    100 training steps under torch.profiler: time per cluster and per step,
    device kernels per attempt and per wander step, the device's busy share
-   and the ops that take the most device time.
+   and the ops that take the most device time. A clustering window that
+   calls `aten::topk` fails the run: the selection is `gumbel_topc`'s.
 7. BAM input and recluster, through the CLI entry points on the card:
    20,000 contigs from 200 genomes, each genome carrying a variant of each
    of 40 synthetic marker profiles (M 100-600, trusted cutoffs calibrated
@@ -61,9 +68,9 @@ of `vamb_tpu`. Phases, each of which fails the run:
    k-means with the saved markers on the planted genomes with 20 pairs
    merged, and DBSCAN with the saved markers on a taxonomy of genera of
    2-5 genomes (`--no_predictor`). Counters as in phase 4;
-   `hmm_forward` must be > 0. Gates: marker precision and recall against
-   the planted genes; on a sample of the encoded gene batches (the longest
-   genes' included), every profile's scores from the kernel within the
+   `hmm_forward` and `gumbel_topc` must be > 0. Gates: marker precision
+   and recall against the planted genes; on a sample of the encoded gene
+   batches (the longest genes' included), every profile's scores from the kernel within the
    tolerance of the plain version's on the card and no marker call that
    differs outside that band around the cutoff (the calls inside it are
    counted); every TSV read back; and k-means' pairwise precision against
@@ -133,12 +140,13 @@ F32_OPS_PER_S = 33.5e12
 # int32 operations: 64 a clock an SM (the CUDA programming guide's throughput
 # table, compute capability 9.0), 132 SMs at the 1,980 MHz boost clock
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# gumbel_scores' work a column: the threefry hash's 20 rounds of an add, a
-# rotate (one funnel shift) and a xor, its 5 two-add key injections, the
+# The Gumbel kernel's work a column: the threefry hash's 20 rounds of an add,
+# a rotate (one funnel shift) and a xor, its 5 two-add key injections, the
 # initial adds and the final xor, and the unit float's shift and or: 75 int32
 # operations; the two logs and the score's adds: about 55 f32 operations;
-# d, kept and tried read and the score written: 10 bytes
-GUMBEL_INT_OPS, GUMBEL_F32_OPS, GUMBEL_BYTES = 75, 55, 10
+# d, kept and tried read: 6 bytes (`gumbel_topc` writes only its C
+# candidates; the scores stay in registers)
+GUMBEL_INT_OPS, GUMBEL_F32_OPS, GUMBEL_READ_BYTES = 75, 55, 6
 
 N_CONTIGS = 100_000
 N_GENOMES = 1_000
@@ -199,6 +207,20 @@ def time_ms(fn, iters: int = 50, cold_l2: bool = True) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def host_us(fn, iters: int = 500) -> float:
+    """Host-clock us a call of `fn` over `iters` calls back to back, with a
+    synchronize at the end: the host's issue cost where it exceeds the
+    device's time, as in the engine's launch-bound steps."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e6
 
 
 def bound(nbytes: float, nops: float, int_ops: float = 0.0) -> tuple[float, str]:
@@ -299,10 +321,11 @@ def check_kernels(dev) -> dict:
         f"bit-identical, row equal to row_sweep's, at N {N_CONTIGS + 3}, {PATH_WIDTHS[1]}, "
         f"{BIG_HALF} and {BIG_PAD}, all and half the weights); gather_blocks and gather_ball "
         f"array-equal (max|err| {err_gather}; padding slots, repeated ids); gumbel_scores "
-        f"bit-identical (max|err| {err_gumbel}) at N {', '.join(map(str, PATH_WIDTHS))}, "
-        "no, some and all columns eligible, one launch a call")
+        f"bit-identical and gumbel_topc's candidates, validity and scores array-equal (max|err| "
+        f"{err_gumbel}) at N {', '.join(map(str, PATH_WIDTHS))}, no, some and all columns eligible "
+        f"and tie keys {TIE_STEPS}, C 1, {MAXSTEPS} and 32, one launch a call")
     return {"row_sweep": err_row, "candidate_density_sweep": err_dens,
-            "gather_blocks": err_gather, "medoid_sweep": err_sweep, "gumbel_scores": err_gumbel}
+            "gather_blocks": err_gather, "medoid_sweep": err_sweep, "gumbel_topc": err_gumbel}
 
 
 def gumbel_inputs(n: int, dev, seed: int, mask: str = "some"):
@@ -322,27 +345,71 @@ def gumbel_inputs(n: int, dev, seed: int, mask: str = "some"):
     return (key, *(torch.as_tensor(a, device=dev) for a in (d, kept, tried)), int(rng.integers(n)))
 
 
+# steps of the engine's chain `key, k1 = split(key)` from PRNGKey(0) whose
+# top 25 of 8,192 scores, every column eligible but column 0, hold a tie
+TIE_STEPS = (745, 1603)
+
+
+def tie_key(step: int):
+    "k1 of step `step` of the PRNGKey(0) chain."
+    from vamb_torch.utils import threefry
+
+    key = threefry.PRNGKey(0)
+    for _ in range(step + 1):
+        key, k1 = threefry.split_host(key)
+    return k1
+
+
 def check_gumbel(dev) -> float:
-    """`gumbel_scores` against its plain version at every width the wander
-    draws at (`PATH_WIDTHS`), bit for bit (as int32 bit patterns), one
-    launch a call."""
+    """`gumbel_scores` and `gumbel_topc` against their plain versions at
+    every width the wander draws at (`PATH_WIDTHS`), with no, some and all
+    columns eligible and at the tie keys (every column eligible but column
+    0): the scores bit for bit (as int32 bit patterns), `gumbel_topc`'s
+    candidates and their validity array-equal at C 1, 25 and 32, its
+    optional scores bit for bit; one launch a call."""
     from vamb_torch import kernels as K
 
+    cases = []
     for n in PATH_WIDTHS:
         for i, mask in enumerate(("none", "some", "all")):
-            key, d, kept, tried, medoid = gumbel_inputs(n, dev, seed=n + i, mask=mask)
-            before = K.gumbel_scores.launches
-            got = K.gumbel_scores(key, d, kept, tried, medoid)
-            expect = K.gumbel_scores_plain(key, d, kept, tried, medoid)
+            cases.append((n, mask, *gumbel_inputs(n, dev, seed=n + i, mask=mask)))
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        for step in TIE_STEPS:
+            cases.append((n, f"tie key {step}", tie_key(step), torch.zeros(n, device=dev), ones, ~ones, 0))
+    ties = 0
+    for n, label, key, d, kept, tried, medoid in cases:
+        before = K.gumbel_scores.launches
+        got = K.gumbel_scores(key, d, kept, tried, medoid)
+        expect = K.gumbel_scores_plain(key, d, kept, tried, medoid)
+        torch.cuda.synchronize()
+        check(K.gumbel_scores.launches == before + 1, "gumbel_scores: not one launch a call")
+        if not torch.equal(got.view(torch.int32), expect.view(torch.int32)):
+            bad = int((got.view(torch.int32) != expect.view(torch.int32)).sum())
+            raise AssertionError(f"gumbel_scores n={n} {label}: {bad} scores differ from the plain "
+                                 "version's bits")
+        eligible = int(torch.isfinite(got).sum())
+        want = {"none": eligible == 0, "some": 0 < eligible < n}.get(label, eligible == n - 1)
+        check(want, f"gumbel_scores n={n} {label}: {eligible} eligible columns")
+        for c in (1, MAXSTEPS, 32):
+            before = K.gumbel_topc.launches
+            cand, valid, score = K.gumbel_topc(key, d, kept, tried, medoid, c, with_scores=True)
+            lean = K.gumbel_topc(key, d, kept, tried, medoid, c)
+            cand_p, valid_p = K.gumbel_topc_plain(key, d, kept, tried, medoid, c)
             torch.cuda.synchronize()
-            check(K.gumbel_scores.launches == before + 1, "gumbel_scores: not one launch a call")
-            if not torch.equal(got.view(torch.int32), expect.view(torch.int32)):
-                bad = int((got.view(torch.int32) != expect.view(torch.int32)).sum())
-                raise AssertionError(f"gumbel_scores n={n} mask={mask}: {bad} scores differ from the plain "
-                                     "version's bits")
-            eligible = int(torch.isfinite(got).sum())
-            want = {"none": eligible == 0, "some": 0 < eligible < n, "all": eligible == n - 1}[mask]
-            check(want, f"gumbel_scores n={n} mask={mask}: {eligible} eligible columns")
+            check(K.gumbel_topc.launches == before + 2, "gumbel_topc: not one launch a call")
+            same = (torch.equal(cand, cand_p) and torch.equal(valid, valid_p)
+                    and torch.equal(lean[0], cand_p) and torch.equal(lean[1], valid_p)
+                    and torch.equal(score.view(torch.int32), expect.view(torch.int32)))
+            if not same:
+                raise AssertionError(
+                    f"gumbel_topc n={n} {label} C={c}: candidates {cand.tolist()} valid "
+                    f"{valid.tolist()} (without scores {lean[0].tolist()}) vs the plain version's "
+                    f"{cand_p.tolist()} {valid_p.tolist()}; scores bit-equal: "
+                    f"{torch.equal(score.view(torch.int32), expect.view(torch.int32))}")
+            check(int(valid.sum()) == min(c, eligible), f"gumbel_topc n={n} {label} C={c}: validity")
+            if label.startswith("tie") and n == PATH_WIDTHS[0] and c == MAXSTEPS:
+                ties += int(len(torch.unique(expect[cand_p])) < c)
+    check(ties == len(TIE_STEPS), f"{len(TIE_STEPS) - ties} tie keys hold no tie in their top 25")
     return 0.0
 
 
@@ -396,7 +463,6 @@ PATH_WIDTHS = (BALL_KB * 128, -(-N_CONTIGS // 128) * 128, BIG_HALF, BIG_PAD)
 LIBRARY_NOTES = {
     "candidate_density_sweep": "none: no single call computes the weighted close-neighbour densities",
     "medoid_sweep": "none: no single call computes the row with its histogram, density and close count",
-    "gumbel_scores": "none: no single call draws jax's bits",
     "hmm_forward": "none: no single call computes the Forward recurrence",
 }
 
@@ -408,10 +474,13 @@ def time_kernels(dev) -> dict:
     300,032 and, after its compaction, 150,016; `medoid_sweep` at the last
     three; `gather_ball` (64 blocks with their side vectors, the call the
     subset wander makes) from 300,032 columns, beside `index_select` of the
-    matrix alone. Each L2 cold and warm. Returns {(name, N_pad): {"ms",
-    "plain_ms", "library_ms", "bound", and the same with an "_l2_warm"
-    suffix}}. Logged beside them: `gather_blocks` (the matrix alone) and
-    an empty kernel, the harness's launch floor."""
+    matrix alone; `gumbel_topc` (C = 25, some columns eligible) at all four,
+    beside `gumbel_scores` and `torch.topk` of its scores. Each L2 cold
+    and warm. Returns {(name, N_pad): {"ms", "plain_ms", "library_ms",
+    "bound", and the same with an "_l2_warm" suffix}}. Logged beside
+    them: `gather_blocks` (the matrix alone), an empty kernel (the
+    harness's launch floor) and `gumbel_topc` and its yardstick on the
+    host's clock."""
     from vamb_torch import kernels as K
 
     out = {}
@@ -450,11 +519,14 @@ def time_kernels(dev) -> dict:
             fns["medoid_sweep"] = (
                 lambda: K.medoid_sweep(mT, idx, w), lambda: K.medoid_sweep_plain(mT, idx, w), None,
                 bound((f * n + 2 * n + 62) * 4, 2 * f * n + n + 2 * in_hist + 3 * near))
+        # the library yardstick of the draw and selection: the step as it
+        # was before (the scores written by the same kernel, then topk)
         gkey, gd, gkept, gtried, gmedoid = gumbel_inputs(n, dev, seed=8)
-        fns["gumbel_scores"] = (
-            lambda: K.gumbel_scores(gkey, gd, gkept, gtried, gmedoid),
-            lambda: K.gumbel_scores_plain(gkey, gd, gkept, gtried, gmedoid), None,
-            bound(GUMBEL_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n))
+        fns["gumbel_topc"] = (
+            lambda: K.gumbel_topc(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS),
+            lambda: K.gumbel_topc_plain(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS),
+            lambda: torch.topk(K.gumbel_scores(gkey, gd, gkept, gtried, gmedoid), MAXSTEPS),
+            bound(GUMBEL_READ_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n))
         if n == BIG_PAD:
             mTg, wg, keptg, d0g = ball_inputs(n, dev, seed=6)
             bids = torch.as_tensor(np.sort(np.random.default_rng(6).choice(n // 128, BALL_KB, replace=False))
@@ -479,6 +551,11 @@ def time_kernels(dev) -> dict:
                 f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share "
                 f"{bnd[0] / r['ms']:.3f}, L2 cold; L2 warm: kernel {r['ms_l2_warm']:.5f} ms, "
                 f"plain {r['plain_ms_l2_warm']:.5f} ms")
+        # the engine is launch-bound: what a step's draw and selection costs
+        # the host, back to back, beside the step as it was
+        kern, _, lib, _ = fns["gumbel_topc"]
+        log(f"gumbel_topc at N_pad {n}, back to back: {host_us(kern):.2f} us a call on the host's "
+            f"clock; gumbel_scores + torch.topk {host_us(lib):.2f} us")
         if n == BIG_PAD:  # the matrix alone, and the launch floor of this harness
             log(f"gather_blocks (the matrix alone) at N_pad {n}, KB {BALL_KB}: "
                 f"{time_ms(lambda: K.gather_blocks(mTg, bids)):.5f} ms; an empty kernel "
@@ -606,11 +683,11 @@ def check_engine(dev) -> None:
 def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: int = 50) -> dict:
     """The engine on the card and on the CPU, cluster by cluster in
     lockstep on one latent, both recording the inputs of their decisions:
-    each wander step's Gumbel scores (the engine's own, as `gumbel_scores`
-    returned them), its eligible candidates in drawn order and their
-    densities (the slots past them hold ineligible columns, whose order
-    among equal scores is the sort's own), and each attempt's histogram and
-    its smoothed densities. Counts the clusters emitted alike before the
+    each wander step's Gumbel scores (the engine's own, through
+    `gumbel_topc`'s optional output), its C candidates in drawn order with
+    their validity, the -inf slots included (their order is `jax.lax.top_k`'s
+    too), and their densities, and each attempt's histogram and its
+    smoothed densities. Counts the clusters emitted alike before the
     first that differs, and for each input how often it differed between
     the two, bit for bit, and by how much at most; names the first that
     did. The caller gates on the result (phase 4)."""
@@ -623,16 +700,15 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
 
         def recorded_step(key, d, kept, tried, medoid, n, matrixT, wk):
             out = step(key, d, kept, tried, medoid, n, matrixT, wk)
-            valid = out[2]
-            events.append(("candidates", out[1][valid].cpu()))
-            events.append(("candidate densities", out[3][valid].cpu()))
+            events.append(("candidates", torch.stack([out[1], out[2].long()]).cpu()))
+            events.append(("candidate densities", out[3].cpu()))
             return out
 
         gen._step = recorded_step
         return gen, events
 
     find_threshold = engine.find_threshold
-    gumbel_scores = engine.gumbel_scores
+    gumbel_topc = engine.gumbel_topc
 
     def next_cluster(gen, events):
         def recorded(hist, pvr):
@@ -640,17 +716,17 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
             events.append(("smoothed densities", engine.smooth_histogram(hist).cpu()))
             return find_threshold(hist, pvr)
 
-        def recorded_scores(*args):
-            score = gumbel_scores(*args)
+        def recorded_topc(*args):
+            cand, valid, score = gumbel_topc(*args, with_scores=True)
             events.append(("gumbel scores", score.cpu()))
-            return score
+            return cand, valid
 
         events.clear()
-        engine.find_threshold, engine.gumbel_scores = recorded, recorded_scores
+        engine.find_threshold, engine.gumbel_topc = recorded, recorded_topc
         try:
             return next(gen)
         finally:
-            engine.find_threshold, engine.gumbel_scores = find_threshold, gumbel_scores
+            engine.find_threshold, engine.gumbel_topc = find_threshold, gumbel_topc
 
     t = time.time()
     card, cpu = instrumented(dev), instrumented("cpu")
@@ -1280,7 +1356,8 @@ def run_recluster_path(dev, tmp: Path) -> dict:
     wall = time.time() - t0
     launches = {"hmm_forward": K.hmm_forward.launches, **{k.__name__: k.launches for k in K.KERNELS}}
     log(f"phase 7 path ran in {wall:.1f} s; kernel launches {launches}")
-    check(launches["hmm_forward"] > 0, "phase 7 never launched hmm_forward")
+    check(launches["hmm_forward"] > 0 and launches["gumbel_topc"] > 0,
+          "phase 7 never launched hmm_forward or gumbel_topc")
     check(len(encoded) == 1, f"phase 7 encoded {len(encoded)} gene sets, not one")
     calls = compare_marker_calls(encoded[0], profiles)
 
@@ -1365,6 +1442,7 @@ def profiled(fn, label: str) -> dict:
     result = {
         "units": count, "wall_s": wall, "ms_per_unit": wall / count * 1e3,
         "kernels_per_unit": len(kernels) / count, "device_busy_share": busy_s / wall,
+        "topk_calls": sum(a.count for a in ops if a.key == "aten::topk"),
         "top_ops": [{"op": a.key[:60], "calls": a.count, "device_ms": a.self_device_time_total / 1e3}
                     for a in top],
     }
@@ -1413,6 +1491,9 @@ def profile_stages(dev, out: Path) -> dict:
         r["kernels_per_attempt"] = kernels / attempts[0]
         log(f"{label}: {attempts[0]} attempts, {steps} wander steps; device kernels "
             f"{r['kernels_per_attempt']} an attempt, {r['kernels_per_wander_step']} a step")
+        check(steps > 0 and K.gumbel_topc.launches == steps,
+              f"{label}: {K.gumbel_topc.launches} gumbel_topc launches for {steps} wander steps")
+        check(r["topk_calls"] == 0, f"{label}: aten::topk ran {r['topk_calls']} times")
         return r
 
     log(f"profiled engine: {gen.n_pad} columns, subset ball {gen.Q or 'none (full scope)'}")
@@ -1515,7 +1596,7 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list
                 "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
                 "gather_blocks": "vamb_tpu/ops/pallas_cluster.py:368",
                 "medoid_sweep": "vamb_tpu/ops/pallas_cluster.py:140",
-                "gumbel_scores": "vamb_tpu/cluster.py:775"}
+                "gumbel_topc": "vamb_tpu/cluster.py:775"}
     gaps_300k = launch_gaps(timed, run_300k["launches_by_width"])
     gaps_100k = launch_gaps(timed, run_100k["launches_by_width"])
     log("launches x (ms - bound), L2 cold, summed over widths: 300k path "
@@ -1533,8 +1614,10 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "n_pad": main_n,
             **({"library_note": LIBRARY_NOTES[name]} if r["library_ms"] is None else {}),
-            **({"replaces_kind": "eager threefry uniform and two jnp.log (also :674), not Pallas"}
-               if name == "gumbel_scores" else {}),
+            **({"replaces_kind": "eager threefry uniform, two jnp.log and jax.lax.top_k "
+                                 "(:775-782, :674-681), not Pallas",
+                "library_what": "gumbel_scores + torch.topk, the step before the kernel selected"}
+               if name == "gumbel_topc" else {}),
             "ms_l2_warm": r["ms_l2_warm"], "plain_ms_l2_warm": r["plain_ms_l2_warm"],
             "library_ms_l2_warm": r["library_ms_l2_warm"],
             "launches_100k_path": run_100k["launches"][name],
@@ -1815,18 +1898,19 @@ def main(mode: str = "full") -> int:
     phase_done("3 (engine)")
     with tempfile.TemporaryDirectory() as tmp:
         run_100k = run_main_path(dev, Path(tmp), N_CONTIGS, N_GENOMES, 2000,
-                                 ("candidate_density_sweep", "medoid_sweep", "gumbel_scores"),
+                                 ("candidate_density_sweep", "medoid_sweep", "gumbel_topc"),
                                  agreement=True)
     phase_done("4 and 6 (100k path and its profile)")
     agree = run_100k["card_vs_cpu"]
-    check(agree["inputs_seen"]["gumbel scores"] > 0 and agree["inputs_that_differed"]["gumbel scores"] == 0,
-          "phase 4: the card's Gumbel scores differ from the CPU's")
+    for kind in ("gumbel scores", "candidates"):
+        check(agree["inputs_seen"][kind] > 0 and agree["inputs_that_differed"][kind] == 0,
+              f"phase 4: the card's {kind} differ from the CPU's")
     check(agree["identical_clusters"] == agree["clusters_compared"],
           "phase 4: the card and the CPU emitted different clusters")
     with tempfile.TemporaryDirectory() as tmp:
         run_300k = run_main_path(dev, Path(tmp), BIG_CONTIGS, BIG_GENOMES, BIG_CLUSTERS,
                                  ("row_sweep", "candidate_density_sweep", "gather_blocks",
-                                  "medoid_sweep", "gumbel_scores"))
+                                  "medoid_sweep", "gumbel_topc"))
     phase_done("5 and 6 (300k path and its profile)")
     check(len(run_300k["compactions"]) >= 1, "the 300,000-contig path compacted no time")
     check("wander scope full" in run_300k["compactions"][-1],

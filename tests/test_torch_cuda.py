@@ -17,6 +17,9 @@ kernels (a subset ball's 8,192; 100,096-wide paths; 300,032 and, after
 compaction, 150,016) and an unaligned one. The one-pass kernels are one
 device kernel a call. `gumbel_scores` equals its plain version bit for bit
 (as int32 bit patterns) at the wander's widths, in one launch;
+`gumbel_topc`'s candidates and their validity equal its plain version's
+(array-equal; the optional scores bit for bit), tied scores included, in
+one launch;
 `hmm_forward` is within 1e-3 + 1e-5 |score| bits of its plain version
 (the card's SFU exponentials and logarithms in base 2, its scan orders).
 """
@@ -97,21 +100,13 @@ def test_candidate_density_other_feature_width(cuda):
 @pytest.mark.cuda
 def test_candidate_density_is_one_launch(cuda):
     "One device kernel a call, with int64 ids: no second pass and no cast."
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     mT_np, lengths = _clumpy(100_096, 32, seed=4)
     mT = torch.as_tensor(mT_np, device=cuda)
     w = torch.as_tensor(lengths, device=cuda)
-    cand = torch.arange(0, 2_500, 100, device=cuda)  # int64, as topk gives them
-    K.candidate_density_sweep(mT, cand, w)  # builds and makes the workspace
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            K.candidate_density_sweep(mT, cand, w)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(kernels) == 3, [e.name for e in kernels]
+    cand = torch.arange(0, 2_500, 100, device=cuda)  # int64, as gumbel_topc gives them
+    kernels = _one_launch(cuda, lambda: K.candidate_density_sweep(mT, cand, w),
+                          "candidate_density_kernel")
+    assert len(kernels) == 3, kernels
 
 
 @pytest.mark.cuda
@@ -337,4 +332,47 @@ def test_gumbel_scores_matches_plain(cuda, n, mask):
     expect = K.gumbel_scores_plain(key, d.cpu(), kept.cpu(), tried.cpu(), medoid)
     assert torch.equal(got.cpu().view(torch.int32), expect.view(torch.int32))
     assert len(_one_launch(cuda, lambda: K.gumbel_scores(key, d, kept, tried, medoid),
-                           "gumbel_scores_kernel")) == 3
+                           "gumbel_topc_kernel")) == 3
+
+
+def _tie_key(step: int):
+    "k1 of step `step` of the engine's chain `key, k1 = split(key)` from PRNGKey(0)."
+    from vamb_torch.utils import threefry
+
+    key = threefry.PRNGKey(0)
+    for _ in range(step + 1):
+        key, k1 = threefry.split_host(key)
+    return k1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8_192, 300_032])
+@pytest.mark.parametrize("case", ["none", "some", "all", "tie 745", "tie 1603"])
+@pytest.mark.parametrize("c", [1, 25, 32])
+def test_gumbel_topc_matches_plain(cuda, n, case, c):
+    """The card's candidates and their validity equal the plain version's
+    (`jax.lax.top_k`'s order: score descending, index ascending), the
+    optional scores bit for bit, from one device kernel a call. The tie
+    keys are steps of the PRNGKey(0) chain whose top 25 of 8,192 columns,
+    every column eligible but the medoid's, hold two equal scores."""
+    if case.startswith("tie"):
+        key, medoid = _tie_key(int(case[4:])), 0
+        d, kept, tried = np.zeros(n, np.float32), np.ones(n, bool), np.zeros(n, bool)
+    else:
+        key, d, kept, tried, medoid = _gumbel_inputs(n, n + c + len(case), case)
+    d, kept, tried = (torch.as_tensor(a, device=cuda) for a in (d, kept, tried))
+    before = K.gumbel_topc.launches
+    cand, valid, score = K.gumbel_topc(key, d, kept, tried, medoid, c, with_scores=True)
+    assert K.gumbel_topc.launches == before + 1
+    cand_p, valid_p, score_p = K.gumbel_topc_plain(key, d.cpu(), kept.cpu(), tried.cpu(), medoid, c,
+                                                   with_scores=True)
+    assert cand.dtype == torch.int64 and valid.dtype == torch.bool
+    assert torch.equal(cand.cpu(), cand_p) and torch.equal(valid.cpu(), valid_p)
+    assert torch.equal(score.cpu().view(torch.int32), score_p.view(torch.int32))
+    assert torch.equal(K.gumbel_topc(key, d, kept, tried, medoid, c)[0], cand)
+    if case.startswith("tie") and n == 8_192 and c == 25:
+        top = score_p[cand_p]
+        assert len(torch.unique(top)) < c, "no tie in the top C"
+    if case == "some" and c == 25:  # the profiler, once a width: it drops records late in a run
+        assert len(_one_launch(cuda, lambda: K.gumbel_topc(key, d, kept, tried, medoid, c),
+                               "gumbel_topc_kernel")) == 3

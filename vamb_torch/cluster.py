@@ -21,9 +21,9 @@ host drives the attempts, transcribing the sequential control flow of
 engine by tests/test_parity_cluster.py), and the numeric steps run on the
 device: the seed's and each new medoid's row with its histogram, density
 and close count in one sweep (`kernels.medoid_sweep`), the per-step Gumbel
-scores over the threefry stream in one launch (`kernels.gumbel_scores`,
-XLA's CPU log, so bit for bit `vamb_tpu`'s) and their top-k, candidate
-densities
+scores over the threefry stream and their top C in one launch
+(`kernels.gumbel_topc`: XLA's CPU log and `jax.lax.top_k`'s order on
+ties, so bit for bit `vamb_tpu`'s candidates), candidate densities
 (`kernels.candidate_density_sweep`), the subset wander's ball and its
 per-slot vectors in one gather (`kernels.gather_ball`), rows inside the
 ball (`kernels.row_sweep`), the banded smoothing product and the valley
@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .kernels import candidate_density_sweep, gather_ball, gumbel_scores, medoid_sweep, row_sweep
+from .kernels import candidate_density_sweep, gather_ball, gumbel_topc, medoid_sweep, row_sweep
 from .log import logger
 from .utils import threefry
 
@@ -512,14 +512,12 @@ class ClusterGenerator:
             self.order_pos = 0
 
     def _step(self, key, d, kept, tried, medoid, n: int, matrixT, wk):
-        """One wander step's draws: split the key, Gumbel top-k over the n
-        eligible-untried columns, their densities in one sweep. Returns
-        (key, cand, cand_valid, dens)."""
+        """One wander step's draws: split the key, Gumbel top-C over the n
+        eligible-untried columns in `jax.lax.top_k`'s order (one launch),
+        their densities in one sweep. Returns (key, cand, cand_valid, dens)."""
         key, k1 = threefry.split_host(key)
-        # -inf exactly where a column is not eligible: an eligible score is finite
-        score = gumbel_scores(k1, d, kept, tried, medoid)
-        top, cand = torch.topk(score, self.C, sorted=True)
-        return key, cand, top > -torch.inf, candidate_density_sweep(matrixT, cand, wk)
+        cand, cand_valid = gumbel_topc(k1, d, kept, tried, medoid, self.C)
+        return key, cand, cand_valid, candidate_density_sweep(matrixT, cand, wk)
 
     def _climb(self, medoid: int, sweep, density, tried, key, wk):
         """First-improvement hill climb over all columns (ref :415-450) from

@@ -11,6 +11,8 @@ from .cluster_kernels import (  # noqa: F401
     gather_blocks_plain,
     gumbel_scores,
     gumbel_scores_plain,
+    gumbel_topc,
+    gumbel_topc_plain,
     medoid_sweep,
     medoid_sweep_plain,
     row_sweep,

@@ -33,12 +33,17 @@ what its design does about it):
   depends on N_pad alone, which `sweep_ordered_sum` reproduces, so kernel
   and plain version agree bit for bit. The engine takes the seed's and each
   new medoid's row and sums from it;
-* `gumbel_scores(key, d, kept, tried, medoid)` replaces the eager threefry
-  uniform and the two `jnp.log`s of a wander step (`vamb_tpu/cluster.py`
-  :674-677, :775-777): every column's masked Gumbel score in one launch, a
-  thread a column, with jax's threefry bits and XLA's CPU log spelled out
-  rounding by rounding, so the card gives `vamb_tpu`'s scores bit for bit.
-  Bound by its integer operations (the hash).
+* `gumbel_topc(key, d, kept, tried, medoid, C)` replaces a wander step's
+  draw and selection (`vamb_tpu/cluster.py` :674-681, :775-782): every
+  column's masked Gumbel score with jax's threefry bits and XLA's CPU log
+  spelled out rounding by rounding, and the C <= 32 candidates that
+  `jax.lax.top_k` takes from them (score descending, index ascending on
+  equal scores), in one launch. Bound by its integer operations (the
+  hash); the scores stay in registers as one 64-bit key a column (an
+  order-preserving map of the score's bits, then the inverted index), which
+  warps select by shuffle networks, CTAs through shared memory and the last
+  CTA (an integer ticket) across CTAs. `gumbel_scores` runs the same kernel
+  for the scores alone.
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
 PyTorch version beside it only for a CPU tensor. It counts its launches in
@@ -141,8 +146,9 @@ def _load():
             lib.vt_medoid_sweep.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
             lib.vt_medoid_sweep.restype = ci
             cu = ctypes.c_uint
-            lib.vt_gumbel_scores.argtypes = [cu, cu, ci, vp, vp, vp, ci, vp, vp]
-            lib.vt_gumbel_scores.restype = ci
+            lib.vt_gumbel_topc.argtypes = [cu, cu, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, ci,
+                                           vp]
+            lib.vt_gumbel_topc.restype = ci
             consts = (lib.vt_max_candidates, lib.vt_density_threads, lib.vt_density_tile_cols,
                       lib.vt_density_max_blocks, lib.vt_density_tile, lib.vt_sweep_threads,
                       lib.vt_sweep_vec, lib.vt_sweep_max_blocks, lib.vt_sweep_slots,
@@ -561,7 +567,7 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
 medoid_sweep.launches = 0
 medoid_sweep.launches_by_width = {}  # N_pad -> launches
 
-# --------------------------------------------------------- gumbel_scores
+# ----------------------------------------------- gumbel_topc, gumbel_scores
 
 
 def gumbel_scores_plain(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
@@ -576,6 +582,106 @@ def gumbel_scores_plain(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.T
     return torch.where(elig, g, -torch.inf)
 
 
+def topc_keys(score: torch.Tensor) -> torch.Tensor:
+    """The kernel's selection key as one int64 a column: the score's bits in
+    XLA's TopK integer order (-inf lowest, -0.0 below +0.0) above the
+    inverted index, so keys are unique and their descending order is
+    `jax.lax.top_k`'s: score descending, index ascending on equal scores."""
+    s = score.view(torch.int32)
+    s = torch.where(s < 0, s ^ 0x7FFFFFFF, s).to(torch.int64)
+    idx = torch.arange(score.shape[0], dtype=torch.int64, device=score.device)
+    return s * (1 << 32) + (0xFFFFFFFF - idx)
+
+
+def gumbel_topc_plain(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
+                      medoid: int, c: int, with_scores: bool = False):
+    """Plain version of `gumbel_topc`: `gumbel_scores_plain`'s scores, then
+    `torch.topk` of their unique `topc_keys`, which takes `jax.lax.top_k`'s
+    indices in its order, ties and -inf slots included."""
+    score = gumbel_scores_plain(key, d, kept, tried, medoid)
+    cand = torch.topk(topc_keys(score), c).indices
+    valid = score[cand] > -torch.inf
+    return (cand, valid, score) if with_scores else (cand, valid)
+
+
+def _check_step(d, kept, tried, medoid: int) -> None:
+    n = d.shape[0]
+    if d.dim() != 1 or d.dtype != torch.float32:
+        raise ValueError("d must be a 1-D float32 tensor")
+    if any(v.shape != (n,) or v.dtype != torch.bool for v in (kept, tried)):
+        raise ValueError("kept and tried must be bool tensors of d's shape")
+    if not 0 <= medoid < n:
+        raise IndexError(f"medoid {medoid} outside [0, {n})")
+    if d.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the Gumbel kernel runs on cuda or cpu, not {d.device}")
+    if kept.device != d.device or tried.device != d.device:
+        raise ValueError("d, kept and tried must be on one device")
+
+
+_topc_ws: dict = {}
+
+
+def _topc_workspace(dev: torch.device, stream: int):
+    """gumbel_topc's per-stream (SMs, 32) partial key lists (int64 storage of
+    the kernel's uint64 keys) and int32 ticket (zeroed once; the last CTA
+    resets it), and the SM count (the most CTAs)."""
+    key = (dev.index, stream)
+    ws = _topc_ws.get(key)
+    if ws is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        ws = (torch.empty((sms, 32), dtype=torch.int64, device=dev),
+              torch.zeros(1, dtype=torch.int32, device=dev), sms)
+        _topc_ws[key] = ws
+    return ws
+
+
+def _gumbel_launch(k0: int, k1: int, d, kept, tried, medoid: int, c: int, score, cand, valid):
+    "One launch of the Gumbel kernel: the C candidates (C > 0) and/or the scores."
+    lib = _load()
+    dev = d.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partials, ticket, sms = _topc_workspace(dev, stream)
+    d, kept, tried = d.contiguous(), kept.contiguous(), tried.contiguous()
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    err = lib.vt_gumbel_topc(k0, k1, d.shape[0], d.data_ptr(), kept.data_ptr(), tried.data_ptr(),
+                             medoid, c, ptr(score), partials.data_ptr(), ticket.data_ptr(),
+                             ptr(cand), ptr(valid), sms, stream)
+    _raise_on(err, "gumbel_topc" if c else "gumbel_scores")
+
+
+def gumbel_topc(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor, medoid: int,
+                c: int, with_scores: bool = False):
+    """A wander step's draw and selection: the C candidates that
+    `jax.lax.top_k(score, C)` takes from `gumbel_scores`' scores (score
+    descending, index ascending on equal scores; where fewer than C columns
+    are eligible, the rest are the lowest-index ineligible columns,
+    ascending) as int64 column ids, and whether each is eligible (its score
+    > -inf). With `with_scores`, the (n,) scores too.
+
+    `key` is a threefry key (two uint32 words), d (n,) f32, kept and tried
+    (n,) bool, 1 <= C <= min(32, n). Launches the CUDA kernel for CUDA
+    tensors (one launch, counted in `gumbel_topc.launches`; the scores reach
+    device memory only with `with_scores`), runs the plain version for CPU
+    tensors; both give `vamb_tpu`'s candidates."""
+    medoid, c, n = int(medoid), int(c), d.shape[0]
+    _check_step(d, kept, tried, medoid)
+    if not 1 <= c <= min(_MAX_CAND, n):
+        raise ValueError(f"C must lie in [1, {min(_MAX_CAND, n)}], not {c}")
+    k0, k1 = (int(w) & 0xFFFFFFFF for w in key)
+    if d.device.type == "cpu":
+        return gumbel_topc_plain((k0, k1), d, kept, tried, medoid, c, with_scores)
+    cand = torch.empty(c, dtype=torch.int64, device=d.device)
+    valid = torch.empty(c, dtype=torch.bool, device=d.device)
+    score = torch.empty(n, dtype=torch.float32, device=d.device) if with_scores else None
+    _gumbel_launch(k0, k1, d, kept, tried, medoid, c, score, cand, valid)
+    _count(gumbel_topc, n)
+    return (cand, valid, score) if with_scores else (cand, valid)
+
+
+gumbel_topc.launches = 0
+gumbel_topc.launches_by_width = {}  # n -> launches
+
+
 def gumbel_scores(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
                   medoid: int) -> torch.Tensor:
     """A wander step's candidate scores: for each of the n columns the
@@ -584,38 +690,25 @@ def gumbel_scores(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
     eligible ((d <= 0.05) & kept & ~tried, not `medoid`), else -inf.
 
     `key` is a threefry key (two uint32 words), d (n,) f32, kept and tried
-    (n,) bool. Launches the CUDA kernel for CUDA tensors (one launch,
-    counted in `gumbel_scores.launches`), runs the plain version for CPU
-    tensors; both give `vamb_tpu`'s bits."""
-    n = d.shape[0]
-    if d.dim() != 1 or d.dtype != torch.float32:
-        raise ValueError("d must be a 1-D float32 tensor")
-    if any(v.shape != (n,) or v.dtype != torch.bool for v in (kept, tried)):
-        raise ValueError("kept and tried must be bool tensors of d's shape")
+    (n,) bool. Launches `gumbel_topc`'s kernel with no selection for CUDA
+    tensors (one launch, counted in `gumbel_scores.launches`), runs the
+    plain version for CPU tensors; both give `vamb_tpu`'s bits."""
     medoid = int(medoid)
-    if not 0 <= medoid < n:
-        raise IndexError(f"medoid {medoid} outside [0, {n})")
+    _check_step(d, kept, tried, medoid)
     k0, k1 = (int(w) & 0xFFFFFFFF for w in key)
     if d.device.type == "cpu":
         return gumbel_scores_plain((k0, k1), d, kept, tried, medoid)
-    if d.device.type != "cuda":
-        raise ValueError(f"gumbel_scores runs on cuda or cpu, not {d.device}")
-    if kept.device != d.device or tried.device != d.device:
-        raise ValueError("d, kept and tried must be on one device")
-    lib = _load()
-    d, kept, tried = d.contiguous(), kept.contiguous(), tried.contiguous()
-    score = torch.empty(n, dtype=torch.float32, device=d.device)
-    err = lib.vt_gumbel_scores(k0, k1, n, d.data_ptr(), kept.data_ptr(), tried.data_ptr(), medoid,
-                               score.data_ptr(), torch.cuda.current_stream(d.device).cuda_stream)
-    _raise_on(err, "gumbel_scores")
-    _count(gumbel_scores, n)
+    score = torch.empty(d.shape[0], dtype=torch.float32, device=d.device)
+    _gumbel_launch(k0, k1, d, kept, tried, medoid, 0, score, None, None)
+    _count(gumbel_scores, d.shape[0])
     return score
 
 
 gumbel_scores.launches = 0
 gumbel_scores.launches_by_width = {}  # n -> launches
 
-KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep, gumbel_scores)
+KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep, gumbel_topc,
+           gumbel_scores)
 
 
 def reset_launch_counts() -> None:

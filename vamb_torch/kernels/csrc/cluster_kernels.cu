@@ -881,14 +881,19 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
   }
 }
 
-// ------------------------------------------------------------ gumbel_scores
+// -------------------------------------------------------------- gumbel_topc
 //
-// Replaces the eager threefry draw and the two `jnp.log`s of a wander step
-// (vamb_tpu/cluster.py:674-677 and :775-777): each eligible column's Gumbel
-// score -log(-log(u + 1e-20) + 1e-20), u = jax.random.uniform(k1, (n,)), and
-// -inf where the column is not eligible ((d <= 0.05) & kept & ~tried, not the
-// medoid's slot). A thread a column, one launch a step. Bit for bit what
-// `gumbel_scores_plain` computes on the CPU, which is `vamb_tpu`'s:
+// Replaces a wander step's draw and selection in `vamb_tpu` (cluster.py
+// :674-681 and :775-782): the eager threefry uniform, the two `jnp.log`s and
+// `jax.lax.top_k(score, C)`. Each column's Gumbel score is
+// -log(-log(u + 1e-20) + 1e-20), u = jax.random.uniform(k1, (n,)), or -inf
+// where the column is not eligible ((d <= 0.05) & kept & ~tried, not the
+// medoid's slot); the step's candidates are the C <= 32 columns that top_k
+// returns: score descending, equal scores by index ascending (XLA's CPU
+// TopK, which compares the scores' bits as integers, so -0.0 < +0.0 and
+// -inf lowest; the -inf slots are the lowest-index ineligible columns). One
+// launch a step, bit for bit what `gumbel_topc_plain` computes, which is
+// `vamb_tpu`'s:
 //   * the counter (0, i) hashed by Threefry-2x32 under the step's key, the
 //     two output words xor-ed (`threefry.bits`);
 //   * the unit float from the word's top 23 bits (`threefry._unit_floats`);
@@ -897,14 +902,36 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
 //     chains, each FMA an __fmaf_rn and every other step an __fadd_rn /
 //     __fmul_rn, so the build's default -fmad=true contracts nothing.
 // What bounds it on the H100: its integer operations. The hash is 20 rounds
-// of an add, a rotate and a xor, with 5 key injections: about 125 int32
-// operations a column, at 64 a clock an SM (132 SMs, 1,980 MHz: 1.67e13 a
-// second), against 10 bytes a column (d, kept, tried read, the score
-// written) at 3.35 TB/s and about 70 f32 operations. The design keeps
-// everything in registers, reads each input once with neighbouring threads
-// on neighbouring columns and writes the score once.
+// of an add, a rotate and a xor, with 5 key injections: about 75 int32
+// operations a column at 64 a clock an SM (132 SMs, 1,980 MHz: 1.67e13 a
+// second), against 6 bytes a column read (d, kept, tried) at 3.35 TB/s.
+// The design keeps the scores out of device memory (they are written only
+// when the caller asks, for checks) and selects in registers:
+//   * One key a column: the score's bits mapped to an order-preserving
+//     uint32 in the high word, the inverted index in the low word, so
+//     (score desc, index asc) is one unsigned 64-bit compare, keys are
+//     unique, and the top C of them are top_k's, ties and -inf slots
+//     included, with no special case.
+//   * A warp keeps the 32 largest keys it has seen, one a lane, descending.
+//     A round of 32 new columns (a lane each) is sorted by a bitonic network
+//     of shuffles and merged in (a max against the reversed list, then a
+//     5-step bitonic merge), unless no new key beats the list's C-th.
+//   * A CTA of 16 warps folds its lists pairwise through shared memory; the
+//     grid is at most one CTA an SM with a grid-stride loop over the columns.
+//     A CTA whose columns are all ineligible still yields its lowest
+//     indices, which the -inf slots need.
+//   * Each CTA writes its 32 keys; the CTA that draws the last ticket of an
+//     integer atomic counter merges the CTAs' lists the same way (warp w
+//     loads lists w, w + 16, ... at once, then merges them), writes the
+//     first C and resets the counter. The top C of a total order is
+//     unique, so the result does not depend on which CTA finishes last or
+//     on the grid. No float atomics.
+// With C = 0 it writes the scores alone (`gumbel_scores`).
 
-constexpr int kGumbelThreads = 256;
+constexpr int kTopcThreads = 512;  // gumbel_topc: 16 warps a CTA
+constexpr int kTopcWarps = kTopcThreads / 32;
+constexpr int kTopcListsPerWarp = 9;  // the last CTA's loads a warp
+constexpr int kTopcMaxCtas = kTopcWarps * kTopcListsPerWarp;  // 144: one CTA an SM on 132
 constexpr float kFltMin = 1.17549435e-38f;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -963,17 +990,137 @@ __device__ __forceinline__ float log_xla(float x) {
   return __int_as_float(out);
 }
 
-__global__ void __launch_bounds__(kGumbelThreads) gumbel_scores_kernel(
-    uint32_t k0, uint32_t k1, int n, const float* __restrict__ d,
-    const unsigned char* __restrict__ kept, const unsigned char* __restrict__ tried, int medoid,
-    float* __restrict__ score) {
-  const int i = blockIdx.x * kGumbelThreads + threadIdx.x;
-  if (i >= n) return;
+// Column i's masked Gumbel score.
+__device__ __forceinline__ float gumbel_score(uint32_t k0, uint32_t k1, int i,
+                                              const float* __restrict__ d,
+                                              const unsigned char* __restrict__ kept,
+                                              const unsigned char* __restrict__ tried, int medoid) {
   const uint32_t word = threefry_xor(k0, k1, 0u, (uint32_t)i);
   const float unit = fmaxf(__fsub_rn(__uint_as_float((word >> 9) | 0x3F800000u), 1.0f), 0.0f);
   const float g = -log_xla(__fadd_rn(-log_xla(__fadd_rn(unit, 1e-20f)), 1e-20f));
   const bool elig = (d[i] <= kMedoidRadius) && kept[i] && !tried[i] && i != medoid;
-  score[i] = elig ? g : -CUDART_INF_F;
+  return elig ? g : -CUDART_INF_F;
+}
+
+using TopKey = unsigned long long;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr uint32_t kNegInfOrder = 0x007FFFFFu;  // the high word of -inf's key
+
+// (score desc, index asc) as one unsigned compare. The high word maps the
+// score's bits to an order-preserving uint32 (XLA's TopK integer order plus
+// 2^31); key 0 is below every column's and stands for no column.
+__device__ __forceinline__ TopKey topc_key(float s, int i) {
+  const uint32_t b = __float_as_uint(s);
+  const uint32_t o = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((TopKey)o << 32) | (TopKey)(0xFFFFFFFFu - (uint32_t)i);
+}
+
+__device__ __forceinline__ TopKey key_max(TopKey a, TopKey b) { return a > b ? a : b; }
+__device__ __forceinline__ TopKey key_min(TopKey a, TopKey b) { return a < b ? a : b; }
+
+// Sorts the warp's 32 keys (one a lane) ascending across the lanes: the
+// bitonic network, stage k merging runs of k/2 sorted in turn up and down.
+__device__ __forceinline__ TopKey warp_sort_ascending(TopKey x, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const TopKey y = __shfl_xor_sync(kFullMask, x, j);
+      x = (((lane & k) == 0) != ((lane & j) == 0)) ? key_max(x, y) : key_min(x, y);
+    }
+  }
+  return x;
+}
+
+// The 32 largest of a descending list `top` and an ascending list `up`
+// (a lane each), descending: their lane-wise maxima form a bitonic
+// sequence that holds those 32, and a bitonic merge sorts it.
+__device__ __forceinline__ TopKey warp_top(TopKey top, TopKey up, int lane) {
+  TopKey x = key_max(top, up);
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const TopKey y = __shfl_xor_sync(kFullMask, x, j);
+    x = (lane & j) == 0 ? key_max(x, y) : key_min(x, y);
+  }
+  return x;
+}
+
+// Folds the CTA's warp lists pairwise through shared memory; warp 0 ends
+// with the CTA's 32 largest keys, descending.
+__device__ __forceinline__ TopKey cta_top(TopKey top, TopKey (*s_top)[32], int warp, int lane) {
+  s_top[warp][lane] = top;
+  __syncthreads();
+#pragma unroll
+  for (int h = kTopcWarps / 2; h > 0; h >>= 1) {
+    if (warp < h) {
+      top = warp_top(top, s_top[warp + h][31 - lane], lane);
+      s_top[warp][lane] = top;
+    }
+    __syncthreads();
+  }
+  return top;
+}
+
+__global__ void __launch_bounds__(kTopcThreads) gumbel_topc_kernel(
+    uint32_t k0, uint32_t k1, int n, const float* __restrict__ d,
+    const unsigned char* __restrict__ kept, const unsigned char* __restrict__ tried, int medoid,
+    int c, float* __restrict__ score, TopKey* __restrict__ partials,
+    unsigned int* __restrict__ ticket, long long* __restrict__ cand,
+    unsigned char* __restrict__ valid) {
+  __shared__ TopKey s_top[kTopcWarps][32];
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  TopKey top = 0;  // the warp's 32 largest keys so far, descending across the lanes
+  TopKey kth = 0;  // top's C-th: a key at or below it cannot enter the top C
+  const int stride = gridDim.x * kTopcThreads;
+  for (int base = blockIdx.x * kTopcThreads + warp * 32; base < n; base += stride) {
+    const int i = base + lane;
+    TopKey key = 0;
+    if (i < n) {
+      const float s = gumbel_score(k0, k1, i, d, kept, tried, medoid);
+      if (score != nullptr) score[i] = s;
+      key = topc_key(s, i);
+    }
+    if (c > 0 && __any_sync(kFullMask, key > kth)) {
+      top = warp_top(top, warp_sort_ascending(key, lane), lane);
+      kth = __shfl_sync(kFullMask, top, c - 1);
+    }
+  }
+  if (c == 0) return;
+  top = cta_top(top, s_top, warp, lane);
+  if (warp == 0) partials[(size_t)blockIdx.x * 32 + lane] = top;
+  // the ticket: publish this CTA's list, then count it as done
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last CTA: warp w merges the lists of CTAs w, w + 16, ..., read
+  // reversed (ascending) and all loaded before the first merge, skipping a
+  // list none of whose keys beats the C-th
+  TopKey up[kTopcListsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kTopcListsPerWarp; ++r) {
+    const int b = warp + r * kTopcWarps;
+    up[r] = b < (int)gridDim.x ? __ldcg(partials + (size_t)b * 32 + 31 - lane) : 0ull;
+  }
+  top = 0;
+  kth = 0;
+#pragma unroll
+  for (int r = 0; r < kTopcListsPerWarp; ++r) {
+    if (__any_sync(kFullMask, up[r] > kth)) {
+      top = warp_top(top, up[r], lane);
+      kth = __shfl_sync(kFullMask, top, c - 1);
+    }
+  }
+  top = cta_top(top, s_top, warp, lane);
+  if (warp == 0 && lane < c) {
+    cand[lane] = (long long)(0xFFFFFFFFu - (uint32_t)top);
+    valid[lane] = (uint32_t)(top >> 32) > kNegInfOrder;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 }  // namespace
@@ -1057,12 +1204,22 @@ int vt_medoid_sweep(const float* m, int f_pad, int n_pad, int idx, const float* 
   return (int)cudaGetLastError();
 }
 
-int vt_gumbel_scores(unsigned int k0, unsigned int k1, int n, const float* d,
-                     const unsigned char* kept, const unsigned char* tried, int medoid,
-                     float* score, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  gumbel_scores_kernel<<<(n + kGumbelThreads - 1) / kGumbelThreads, kGumbelThreads, 0,
-                         (cudaStream_t)stream>>>(k0, k1, n, d, kept, tried, medoid, score);
+int vt_gumbel_topc(unsigned int k0, unsigned int k1, int n, const float* d,
+                   const unsigned char* kept, const unsigned char* tried, int medoid, int c,
+                   float* score, unsigned long long* partials, unsigned int* ticket,
+                   long long* cand, unsigned char* valid, int max_ctas, void* stream) {
+  if (n < 1 || c < 0 || c > kMaxCand || c > n || max_ctas < 1 ||
+      (c == 0 && score == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // scores alone: a thread a column; with the selection, at most
+  // max_ctas CTAs (the partials' rows; kTopcMaxCtas, the last CTA's loads),
+  // striding over the columns
+  int ctas = (n + kTopcThreads - 1) / kTopcThreads;
+  const int most = max_ctas < kTopcMaxCtas ? max_ctas : kTopcMaxCtas;
+  if (c > 0 && ctas > most) ctas = most;
+  gumbel_topc_kernel<<<ctas, kTopcThreads, 0, (cudaStream_t)stream>>>(
+      k0, k1, n, d, kept, tried, medoid, c, score, partials, ticket, cand, valid);
   return (int)cudaGetLastError();
 }
 
