@@ -54,7 +54,7 @@ of `vamb_tpu`. Phases, each of which fails the run:
    ball, at least one logged compaction and the switch back to full
    sweeps. Counters as in phase 4; all five clustering kernels must be > 0.
 6. profile: on each main path's own data, 40 clusters of the engine and
-   100 training steps under torch.profiler: time per cluster and per step,
+   50 training steps under torch.profiler: time per cluster and per step,
    device kernels per attempt and per wander step, the device's busy share
    and the ops that take the most device time. A clustering window that
    calls `aten::topk` fails the run: the selection is `gumbel_topc`'s.
@@ -75,12 +75,30 @@ of `vamb_tpu`. Phases, each of which fails the run:
    differs outside that band around the cutoff (the calls inside it are
    counted); every TSV read back; and k-means' pairwise precision against
    the planted genomes not below its input's.
+8. the taxonomy path at 100,000 contigs, through the CLI entry points on
+   the card: phase 4's dataset with a partial taxonomy of the planted
+   genomes (`write_taxonomy`: genera of 2-5 genomes and ranks nested above
+   them; 70% of contigs labelled to species, 20% cut to a higher rank, 10%
+   unlabelled, as an MMseqs2 annotation leaves them); `taxometer` at its
+   published width (4 x 512, flat_softmax, batch 1,024, 4 epochs), then
+   `bin taxvamb` on its refined TSV (VAEVAE 512-512-32, 2 epochs, `-c
+   2000`). Counters as in phase 4 around `bin taxvamb`;
+   `candidate_density_sweep`, `medoid_sweep` and `gumbel_topc` must be
+   > 0. Every TSV and npz is read back with the port's loaders; the
+   trained predictor's probabilities on the card within 1e-5 of the CPU's
+   on 4,096 contigs, and its refined lineages equal but where a
+   probability lies within 1e-5 of the threshold (counted). Logged, not
+   gated: the taxvamb clusters' pairwise precision beside phase 4's, the
+   refined genus's accuracy on the unlabelled contigs, the stage times,
+   and training steps of Taxometer (100) and VAEVAE (25) under
+   torch.profiler (ms and device kernels a step, busy share, top ops).
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
 kernels JSON object (its `launches` are the 300,000-contig path's, and
 phase 7's for `hmm_forward`; each row also holds every timed width under
-`at_widths`), the card's `nvidia-smi` name and power limit, and
+`at_widths` and phase 8's launches), the card's `nvidia-smi` name and
+power limit, and
 `{"ok": true, "device": ...}`.
 
     python3 chip_smoke.py --kernels
@@ -90,6 +108,10 @@ runs phases 1 and 2 alone: the short first call after a kernel changes.
     python3 chip_smoke.py --recluster
 
 runs phase 1, the Forward kernel's check and times, and phase 7.
+
+    python3 chip_smoke.py --taxonomy
+
+runs phase 1 and phase 8.
 
     python3 chip_smoke.py --engine-ab DIR [DIR ...]
 
@@ -1402,6 +1424,251 @@ def run_recluster_path(dev, tmp: Path) -> dict:
     return result
 
 
+# ------------------------------------------------- phase 8: the taxonomy path
+
+TAX_RANKS = ("d", "p", "c", "o", "f", "g", "s")
+TAX_PROBE_ROWS = 4096  # contigs on which the card's predictor is held to the CPU's
+TAX_NEAR = 1e-5  # a probability this close to the 0.5 threshold may refine either way
+
+
+def write_taxonomy(path: Path, genome: np.ndarray, seed: int) -> tuple[list, np.ndarray]:
+    """A taxonomy of the planted genomes as an MMseqs2 annotation gives one:
+    one species a genome; genera of 2-5 genomes, families of 2-5 genera,
+    orders of 2-5 families, classes of 2-4 orders, phyla of 2-4 classes;
+    one domain. 70% of contigs are labelled to species, 20% are cut to a
+    random higher rank (domain to genus) and 10% have no label. Returns the
+    genomes' full lineages and each contig's label depth (0: none)."""
+    rng = np.random.default_rng(seed)
+    n_genomes = int(genome.max()) + 1
+
+    def group(n: int, lo: int, hi: int) -> np.ndarray:
+        "Consecutive groups of lo..hi members over n items: each item's group."
+        out, g, i = np.empty(n, int), 0, 0
+        while i < n:
+            size = int(rng.integers(lo, hi + 1))
+            out[i : i + size] = g
+            g, i = g + 1, i + size
+        return out
+
+    genus = group(n_genomes, 2, 5)
+    family = group(genus.max() + 1, 2, 5)
+    order = group(family.max() + 1, 2, 5)
+    klass = group(order.max() + 1, 2, 4)
+    phylum = group(klass.max() + 1, 2, 4)
+    lineages = []
+    for g in range(n_genomes):
+        ge = genus[g]
+        fa = family[ge]
+        orr = order[fa]
+        cl = klass[orr]
+        lineages.append(["d__Bacteria", f"p__P{phylum[cl]}", f"c__C{cl}", f"o__O{orr}",
+                         f"f__F{fa}", f"g__G{ge}", f"s__S{g}"])
+    u = rng.random(len(genome))
+    depth = np.where(u < 0.7, 7, np.where(u < 0.9, rng.integers(1, 7, len(genome)), 0))
+    with open(path, "w") as f:
+        f.write("contigs\tpredictions\n")
+        f.writelines(f"S{1 + i % 3}C{i}\t{';'.join(lineages[g][:k])}\n"
+                     for i, (g, k) in enumerate(zip(genome, depth)))
+    return lineages, depth
+
+
+def taxonomy_stage_times(logfile: Path) -> dict:
+    text = logfile.read_text()
+    pats = {
+        "taxometer_train_s": r"Trained the taxonomy predictor in ([\d.]+) seconds",
+        "taxometer_predict_s": r"Predicted the taxonomy in ([\d.]+) seconds",
+        "vaevae_train_s": r"Trained VAEVAE in ([\d.]+) seconds",
+        "vaevae_encode_s": r"Encoded the joint latent in ([\d.]+) seconds",
+        "cluster_write_s": r"Wrote cluster file\(s\) in ([\d.]+) seconds",
+    }
+    out = {}
+    for k, p in pats.items():
+        m = re.search(p, text)
+        if m is not None:
+            out[k] = float(m.group(1))
+    return out
+
+
+def predictor_card_vs_cpu(model_path: Path, ds, threshold: float = 0.5) -> dict:
+    """The trained predictor on the card and on the CPU, on the first
+    TAX_PROBE_ROWS contigs: the largest probability difference, and the
+    refined lineages (nodes above the threshold) that differ, each of which
+    must have a probability within TAX_NEAR of the threshold."""
+    from vamb_torch.models.taxometer import Taxometer
+
+    x = np.concatenate((ds.depths, ds.tnf, ds.abundance), axis=1)[:TAX_PROBE_ROWS]
+    probs = {}
+    for where in ("cuda", "cpu"):
+        model = Taxometer.load(model_path, device=where)
+        probs[where] = model.probabilities(torch.as_tensor(x, device=model.device)).cpu().numpy()
+    card, cpu = probs["cuda"], probs["cpu"]
+    near = (np.abs(card - threshold) <= TAX_NEAR) | (np.abs(cpu - threshold) <= TAX_NEAR)
+    differ = (card > threshold) != (cpu > threshold)
+    rows_differ = differ.any(axis=1)
+    explained = (~differ | near).all(axis=1)
+    result = {"rows": int(len(x)), "max_abs_diff": float(np.abs(card - cpu).max()),
+              "lineages_differ": int(rows_differ.sum()),
+              "lineages_differ_near_threshold": int((rows_differ & explained).sum()),
+              "probabilities_near_threshold": int(near.sum())}
+    log("phase 8 predictor, card vs CPU: " + json.dumps(result))
+    check(result["max_abs_diff"] <= 1e-5, "phase 8: the card's Taxometer probabilities differ "
+          f"from the CPU's by {result['max_abs_diff']}")
+    check(explained.all(), "phase 8: a refined lineage differs between card and CPU away from "
+          "the threshold")
+    return result
+
+
+def profile_taxonomy_training(dev, out: Path, targets: np.ndarray, nodes, parents) -> dict:
+    """Optimizer steps of Taxometer (4 x 512, batch 1,024, its published
+    width; 100 steps) and VAEVAE (512-512-32, batch 256; 25 steps) under
+    torch.profiler, on the path's own data: ms and device kernels a step,
+    busy share, top ops."""
+    from vamb_torch.abundance import Abundance
+    from vamb_torch.composition import Composition
+    from vamb_torch.models import make_dataset
+    from vamb_torch.models.dataset import num_batches
+    from vamb_torch.models.taxometer import Taxometer
+    from vamb_torch.models.vaevae import VAEVAE
+
+    comp = Composition.load(out / "composition.npz")
+    ab = Abundance.load(out / "abundance.npz", comp.metadata.refhash)
+    result = {}
+    # Taxometer: 100 steps (two epochs of 50 batches of 1,024). VAEVAE: 25
+    # steps of 256, as many device kernels as 100 of Taxometer's: the
+    # profiler's trace analysis costs the host ~0.5 ms an event, 83 s for
+    # 100 VAEVAE steps on an NVIDIA H100 80GB HBM3
+    for label, rows, bs, epochs in (("taxometer", 1024 * 50, 1024, 2), ("vaevae", 256 * 25, 256, 1)):
+        ds = make_dataset(ab.matrix[:rows], comp.matrix[:rows], comp.metadata.lengths[:rows])
+        if label == "taxometer":
+            model = Taxometer(N_SAMPLES, len(nodes), nodes, parents, nhiddens=[512] * 4,
+                              seed=SEED, device=dev)
+        else:
+            model = VAEVAE(N_SAMPLES, len(nodes), nodes, parents, hier_loss="flat_softmax",
+                           seed=SEED, device=dev)
+
+        def train_epoch():
+            model.trainmodel(ds, targets[:rows], nepochs=epochs, batchsize=bs, batchsteps=None)
+            return epochs * num_batches(ds.n_obs, bs)
+
+        result[label] = profiled(train_epoch, f"{label} training")
+    return result
+
+
+def run_taxonomy_path(dev, tmp: Path, bin_default_precision=None) -> dict:
+    """Phase 8: `taxometer`, then `bin taxvamb` on its refined TSV, through
+    the CLI entry points on the card at 100,000 contigs (write_dataset's
+    phase 4 data and `write_taxonomy`'s partial annotation)."""
+    from vamb_torch import kernels as K
+    from vamb_torch.__main__ import main
+    from vamb_torch.abundance import Abundance
+    from vamb_torch.composition import Composition
+    from vamb_torch.models import make_dataset
+    from vamb_torch.models.dataset import VAEDataset
+    from vamb_torch.models.taxometer import Taxometer
+    from vamb_torch.models.vaevae import VAEVAE
+    from vamb_torch.pipeline import targets_from_taxonomy
+    from vamb_torch.taxonomy import PredictedTaxonomy, Taxonomy
+    from vamb_torch.utils import read_npz
+
+    data = tmp / "data"
+    data.mkdir()
+    t = time.time()
+    genome = write_dataset(data, N_CONTIGS, N_GENOMES, N_SAMPLES, SEED)
+    lineages, depth = write_taxonomy(data / "taxonomy.tsv", genome, SEED)
+    log(f"phase 8 inputs: {N_CONTIGS} contigs from {N_GENOMES} genomes; labelled to species "
+        f"{np.mean(depth == 7):.3f}, cut higher {np.mean((depth > 0) & (depth < 7)):.3f}, "
+        f"unlabelled {np.mean(depth == 0):.3f}; written in {time.time() - t:.1f} s")
+    common = ["--fasta", str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),
+              "--seed", str(SEED)]
+    out_tm, out_tv = tmp / "taxometer", tmp / "taxvamb"
+
+    t = time.time()
+    main(["taxometer", "--outdir", str(out_tm), *common, "--taxonomy", str(data / "taxonomy.tsv"),
+          "-pe", "4", "-pt", "1024", "-ploss", "flat_softmax"], device=str(dev))
+    torch.cuda.synchronize()
+    wall_tm = time.time() - t
+    refined = out_tm / "results_taxometer.tsv"
+    K.reset_launch_counts()
+    t = time.time()
+    main(["bin", "taxvamb", "--outdir", str(out_tv), *common, "--taxonomy", str(refined),
+          "-e", "2", "-q", "1", "-c", "2000"], device=str(dev))
+    torch.cuda.synchronize()
+    wall_tv = time.time() - t
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    tally = {k.__name__: dict(sorted(k.launches_by_width.items())) for k in K.KERNELS}
+    log(f"phase 8: taxometer ran in {wall_tm:.2f} s, bin taxvamb in {wall_tv:.2f} s; "
+        f"kernel launches in bin taxvamb {launches}")
+    for name in ("candidate_density_sweep", "medoid_sweep", "gumbel_topc"):
+        check(launches[name] > 0, f"phase 8: bin taxvamb never launched {name}")
+    check("already-refined" in (out_tv / "log.txt").read_text(),
+          "phase 8: bin taxvamb did not read the refined taxonomy as refined")
+
+    # every artifact read back with the port's own loaders
+    t_checks = time.time()
+    comp = Composition.load(out_tv / "composition.npz")
+    ab = Abundance.load(out_tv / "abundance.npz", comp.metadata.refhash)
+    check(comp.nseqs == N_CONTIGS and ab.matrix.shape == (N_CONTIGS, N_SAMPLES), "phase 8 inputs")
+    scored = PredictedTaxonomy.parse_tax_file(refined, False)
+    check([name for name, _ in scored] == list(comp.metadata.identifiers),
+          "results_taxometer.tsv: rows other than the composition's contigs")
+    refined_tax = Taxonomy.from_refined_file(refined, comp.metadata, False)
+    predictor = Taxometer.load(out_tm / "predictor_model.npz", device="cpu")
+    check(predictor.nhiddens == [512] * 4 and predictor.hier_loss_name == "flat_softmax",
+          "predictor_model.npz")
+    given = Taxonomy.from_file(data / "taxonomy.tsv", comp.metadata, False)
+    nodes, _, parents, targets = targets_from_taxonomy(given.contig_taxonomies)
+    check(predictor.nodes == nodes, "predictor_model.npz: another tree than the input's")
+    vaevae = VAEVAE.load(out_tv / "vaevae_model.npz", device="cpu")
+    check(vaevae.nhiddens == [512, 512] and vaevae.nlatent == 32
+          and vaevae.hier_loss_name == "flat_softmax", "vaevae_model.npz")
+    latent = read_npz(out_tv / "vaevae_latent.npz")
+    check(latent.shape == (N_CONTIGS, 32) and latent.dtype == np.float32
+          and np.isfinite(latent).all() and not (latent.view(np.uint32) & 0xFFF).any(),
+          "vaevae_latent.npz: (N, 32) finite float32 with 12 low mantissa bits masked")
+    bins = read_bins(out_tv / "vaevae_clusters_unsplit.tsv", None)
+    split = read_bins(out_tv / "vaevae_clusters_split.tsv", None)
+    meta = read_tsv(out_tv / "vaevae_clusters_metadata.tsv")
+    check(sorted(c for b in bins.values() for c in b) == sorted(c for b in split.values() for c in b),
+          "vaevae_clusters: split and unsplit TSVs hold other contigs")
+    check(len(bins) == len(meta) - 1 <= 2000, "vaevae_clusters_metadata.tsv rows")
+    precision = pairwise_precision(bins, genome)
+
+    # the trained predictor on the card and on the CPU
+    full = make_dataset(ab.matrix, comp.matrix, comp.metadata.lengths)
+    probe = VAEDataset(*(a[:TAX_PROBE_ROWS] for a in full))
+    card_vs_cpu = predictor_card_vs_cpu(out_tm / "predictor_model.npz", probe)
+
+    # genus accuracy of the refined taxonomy on the contigs that had no label
+    unlabelled = np.flatnonzero(depth == 0)
+    right = sum(
+        1 for i in unlabelled
+        if (t := refined_tax.contig_taxonomies[i]) is not None and len(t.ranks) > 5
+        and t.ranks[5] == lineages[genome[i]][5]
+    )
+    refined_depths = np.bincount([0 if t is None else len(t.ranks)
+                                  for t in refined_tax.contig_taxonomies], minlength=8)
+    times = taxonomy_stage_times(out_tm / "log.txt")
+    times.update({k: v for k, v in taxonomy_stage_times(out_tv / "log.txt").items()
+                  if k not in times})
+    times.update({"taxometer_total_s": wall_tm, "bin_taxvamb_total_s": wall_tv})
+    result = {
+        "launches": launches, "launches_by_width": tally, "clusters": len(bins),
+        "clustered_contigs": sum(len(b) for b in bins.values()),
+        "precision_taxvamb": precision, "precision_bin_default_100k": bin_default_precision,
+        "genus_accuracy_unlabelled": right / len(unlabelled), "unlabelled": int(len(unlabelled)),
+        "refined_depths": refined_depths.tolist(), "predictor_card_vs_cpu": card_vs_cpu,
+        "times": times,
+    }
+    log(f"phase 8: {len(bins)} taxvamb clusters, pairwise precision {precision:.4f} (bin default "
+        f"at 100k: {bin_default_precision}); refined genus right on "
+        f"{result['genus_accuracy_unlabelled']:.4f} of {len(unlabelled)} unlabelled contigs; "
+        f"refined lineage depths {refined_depths.tolist()}")
+    times["checks_s"] = time.time() - t_checks
+    log("phase 8 stage times: " + json.dumps(times))
+    result["profile"] = profile_taxonomy_training(dev, out_tv, targets, nodes, parents)
+    return result
+
+
 # --------------------------------------------------- phase 6: profile
 
 # Clusters a profiled window (was 100): a smaller window keeps the
@@ -1435,12 +1702,14 @@ def profiled(fn, label: str) -> dict:
         count = fn()
         torch.cuda.synchronize()
         wall = time.time() - t
+    t = time.time()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
     ops = [a for a in prof.key_averages() if a.device_type == DeviceType.CPU]
     top = sorted(ops, key=lambda a: -a.self_device_time_total)[:6]
     result = {
         "units": count, "wall_s": wall, "ms_per_unit": wall / count * 1e3,
+        "trace_analysis_s": time.time() - t,
         "kernels_per_unit": len(kernels) / count, "device_busy_share": busy_s / wall,
         "topk_calls": sum(a.count for a in ops if a.key == "aten::topk"),
         "top_ops": [{"op": a.key[:60], "calls": a.count, "device_ms": a.self_device_time_total / 1e3}
@@ -1457,9 +1726,9 @@ def profile_stages(dev, out: Path) -> dict:
     data: PROFILE_CLUSTERS clusters of the engine on its latent (a unit is
     a cluster; at 300,000 contigs these are subset-wander clusters, and as
     many more at full scope on the same latent follow for comparison), and
-    one training
-    epoch of 100 steps at batch 256 on its first 25,600 contigs (a unit is
-    an optimizer step; the epoch's threefry draws are counted in). Short
+    one training epoch of 50 steps at batch 256 on its first 12,800 contigs
+    (a unit is an optimizer step; the epoch's threefry draws are counted
+    in). Short
     windows: the profiler's own bookkeeping grows with the number of
     events."""
     from vamb_torch import kernels as K
@@ -1504,7 +1773,7 @@ def profile_stages(dev, out: Path) -> dict:
         next(gen)
         result["cluster_full_scope"] = per_step("clustering at full scope")
     ab = Abundance.load(out / "abundance.npz", comp.metadata.refhash)
-    rows = 256 * 100
+    rows = 256 * 50  # 50 steps: the trace analysis costs the host ~19 s per 100
     ds = make_dataset(ab.matrix[:rows], comp.matrix[:rows], comp.metadata.lengths[:rows])
     vae = VAE(N_SAMPLES, seed=SEED, device=dev)
 
@@ -1588,9 +1857,10 @@ def hmm_row(hmm_timed: dict, run_rc: dict) -> dict:
     }
 
 
-def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list:
+def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict, run_tax: dict) -> list:
     """The kernels JSON line's rows of the clustering kernels, from phase
-    2's checks and times and the two main paths' launch counts."""
+    2's checks and times and the main paths' launch counts (phases 4, 5
+    and 8)."""
     source = "vamb_torch/kernels/csrc/cluster_kernels.cu"
     replaces = {"row_sweep": "vamb_tpu/ops/pallas_cluster.py:219",
                 "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
@@ -1621,6 +1891,7 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list
             "ms_l2_warm": r["ms_l2_warm"], "plain_ms_l2_warm": r["plain_ms_l2_warm"],
             "library_ms_l2_warm": r["library_ms_l2_warm"],
             "launches_100k_path": run_100k["launches"][name],
+            "launches_taxonomy_path": run_tax["launches"][name],
             "gap_s_300k_path": gaps_300k[name]["gap_s"],
             "gap_s_100k_path": gaps_100k[name]["gap_s"],
             "at_widths": {
@@ -1629,7 +1900,8 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict) -> list
                     "ms_l2_warm": t["ms_l2_warm"], "plain_ms_l2_warm": t["plain_ms_l2_warm"],
                     "library_ms_l2_warm": t["library_ms_l2_warm"],
                     "launches_300k_path": run_300k["launches_by_width"][name].get(n, 0),
-                    "launches_100k_path": run_100k["launches_by_width"][name].get(n, 0)}
+                    "launches_100k_path": run_100k["launches_by_width"][name].get(n, 0),
+                    "launches_taxonomy_path": run_tax["launches_by_width"][name].get(n, 0)}
                 for (kname, n), t in timed.items() if kname == name},
         }
         kernels.append(row)
@@ -1856,8 +2128,9 @@ def build_all() -> Path:
 
 
 def main(mode: str = "full") -> int:
-    """mode "full" runs phases 1-7; "kernels" phases 1-2; "recluster"
-    phase 1, the Forward kernel's check and phase 7."""
+    """mode "full" runs phases 1-8; "kernels" phases 1-2; "recluster"
+    phase 1, the Forward kernel's check and phase 7; "taxonomy" phases 1
+    and 8."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -1877,6 +2150,14 @@ def main(mode: str = "full") -> int:
     def phase_done(name: str) -> None:
         log(f"phase {name} done at {time.time() - t0:.1f} s")
 
+    if mode == "taxonomy":  # phase 1, then phase 8 alone
+        with tempfile.TemporaryDirectory() as tmp:
+            run_tax = run_taxonomy_path(dev, Path(tmp))
+        phase_done("8 (the taxonomy path)")
+        drop = ("launches_by_width",)
+        print(json.dumps({"taxonomy_path": {k: v for k, v in run_tax.items() if k not in drop}}))
+        print(card)
+        return 0
     if mode != "recluster":
         errs = check_kernels(dev)
         phase_done("2 (kernel checks)")
@@ -1918,13 +2199,17 @@ def main(mode: str = "full") -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_rc = run_recluster_path(dev, Path(tmp))
     phase_done("7 (BAM input and recluster)")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_tax = run_taxonomy_path(dev, Path(tmp), run_100k["precision"])
+    phase_done("8 (the taxonomy path)")
 
-    kernels = kernel_rows(timed, errs, run_100k, run_300k) + [hmm_row(hmm_timed, run_rc)]
+    kernels = kernel_rows(timed, errs, run_100k, run_300k, run_tax) + [hmm_row(hmm_timed, run_rc)]
     drop = ("launches", "launches_by_width")
     print(json.dumps({"kernels": kernels,
                       "main_path_100k": {k: v for k, v in run_100k.items() if k not in drop},
                       "main_path_300k": {k: v for k, v in run_300k.items() if k not in drop},
-                      "recluster_path": run_rc}))
+                      "recluster_path": run_rc,
+                      "taxonomy_path": {k: v for k, v in run_tax.items() if k not in drop}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -1943,5 +2228,5 @@ if __name__ == "__main__":
         sys.exit(density_layouts() if torch.cuda.is_available() else 1)
     if sys.argv[1:2] == ["--layouts"]:
         sys.exit(gather_and_sweep_layouts() if torch.cuda.is_available() else 1)
-    modes = {"--kernels": "kernels", "--recluster": "recluster"}
+    modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy"}
     sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

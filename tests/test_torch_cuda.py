@@ -22,6 +22,8 @@ device kernel a call. `gumbel_scores` equals its plain version bit for bit
 one launch;
 `hmm_forward` is within 1e-3 + 1e-5 |score| bits of its plain version
 (the card's SFU exponentials and logarithms in base 2, its scan orders).
+Taxometer and VAEVAE train on the card as on the CPU (four steps, rtol
+1e-4) without launching a hand-written kernel.
 """
 
 import numpy as np
@@ -376,3 +378,57 @@ def test_gumbel_topc_matches_plain(cuda, n, case, c):
     if case == "some" and c == 25:  # the profiler, once a width: it drops records late in a run
         assert len(_one_launch(cuda, lambda: K.gumbel_topc(key, d, kept, tried, medoid, c),
                                "gumbel_topc_kernel")) == 3
+
+
+def _tiny_taxonomy_data(n=512, seed=0):
+    "A small dataset and a 5-rank taxonomy cut at random depths, made with numpy."
+    from vamb_torch.models import make_dataset
+    from vamb_torch.models.hier import make_graph
+    from vamb_torch.taxonomy import ContigTaxonomy
+
+    rng = np.random.default_rng(seed)
+    lineages = []
+    for _ in range(n):
+        g = int(rng.integers(0, 16))
+        full = ["D", f"P{g // 8}", f"C{g // 4}", f"G{g // 2}", f"s{g}"]
+        cut = int(rng.integers(0, 6))
+        lineages.append(ContigTaxonomy(full[:cut]) if cut else None)
+    nodes, ind, parents = make_graph(lineages)
+    targets = np.array([0 if t is None else ind[t.ranks[-1]] for t in lineages])
+    ds = make_dataset(rng.gamma(1.0, 5.0, (n, 4)).astype(np.float32),
+                      rng.normal(size=(n, 103)).astype(np.float32), rng.integers(2000, 50_000, n))
+    return ds, nodes, parents, targets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["taxometer", "vaevae"])
+def test_taxonomy_models_train_on_the_card_as_on_the_cpu(cuda, model):
+    """Four optimizer steps of Taxometer and of VAEVAE on the card and on
+    the CPU from one seed: the parameters within rtol 1e-4, atol 1e-6 (f32
+    matmuls sum in another order on each); no hand-written kernel launches
+    (training is cuBLAS and PyTorch's own kernels), and the profiler sees
+    device kernels in every step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vamb_torch.models.taxometer import Taxometer
+    from vamb_torch.models.vaevae import VAEVAE
+
+    ds, nodes, parents, targets = _tiny_taxonomy_data()
+    models = {}
+    K.reset_launch_counts()
+    for where in ("cpu", cuda):
+        if model == "taxometer":
+            m = Taxometer(4, len(nodes), nodes, parents, nhiddens=[64, 32], seed=3, device=where)
+        else:
+            m = VAEVAE(4, len(nodes), nodes, parents, nhiddens=[64, 64], nlatent=8,
+                       hier_loss="flat_softmax", seed=3, device=where)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            m.trainmodel(ds, targets, nepochs=1, batchsize=128, batchsteps=None)
+            torch.cuda.synchronize()
+        models[str(where)] = (m, sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA))
+    assert all(k.launches == 0 for k in K.KERNELS)
+    (cpu, _), (card, card_kernels) = models["cpu"], models["cuda"]
+    assert card_kernels >= 4
+    for (name, a), (_, b) in zip(cpu.state_dict().items(), card.state_dict().items()):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4, atol=1e-6, err_msg=name)

@@ -227,7 +227,8 @@ def test_import_without_jax_or_vamb_tpu(tmp_path):
         "import vamb_torch.utils.threefry, vamb_torch.abundance, vamb_torch.composition\n"
         "import vamb_torch.bam, vamb_torch.markers, vamb_torch.ops.hmm, vamb_torch.ops.orf\n"
         "import vamb_torch.ops.kmeans, vamb_torch.reclustering, vamb_torch.taxonomy\n"
-        "import vamb_torch.kernels.hmm_kernels\n"
+        "import vamb_torch.kernels.hmm_kernels, vamb_torch.models.hier\n"
+        "import vamb_torch.models.taxometer, vamb_torch.models.vaevae, vamb_torch.optim.adam\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vamb_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -119,20 +119,11 @@ def test_bin_default_end_to_end(data, tmp_path):
 
 
 def test_unported_subcommands_and_flags_fail_loudly(data, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_main(["bin", "taxvamb", "--outdir", str(tmp_path)], device="cpu")
-    # recluster's DBSCAN on an unrefined taxonomy, with abundance and without
-    # --no_predictor, refines the taxonomy with Taxometer first: not ported
-    latent, markers = tmp_path / "latent.npz", tmp_path / "markers.npz"
-    np.savez(latent, np.zeros((make_golden.N_CONTIGS, 32), np.float32))
-    markers.write_text("{}")
-    make_golden.write_synthetic_taxonomy(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        torch_main(["recluster", "--outdir", str(tmp_path / "r"), "--fasta",
-                    str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),
-                    "--markers", str(markers), "--latent_path", str(latent),
-                    "--algorithm", "dbscan", "--taxonomy", str(tmp_path / "taxonomy.tsv")],
-                   device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        torch_main(["bin", "avamb", "--outdir", str(tmp_path)], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        torch_main(["avamb_ensemble", "--outdir", str(tmp_path / "e"), "--fasta",
+                    str(data / "contigs.fna")], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_main(["bin", "default", "--outdir", str(tmp_path / "o2"), "--fasta",
                     str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),

@@ -4,7 +4,8 @@ jax.random, for the calls the clustering engine and VAE training make.
 * Bit-identical (the uint32 words, float bit patterns and indices must be
   equal): PRNGKey(seed) and key(seed), split(key, num), fold_in,
   bits(key, shape, uint32) and its little-endian byte view, uniform(key,
-  (n,)) float32 and permutation(key, n).
+  (n,)) float32, bernoulli(key, p, shape) (the random tree cuts of
+  models/hier.py) and permutation(key, n).
 * normal(key, (n,)) float32 (`normal_batched`), its erfinv polynomial and
   the `log` / `log1p` of XLA's CPU code (`log_xla`, `log1p_xla`), bit for
   bit: over 1,000,000 draws, and for the logs over every mantissa at a few
@@ -93,6 +94,15 @@ def test_bits_and_bytes(shape):
     assert np.array_equal(_words(wj), wt.numpy())
     bj = np.asarray(jax.lax.bitcast_convert_type(wj, jnp.uint8)).reshape(*shape[:-1], -1)
     assert np.array_equal(bj, threefry.words_to_bytes(wt).numpy())
+
+
+@pytest.mark.parametrize("p", [0.0, 0.01, 0.3, 0.5, 1.0])
+@pytest.mark.parametrize("shape", [(1,), (7, 33), (2, 3, 40)])
+def test_bernoulli(p, shape):
+    for seed in (0, 41, 2**32 + 5):
+        want = np.asarray(jax.random.bernoulli(jax.random.key(seed), p, shape))
+        got = threefry.bernoulli(threefry.key(seed), p, shape)
+        assert got.dtype == torch.bool and np.array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("n", [1, 2, 1000, 1625, 1626, 5000, 40_000])

@@ -1,11 +1,16 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 Mirrors `vamb_tpu`'s CLI (itself the reference's, vamb/__main__.py) for the
-subcommands this port runs so far, `bin default` and `recluster`, with the
-same flag names and defaults:
+subcommands this port runs so far, `bin default`, `bin taxvamb`,
+`taxometer`, `taxonomy_benchmark` and `recluster`, with the same flag names
+and defaults:
 
     python -m vamb_torch bin default --outdir out --fasta contigs.fna \\
         --bamfiles s1.bam s2.bam
+    python -m vamb_torch taxometer --outdir tm --fasta contigs.fna \\
+        --abundance_tsv ab.tsv --taxonomy taxonomy.tsv
+    python -m vamb_torch bin taxvamb --outdir tv --fasta contigs.fna \\
+        --abundance_tsv ab.tsv --taxonomy tm/results_taxometer.tsv
     python -m vamb_torch recluster --outdir re --fasta contigs.fna \\
         --hmm_path markers.hmm --latent_path out/latent.npz \\
         --clusters_path out/vae_clusters_unsplit.tsv
@@ -32,10 +37,7 @@ DEFAULT_THREADS = min(os.cpu_count() or 1, 8)
 
 # subcommands of vamb_tpu this port does not run yet -> their ROADMAP item
 _UNPORTED = {
-    ("bin", "taxvamb"): "ROADMAP queue 1, item 8 (bin taxvamb)",
     ("bin", "avamb"): "ROADMAP queue 1, item 9 (bin avamb)",
-    ("taxometer",): "ROADMAP queue 1, item 7 (taxonomy models)",
-    ("taxonomy_benchmark",): "ROADMAP queue 1, item 7 (taxonomy models)",
     ("avamb_ensemble",): "ROADMAP queue 1, item 9 (avamb_ensemble)",
 }
 
@@ -229,21 +231,22 @@ def _reject_unported_general(args) -> None:
         )
 
 
-def add_taxonomy_arguments(subparser):
+def add_taxonomy_arguments(subparser, taxonomy_only=False):
     taxonomys = subparser.add_argument_group(title="Taxonomy input")
     taxonomys.add_argument(
         "--taxonomy", metavar="", type=Path, help="Taxonomy TSV (contigs + predictions[ + scores])"
     )
-    taxonomys.add_argument(
-        "--no_predictor",
-        help="Use the taxonomy as given instead of refining it with Taxometer first [False]",
-        action="store_true",
-    )
+    if not taxonomy_only:
+        taxonomys.add_argument(
+            "--no_predictor",
+            help="Use the taxonomy as given instead of refining it with Taxometer first [False]",
+            action="store_true",
+        )
     return subparser
 
 
 def add_predictor_arguments(subparser):
-    "Taxometer's training flags: accepted; the predictor branch is not ported yet."
+    "Taxometer's training flags."
     pred_trainos = subparser.add_argument_group(
         title="Training options for the taxonomy predictor"
     )
@@ -333,6 +336,31 @@ def _output_options_from_args(args):
     )
 
 
+def _taxometer_options_from_args(args):
+    from .pipeline import TaxometerOptions
+
+    return TaxometerOptions(
+        taxonomy_path=args.taxonomy,
+        nepochs=args.pred_nepochs,
+        batchsize=args.pred_batchsize,
+        softmax_threshold=args.pred_softmax_threshold,
+        ploss=args.ploss,
+    )
+
+
+def _taxometer_run_options_from_args(args, device):
+    from .pipeline import CompositionOptions, TaxometerRunOptions
+
+    if args.taxonomy is None:
+        raise ValueError(f"{args.subcommand} requires --taxonomy")
+    return TaxometerRunOptions(
+        general=_general_options_from_args(args, device),
+        comp=CompositionOptions(fasta=args.fasta, composition=args.composition),
+        abundance=_abundance_options_from_args(args),
+        taxometer=_taxometer_options_from_args(args),
+    )
+
+
 def _recluster_options_from_args(args, device):
     from .pipeline import CompositionOptions, MarkerOptions, ReclusteringOptions
 
@@ -341,6 +369,9 @@ def _recluster_options_from_args(args, device):
         abundance = _abundance_options_from_args(args)
     except ValueError:
         pass  # abundance only needed for dbscan-with-predictor
+    taxometer = None
+    if args.taxonomy is not None and not args.no_predictor:
+        taxometer = _taxometer_options_from_args(args)
     return ReclusteringOptions(
         general=_general_options_from_args(args, device),
         comp=CompositionOptions(fasta=args.fasta, composition=args.composition),
@@ -354,12 +385,15 @@ def _recluster_options_from_args(args, device):
         taxonomy_path=args.taxonomy,
         no_predictor=args.no_predictor,
         abundance=abundance,
+        taxometer=taxometer,
     )
 
 
 def _options_from_args(args, device):
+    "BinDefaultOptions, or BinTaxVambOptions for `bin taxvamb`."
     from .pipeline import (
         BinDefaultOptions,
+        BinTaxVambOptions,
         ClusterOptions,
         CompositionOptions,
         VAEOptions,
@@ -370,7 +404,7 @@ def _options_from_args(args, device):
             "The -r/--lrate flag is accepted for compatibility but has no "
             "effect: training uses the learning-rate-free D-Adaptation Adam"
         )
-    return BinDefaultOptions(
+    common = dict(
         general=_general_options_from_args(args, device),
         comp=CompositionOptions(fasta=args.fasta, composition=args.composition),
         abundance=_abundance_options_from_args(args),
@@ -394,6 +428,17 @@ def _options_from_args(args, device):
             wander_scope=args.wander_scope,
         ),
         output=_output_options_from_args(args),
+    )
+    if args.model_subcommand != "taxvamb":
+        return BinDefaultOptions(**common)
+    if args.taxonomy is None:
+        raise ValueError("bin taxvamb requires --taxonomy")
+    return BinTaxVambOptions(
+        **common,
+        taxonomy_path=args.taxonomy,
+        no_predictor=args.no_predictor,
+        taxometer=None if args.no_predictor else _taxometer_options_from_args(args),
+        ploss=args.ploss,
     )
 
 
@@ -471,6 +516,52 @@ Required arguments:
   DBScan algorithm: also requires a taxonomy input""",
     )
     add_recluster_arguments(recluster_parser)
+    vaevae_parser = subparsers_model.add_parser(
+        "taxvamb",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        help="semi-supervised bi-modal VAE binner guided by taxonomy",
+        add_help=False,
+        usage="%(prog)s [options]",
+        description="""TaxVamb: a semi-supervised bi-modal VAE trained on composition, abundance
+and (possibly Taxometer-refined) taxonomy labels; the joint latent space is clustered into bins.
+
+Requires --outdir, --taxonomy, one composition input and one abundance input.""",
+    )
+    add_general_arguments(vaevae_parser)
+    add_composition_arguments(vaevae_parser)
+    add_abundance_arguments(vaevae_parser)
+    add_taxonomy_arguments(vaevae_parser)
+    add_bin_output_arguments(vaevae_parser)
+    add_vae_arguments(vaevae_parser)
+    add_clustering_arguments(vaevae_parser)
+    add_predictor_arguments(vaevae_parser)
+    for name, help_text, description in (
+        (
+            "taxometer",
+            "refine classifier taxonomy with composition+abundance signal",
+            "Taxometer: train a predictor on composition+abundance features to refine\n"
+            "(and score) the taxonomy assigned by any upstream classifier.",
+        ),
+        (
+            "taxonomy_benchmark",
+            "k-fold benchmark of taxonomy prediction quality",
+            "k-fold cross-validated benchmark of taxonomy prediction quality on this dataset.",
+        ),
+    ):
+        tax_parser = subparsers.add_parser(
+            name,
+            formatter_class=argparse.RawDescriptionHelpFormatter,
+            help=help_text,
+            add_help=False,
+            usage="%(prog)s [options]",
+            description=description + "\n\nRequires --outdir, --taxonomy, one composition "
+            "input and one abundance input.",
+        )
+        add_general_arguments(tax_parser)
+        add_composition_arguments(tax_parser)
+        add_abundance_arguments(tax_parser)
+        add_taxonomy_arguments(tax_parser, taxonomy_only=True)
+        add_predictor_arguments(tax_parser)
     for names in _UNPORTED:
         sub = subparsers_model if names[0] == "bin" else subparsers
         sub.add_parser(names[-1], help="not ported yet", add_help=False)
@@ -487,17 +578,24 @@ Required arguments:
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
 
+    from . import pipeline
     from .device import resolve_device
-    from .pipeline import run_bin_default, run_reclustering
 
     _reject_unported_general(args)
     device = str(resolve_device(device))
     if command == ("recluster",):
         opt = _recluster_options_from_args(args, device)
-        run(partial(run_reclustering, opt), opt.general)
+        runner = pipeline.run_reclustering
+    elif command == ("taxometer",):
+        opt = _taxometer_run_options_from_args(args, device)
+        runner = pipeline.run_taxonomy_predictor
+    elif command == ("taxonomy_benchmark",):
+        opt = _taxometer_run_options_from_args(args, device)
+        runner = pipeline.run_taxonomy_cross_validation
     else:
         opt = _options_from_args(args, device)
-        run(partial(run_bin_default, opt), opt.general)
+        runner = pipeline.run_vaevae if command == ("bin", "taxvamb") else pipeline.run_bin_default
+    run(partial(runner, opt), opt.general)
 
 
 if __name__ == "__main__":

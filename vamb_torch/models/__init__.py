@@ -1,6 +1,9 @@
-"""Model layer: the PyTorch VAE over contig features.
+"""Model layer: the PyTorch models over contig features.
 
 * `vae` — the variational autoencoder (reference vamb/encode.py).
+* `taxometer` — the taxonomy predictor; `vaevae` — TaxVamb's bi-modal VAE;
+  `hier` — the taxonomy tree and the hierarchical losses they train on.
+* `training` — the shared epoch loop on jax's key chain.
 * `dataset` — the normalization contract (host numpy).
 * `layers` — Linear/BatchNorm/dropout modules with vamb_tpu's semantics.
 """

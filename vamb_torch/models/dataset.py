@@ -108,6 +108,16 @@ def num_batches(n_obs: int, batchsize: int) -> int:
     return n_obs // batchsize
 
 
+def encode_chunk_rows(n_obs: int, cap: int) -> int:
+    """Rows per encode call: the smallest power of two >= n_obs (at least
+    256), capped at `cap` (a power of two), as `vamb_tpu` chunks its jitted
+    encode and predict calls."""
+    chunk = 256
+    while chunk < min(n_obs, cap):
+        chunk <<= 1
+    return min(chunk, cap)
+
+
 def batchsize_at_epoch(start_batchsize: int, batchsteps: list[int], epoch: int) -> int:
     "Batch size after applying the doubling schedule up to (and incl.) `epoch`."
     return start_batchsize * 2 ** sum(1 for s in batchsteps if s <= epoch)

@@ -13,12 +13,16 @@ the reference):
 * LeakyReLU: negative slope 0.01.
 * Dropout from caller-supplied bytes: a byte survives iff it is >= a
   quantized threshold t = round(rate * 256), survivors scaled by
-  1 / (1 - t/256) (layers.py:123-145).
+  1 / (1 - t/256) (layers.py:123-145). Every model draws its bytes once an
+  epoch as one bank (`dropout_bank`) and rotates it by `i * 97` at step i
+  (`step_bank`), as `vamb_tpu`'s VAE, Taxometer and VAEVAE do.
 """
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..utils import threefry
 
 
 class Linear(nn.Module):
@@ -36,6 +40,15 @@ class Linear(nn.Module):
         return x @ self.w + self.b
 
 
+class Block(nn.Module):
+    "Dense -> LeakyReLU -> Dropout -> BatchNorm, the hidden layer of every model."
+
+    def __init__(self, rng: np.random.Generator, nin: int, nout: int):
+        super().__init__()
+        self.dense = Linear(rng, nin, nout)
+        self.bn = BatchNorm(nout)
+
+
 class BatchNorm(nn.Module):
     """Batch normalization over dim 0 with learnable `scale`/`bias` and
     running `mean`/`var` buffers (the names of `vamb_tpu`'s trees)."""
@@ -49,9 +62,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(n))
         self.register_buffer("var", torch.ones(n))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, base=None) -> torch.Tensor:
+        """Normalize `x`. In training mode the running statistics become
+        `(1 - momentum) * old + momentum * batch`, where `old` is the
+        buffers or, when given, the (mean, var) pair `base`: a model that
+        runs one layer several times a step and keeps the last call's
+        statistics (VAEVAE) passes the step's starting buffers."""
         if not self.training:
             return (x - self.mean) * torch.rsqrt(self.var + self.eps) * self.scale + self.bias
+        old_mean, old_var = (self.mean, self.var) if base is None else base
         mean = x.mean(dim=0)
         mean2 = (x * x).mean(dim=0)
         var = mean2 - mean * mean  # biased, used for normalization
@@ -59,8 +78,8 @@ class BatchNorm(nn.Module):
         n = x.shape[0]
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
-            self.mean.copy_((1 - self.momentum) * self.mean + self.momentum * mean)
-            self.var.copy_((1 - self.momentum) * self.var + self.momentum * unbiased)
+            self.mean.copy_((1 - self.momentum) * old_mean + self.momentum * mean)
+            self.var.copy_((1 - self.momentum) * old_var + self.momentum * unbiased)
         return out
 
 
@@ -81,3 +100,22 @@ def dropout_from_bits(bits: torch.Tensor, x: torch.Tensor, rate: float) -> torch
         return x
     t, keep_scale = dropout_threshold(rate)
     return torch.where(bits >= t, x * keep_scale, 0.0)
+
+
+def dropout_bank(key, batchsize: int, widths: list[int], device):
+    """One epoch's dropout bytes for hidden layers of `widths`, in a single
+    draw: `bits(key, (B, ceil(sum(widths) / 4)))` read as little-endian
+    bytes, sliced in order (vamb_tpu vae.py:356-384, taxometer.py:168-183,
+    vaevae.py:313-332). Returns (bytes (B, sum(widths)), widths)."""
+    nwords = (sum(widths) + 3) // 4
+    words = threefry.bits(key, (batchsize, nwords), device)
+    return threefry.words_to_bytes(words)[:, : sum(widths)], list(widths)
+
+
+def step_bank(bank, i: int):
+    """Step i's dropout bytes, one (B, width) slice a layer: the epoch's
+    bank rotated by `i * 97` (a uint8 add wraps), so every step gets
+    distinct masks from one draw an epoch. None without a bank."""
+    if bank is None:
+        return None
+    return torch.split(bank[0] + (i * 97) % 256, bank[1], dim=1)

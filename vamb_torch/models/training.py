@@ -1,11 +1,121 @@
-"""Training-schedule helpers shared by the model families.
+"""The generic training loop shared by the model families, and its schedule.
 
-Copies of `vamb_tpu/models/training.py:segment_plan` and
-`validate_batchsteps`; the jitted multi-epoch scan machinery there has no
-counterpart, because PyTorch runs the epoch loop eagerly.
+Port of `vamb_tpu/models/training.py`. There one epoch is a jitted
+`lax.scan` over shuffled minibatches (`make_scan_epoch_fn`), and a run of
+epochs at one batch size is one dispatch (`run_segments_aot`, which also
+compiles the segments' programs concurrently). PyTorch runs the same loop
+eagerly (`train_epochs`), so there is nothing to compile ahead and no
+counterpart of the concurrent compilation. It keeps `vamb_tpu`'s key chain
+exactly (threefry, utils/threefry.py):
+
+* each epoch takes `rng, key = split(rng)`;
+* without `epoch_extra` the key splits in two, `perm_key, scan_key`; with
+  it, in three, `perm_key, scan_key, extra_key`, even where the hook
+  returns None (no dropout);
+* the epoch's rows are `permutation(perm_key, n)[: nb * bs]` (drop-last
+  batches, batch size doubled at the batchsteps);
+* step i takes `key, sub = split(key)` from `scan_key`;
+* an epoch's metrics are the mean over its steps.
+
+`MetricsDrain` lets epochs run back to back: an epoch's metrics are copied
+to the host without a sync and logged `lag` epochs later.
 """
 
-from typing import Optional
+import time
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..utils import threefry
+from .dataset import batchsize_at_epoch, num_batches
+
+
+def train_epochs(
+    step: Callable,
+    data: tuple,
+    rng,
+    n_obs: int,
+    nepochs: int,
+    batchsize: int,
+    batchsteps_list: list[int],
+    emit: Callable,
+    epoch_extra: Optional[Callable] = None,
+):
+    """Run `nepochs` epochs of `step` over `data` (row-aligned tensors on
+    one device) from the key chain `rng`; returns the chain's next key.
+
+    `step(batch, key, extra, i) -> metrics` is one optimizer step on the
+    tuple of batch rows, with the step's key (a pair of ints), the epoch's
+    `epoch_extra(extra_key, batchsize)` (None without the hook) and the
+    step index; `metrics` is a 1-D tensor. `emit(epoch, values, batchsize,
+    seconds)` logs an epoch's mean metrics (through `MetricsDrain`)."""
+    drain = MetricsDrain(emit)
+    device = data[0].device
+    for epoch0, seg_len in segment_plan(nepochs, batchsteps_list):
+        bs = min(batchsize_at_epoch(batchsize, batchsteps_list, epoch0), n_obs)
+        nb = num_batches(n_obs, bs)
+        for epoch in range(epoch0, epoch0 + seg_len):
+            rng, key = threefry.split_host(rng)
+            if epoch_extra is None:
+                perm_key, scan_key = threefry.split_host(key)
+                extra = None
+            else:
+                perm_key, scan_key, extra_key = threefry.split_host(key, 3)
+                extra = epoch_extra(extra_key, bs)
+            idx = threefry.permutation(perm_key, n_obs, device)[: nb * bs]
+            shuf = tuple(a[idx] for a in data)
+            total = None
+            for i in range(nb):
+                scan_key, sub = threefry.split_host(scan_key)
+                batch = tuple(a[i * bs : (i + 1) * bs] for a in shuf)
+                metrics = step(batch, sub, extra, i)
+                total = metrics if total is None else total + metrics
+            drain.push(epoch, total / nb, bs)
+    drain.flush()
+    return torch.tensor(rng)
+
+
+class MetricsDrain:
+    """Emit per-epoch metric lines without a host sync each epoch.
+
+    Each epoch's metrics vector is copied to pinned host memory without
+    blocking, behind a CUDA event, and its line is emitted `lag` epochs
+    later, when the copy has landed. `flush()` drains the rest. The "(X.XXs)"
+    of a line is the wall time since the previous line: at steady state the
+    epoch's time."""
+
+    def __init__(self, emit: Callable[[int, np.ndarray, int, float], None], lag: int = 2):
+        self._emit = emit
+        self._lag = max(0, lag)
+        self._pending: deque = deque()
+        self._last = time.time()
+
+    def push(self, epoch: int, metrics: torch.Tensor, batchsize: int) -> None:
+        metrics = metrics.detach()
+        if metrics.is_cuda:
+            host = torch.empty(metrics.shape, dtype=metrics.dtype, pin_memory=True)
+            host.copy_(metrics, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = metrics.clone(), None
+        self._pending.append((epoch, host, event, batchsize))
+        while len(self._pending) > self._lag:
+            self._drain_one()
+
+    def _drain_one(self) -> None:
+        epoch, host, event, batchsize = self._pending.popleft()
+        if event is not None:
+            event.synchronize()
+        now = time.time()
+        self._emit(epoch, host.numpy(), batchsize, now - self._last)
+        self._last = now
+
+    def flush(self) -> None:
+        while self._pending:
+            self._drain_one()
 
 
 def segment_plan(nepochs, batchsteps_list, checkpoint_every=None):

@@ -47,15 +47,6 @@ from .training import validate_batchsteps
 _ENCODE_CHUNK = 1 << 16  # rows per encode forward
 
 
-class _Block(nn.Module):
-    "Dense -> LeakyReLU -> Dropout -> BatchNorm."
-
-    def __init__(self, rng: np.random.Generator, nin: int, nout: int):
-        super().__init__()
-        self.dense = layers.Linear(rng, nin, nout)
-        self.bn = layers.BatchNorm(nout)
-
-
 class VAE(nn.Module):
     """Variational autoencoder with fixed-sigma latent noise.
 
@@ -113,9 +104,9 @@ class VAE(nn.Module):
         rng = np.random.default_rng(seed)
         dims_enc = [self.nfeatures] + self.nhiddens
         dims_dec = [nlatent] + self.nhiddens[::-1]
-        self.enc = nn.ModuleList(_Block(rng, i, o) for i, o in zip(dims_enc, dims_enc[1:]))
+        self.enc = nn.ModuleList(layers.Block(rng, i, o) for i, o in zip(dims_enc, dims_enc[1:]))
         self.mu = layers.Linear(rng, self.nhiddens[-1], nlatent)
-        self.dec = nn.ModuleList(_Block(rng, i, o) for i, o in zip(dims_dec, dims_dec[1:]))
+        self.dec = nn.ModuleList(layers.Block(rng, i, o) for i, o in zip(dims_dec, dims_dec[1:]))
         self.out = layers.Linear(rng, self.nhiddens[0], self.nfeatures)
         self.to(self.device)
 
@@ -219,10 +210,9 @@ class VAE(nn.Module):
         `bits(bank_key, (B, nwords))` as little-endian bytes (vae.py:356-384)."""
         if self.dropout == 0.0:
             return None
-        widths = self.nhiddens + self.nhiddens[::-1]
-        nwords = (sum(widths) + 3) // 4
-        words = threefry.bits(bank_key, (batchsize, nwords), self.device)
-        return threefry.words_to_bytes(words)[:, : sum(widths)], widths
+        return layers.dropout_bank(
+            bank_key, batchsize, self.nhiddens + self.nhiddens[::-1], self.device
+        )
 
     def epoch_draws(self, rng, n: int, batchsize: int, nbatches: int):
         """The random draws of one epoch from the key chain `rng`, as
@@ -243,9 +233,9 @@ class VAE(nn.Module):
         """Step i's dropout bytes: the epoch's bank rotated by `i * 97`
         (uint8 add wraps; vae.py:458-462), so every step gets distinct masks
         from one draw per epoch. None without dropout."""
-        if bank is None:
+        slices = layers.step_bank(bank, i)
+        if slices is None:
             return None
-        slices = torch.split(bank[0] + (i * 97) % 256, bank[1], dim=1)
         k = len(self.nhiddens)
         return {"enc": slices[:k], "dec": slices[k:]}
 

@@ -3,12 +3,15 @@
 Port of `vamb_tpu/pipeline.py`'s `bin default` path (reference
 vamb/__main__.py stage functions calc_tnf :885, calc_abundance :944,
 trainvae :1065, cluster_and_write_files :1254, create_cluster_fasta_files
-:1407, run_bin_default :1451) and of `recluster` (load_markers :1030,
-run_reclustering :2071). Stage artifacts (`composition.npz`,
-`abundance.npz`, `latent.npz`, `model.npz`, `markers.npz`) and the output
-TSVs have `vamb_tpu`'s formats. The VAE, the clustering engine, the marker
-genes' Forward scores and k-means run on `GeneralOptions.device` ("cuda"
-unless the caller asks for "cpu").
+:1407, run_bin_default :1451), of `recluster` (load_markers :1030,
+run_reclustering :2071) and of the taxonomy paths: `taxometer`
+(predict_taxonomy :1542), `bin taxvamb` (:1941) and `taxonomy_benchmark`
+(:1822). Stage artifacts (`composition.npz`, `abundance.npz`, `latent.npz`,
+`model.npz`, `markers.npz`, `predictor_model.npz`, `vaevae_model.npz`,
+`vaevae_latent.npz`) and the output TSVs have `vamb_tpu`'s formats. The
+models, the clustering engine, the marker genes' Forward scores and
+k-means run on `GeneralOptions.device` ("cuda" unless the caller asks for
+"cpu").
 """
 
 import itertools
@@ -498,6 +501,265 @@ def run_bin_default(opt: BinDefaultOptions) -> None:
     )
 
 
+# ----------------------------------------------------- taxonomy runners
+
+
+@dataclass
+class TaxometerOptions:
+    "Options of the Taxometer predictor (reference __main__.py:422-468)."
+    taxonomy_path: Path
+    nepochs: int = 100
+    batchsize: int = 1024
+    batchsteps: list[int] = field(default_factory=list)
+    softmax_threshold: float = 0.5
+    ploss: str = "flat_softmax"
+
+    def __post_init__(self):
+        if not (0.0 <= self.softmax_threshold <= 1.0):
+            raise ValueError(
+                f"Softmax threshold should be between 0 and 1, "
+                f"currently {self.softmax_threshold}"
+            )
+        if self.ploss not in ("flat_softmax", "cond_softmax", "soft_margin"):
+            raise ValueError(f"Unknown predictor loss {self.ploss}")
+        if not self.taxonomy_path.is_file():
+            raise FileNotFoundError(self.taxonomy_path)
+
+
+def targets_from_taxonomy(contig_taxonomies) -> tuple[list[str], dict, list[int], np.ndarray]:
+    "Graph + per-contig deepest-node targets (reference __main__.py:1563-1567)."
+    from .models import hier
+
+    nodes, ind_nodes, table_parent = hier.make_graph(contig_taxonomies)
+    classes_order = [
+        "root" if (t is None or len(t.ranks) == 0) else t.ranks[-1]
+        for t in contig_taxonomies
+    ]
+    targets = np.array([ind_nodes[c] for c in classes_order])
+    return nodes, ind_nodes, table_parent, targets
+
+
+def _predicted_lineages(model, dataset, nodes: list[str], threshold: float) -> list:
+    """Each row's nodes with probability above `threshold` in node order,
+    the first (the root) left out, with their float32 probabilities
+    (reference __main__.py:1615-1630)."""
+    from .taxonomy import ContigTaxonomy, PredictedContigTaxonomy
+
+    out = []
+    for counts, cols, probs in model.predict_above(dataset, threshold):
+        start = 0
+        for end in np.cumsum(counts).tolist():
+            ranks = [nodes[j] for j in cols[start + 1 : end].tolist()]
+            out.append(PredictedContigTaxonomy(ContigTaxonomy(ranks), probs[start + 1 : end]))
+            start = end
+    return out
+
+
+def predict_taxonomy(
+    comp_metadata,
+    abundance_matrix: np.ndarray,
+    tnfs: np.ndarray,
+    lengths: np.ndarray,
+    out_dir: Path,
+    options: TaxometerOptions,
+    seed: int = 0,
+    device="cuda",
+):
+    """Train Taxometer on `device` and write results_taxometer.tsv
+    (reference __main__.py:1542-1642). Returns the PredictedTaxonomy."""
+    from .models.taxometer import Taxometer
+    from .taxonomy import PredictedTaxonomy, Taxonomy
+
+    begintime = time.time()
+    logger.info("Predicting taxonomy with Taxometer")
+    taxonomies = Taxonomy.from_file(options.taxonomy_path, comp_metadata, False)
+    nodes, ind_nodes, table_parent, targets = targets_from_taxonomy(
+        taxonomies.contig_taxonomies
+    )
+    logger.info(f"\t{len(nodes)} nodes in the graph")
+
+    model = Taxometer(
+        abundance_matrix.shape[1],
+        len(nodes),
+        nodes,
+        table_parent,
+        nhiddens=[512, 512, 512, 512],
+        hier_loss=options.ploss,
+        seed=seed,
+        device=device,
+    )
+    dataset = make_dataset(abundance_matrix, tnfs, lengths)
+    logger.info("\tCreated dataloader")
+    logger.info("Starting training the taxonomy predictor")
+    logger.info(f"Using threshold {options.softmax_threshold}")
+    model.trainmodel(
+        dataset,
+        targets,
+        nepochs=options.nepochs,
+        batchsize=options.batchsize,
+        batchsteps=options.batchsteps,
+        modelfile=out_dir.joinpath("predictor_model.npz"),
+        logger=logger.info,
+    )
+    logger.info(f"\tTrained the taxonomy predictor in {round(time.time() - begintime, 2)} seconds.")
+
+    logger.info("Writing the taxonomy predictions")
+    predict_begin = time.time()
+    predictions = _predicted_lineages(model, dataset, nodes, options.softmax_threshold)
+    taxonomy = PredictedTaxonomy(predictions, comp_metadata, False)
+    with open(out_dir.joinpath("results_taxometer.tsv"), "w") as file:
+        taxonomy.write_as_tsv(file, comp_metadata)
+    logger.info(f"\tPredicted the taxonomy in {round(time.time() - predict_begin, 2)} seconds.")
+    logger.info(
+        f"Completed taxonomy predictions in {round(time.time() - begintime, 2)} seconds."
+    )
+    return taxonomy
+
+
+@dataclass
+class TaxometerRunOptions:
+    general: GeneralOptions
+    comp: CompositionOptions
+    abundance: AbundanceOptions
+    taxometer: TaxometerOptions
+
+
+def run_taxonomy_predictor(opt: TaxometerRunOptions) -> None:
+    "The `taxometer` subcommand (reference __main__.py:1892-1938)."
+    composition, abundance = load_composition_and_abundance(
+        opt.general, opt.comp, opt.abundance, BinSplitter.inert_splitter()
+    )
+    predict_taxonomy(
+        composition.metadata,
+        abundance.matrix,
+        composition.matrix,
+        composition.metadata.lengths,
+        opt.general.outdir,
+        opt.taxometer,
+        seed=opt.general.seed,
+        device=opt.general.device,
+    )
+
+
+@dataclass
+class BinTaxVambOptions:
+    general: GeneralOptions
+    comp: CompositionOptions
+    abundance: AbundanceOptions
+    vae: VAEOptions
+    clustering: ClusterOptions
+    output: BinOutputOptions
+    taxonomy_path: Path = None
+    no_predictor: bool = False
+    taxometer: Optional[TaxometerOptions] = None
+    ploss: str = "flat_softmax"
+
+
+def run_vaevae(opt: BinTaxVambOptions) -> None:
+    """The `bin taxvamb` subcommand (reference __main__.py:1941-2068): the
+    taxonomy is read refined, read as given (`--no_predictor`), or refined
+    by Taxometer first; then VAEVAE trains on it and its joint latent is
+    clustered into `vaevae_clusters_*`."""
+    from .models.vaevae import VAEVAE
+    from .taxonomy import Taxonomy
+
+    composition, abundance = load_composition_and_abundance(
+        opt.general, opt.comp, opt.abundance, opt.output.binsplitter
+    )
+    abundance_matrix = abundance.matrix
+    tnfs = composition.matrix
+    lengths = composition.metadata.lengths
+    contignames = composition.metadata.identifiers
+
+    is_refined = opt.taxonomy_path is not None and _taxonomy_is_refined(opt.taxonomy_path)
+    if is_refined:
+        logger.info(f'Loading already-refined taxonomy from file "{opt.taxonomy_path}"')
+        contig_taxonomies = Taxonomy.from_refined_file(
+            opt.taxonomy_path, composition.metadata, False
+        )
+    elif opt.no_predictor:
+        logger.info(f'Loading unrefined taxonomy from file "{opt.taxonomy_path}"')
+        contig_taxonomies = Taxonomy.from_file(opt.taxonomy_path, composition.metadata, False)
+    else:
+        taxometer_opt = opt.taxometer or TaxometerOptions(
+            taxonomy_path=opt.taxonomy_path, ploss=opt.ploss
+        )
+        predicted = predict_taxonomy(
+            composition.metadata,
+            abundance_matrix,
+            tnfs,
+            lengths,
+            opt.general.outdir,
+            taxometer_opt,
+            seed=opt.general.seed,
+            device=opt.general.device,
+        )
+        contig_taxonomies = predicted.to_taxonomy()
+
+    nodes, ind_nodes, table_parent, targets = targets_from_taxonomy(
+        contig_taxonomies.contig_taxonomies
+    )
+    begintime = time.time()
+    logger.info("Creating and training VAEVAE")
+    vae = VAEVAE(
+        abundance_matrix.shape[1],
+        len(nodes),
+        nodes,
+        table_parent,
+        nhiddens=opt.vae.nhiddens,
+        nlatent=opt.vae.nlatent,
+        alpha=opt.vae.alpha,
+        beta=opt.vae.beta,
+        dropout=opt.vae.dropout,
+        hier_loss=opt.ploss,
+        seed=opt.general.seed,
+        device=opt.general.device,
+    )
+    dataset = make_dataset(abundance_matrix, tnfs, lengths)
+    vae.trainmodel(
+        dataset,
+        targets,
+        nepochs=opt.vae.nepochs,
+        batchsize=opt.vae.batchsize,
+        batchsteps=opt.vae.batchsteps,
+        modelfile=opt.general.outdir.joinpath("vaevae_model.npz"),
+        logger=logger.info,
+    )
+    logger.info(f"\tTrained VAEVAE in {round(time.time() - begintime, 2)} seconds.")
+    encode_begin = time.time()
+    latent = vae.encode_joint(dataset, targets)
+    logger.info(f"{latent.shape} embedding shape")
+    write_npz(opt.general.outdir.joinpath("vaevae_latent.npz"), latent)
+    logger.info(f"\tEncoded the joint latent in {round(time.time() - encode_begin, 2)} seconds.")
+    del vae, dataset
+
+    fasta_out = None
+    bins_dir = None
+    if opt.output.min_fasta_output_size is not None:
+        if opt.comp.fasta is None:
+            raise ValueError(
+                "FASTA output was requested (--minfasta), but no FASTA input "
+                "was given (--fasta)"
+            )
+        fasta_out = opt.comp.fasta
+        bins_dir = opt.general.outdir.joinpath("bins")
+
+    cluster_and_write_files(
+        opt.clustering,
+        opt.output.binsplitter,
+        latent,
+        list(contignames),
+        lengths,
+        opt.general.seed,
+        str(opt.general.outdir.joinpath("vaevae_clusters")),
+        fasta_path=fasta_out,
+        bins_dir=bins_dir,
+        min_fasta_size=opt.output.min_fasta_output_size or 0,
+        compress_fasta=opt.output.compress_fasta_output,
+        device=opt.general.device,
+    )
+
+
 def export_clusters(
     binsplitter: BinSplitter,
     clusters: Collection[tuple[str, Collection[str]]],
@@ -616,6 +878,7 @@ class ReclusteringOptions:
     taxonomy_path: Optional[Path] = None
     no_predictor: bool = False
     abundance: Optional[AbundanceOptions] = None
+    taxometer: Optional[TaxometerOptions] = None
 
     def __post_init__(self):
         if self.latent_path is None or not Path(self.latent_path).is_file():
@@ -643,15 +906,6 @@ def run_reclustering(opt: ReclusteringOptions) -> None:
     from .taxonomy import Taxonomy
     from .utils import read_clusters, read_npz
 
-    is_refined = opt.algorithm == "dbscan" and _taxonomy_is_refined(opt.taxonomy_path)
-    if opt.algorithm == "dbscan" and not (
-        is_refined or opt.no_predictor or opt.abundance is None
-    ):
-        raise NotImplementedError(
-            "`recluster --algorithm dbscan` refines an unrefined taxonomy with "
-            "Taxometer first, which is not ported yet (ROADMAP queue 1, item 7: "
-            "taxonomy models); pass --no_predictor or a refined taxonomy"
-        )
     composition = calc_tnf(
         opt.comp, opt.general.min_contig_length, opt.general.outdir,
         opt.output.binsplitter,
@@ -663,15 +917,41 @@ def run_reclustering(opt: ReclusteringOptions) -> None:
     latent = read_npz(opt.latent_path)
 
     if opt.algorithm == "dbscan":
-        if is_refined:
+        if _taxonomy_is_refined(opt.taxonomy_path):
             logger.info(f'Loading refined taxonomy from file "{opt.taxonomy_path}"')
             taxonomy = Taxonomy.from_refined_file(
                 opt.taxonomy_path, composition.metadata, True
             )
-        else:
+        elif opt.no_predictor or opt.abundance is None:
             logger.info(f'Loading unrefined taxonomy from file "{opt.taxonomy_path}"')
             taxonomy = Taxonomy.from_file(
                 opt.taxonomy_path, composition.metadata, True
+            )
+        else:
+            abundance = calc_abundance(
+                opt.abundance,
+                opt.general.outdir,
+                opt.general.refcheck,
+                composition.metadata,
+                opt.general.nthreads,
+            )
+            taxometer_opt = opt.taxometer or TaxometerOptions(
+                taxonomy_path=opt.taxonomy_path
+            )
+            predicted = predict_taxonomy(
+                composition.metadata,
+                abundance.matrix,
+                composition.matrix,
+                composition.metadata.lengths,
+                opt.general.outdir,
+                taxometer_opt,
+                seed=opt.general.seed,
+                device=opt.general.device,
+            )
+            taxonomy = Taxonomy(
+                [p.contig_taxonomy for p in predicted.contig_taxonomies],
+                predicted.refhash,
+                True,
             )
         alg = reclustering.DBScanAlgorithm(
             composition.metadata, taxonomy, opt.general.nthreads
@@ -735,4 +1015,157 @@ def run_reclustering(opt: ReclusteringOptions) -> None:
         clusters_dict,
         str(opt.general.outdir.joinpath("clusters_reclustered")),
         fasta_output,
+    )
+
+
+# ----------------------------------------------------- taxonomy benchmark
+
+
+def compare_taxonomies(
+    pred_file: Path,
+    true_file: Path,
+    output_file: Path,
+    comp_metadata,
+) -> None:
+    """Per-level accuracy of a predicted (refined) taxonomy against the
+    given one (reference __main__.py:1645-1727)."""
+    import csv
+
+    from .taxonomy import Taxonomy
+
+    pred_taxonomy = Taxonomy.from_refined_file(pred_file, comp_metadata, False)
+    true_taxonomy = Taxonomy.from_file(true_file, comp_metadata, False)
+
+    n_contigs = len(pred_taxonomy.contig_taxonomies)
+    max_levels = max(
+        max((len(t.ranks) if t is not None else 0) for t in pred_taxonomy.contig_taxonomies),
+        max((len(t.ranks) if t is not None else 0) for t in true_taxonomy.contig_taxonomies),
+        1,
+    )
+    correct = [0] * max_levels
+    have_truth = [0] * max_levels
+    for pred_t, true_t in zip(pred_taxonomy.contig_taxonomies, true_taxonomy.contig_taxonomies):
+        pred_ranks = [] if pred_t is None else pred_t.ranks[:max_levels]
+        true_ranks = [] if true_t is None else true_t.ranks[:max_levels]
+        for i, t in enumerate(true_ranks):
+            if t is None:
+                continue
+            have_truth[i] += 1
+            if i < len(pred_ranks) and pred_ranks[i] == t:
+                correct[i] += 1
+
+    with open(output_file, "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t")
+        w.writerow(["Level", "Correct", "Have_truth", "N_contigs", "Accuracy"])
+        for i in range(max_levels):
+            acc = correct[i] / n_contigs if n_contigs else 0.0
+            w.writerow([f"Level_{i}", correct[i], have_truth[i], n_contigs, f"{acc:.6f}"])
+
+
+def kfold_test_masks(n: int, n_splits: int, seed: int) -> list[np.ndarray]:
+    """The test masks of scikit-learn's `KFold(n_splits, shuffle=True,
+    random_state=seed).split(range(n))`: `RandomState(seed)` shuffles
+    0..n-1, the first `n % n_splits` folds take one row more."""
+    indices = np.arange(n)
+    np.random.RandomState(seed).shuffle(indices)
+    fold_sizes = np.full(n_splits, n // n_splits, dtype=int)
+    fold_sizes[: n % n_splits] += 1
+    masks, start = [], 0
+    for size in fold_sizes:
+        mask = np.zeros(n, dtype=bool)
+        mask[indices[start : start + size]] = True
+        masks.append(mask)
+        start += size
+    return masks
+
+
+def cross_validate_taxonomy(
+    comp_metadata,
+    abundance_matrix: np.ndarray,
+    tnfs: np.ndarray,
+    lengths: np.ndarray,
+    out_dir: Path,
+    options: TaxometerOptions,
+    seed: int,
+    device="cuda",
+) -> None:
+    """5-fold cross-validation of Taxometer and its accuracy report
+    (reference __main__.py:1822-1889): each fold trains a predictor on the
+    other four and predicts its own rows, which are written back at their
+    contigs' positions."""
+    from .models.taxometer import Taxometer
+    from .taxonomy import PredictedTaxonomy, Taxonomy
+
+    logger.info("Running cross validation for the taxonomy")
+    taxonomy = Taxonomy.from_file(options.taxonomy_path, comp_metadata, False)
+    n_contigs = len(taxonomy.contig_taxonomies)
+    nodes, ind_nodes, table_parent, targets = targets_from_taxonomy(
+        taxonomy.contig_taxonomies
+    )
+
+    predictions: list = [None] * n_contigs
+    test_masks = kfold_test_masks(n_contigs, 5, abs(seed) % 4294967295)
+    for fold, test_mask in enumerate(test_masks):
+        train_mask = ~test_mask
+        logger.info(
+            f"Fold {fold + 1}: Training on {int(train_mask.sum())} contigs, "
+            f"testing on {int(test_mask.sum())} contigs"
+        )
+        model = Taxometer(
+            abundance_matrix.shape[1],
+            len(nodes),
+            nodes,
+            table_parent,
+            nhiddens=[512, 512, 512, 512],
+            hier_loss=options.ploss,
+            seed=seed + fold,
+            device=device,
+        )
+        train_ds = make_dataset(
+            abundance_matrix[train_mask].copy(), tnfs[train_mask].copy(), lengths[train_mask]
+        )
+        model.trainmodel(
+            train_ds,
+            targets[train_mask],
+            nepochs=options.nepochs,
+            batchsize=options.batchsize,
+            batchsteps=options.batchsteps,
+            logger=logger.info,
+        )
+        test_ds = make_dataset(
+            abundance_matrix[test_mask].copy(), tnfs[test_mask].copy(), lengths[test_mask]
+        )
+        fold_predictions = _predicted_lineages(
+            model, test_ds, nodes, options.softmax_threshold
+        )
+        for position, prediction in zip(np.flatnonzero(test_mask), fold_predictions):
+            predictions[position] = prediction
+
+    assert all(p is not None for p in predictions)
+    predicted_path = out_dir.joinpath("results_taxonomy_predicted_kfold.tsv")
+    accuracy_file = out_dir.joinpath("accuracy_report.tsv")
+    with open(predicted_path, "w") as file:
+        PredictedTaxonomy(predictions, comp_metadata, False).write_as_tsv(file, comp_metadata)
+    with open(out_dir.joinpath("file_tracking.tsv"), "w") as file:
+        file.write(f"{options.taxonomy_path}\t{predicted_path}\n")
+    logger.info(
+        f"Wrote k-fold predicted taxonomy for {options.taxonomy_path} to {predicted_path}"
+    )
+    compare_taxonomies(predicted_path, options.taxonomy_path, accuracy_file, comp_metadata)
+
+
+def run_taxonomy_cross_validation(opt: TaxometerRunOptions) -> None:
+    "The `taxonomy_benchmark` subcommand (reference __main__.py:1919-1938)."
+    composition, abundance = load_composition_and_abundance(
+        opt.general, opt.comp, opt.abundance, BinSplitter.inert_splitter()
+    )
+    cross_validate_taxonomy(
+        composition.metadata,
+        abundance.matrix,
+        composition.matrix,
+        composition.metadata.lengths,
+        opt.general.outdir,
+        opt.taxometer,
+        opt.general.seed,
+        device=opt.general.device,
     )

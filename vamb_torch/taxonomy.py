@@ -1,8 +1,9 @@
 """Contig taxonomy tables, the parts `recluster` reads.
 
-Port of `vamb_tpu/taxonomy.py`'s readers: `ContigTaxonomy`, `Taxonomy`
-(`from_file`, `from_refined_file`) and `PredictedTaxonomy.parse_tax_file`,
-for the reference's two formats:
+Port of `vamb_tpu/taxonomy.py`: `ContigTaxonomy`, `Taxonomy` (`from_file`,
+`from_refined_file`) and `PredictedTaxonomy` (Taxometer's scored output:
+`parse_tax_file`, `to_taxonomy`, `write_as_tsv`), for the reference's two
+formats:
 
 * plain taxonomy TSV — header ``contigs<TAB>predictions``, one row per
   contig mapping its name to a semicolon-joined lineage (empty allowed);
@@ -27,7 +28,7 @@ parents (reference taxonomy.py:264-294).
 """
 
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import IO, Iterator, Optional
 
 import numpy as np
 
@@ -216,7 +217,60 @@ class PredictedContigTaxonomy:
 
 
 class PredictedTaxonomy:
-    "The refined (Taxometer) format's reader."
+    "A Taxometer prediction: scored lineages in composition order."
+
+    __slots__ = ["contig_taxonomies", "refhash", "is_canonical"]
+
+    def __init__(
+        self,
+        taxonomies: list[PredictedContigTaxonomy],
+        metadata: CompositionMetaData,
+        is_canonical: bool,
+    ):
+        if len(taxonomies) != len(metadata.identifiers):
+            raise ValueError(
+                f"Got {len(taxonomies)} predictions for "
+                f"{len(metadata.identifiers)} contigs; the lists must align "
+                "1:1 with the composition"
+            )
+        self.contig_taxonomies = taxonomies
+        self.refhash = metadata.refhash
+        self.is_canonical = is_canonical
+        assert_unambiguous_ranks(self)
+
+    @property
+    def nseqs(self) -> int:
+        return len(self.contig_taxonomies)
+
+    def to_taxonomy(self) -> Taxonomy:
+        "Drop the scores, keeping lineages, refhash and canonicality."
+        return Taxonomy(
+            [pred.contig_taxonomy for pred in self.contig_taxonomies],
+            self.refhash,
+            self.is_canonical,
+        )
+
+    def write_as_tsv(self, file: IO[str], comp_metadata: CompositionMetaData) -> None:
+        """Write the refined format, scores rounded to 5 decimals. An
+        unassigned contig is the row ``name\t\t``, which `parse_tax_file`
+        reads back as unassigned."""
+        if self.refhash != comp_metadata.refhash:
+            raise ValueError(
+                "Cannot write predictions against a different composition: "
+                "refhashes disagree"
+            )
+        assert self.nseqs == comp_metadata.nseqs
+        print(PREDICTED_TAXONOMY_HEADER, file=file)
+        for name, pred in zip(comp_metadata.identifiers, self.contig_taxonomies):
+            print(
+                name,
+                ";".join(pred.contig_taxonomy.ranks),
+                # np.round and str() of its elements: the strings of
+                # str(round(p, 5)) for each numpy scalar p, at a tenth of the cost
+                ";".join(np.round(pred.probs, 5).astype(str).tolist()),
+                file=file,
+                sep="\t",
+            )
 
     @staticmethod
     def parse_tax_file(
@@ -245,7 +299,7 @@ class PredictedTaxonomy:
         return out
 
 
-def assert_unambiguous_ranks(taxonomy: Taxonomy) -> None:
+def assert_unambiguous_ranks(taxonomy) -> None:
     """Verify the union of lineages is a tree keyed by name.
 
     One map carries everything we know about each name — its depth and its
@@ -256,7 +310,7 @@ def assert_unambiguous_ranks(taxonomy: Taxonomy) -> None:
     for entry in taxonomy.contig_taxonomies:
         if entry is None:
             continue
-        ranks = entry.ranks
+        ranks = entry.ranks if isinstance(entry, ContigTaxonomy) else entry.contig_taxonomy.ranks
         above: Optional[str] = None
         for depth, name in enumerate(ranks):
             fact = (depth, above)

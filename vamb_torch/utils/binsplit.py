@@ -60,6 +60,11 @@ class BinSplitter:
             self.splitter = binsplitter or None
         self.is_initialized = False
 
+    @classmethod
+    def inert_splitter(cls) -> "BinSplitter":
+        "A splitter that never splits (used where splitting makes no sense)."
+        return cls("")
+
     def is_disabled(self) -> bool:
         return self.splitter is None
 

@@ -5,7 +5,11 @@ slash-joined tree paths (`params/enc/0/dense/w`, `bn_state/dec/1/var`, ...)
 plus a `__meta__` entry holding JSON hyperparameters as uint8 bytes. This
 module writes and reads the same format with numpy, so a model trained by
 either package loads into the other, and maps the flat keys onto the
-port's `state_dict` names (`enc.0.dense.w`, `dec.1.bn.var`, ...).
+port's `state_dict` names (`enc.0.dense.w`, `dec.1.bn.var`, ...). The
+mapping covers every model of the port: the VAE and Taxometer
+(`params/out/w` -> `out.w`) and VAEVAE, whose sub-VAEs add a level
+(`params/joint/enc/0/dense/w` -> `joint.enc.0.dense.w`,
+`bn_state/vamb/dec/1/var` -> `vamb.dec.1.bn.var`).
 """
 
 import json
@@ -56,27 +60,26 @@ def _torch_key(flat_key: str) -> str:
     parts = rest.split("/")
     if head == "params":
         return ".".join(parts)
-    if head == "bn_state":  # bn_state/<stack>/<i>/<mean|var>
-        stack, i, name = parts
-        return f"{stack}.{i}.bn.{name}"
+    if head == "bn_state":  # bn_state/[<sub-VAE>/]<stack>/<i>/<mean|var>
+        return ".".join(parts[:-1] + ["bn", parts[-1]])
     raise KeyError(f"not a model key: {flat_key!r}")
 
 
 def _flat_key(torch_key: str) -> str:
     parts = torch_key.split(".")
-    if len(parts) == 4 and parts[2] == "bn" and parts[3] in ("mean", "var"):
-        return "bn_state/" + "/".join((parts[0], parts[1], parts[3]))
+    if len(parts) >= 4 and parts[-2] == "bn" and parts[-1] in ("mean", "var"):
+        return "bn_state/" + "/".join(parts[:-2] + parts[-1:])
     return "params/" + "/".join(parts)
 
 
 def params_from_jax(
     flat: Union[dict, str, Path, IO[bytes]],
 ) -> dict[str, torch.Tensor]:
-    """A VAE `state_dict` from `vamb_tpu` weights.
+    """A model's `state_dict` from `vamb_tpu` weights (VAE, Taxometer, VAEVAE).
 
     `flat` is a `vamb_tpu` model.npz (path or file), a dict of its flat
     keys, or {"params": tree, "bn_state": tree} with the JAX trees as
-    numpy arrays. Load the result with `VAE.load_state_dict`."""
+    numpy arrays. Load the result with the model's `load_state_dict`."""
     if not isinstance(flat, dict):
         flat, _ = load_flat(flat)
     elif "params" in flat and not isinstance(flat["params"], np.ndarray):

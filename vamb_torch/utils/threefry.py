@@ -19,7 +19,8 @@ stages make, for the jax configuration the package is held against (jax
 * `bits(key, shape)`: `bits1 ^ bits2` of the counters 0..size-1 in
   row-major order, as uint32 words.
 * `uniform(key, n)`: float32 uniforms in [0, 1) from those words with the
-  mantissa trick of jax/_src/random.py:435-477.
+  mantissa trick of jax/_src/random.py:435-477; `bernoulli(key, p, shape)`
+  compares them with float32(p).
 * `permutation(key, n)`: jax's `_shuffle`, `ceil(3 ln n / ln(2^32 - 1))`
   rounds of a key split, 32-bit sort keys and a stable key-value sort.
 * `normal_batched(keys, n)`: `normal(key, (n,))` per key, a uniform on
@@ -134,6 +135,14 @@ def _unit_floats(words: torch.Tensor) -> torch.Tensor:
 def uniform(k, n: int, device=None) -> torch.Tensor:
     "jax.random.uniform(key, (n,)) as float32 on `device`."
     return torch.clamp_min(_unit_floats(bits(k, n, device)), 0.0)
+
+
+def bernoulli(k, p: float, shape, device=None) -> torch.Tensor:
+    """jax.random.bernoulli(key, p, shape) (its default mode): a float32
+    uniform of the same key below float32(p), as a bool tensor."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    u = uniform(k, math.prod(shape), device).reshape(shape)
+    return u < float(np.float32(p))
 
 
 def permutation(k, n: int, device=None) -> torch.Tensor:
