@@ -24,7 +24,12 @@ of `vamb_tpu`. Phases, each of which fails the run:
    `gumbel_topc`, int32 operations), its plain version and a library
    yardstick (for `gumbel_topc`, the scores-only launch and `torch.topk`,
    the step as it was before the kernel took the selection, also on the
-   host's clock). The profile-HMM Forward kernel `hmm_forward` against
+   host's clock). At F_pad 288, the width phase 9 clusters at, where the
+   matrix kernels take their generic code: `row_sweep`,
+   `candidate_density_sweep` and `medoid_sweep` bit for bit at 100,096 and
+   100,003 columns, the gather at 100,096, each timed at 100,096 beside
+   its bound, plain version and library yardstick. The profile-HMM
+   Forward kernel `hmm_forward` against
    its plain version within 1e-3 + 1e-5 |score| bits at M 50, 200, 600 and
    1,000 on 256 genes of 30-1,000 residues (null residues mid-sequence)
    and on phase 7's shape, 8,192 length-sorted genes at M 350, timed there
@@ -92,13 +97,32 @@ of `vamb_tpu`. Phases, each of which fails the run:
    refined genus's accuracy on the unlabelled contigs, the stage times,
    and training steps of Taxometer (100) and VAEVAE (25) under
    torch.profiler (ms and device kernels a step, busy share, top ops).
+9. the Avamb path at 100,000 contigs, through the CLI entry points on the
+   card: phase 4's dataset; `bin avamb` at the published widths (547 /
+   283 / 700, batch 256; 2 epochs, `-c 2000`). Counters as in phase 4,
+   also by F_pad: `candidate_density_sweep` and `medoid_sweep` must have
+   launched at F_pad 288 alone, `gumbel_topc` > 0. Gates: the artifacts
+   (`aae_model.npz`'s widths, the z latent (N, 283) finite), every contig in
+   exactly one y bin, the z bins disjoint; the trained model's
+   `get_latents` on 4,096 contigs on the card within 1e-5 x max |mu| of
+   the CPU's, its
+   y clusters equal but where the top two y probabilities lie within 1e-5
+   (counted); 50 clusters of the z latent (fewer where it holds fewer, or
+   where 250 wander steps are reached first) on the card and on the CPU as
+   in phase 4 (scores and candidates different in no step, all
+   identical); `avamb_ensemble` over the z and y bins with a CheckM2-style
+   report from the planted genomes, every bin admitted (the cut's bins are
+   not near-complete): its bins disjoint, each a subset of its input bin.
+   Logged: stage times, the bins' pairwise precision, the bins the
+   ensemble kept, and 25 AAE training steps under torch.profiler.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
 kernels JSON object (its `launches` are the 300,000-contig path's, and
 phase 7's for `hmm_forward`; each row also holds every timed width under
-`at_widths` and phase 8's launches), the card's `nvidia-smi` name and
-power limit, and
+`at_widths` and phase 8's launches; the rows with `f_pad` 288 are the
+matrix kernels at the z latent's width, with phase 9's launches), the
+card's `nvidia-smi` name and power limit, and
 `{"ok": true, "device": ...}`.
 
     python3 chip_smoke.py --kernels
@@ -112,6 +136,10 @@ runs phase 1, the Forward kernel's check and times, and phase 7.
     python3 chip_smoke.py --taxonomy
 
 runs phase 1 and phase 8.
+
+    python3 chip_smoke.py --avamb
+
+runs phase 1, phase 2 at F_pad 288 and phase 9.
 
     python3 chip_smoke.py --engine-ab DIR [DIR ...]
 
@@ -179,6 +207,7 @@ BIG_HALF = BIG_PAD // 2 // 128 * 128  # 150,016: the ladder's first width
 BIG_GENOMES = 3_000
 BIG_CLUSTERS = 3200  # the compaction at cluster 3,072, then 128 clusters at full scope
 F_PAD = 32  # the latent width 32, padded to a multiple of 8
+AAE_F_PAD = 288  # the AAE's z latent, 283 wide, padded to a multiple of 8
 MAXSTEPS = 25  # the engine's candidates per wander step
 BALL_KB = 64  # blocks of 128 columns in a subset ball (Q = 8,192)
 SEED = 1
@@ -278,23 +307,44 @@ def weights(n: int, seed: int, zero_half: bool = False) -> np.ndarray:
 # ------------------------------------------------------- phase 2: kernels
 
 
-def check_kernels(dev) -> dict:
+# phase 2's widths at F_pad 32: the 100k path's and an unpadded one; the
+# 300k path's before and after its compaction (the density pass-1 grid is
+# capped at 300,032 columns, so its blocks stride); a subset ball's. At
+# F_pad 288, the width phase 9 clusters at (the generic code of every matrix
+# kernel): the 100k path's and an unpadded one. The gather takes whole
+# 128-column blocks: padded widths only.
+CHECK_WIDTHS = {
+    F_PAD: {"dens": (N_CONTIGS, N_CONTIGS + 3, BIG_PAD, BIG_HALF, BALL_KB * 128),
+            "sweep": (N_CONTIGS + 3, -(-N_CONTIGS // 128) * 128, BIG_HALF, BIG_PAD),
+            "gather": (-(-N_CONTIGS // 128) * 128, BIG_PAD)},
+    AAE_F_PAD: {"dens": (-(-N_CONTIGS // 128) * 128, N_CONTIGS + 3),
+                "sweep": (-(-N_CONTIGS // 128) * 128, N_CONTIGS + 3),
+                "gather": (-(-N_CONTIGS // 128) * 128,)},
+}
+
+
+def check_kernels(dev, f_pad: int = F_PAD) -> dict:
+    """Phase 2's checks at F_pad `f_pad`, at CHECK_WIDTHS: `row_sweep` and
+    `candidate_density_sweep` (C 1, 25 and 32, int64 and int32 ids, all and
+    half the weights) bit for bit against their plain versions;
+    `medoid_sweep`'s row, histogram, density and close count bit for bit
+    (all and half the weights); the gather array-equal; at F_pad 32 also
+    the Gumbel kernels, which read no matrix. Returns max|err| by kernel."""
     from vamb_torch import kernels as K
 
+    widths = CHECK_WIDTHS[f_pad]
     err_row = 0.0
     err_dens = 0.0
-    # the 100k path's width and an unpadded one; the 300k path's widths
-    # before and after its compaction (the density pass-1 grid is capped
-    # at 300,032 columns, so its blocks stride); a subset ball's
-    for n in (N_CONTIGS, N_CONTIGS + 3, BIG_PAD, BIG_HALF, BALL_KB * 128):
-        mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=n), device=dev)
+    for n in widths["dens"]:
+        mT = torch.as_tensor(clumpy_matrixT(n, f_pad, seed=n), device=dev)
         for idx in (0, 37, n - 1):
             d = K.row_sweep(mT, idx)
             p = K.row_sweep_plain(mT, idx)
             torch.cuda.synchronize()
             e = float((d - p).abs().max())
             if not (torch.equal(d, p) and float(d[idx]) == 0.0 and bool(torch.isfinite(d).all())):
-                raise AssertionError(f"row_sweep n={n} idx={idx}: max|d-plain|={e}, d[idx]={float(d[idx])}")
+                raise AssertionError(f"row_sweep F_pad {f_pad} n={n} idx={idx}: max|d-plain|={e}, "
+                                     f"d[idx]={float(d[idx])}")
             err_row = max(err_row, e)
         rng = np.random.default_rng(n)
         for zero_half in (False, True):
@@ -309,16 +359,13 @@ def check_kernels(dev) -> dict:
                 ok = torch.equal(dens, plain) and torch.equal(dens32, dens)
                 if not (ok and bool(torch.isfinite(dens).all())):
                     raise AssertionError(
-                        f"candidate_density_sweep n={n} C={c} zero_half={zero_half}: "
+                        f"candidate_density_sweep F_pad {f_pad} n={n} C={c} zero_half={zero_half}: "
                         f"max abs err {e}, dens {dens.tolist()} vs {plain.tolist()}"
                     )
                 err_dens = max(err_dens, e)
     err_sweep = 0.0
-    # medoid_sweep at every width the main paths give it (the 100k path's
-    # 100,096; the 300k path's 300,032 and 150,016) and an unpadded one:
-    # its row, histogram, density and close count bit for bit
-    for n in (N_CONTIGS + 3, PATH_WIDTHS[1], BIG_HALF, BIG_PAD):
-        mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=n), device=dev)
+    for n in widths["sweep"]:
+        mT = torch.as_tensor(clumpy_matrixT(n, f_pad, seed=n), device=dev)
         for zero_half in (False, True):
             w = torch.as_tensor(weights(n, seed=n + 1, zero_half=zero_half), device=dev)
             for idx in (0, 37, n - 1):
@@ -329,25 +376,26 @@ def check_kernels(dev) -> dict:
                 same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, expect))
                 if not (same and torch.equal(got[0], K.row_sweep(mT, idx)) and float(got[0][idx]) == 0.0):
                     raise AssertionError(
-                        f"medoid_sweep n={n} idx={idx} zero_half={zero_half}: max|kernel-plain| {e}, "
-                        f"hist {got[1].tolist()} vs {expect[1].tolist()}, density {float(got[2])} vs "
-                        f"{float(expect[2])}, n_close {int(got[3])} vs {int(expect[3])}")
+                        f"medoid_sweep F_pad {f_pad} n={n} idx={idx} zero_half={zero_half}: "
+                        f"max|kernel-plain| {e}, hist {got[1].tolist()} vs {expect[1].tolist()}, "
+                        f"density {float(got[2])} vs {float(expect[2])}, n_close {int(got[3])} vs "
+                        f"{int(expect[3])}")
                 err_sweep = max(err_sweep, e)
-    err_gather = check_gather(dev)
-    err_gumbel = check_gumbel(dev)
-    log(f"kernels agree with their plain versions: row_sweep max|err| {err_row} "
-        f"(bit-identical, d[idx] == 0), candidate_density_sweep max|err| {err_dens} "
-        "(bit-identical, C 1, 25 and 32, int64 and int32 ids, all and half the weights), "
-        f"at N {N_CONTIGS}, {N_CONTIGS + 3}, {BIG_PAD}, {BIG_HALF} and {BALL_KB * 128}; "
-        f"medoid_sweep max|err| {err_sweep} (row, histogram, density and close count "
-        f"bit-identical, row equal to row_sweep's, at N {N_CONTIGS + 3}, {PATH_WIDTHS[1]}, "
-        f"{BIG_HALF} and {BIG_PAD}, all and half the weights); gather_blocks and gather_ball "
-        f"array-equal (max|err| {err_gather}; padding slots, repeated ids); gumbel_scores "
-        f"bit-identical and gumbel_topc's candidates, validity and scores array-equal (max|err| "
-        f"{err_gumbel}) at N {', '.join(map(str, PATH_WIDTHS))}, no, some and all columns eligible "
-        f"and tie keys {TIE_STEPS}, C 1, {MAXSTEPS} and 32, one launch a call")
-    return {"row_sweep": err_row, "candidate_density_sweep": err_dens,
-            "gather_blocks": err_gather, "medoid_sweep": err_sweep, "gumbel_topc": err_gumbel}
+    errs = {"row_sweep": err_row, "candidate_density_sweep": err_dens,
+            "gather_blocks": check_gather(dev, widths["gather"], f_pad), "medoid_sweep": err_sweep}
+    log(f"kernels at F_pad {f_pad} agree with their plain versions (max|err| {json.dumps(errs)}): "
+        "row_sweep (bit-identical, d[idx] == 0) and candidate_density_sweep (bit-identical, C 1, 25 "
+        "and 32, int64 and int32 ids, all and half the weights) at N "
+        f"{', '.join(map(str, widths['dens']))}; medoid_sweep (row, histogram, density and close "
+        "count bit-identical, row equal to row_sweep's, all and half the weights) at N "
+        f"{', '.join(map(str, widths['sweep']))}; gather_blocks and gather_ball array-equal "
+        f"(padding slots, repeated ids) at N {', '.join(map(str, widths['gather']))}")
+    if f_pad == F_PAD:
+        errs["gumbel_topc"] = check_gumbel(dev)
+        log("gumbel_scores bit-identical and gumbel_topc's candidates, validity and scores "
+            f"array-equal at N {', '.join(map(str, PATH_WIDTHS))}, no, some and all columns eligible "
+            f"and tie keys {TIE_STEPS}, C 1, {MAXSTEPS} and 32, one launch a call")
+    return errs
 
 
 def gumbel_inputs(n: int, dev, seed: int, mask: str = "some"):
@@ -435,10 +483,10 @@ def check_gumbel(dev) -> float:
     return 0.0
 
 
-def ball_inputs(n: int, dev, seed: int):
-    "A ball's inputs at width n: matrix, weights, kept flags, seed row."
+def ball_inputs(n: int, dev, seed: int, f: int = F_PAD):
+    "A ball's inputs at width n and F_pad f: matrix, weights, kept flags, seed row."
     rng = np.random.default_rng(seed)
-    mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=n), device=dev)
+    mT = torch.as_tensor(clumpy_matrixT(n, f, seed=n), device=dev)
     w = torch.as_tensor(weights(n, seed=seed), device=dev)
     kept = torch.as_tensor(rng.random(n) < 0.8, device=dev)
     d0 = torch.as_tensor(rng.random(n).astype(np.float32), device=dev)
@@ -457,14 +505,14 @@ def gather_cases(n: int, seed: int) -> list:
             (np.array([5, 0, 0, blocks - 1]), 3)]
 
 
-def check_gather(dev) -> float:
-    """`gather_blocks` and `gather_ball` against their plain versions at the
-    300k path's width and the 100k path's (`gather_cases`)."""
+def check_gather(dev, widths, f: int) -> float:
+    """`gather_blocks` and `gather_ball` against their plain versions at
+    `widths` and F_pad f (`gather_cases`)."""
     from vamb_torch import kernels as K
 
     err = 0.0
-    for n in (PATH_WIDTHS[1], BIG_PAD):
-        mT, w, kept, d0 = ball_inputs(n, dev, seed=n)
+    for n in widths:
+        mT, w, kept, d0 = ball_inputs(n, dev, seed=n, f=f)
         for ids, nb in gather_cases(n, seed=n + 1):
             bids = torch.as_tensor(ids.astype(np.int32), device=dev)
             g, g_p = K.gather_blocks(mT, bids), K.gather_blocks_plain(mT, bids)
@@ -489,25 +537,26 @@ LIBRARY_NOTES = {
 }
 
 
-def time_kernels(dev) -> dict:
-    """Times at every width the main paths give each kernel: `row_sweep`
-    and `candidate_density_sweep` (C = 25) at a subset ball's 8,192
-    columns, the 100,000-contig path's 100,096, the 300,000-contig path's
-    300,032 and, after its compaction, 150,016; `medoid_sweep` at the last
-    three; `gather_ball` (64 blocks with their side vectors, the call the
-    subset wander makes) from 300,032 columns, beside `index_select` of the
-    matrix alone; `gumbel_topc` (C = 25, some columns eligible) at all four,
-    beside `gumbel_scores` and `torch.topk` of its scores. Each L2 cold
-    and warm. Returns {(name, N_pad): {"ms", "plain_ms", "library_ms",
-    "bound", and the same with an "_l2_warm" suffix}}. Logged beside
-    them: `gather_blocks` (the matrix alone), an empty kernel (the
-    harness's launch floor) and `gumbel_topc` and its yardstick on the
-    host's clock."""
+def time_kernels(dev, f_pad: int = F_PAD, widths=PATH_WIDTHS, gather_n: int = BIG_PAD) -> dict:
+    """Times at every width the main paths give each kernel, at F_pad
+    `f_pad`: `row_sweep` and `candidate_density_sweep` (C = 25) at a
+    subset ball's 8,192 columns, the 100,000-contig path's 100,096, the
+    300,000-contig path's 300,032 and, after its compaction, 150,016;
+    `medoid_sweep` at the last three; `gather_ball` (64 blocks with their
+    side vectors, the call the subset wander makes) from `gather_n`
+    columns, beside `index_select` of the matrix alone; at F_pad 32,
+    `gumbel_topc` (C = 25, some columns eligible; it reads no matrix) at
+    all four, beside `gumbel_scores` and `torch.topk` of its scores. Each
+    L2 cold and warm. Returns {(name, N_pad): {"ms", "plain_ms",
+    "library_ms", "bound", and the same with an "_l2_warm" suffix}}.
+    Logged beside them: `gather_blocks` (the matrix alone), an empty kernel
+    (the harness's launch floor) and `gumbel_topc` and its yardstick on
+    the host's clock."""
     from vamb_torch import kernels as K
 
     out = {}
-    for n in PATH_WIDTHS:
-        mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=5), device=dev)
+    for n in widths:
+        mT = torch.as_tensor(clumpy_matrixT(n, f_pad, seed=5), device=dev)
         w = torch.as_tensor(weights(n, seed=5), device=dev)
         cand = torch.as_tensor(np.random.default_rng(5).choice(n, MAXSTEPS, replace=False),
                                device=dev)
@@ -541,16 +590,17 @@ def time_kernels(dev) -> dict:
             fns["medoid_sweep"] = (
                 lambda: K.medoid_sweep(mT, idx, w), lambda: K.medoid_sweep_plain(mT, idx, w), None,
                 bound((f * n + 2 * n + 62) * 4, 2 * f * n + n + 2 * in_hist + 3 * near))
-        # the library yardstick of the draw and selection: the step as it
-        # was before (the scores written by the same kernel, then topk)
-        gkey, gd, gkept, gtried, gmedoid = gumbel_inputs(n, dev, seed=8)
-        fns["gumbel_topc"] = (
-            lambda: K.gumbel_topc(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS),
-            lambda: K.gumbel_topc_plain(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS),
-            lambda: torch.topk(K.gumbel_scores(gkey, gd, gkept, gtried, gmedoid), MAXSTEPS),
-            bound(GUMBEL_READ_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n))
-        if n == BIG_PAD:
-            mTg, wg, keptg, d0g = ball_inputs(n, dev, seed=6)
+        if f_pad == F_PAD:
+            # the library yardstick of the draw and selection: the step as
+            # it was before (the scores written by the same kernel, then topk)
+            gkey, gd, gkept, gtried, gmedoid = gumbel_inputs(n, dev, seed=8)
+            fns["gumbel_topc"] = (
+                lambda: K.gumbel_topc(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS),
+                lambda: K.gumbel_topc_plain(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS),
+                lambda: torch.topk(K.gumbel_scores(gkey, gd, gkept, gtried, gmedoid), MAXSTEPS),
+                bound(GUMBEL_READ_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n))
+        if n == gather_n:
+            mTg, wg, keptg, d0g = ball_inputs(n, dev, seed=6, f=f_pad)
             bids = torch.as_tensor(np.sort(np.random.default_rng(6).choice(n // 128, BALL_KB, replace=False))
                                    .astype(np.int32), device=dev)
             q = BALL_KB * 128
@@ -573,13 +623,14 @@ def time_kernels(dev) -> dict:
                 f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share "
                 f"{bnd[0] / r['ms']:.3f}, L2 cold; L2 warm: kernel {r['ms_l2_warm']:.5f} ms, "
                 f"plain {r['plain_ms_l2_warm']:.5f} ms")
-        # the engine is launch-bound: what a step's draw and selection costs
-        # the host, back to back, beside the step as it was
-        kern, _, lib, _ = fns["gumbel_topc"]
-        log(f"gumbel_topc at N_pad {n}, back to back: {host_us(kern):.2f} us a call on the host's "
-            f"clock; gumbel_scores + torch.topk {host_us(lib):.2f} us")
-        if n == BIG_PAD:  # the matrix alone, and the launch floor of this harness
-            log(f"gather_blocks (the matrix alone) at N_pad {n}, KB {BALL_KB}: "
+        if "gumbel_topc" in fns:
+            # the engine is launch-bound: what a step's draw and selection
+            # costs the host, back to back, beside the step as it was
+            kern, _, lib, _ = fns["gumbel_topc"]
+            log(f"gumbel_topc at N_pad {n}, back to back: {host_us(kern):.2f} us a call on the "
+                f"host's clock; gumbel_scores + torch.topk {host_us(lib):.2f} us")
+        if n == gather_n:  # the matrix alone, and the launch floor of this harness
+            log(f"gather_blocks (the matrix alone) at F_pad {f_pad}, N_pad {n}, KB {BALL_KB}: "
                 f"{time_ms(lambda: K.gather_blocks(mTg, bids)):.5f} ms; an empty kernel "
                 f"(torch.cuda._sleep(0), the launch floor) {time_ms(lambda: torch.cuda._sleep(0)):.5f} ms; "
                 "L2 cold")
@@ -702,7 +753,8 @@ def check_engine(dev) -> None:
     check(ulps == 0, f"eps on the card differ from the CPU's by up to {ulps} ulps")
 
 
-def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: int = 50) -> dict:
+def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: int = 50,
+                     label: str = "the 100k path's latent", max_steps=None) -> dict:
     """The engine on the card and on the CPU, cluster by cluster in
     lockstep on one latent, both recording the inputs of their decisions:
     each wander step's Gumbel scores (the engine's own, through
@@ -712,7 +764,13 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
     smoothed densities. Counts the clusters emitted alike before the
     first that differs, and for each input how often it differed between
     the two, bit for bit, and by how much at most; names the first that
-    did. The caller gates on the result (phase 4)."""
+    did. A latent that holds fewer than `n_clusters` clusters is compared
+    to its end: both engines must run out at the same cluster
+    (`engines_exhausted`); one running out first is a difference. With
+    `max_steps`, the comparison also ends after the cluster in which the
+    wander steps compared reach it (`step_cap_reached`): the CPU's plain
+    density takes ~0.2 s a step at F_pad 288. The caller gates on the
+    result (phases 4 and 9)."""
     from vamb_torch import cluster as engine
 
     def instrumented(device):
@@ -746,7 +804,7 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
         events.clear()
         engine.find_threshold, engine.gumbel_topc = recorded, recorded_topc
         try:
-            return next(gen)
+            return next(gen, None)
         finally:
             engine.find_threshold, engine.gumbel_topc = find_threshold, gumbel_topc
 
@@ -756,9 +814,13 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
     differed = {k: 0 for k in kinds}
     seen = {k: 0 for k in kinds}
     gap = {k: 0.0 for k in kinds}
-    identical, first_input, first_cluster = 0, None, None
+    identical, compared, first_input, first_cluster, exhausted, capped = 0, 0, None, None, False, False
     for i in range(n_clusters):
         a, b = next_cluster(*card), next_cluster(*cpu)
+        if a is None and b is None:
+            exhausted = True
+            break
+        compared += 1
         for (kind, x), (kind_b, y) in zip(card[1], cpu[1]):
             if kind != kind_b:
                 break
@@ -769,17 +831,22 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
                 gap[kind] = max(gap[kind], g) if g is not None else gap[kind]
                 if first_input is None:
                     first_input = {"cluster": i, "input": kind, "max_abs_gap": g}
-        same = (a.kind_str, a.medoid, a.seed, a.radius, a.maximal_pvr) == (
+        same = a is not None and b is not None and (
+            a.kind_str, a.medoid, a.seed, a.radius, a.maximal_pvr) == (
             b.kind_str, b.medoid, b.seed, b.radius, b.maximal_pvr) and np.array_equal(a.members, b.members)
         if not same:
             first_cluster = i
             break
         identical += 1
-    result = {"points": len(latent), "clusters_compared": n_clusters, "identical_clusters": identical,
+        if max_steps is not None and seen["candidates"] >= max_steps:
+            capped = True
+            break
+    result = {"points": len(latent), "clusters_requested": n_clusters, "clusters_compared": compared,
+              "engines_exhausted": exhausted, "step_cap_reached": capped, "identical_clusters": identical,
               "first_differing_cluster": first_cluster, "first_differing_input": first_input,
               "inputs_seen": seen, "inputs_that_differed": differed, "max_abs_gaps": gap,
               "seconds": time.time() - t}
-    log("engine on the card vs the CPU on the 100k path's latent: " + json.dumps(result))
+    log(f"engine on the card vs the CPU on {label}: " + json.dumps(result))
     return result
 
 
@@ -1669,6 +1736,216 @@ def run_taxonomy_path(dev, tmp: Path, bin_default_precision=None) -> dict:
     return result
 
 
+# ------------------------------------------------- phase 9: the Avamb path
+
+# the AAE's published widths (hidden, z, y) and batch size
+AAE_WIDTH_ARGS = ("--n_aae", "547", "--z_aae", "283", "--y_aae", "700", "--t_aae", "256")
+AAE_EPOCHS = 2  # published 70, batch doubling at 25 and 50; here at 1
+AAE_CLUSTERS = 2000  # -c, as phase 4
+AAE_PROBE_ROWS = 4096  # contigs on which the card's encode is held to the CPU's
+# mu: |card - CPU| <= 1e-5 x max |mu| (a norm-wise relative error: the
+# f32 sums of 547-wide layers run in other orders on each); y: the margin
+# of the top two probabilities inside which the argmax may differ
+AAE_ENCODE_TOL = 1e-5
+AAE_PROFILE_STEPS = 25
+# wander steps after which the card-vs-CPU engine comparison may end (at the
+# end of a cluster): phase 4's 50 clusters hold ~200
+AAE_AGREEMENT_STEPS = 250
+# the ensemble's quality gates: the cut's bins are far from near-complete
+# (the AAE's z latent after 2 epochs holds a few giant clusters), so every
+# bin enters, and dereplication and ripping resolve the z and y bins' overlaps
+ENSEMBLE_GATES = ("--min_completeness", "0", "--max_contamination", "1")
+
+
+def avamb_stage_times(logfile: Path) -> dict:
+    "`bin avamb`'s stage lines from its log.txt; the z and y cluster writes in that order."
+    text = logfile.read_text()
+    pats = {
+        "tnf_s": r"Processed TNF in ([\d.]+) seconds",
+        "abundance_s": r"Processed abundance in ([\d.]+) seconds",
+        "aae_train_encode_s": r"Trained AAE and encoded in ([\d.]+) seconds",
+        "aae_encode_s": r"Encoded the z latent and the y clusters in ([\d.]+) seconds",
+    }
+    out = {}
+    for k, p in pats.items():
+        m = re.search(p, text)
+        check(m is not None, f"log.txt lacks the line /{p}/")
+        out[k] = float(m.group(1))
+    writes = [float(x) for x in re.findall(r"Wrote cluster file\(s\) in ([\d.]+) seconds", text)]
+    check(len(writes) == 2, f"log.txt holds {len(writes)} cluster writes, not the z and the y one")
+    out["z_cluster_write_s"], out["y_export_s"] = writes
+    out["epochs_s"] = [float(x) for x in re.findall(r"Epoch:.*\(([\d.]+)s\)", text)]
+    return out
+
+
+def planted_quality_report(path: Path, bins: dict, genome: np.ndarray, lengths: np.ndarray) -> None:
+    """A CheckM2 quality_report.tsv of `bins` from the planted genomes:
+    completeness is the bin's share of its majority genome's bp,
+    contamination the bp of other genomes over the bin's bp, in percent."""
+    genome_bp = np.bincount(genome, weights=lengths)
+    with open(path, "w") as f:
+        f.write("Name\tCompleteness\tContamination\tCompleteness_Model_Used\n")
+        for name, members in sorted(bins.items()):
+            ids = np.array([int(c.split("C")[1]) for c in members])
+            bp = np.bincount(genome[ids], weights=lengths[ids], minlength=len(genome_bp))
+            g = int(np.argmax(bp))
+            f.write(f"{name}\t{100 * bp[g] / genome_bp[g]:.2f}\t"
+                    f"{100 * (bp.sum() - bp[g]) / bp.sum():.2f}\tNeural Network\n")
+
+
+def aae_encode_card_vs_cpu(dev, model_path: Path, ds, names: list) -> dict:
+    """The trained AAE's `get_latents` on the card and on the CPU, on the
+    first AAE_PROBE_ROWS contigs: the largest mu difference (at most
+    AAE_ENCODE_TOL x the largest |mu|), and the contigs whose y cluster
+    differs, each of which must have its top two y probabilities (on the
+    CPU) within AAE_ENCODE_TOL."""
+    from vamb_torch.models import VAEDataset
+    from vamb_torch.models.aae import AAE
+
+    probe = VAEDataset(*(a[:AAE_PROBE_ROWS] for a in ds))
+    names = names[:AAE_PROBE_ROWS]
+    got = {}
+    for where in ("card", "cpu"):
+        model = AAE.load(model_path, device=dev if where == "card" else "cpu")
+        clusters, mu = model.get_latents(names, probe)
+        y_of = {c: int(k) for k, members in clusters.items() for c in members}
+        got[where] = (mu, np.array([y_of[c] for c in names]))
+    with torch.no_grad():
+        _, _, y = model.encode(torch.as_tensor(probe.depths), torch.as_tensor(probe.tnf))
+    top2 = torch.topk(y, 2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).numpy()
+    differ = got["card"][1] != got["cpu"][1]
+    near = margin <= AAE_ENCODE_TOL
+    result = {"rows": len(names), "mu_max_abs_diff": float(np.abs(got["card"][0] - got["cpu"][0]).max()),
+              "mu_max_abs": float(np.abs(got["cpu"][0]).max()),
+              "y_clusters_differ": int(differ.sum()), "y_within_margin": int(near.sum()),
+              "y_differ_outside_margin": int((differ & ~near).sum())}
+    log("phase 9 AAE encode, card vs CPU: " + json.dumps(result))
+    check(result["mu_max_abs_diff"] <= AAE_ENCODE_TOL * result["mu_max_abs"],
+          f"phase 9: the card's z latent differs from the CPU's by {result['mu_max_abs_diff']} "
+          f"(largest |mu| {result['mu_max_abs']})")
+    check(result["y_differ_outside_margin"] == 0,
+          "phase 9: a y cluster differs between card and CPU outside the margin")
+    return result
+
+
+def run_avamb_path(dev, tmp: Path) -> dict:
+    """Phase 9: `bin avamb` at the published widths (547 / 283 / 700, batch
+    256) through the CLI entry point on the card, on phase 4's dataset; the
+    launch counters are set to 0 just before and read just after. Then its
+    artifacts read back and gated, the card's encode and engine held to the
+    CPU's, AAE_PROFILE_STEPS training steps profiled, and `avamb_ensemble`
+    over the z and y bins with a quality report from the planted genomes."""
+    from vamb_torch import kernels as K
+    from vamb_torch.__main__ import main
+    from vamb_torch.abundance import Abundance
+    from vamb_torch.composition import Composition
+    from vamb_torch.models import make_dataset
+    from vamb_torch.models.aae import AAE
+    from vamb_torch.models.dataset import num_batches
+    from vamb_torch.utils import read_npz
+    from vamb_torch.utils.checkpoint import load_flat
+
+    data = tmp / "data"
+    data.mkdir()
+    t = time.time()
+    genome = write_dataset(data, N_CONTIGS, N_GENOMES, N_SAMPLES, SEED)
+    log(f"phase 9 inputs: {N_CONTIGS} contigs from {N_GENOMES} genomes, {N_SAMPLES} samples, "
+        f"written in {time.time() - t:.1f} s")
+    out = tmp / "avamb"
+    K.reset_launch_counts()
+    t = time.time()
+    main(["bin", "avamb", "--outdir", str(out), "--fasta", str(data / "contigs.fna"),
+          "--abundance_tsv", str(data / "abundance.tsv"), *AAE_WIDTH_ARGS, "--e_aae", str(AAE_EPOCHS),
+          "--q_aae", "1", "-c", str(AAE_CLUSTERS), "--seed", str(SEED)], device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    tally = {k.__name__: dict(sorted(k.launches_by_width.items())) for k in K.KERNELS}
+    by_fpad = {k.__name__: dict(sorted(k.launches_by_fpad.items())) for k in K.KERNELS}
+    log(f"phase 9: bin avamb ran end to end in {wall:.2f} s; kernel launches {launches}; by N_pad "
+        f"{json.dumps(tally)}; by F_pad {json.dumps(by_fpad)}")
+    for name in ("candidate_density_sweep", "medoid_sweep"):
+        check(by_fpad[name].get(AAE_F_PAD, 0) > 0 and set(by_fpad[name]) == {AAE_F_PAD},
+              f"phase 9: {name} was not launched at F_pad {AAE_F_PAD} alone: {by_fpad[name]}")
+    check(launches["gumbel_topc"] > 0, "phase 9: bin avamb never launched gumbel_topc")
+
+    t_checks = time.time()
+    names = ("aae_model.npz", "aae_z_latent.npz", "aae_z_clusters_unsplit.tsv", "aae_z_clusters_split.tsv",
+             "aae_z_clusters_metadata.tsv", "aae_y_clusters_unsplit.tsv", "aae_y_clusters_split.tsv")
+    for name in names:
+        check((out / name).is_file(), f"phase 9: {name} was not written")
+    _, meta = load_flat(out / "aae_model.npz")
+    check((meta["nhiddens"], meta["nlatent_z"], meta["nlatent_y"], meta["nsamples"])
+          == (547, 283, 700, N_SAMPLES), f"phase 9: aae_model.npz meta {meta}")
+    latent = read_npz(out / "aae_z_latent.npz")
+    check(latent.shape == (N_CONTIGS, 283) and latent.dtype == np.float32 and np.isfinite(latent).all(),
+          "phase 9: aae_z_latent.npz is not (N, 283) finite float32")
+    z_bins = read_bins(out / "aae_z_clusters_unsplit.tsv", None)  # disjoint; -c may leave contigs out
+    y_bins = read_bins(out / "aae_y_clusters_unsplit.tsv", N_CONTIGS)  # every contig in exactly one
+    check(all(b.startswith("z_") for b in z_bins) and all(b.startswith("y_") for b in y_bins),
+          "phase 9: bin names lack their z_ / y_ prefix")
+    check(len(read_tsv(out / "aae_z_clusters_metadata.tsv")) - 1 == len(z_bins) <= AAE_CLUSTERS,
+          "phase 9: aae_z_clusters_metadata.tsv rows")
+    times = avamb_stage_times(out / "log.txt")
+    times["bin_avamb_total_s"] = wall
+
+    comp = Composition.load(out / "composition.npz")
+    ab = Abundance.load(out / "abundance.npz", comp.metadata.refhash)
+    ds = make_dataset(ab.matrix, comp.matrix, comp.metadata.lengths)
+    encode = aae_encode_card_vs_cpu(dev, out / "aae_model.npz", ds, list(comp.metadata.identifiers))
+    t = time.time()
+    agree = engine_agreement(dev, latent, comp.metadata.lengths, label="phase 9's 283-wide z latent",
+                             max_steps=AAE_AGREEMENT_STEPS)
+    times["card_vs_cpu_engine_s"] = time.time() - t
+    for kind in ("gumbel scores", "candidates"):
+        check(agree["inputs_seen"][kind] > 0 and agree["inputs_that_differed"][kind] == 0,
+              f"phase 9: the card's {kind} differ from the CPU's")
+    # 50 clusters, or fewer: all the z latent holds (both engines run out
+    # together), or as many as hold AAE_AGREEMENT_STEPS wander steps
+    check(agree["identical_clusters"] == agree["clusters_compared"] > 0
+          and (agree["clusters_compared"] == agree["clusters_requested"] or agree["engines_exhausted"]
+               or agree["step_cap_reached"]),
+          "phase 9: the card and the CPU emitted different clusters")
+
+    # avamb_ensemble over the z and y bins, scored against the planted genomes
+    lengths = np.asarray(comp.metadata.lengths, dtype=np.float64)
+    planted_quality_report(tmp / "quality_report.tsv", {**z_bins, **y_bins}, genome, lengths)
+    ens = tmp / "ensemble"
+    t = time.time()
+    main(["avamb_ensemble", "--outdir", str(ens), "--composition", str(out / "composition.npz"),
+          "--clusters", str(out / "aae_z_clusters_unsplit.tsv"), str(out / "aae_y_clusters_unsplit.tsv"),
+          "--quality_report", str(tmp / "quality_report.tsv"), *ENSEMBLE_GATES, "--seed", str(SEED)],
+         device=str(dev))
+    times["ensemble_s"] = time.time() - t
+    merged = read_bins(ens / "ensemble_clusters.tsv", None)  # disjoint
+    inputs = {**z_bins, **y_bins}
+    check(all(name in inputs and members <= inputs[name] for name, members in merged.items()),
+          "phase 9: an ensemble bin is not a subset of its input bin")
+    times["checks_s"] = time.time() - t_checks
+    precision = {"z": pairwise_precision(z_bins, genome), "y": pairwise_precision(y_bins, genome),
+                 "ensemble": pairwise_precision(merged, genome)}
+    kept = {"z": sum(b.startswith("z_") for b in merged), "y": sum(b.startswith("y_") for b in merged)}
+    log(f"phase 9: {len(z_bins)} z bins, {len(y_bins)} y bins; the ensemble kept {len(merged)} "
+        f"({kept}) holding {sum(len(b) for b in merged.values())} contigs; pairwise precision "
+        f"against the planted genomes {json.dumps(precision)}")
+    log("phase 9 stage times: " + json.dumps(times))
+
+    rows = 256 * AAE_PROFILE_STEPS
+    pds = make_dataset(ab.matrix[:rows], comp.matrix[:rows], comp.metadata.lengths[:rows])
+    model = AAE(N_SAMPLES, seed=SEED, device=dev)  # the published widths
+
+    def train_epoch():
+        model.trainmodel(pds, nepochs=1, batchsize=256, batchsteps=None)
+        return num_batches(pds.n_obs, 256)
+
+    return {"launches": launches, "launches_by_width": tally, "launches_by_fpad": by_fpad,
+            "z_bins": len(z_bins), "z_clustered_contigs": sum(len(b) for b in z_bins.values()),
+            "y_bins": len(y_bins), "ensemble_bins": len(merged), "ensemble_kept": kept,
+            "precision": precision, "encode_card_vs_cpu": encode, "card_vs_cpu": agree, "times": times,
+            "profile": profiled(train_epoch, "AAE training")}
+
+
 # --------------------------------------------------- phase 6: profile
 
 # Clusters a profiled window (was 100): a smaller window keeps the
@@ -1857,16 +2134,21 @@ def hmm_row(hmm_timed: dict, run_rc: dict) -> dict:
     }
 
 
-def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict, run_tax: dict) -> list:
-    """The kernels JSON line's rows of the clustering kernels, from phase
-    2's checks and times and the main paths' launch counts (phases 4, 5
-    and 8)."""
-    source = "vamb_torch/kernels/csrc/cluster_kernels.cu"
-    replaces = {"row_sweep": "vamb_tpu/ops/pallas_cluster.py:219",
-                "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
-                "gather_blocks": "vamb_tpu/ops/pallas_cluster.py:368",
-                "medoid_sweep": "vamb_tpu/ops/pallas_cluster.py:140",
-                "gumbel_topc": "vamb_tpu/cluster.py:775"}
+CLUSTER_SOURCE = "vamb_torch/kernels/csrc/cluster_kernels.cu"
+REPLACES = {"row_sweep": "vamb_tpu/ops/pallas_cluster.py:219",
+            "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
+            "gather_blocks": "vamb_tpu/ops/pallas_cluster.py:368",
+            "medoid_sweep": "vamb_tpu/ops/pallas_cluster.py:140",
+            "gumbel_topc": "vamb_tpu/cluster.py:775"}
+
+
+def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict, run_tax: dict,
+                run_avamb: dict) -> list:
+    """The kernels JSON line's rows of the clustering kernels at F_pad 32,
+    from phase 2's checks and times and the main paths' launch counts
+    (phases 4, 5 and 8; `gumbel_topc`, which reads no matrix, also phase
+    9's)."""
+    source, replaces = CLUSTER_SOURCE, REPLACES
     gaps_300k = launch_gaps(timed, run_300k["launches_by_width"])
     gaps_100k = launch_gaps(timed, run_100k["launches_by_width"])
     log("launches x (ms - bound), L2 cold, summed over widths: 300k path "
@@ -1883,6 +2165,8 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict, run_tax
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "n_pad": main_n,
+            **({"f_pad": F_PAD} if name != "gumbel_topc" else
+               {"launches_avamb_path": run_avamb["launches"][name]}),
             **({"library_note": LIBRARY_NOTES[name]} if r["library_ms"] is None else {}),
             **({"replaces_kind": "eager threefry uniform, two jnp.log and jax.lax.top_k "
                                  "(:775-782, :674-681), not Pallas",
@@ -1906,6 +2190,29 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict, run_tax
         }
         kernels.append(row)
     return kernels
+
+
+def kernel_rows_aae(timed: dict, errs: dict, run_avamb: dict) -> list:
+    """The kernels JSON line's rows of the four matrix kernels at F_pad 288,
+    the z latent's width: phase 2's checks and times there (100,096
+    columns) and phase 9's launches at that width."""
+    gaps = launch_gaps(timed, {k: v for k, v in run_avamb["launches_by_width"].items()
+                               if k != "gumbel_topc"})
+    log(f"launches x (ms - bound) at F_pad {AAE_F_PAD}, L2 cold, phase 9's path: " + json.dumps(gaps))
+    rows = []
+    for name in ("row_sweep", "candidate_density_sweep", "gather_blocks", "medoid_sweep"):
+        r = timed[(name, PATH_WIDTHS[1])]
+        rows.append({
+            "name": name, "route": "cuda", "source": CLUSTER_SOURCE, "replaces": REPLACES[name],
+            "launches": run_avamb["launches_by_fpad"][name].get(AAE_F_PAD, 0),
+            "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"library_note": LIBRARY_NOTES.get(name, "none")} if r["library_ms"] is None else {}),
+            "f_pad": AAE_F_PAD, "n_pad": PATH_WIDTHS[1], "path": "phase 9 (bin avamb)",
+            "ms_l2_warm": r["ms_l2_warm"], "plain_ms_l2_warm": r["plain_ms_l2_warm"],
+            "library_ms_l2_warm": r["library_ms_l2_warm"], "gap_s_avamb_path": gaps[name]["gap_s"],
+        })
+    return rows
 
 
 # ----------------------------------------------- kernel layouts in one call
@@ -2128,9 +2435,9 @@ def build_all() -> Path:
 
 
 def main(mode: str = "full") -> int:
-    """mode "full" runs phases 1-8; "kernels" phases 1-2; "recluster"
+    """mode "full" runs phases 1-9; "kernels" phases 1-2; "recluster"
     phase 1, the Forward kernel's check and phase 7; "taxonomy" phases 1
-    and 8."""
+    and 8; "avamb" phase 1, phase 2 at F_pad 288 and phase 9."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -2150,6 +2457,18 @@ def main(mode: str = "full") -> int:
     def phase_done(name: str) -> None:
         log(f"phase {name} done at {time.time() - t0:.1f} s")
 
+    if mode == "avamb":  # phase 1, phase 2 at F_pad 288, then phase 9
+        errs_aae = check_kernels(dev, AAE_F_PAD)
+        timed_aae = time_kernels(dev, AAE_F_PAD, (PATH_WIDTHS[1],), PATH_WIDTHS[1])
+        phase_done(f"2 (kernel checks and times at F_pad {AAE_F_PAD})")
+        with tempfile.TemporaryDirectory() as tmp:
+            run_avamb = run_avamb_path(dev, Path(tmp))
+        phase_done("9 (the Avamb path)")
+        drop = ("launches_by_width",)
+        print(json.dumps({"kernels": kernel_rows_aae(timed_aae, errs_aae, run_avamb),
+                          "avamb_path": {k: v for k, v in run_avamb.items() if k not in drop}}))
+        print(card)
+        return 0
     if mode == "taxonomy":  # phase 1, then phase 8 alone
         with tempfile.TemporaryDirectory() as tmp:
             run_tax = run_taxonomy_path(dev, Path(tmp))
@@ -2160,6 +2479,7 @@ def main(mode: str = "full") -> int:
         return 0
     if mode != "recluster":
         errs = check_kernels(dev)
+        errs_aae = check_kernels(dev, AAE_F_PAD)
         phase_done("2 (kernel checks)")
     hmm_timed = check_and_time_hmm(dev)
     phase_done("2 (hmm_forward check and times)")
@@ -2171,6 +2491,7 @@ def main(mode: str = "full") -> int:
         print(card)
         return 0
     timed = time_kernels(dev)
+    timed_aae = time_kernels(dev, AAE_F_PAD, (PATH_WIDTHS[1],), PATH_WIDTHS[1])
     phase_done("2 (kernel times)")
     if mode == "kernels":
         print(card)
@@ -2186,7 +2507,7 @@ def main(mode: str = "full") -> int:
     for kind in ("gumbel scores", "candidates"):
         check(agree["inputs_seen"][kind] > 0 and agree["inputs_that_differed"][kind] == 0,
               f"phase 4: the card's {kind} differ from the CPU's")
-    check(agree["identical_clusters"] == agree["clusters_compared"],
+    check(agree["identical_clusters"] == agree["clusters_compared"] == agree["clusters_requested"],
           "phase 4: the card and the CPU emitted different clusters")
     with tempfile.TemporaryDirectory() as tmp:
         run_300k = run_main_path(dev, Path(tmp), BIG_CONTIGS, BIG_GENOMES, BIG_CLUSTERS,
@@ -2202,14 +2523,19 @@ def main(mode: str = "full") -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_tax = run_taxonomy_path(dev, Path(tmp), run_100k["precision"])
     phase_done("8 (the taxonomy path)")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_avamb = run_avamb_path(dev, Path(tmp))
+    phase_done("9 (the Avamb path)")
 
-    kernels = kernel_rows(timed, errs, run_100k, run_300k, run_tax) + [hmm_row(hmm_timed, run_rc)]
-    drop = ("launches", "launches_by_width")
+    kernels = (kernel_rows(timed, errs, run_100k, run_300k, run_tax, run_avamb)
+               + kernel_rows_aae(timed_aae, errs_aae, run_avamb) + [hmm_row(hmm_timed, run_rc)])
+    drop = ("launches", "launches_by_width", "launches_by_fpad")
     print(json.dumps({"kernels": kernels,
                       "main_path_100k": {k: v for k, v in run_100k.items() if k not in drop},
                       "main_path_300k": {k: v for k, v in run_300k.items() if k not in drop},
                       "recluster_path": run_rc,
-                      "taxonomy_path": {k: v for k, v in run_tax.items() if k not in drop}}))
+                      "taxonomy_path": {k: v for k, v in run_tax.items() if k not in drop},
+                      "avamb_path": {k: v for k, v in run_avamb.items() if k not in drop}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -2228,5 +2554,6 @@ if __name__ == "__main__":
         sys.exit(density_layouts() if torch.cuda.is_available() else 1)
     if sys.argv[1:2] == ["--layouts"]:
         sys.exit(gather_and_sweep_layouts() if torch.cuda.is_available() else 1)
-    modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy"}
+    modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy",
+             "--avamb": "avamb"}
     sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

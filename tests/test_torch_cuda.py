@@ -23,7 +23,10 @@ one launch;
 `hmm_forward` is within 1e-3 + 1e-5 |score| bits of its plain version
 (the card's SFU exponentials and logarithms in base 2, its scan orders).
 Taxometer and VAEVAE train on the card as on the CPU (four steps, rtol
-1e-4) without launching a hand-written kernel.
+1e-4) without launching a hand-written kernel, and so does the AAE. At
+F_pad 288, the width `bin avamb` clusters its z latent at, every matrix
+kernel takes its generic code and is still bit for bit its plain version,
+each launch tallied under that width.
 """
 
 import numpy as np
@@ -217,6 +220,88 @@ def test_gather_ball_is_one_launch(cuda):
     kernels = _one_launch(cuda, lambda: K.gather_ball(mT, bids, 50, w, kept, w),
                            "gather_blocks_kernel")
     assert len(kernels) == 3, kernels
+
+
+# the AAE's z latent: 283 features padded to 288; an aligned and an unaligned N
+_AAE_F_PAD = 288
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4_096, 4_099])
+def test_kernels_at_the_aae_width(cuda, n):
+    """F_pad 288, the width `bin avamb` clusters at, takes the generic code
+    of every matrix kernel: each bit for bit its plain version, and each
+    launch tallied under F_pad 288."""
+    mT_np, lengths = _clumpy(n, _AAE_F_PAD, seed=n)
+    mT = torch.as_tensor(mT_np, device=cuda)
+    rng = np.random.default_rng(n)
+    K.reset_launch_counts()
+    for idx in (0, 37, n - 1):
+        d = K.row_sweep(mT, idx)
+        assert torch.equal(d, K.row_sweep_plain(mT, idx)) and float(d[idx]) == 0.0
+    for zero_half in (False, True):
+        w_np = lengths.copy()
+        if zero_half:
+            w_np[rng.permutation(n)[: n // 2]] = 0.0
+        w = torch.as_tensor(w_np, device=cuda)
+        for c in (1, 25, 32):
+            cand = torch.as_tensor(rng.choice(n, size=c, replace=False), device=cuda)
+            dens = K.candidate_density_sweep(mT, cand, w)
+            assert torch.equal(dens, K.candidate_density_plain(mT, cand, w)), (c, zero_half)
+            assert torch.equal(K.candidate_density_sweep(mT, cand.to(torch.int32), w), dens)
+        for idx in (0, 37, n - 1):
+            for name, a, b in zip(("d", "hist", "density", "n_close"), K.medoid_sweep(mT, idx, w),
+                                  K.medoid_sweep_plain(mT, idx, w)):
+                assert a.dtype == b.dtype and torch.equal(a, b), (name, idx, zero_half)
+    assert K.row_sweep.launches_by_fpad == {_AAE_F_PAD: 3}
+    assert K.candidate_density_sweep.launches_by_fpad == {_AAE_F_PAD: 12}
+    assert K.medoid_sweep.launches_by_fpad == {_AAE_F_PAD: 6}
+    if n % 128 == 0:
+        w = torch.as_tensor(lengths, device=cuda)
+        kept = torch.as_tensor(rng.random(n) < 0.8, device=cuda)
+        d0 = torch.as_tensor(rng.random(n).astype(np.float32), device=cuda)
+        blocks = n // 128
+        for ids, nb in ((np.sort(rng.choice(blocks, 16, replace=False)), 16),
+                        (np.array([5, 0, 0, blocks - 1]), 3)):
+            bids = torch.as_tensor(ids.astype(np.int32), device=cuda)
+            assert torch.equal(K.gather_blocks(mT, bids), K.gather_blocks_plain(mT, bids))
+            for a, b in zip(K.gather_ball(mT, bids, nb, w, kept, d0),
+                            K.gather_ball_plain(mT, bids, nb, w, kept, d0)):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        assert K.gather_blocks.launches_by_fpad == {_AAE_F_PAD: 4}
+
+
+@pytest.mark.cuda
+def test_aae_trains_on_the_card_as_on_the_cpu(cuda):
+    """Four steps of the AAE on the card and on the CPU from one seed: the
+    parameters within rtol 1e-4, atol 1e-6 (f32 matmuls sum in another order
+    on each), but for the dense biases that feed a BatchNorm and its
+    running means, which move on rounding noise (tests/test_torch_aae.py):
+    within 4 steps x lr. The step draws' normals are equal bit for bit, the
+    y prior (a softmax at temperature 0.16) within rtol 1e-5."""
+    from vamb_torch.models.aae import AAE
+    from vamb_torch.models.dataset import make_dataset
+
+    rng = np.random.default_rng(1)
+    ds = make_dataset(rng.uniform(0.5, 5, (512, 4)).astype(np.float32),
+                      rng.normal(size=(512, 103)).astype(np.float32), rng.integers(2000, 50_000, 512))
+    models = {}
+    for where in ("cpu", cuda):
+        m = AAE(4, nhiddens=64, nlatent_z=24, nlatent_y=30, seed=3, device=where)
+        m.trainmodel(ds, nepochs=1, batchsize=128, batchsteps=None)
+        models[str(where)] = m
+    cpu, card = models["cpu"], models["cuda"]
+    keys = [(1, 2), (3, 4), (5, 6), (7, 8)]
+    for i, (a, b) in enumerate(zip(cpu._step_draws([keys], 16, 0.1596)[0],
+                                   card._step_draws([keys], 16, 0.1596)[0])):
+        if i == 2:  # the y prior: a softmax of bit-equal Gumbel values, the card's exp
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-5, atol=1e-12)
+        else:  # the normals: XLA's erfinv spelled out, bit for bit
+            assert torch.equal(b.cpu(), a)
+    for (name, a), (_, b) in zip(cpu.state_dict().items(), card.state_dict().items()):
+        pre_bn = name.endswith("dense.b") or name.endswith("bn.mean")
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4,
+                                   atol=4e-3 if pre_bn else 1e-6, err_msg=name)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,9 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-Mirrors `vamb_tpu`'s CLI (itself the reference's, vamb/__main__.py) for the
-subcommands this port runs so far, `bin default`, `bin taxvamb`,
-`taxometer`, `taxonomy_benchmark` and `recluster`, with the same flag names
-and defaults:
+Mirrors `vamb_tpu`'s CLI (itself the reference's, vamb/__main__.py) with
+the same subcommands, flag names and defaults: `bin default`, `bin
+taxvamb`, `bin avamb`, `taxometer`, `taxonomy_benchmark`, `recluster` and
+`avamb_ensemble`:
 
     python -m vamb_torch bin default --outdir out --fasta contigs.fna \\
         --bamfiles s1.bam s2.bam
@@ -11,14 +11,19 @@ and defaults:
         --abundance_tsv ab.tsv --taxonomy taxonomy.tsv
     python -m vamb_torch bin taxvamb --outdir tv --fasta contigs.fna \\
         --abundance_tsv ab.tsv --taxonomy tm/results_taxometer.tsv
+    python -m vamb_torch bin avamb --outdir av --fasta contigs.fna \\
+        --abundance_tsv ab.tsv
+    python -m vamb_torch avamb_ensemble --outdir ens --fasta contigs.fna \\
+        --clusters av/aae_z_clusters_unsplit.tsv av/aae_y_clusters_unsplit.tsv \\
+        --quality_report quality_report.tsv
     python -m vamb_torch recluster --outdir re --fasta contigs.fna \\
         --hmm_path markers.hmm --latent_path out/latent.npz \\
         --clusters_path out/vae_clusters_unsplit.tsv
 
 It runs on the CUDA card. `main(argv, device="cpu")` runs the same path on
-the CPU (the tests do). The other subcommands and the flags of paths not
-ported yet are accepted by the parser and fail with the ROADMAP item
-that will port them.
+the CPU (the tests do). `--profile` writes a torch.profiler trace of the
+run under `<outdir>/profile`. The switches of paths not ported yet are
+accepted by the parser and fail with the ROADMAP item that will port them.
 """
 
 import argparse
@@ -36,10 +41,7 @@ from pathlib import Path  # noqa: E402
 DEFAULT_THREADS = min(os.cpu_count() or 1, 8)
 
 # subcommands of vamb_tpu this port does not run yet -> their ROADMAP item
-_UNPORTED = {
-    ("bin", "avamb"): "ROADMAP queue 1, item 9 (bin avamb)",
-    ("avamb_ensemble",): "ROADMAP queue 1, item 9 (avamb_ensemble)",
-}
+_UNPORTED: dict = {}
 
 
 def add_help_arguments(parser):
@@ -98,7 +100,8 @@ def add_general_arguments(subparser):
         help="Seed for all random streams",
     )
     general.add_argument(
-        "--profile", action="store_true", help=argparse.SUPPRESS,
+        "--profile", action="store_true",
+        help="Write a torch.profiler trace of the run under <outdir>/profile",
     )
     for flag in ("--dist",):
         general.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -218,12 +221,76 @@ def add_clustering_arguments(subparser):
     return subparser
 
 
+def add_aae_arguments(subparser):
+    "The AAE's flags (`bin avamb`)."
+    aaeos = subparser.add_argument_group(title="AAE options")
+    for flag, dest, kind, default in (
+        ("--n_aae", "nhiddens_aae", int, 547),
+        ("--z_aae", "nlatent_aae_z", int, 283),
+        ("--y_aae", "nlatent_aae_y", int, 700),
+        ("--sl_aae", "sl", float, 0.00964),
+        ("--slr_aae", "slr", float, 0.5),
+        ("--aae_temp", "temp", float, 0.1596),
+        ("--e_aae", "nepochs_aae", int, 70),
+        ("--t_aae", "batchsize_aae", int, 256),
+    ):
+        aaeos.add_argument(flag, dest=dest, metavar="", type=kind, default=default,
+                           help=argparse.SUPPRESS)
+    aaeos.add_argument("--q_aae", dest="batchsteps_aae", metavar="", type=int, nargs="*",
+                       default=[25, 50], help=argparse.SUPPRESS)
+    return subparser
+
+
+def add_ensemble_arguments(ensemble_parser):
+    "`avamb_ensemble`'s flags (vamb_tpu/__main__.py:699-770)."
+    add_general_arguments(ensemble_parser)
+    add_composition_arguments(ensemble_parser)
+    ens = ensemble_parser.add_argument_group(title="Ensemble input/output")
+    ens.add_argument(
+        "--clusters", metavar="", type=Path, nargs="+",
+        help="Paths to cluster TSV files (bin names must be unique across files)",
+    )
+    ens.add_argument(
+        "--quality_report", metavar="", type=Path,
+        help="CheckM2 quality_report.tsv covering every input bin",
+    )
+    ens.add_argument(
+        "--markers", metavar="", type=Path,
+        help="Marker .npz file for native bin scoring (alternative to --quality_report)",
+    )
+    ens.add_argument(
+        "--hmm_path", metavar="", type=Path,
+        help="Marker-gene .hmm profiles: predict markers from the FASTA input, "
+        "then score bins natively",
+    )
+    ens.add_argument(
+        "--write_bins", action="store_true",
+        help="Also write per-sample FASTA files and a quality_report.tsv for the "
+        "final bins (requires --fasta input)",
+    )
+    ens.add_argument(
+        "--compress", dest="compress_fasta_output", action="store_true",
+        help="Compress written bin FASTAs to .fna.gz",
+    )
+    ens.add_argument(
+        "-o", dest="binsplit_separator", metavar="", type=str, default=None, const="",
+        nargs="?",
+        help="Sample separator for per-sample bin folders [C if present] "
+        "(pass empty string to disable)",
+    )
+    ens.add_argument("--min_completeness", metavar="", type=float, default=0.9,
+                     help="Min completeness (0-1) to keep a bin [0.9]")
+    ens.add_argument("--max_contamination", metavar="", type=float, default=0.05,
+                     help="Max contamination (0-) to keep a bin [0.05]")
+    ens.add_argument("--min_cov", metavar="", type=float, default=0.75,
+                     help="Overlap fraction of the smaller bin at which two bins are "
+                     "duplicates [0.75]")
+    ens.add_argument("--min_bin_size", metavar="", type=int, default=200_000,
+                     help="Min bin size in bp to enter dereplication [200000]")
+    return ensemble_parser
+
+
 def _reject_unported_general(args) -> None:
-    if args.profile:
-        raise NotImplementedError(
-            "--profile is not ported yet (ROADMAP queue 1, item 5: --profile); "
-            "chip_smoke.py times the card"
-        )
     if args.dist or args.coordinator or args.nprocs or args.procid:
         raise NotImplementedError(
             "multi-process runs are not ported yet (ROADMAP queue 1, item 10: "
@@ -301,6 +368,7 @@ def _general_options_from_args(args, device):
         refcheck=not args.norefcheck,
         seed=args.seed,
         device=device,
+        profile=args.profile,
     )
 
 
@@ -389,9 +457,69 @@ def _recluster_options_from_args(args, device):
     )
 
 
+def _ensemble_runner(args, device):
+    """`avamb_ensemble` (vamb_tpu/__main__.py:934-1005): the composition's
+    contigs, bin qualities from a CheckM2 report or from marker genes, and
+    the merged, disjoint bins in `ensemble_clusters.tsv`."""
+    from .avamb_ensemble import run_ensemble_files
+    from .pipeline import CompositionOptions, MarkerOptions, calc_tnf, load_markers
+    from .utils import BinSplitter
+
+    if not args.clusters:
+        raise ValueError("avamb_ensemble requires --clusters")
+    if args.quality_report is None and args.markers is None and args.hmm_path is None:
+        raise ValueError(
+            "avamb_ensemble requires a bin quality source: "
+            "--quality_report, --markers, or --hmm_path"
+        )
+    general = _general_options_from_args(args, device)
+    comp_options = CompositionOptions(fasta=args.fasta, composition=args.composition)
+
+    def run_ensemble():
+        composition = calc_tnf(
+            comp_options, args.minlength, general.outdir, BinSplitter.inert_splitter()
+        )
+        identifiers = list(composition.metadata.identifiers)
+        markers = None
+        if args.quality_report is None:
+            markers = load_markers(
+                MarkerOptions(markers_path=args.markers, hmm_path=args.hmm_path,
+                              fasta_path=comp_options.fasta),
+                composition.metadata, general.outdir, general.nthreads, device=device,
+            )
+        nc_outdir = fasta_out = separator = None
+        if args.write_bins:
+            if comp_options.fasta is None:
+                raise ValueError("--write_bins requires the composition to be given as --fasta")
+            nc_outdir, fasta_out = general.outdir, comp_options.fasta
+            splitter = BinSplitter(args.binsplit_separator)
+            splitter.initialize(identifiers)
+            separator = splitter.splitter
+        run_ensemble_files(
+            general.outdir.joinpath("ensemble_clusters.tsv"),
+            args.clusters,
+            args.quality_report,
+            identifiers,
+            composition.metadata.lengths,
+            min_completeness=args.min_completeness,
+            max_contamination=args.max_contamination,
+            min_cov=args.min_cov,
+            min_bin_size=args.min_bin_size,
+            markers=markers,
+            nc_outdir=nc_outdir,
+            separator=separator,
+            fasta_path=fasta_out,
+            compress=args.compress_fasta_output,
+        )
+
+    return run_ensemble, general
+
+
 def _options_from_args(args, device):
-    "BinDefaultOptions, or BinTaxVambOptions for `bin taxvamb`."
+    "BinDefaultOptions; BinTaxVambOptions or BinAvambOptions for those models."
     from .pipeline import (
+        AAEOptions,
+        BinAvambOptions,
         BinDefaultOptions,
         BinTaxVambOptions,
         ClusterOptions,
@@ -429,6 +557,21 @@ def _options_from_args(args, device):
         ),
         output=_output_options_from_args(args),
     )
+    if args.model_subcommand == "avamb":
+        return BinAvambOptions(
+            **common,
+            aae=AAEOptions(
+                nhiddens=args.nhiddens_aae,
+                nlatent_z=args.nlatent_aae_z,
+                nlatent_y=args.nlatent_aae_y,
+                sl=args.sl,
+                slr=args.slr,
+                temp=args.temp,
+                nepochs=args.nepochs_aae,
+                batchsize=args.batchsize_aae,
+                batchsteps=list(args.batchsteps_aae),
+            ),
+        )
     if args.model_subcommand != "taxvamb":
         return BinDefaultOptions(**common)
     if args.taxonomy is None:
@@ -454,7 +597,20 @@ def run(runner, general) -> None:
     logger.info("Random seed is " + str(general.seed))
     logger.info(f"Invoked with CLI args: '{' '.join(sys.argv)}'")
     logger.info(f"Device: {general.device}")
-    runner()
+    if general.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        trace_dir = general.outdir / "profile"
+        logger.info(f"Writing a torch.profiler trace to {trace_dir}")
+        activities = [ProfilerActivity.CPU]
+        if general.device.startswith("cuda"):
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            runner()
+        trace_dir.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(trace_dir / "trace.json"))
+    else:
+        runner()
     elapsed = round(time.time() - begintime, 2)
     logger.info(f"Completed vamb_torch in {elapsed} seconds.")
 
@@ -535,6 +691,41 @@ Requires --outdir, --taxonomy, one composition input and one abundance input."""
     add_vae_arguments(vaevae_parser)
     add_clustering_arguments(vaevae_parser)
     add_predictor_arguments(vaevae_parser)
+    aae_parser = subparsers_model.add_parser(
+        "avamb",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        help="adversarial autoencoder binner (Avamb)",
+        add_help=False,
+        usage="%(prog)s [options]",
+        description="""Avamb: an adversarial autoencoder embeds each contig into a continuous z
+latent, which the medoid engine clusters into bins (aae_z_clusters_*), and a
+categorical y latent, whose argmax gives a second binning (aae_y_clusters_*).
+
+Requires --outdir, one composition input and one abundance input.""",
+    )
+    add_general_arguments(aae_parser)
+    add_composition_arguments(aae_parser)
+    add_abundance_arguments(aae_parser)
+    add_bin_output_arguments(aae_parser)
+    add_vae_arguments(aae_parser)
+    add_aae_arguments(aae_parser)
+    add_clustering_arguments(aae_parser)
+    ensemble_parser = subparsers.add_parser(
+        "avamb_ensemble",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        help="merge CheckM2-scored binnings into one non-overlapping bin set",
+        add_help=False,
+        usage="%(prog)s [options]",
+        description="""Merge several binnings (e.g. Avamb's vae/z/y cluster files) into one
+non-redundant, non-overlapping bin set: quality filtering, score-based
+dereplication of near-duplicate bins, and overlap ripping. Bin qualities come
+from a CheckM2 quality_report.tsv, or from single-copy marker genes
+(--markers / --hmm_path).
+
+Required arguments: outdir, a composition input, >=1 cluster TSVs, and one
+quality source (--quality_report, --markers, or --hmm_path).""",
+    )
+    add_ensemble_arguments(ensemble_parser)
     for name, help_text, description in (
         (
             "taxometer",
@@ -592,9 +783,13 @@ Requires --outdir, --taxonomy, one composition input and one abundance input."""
     elif command == ("taxonomy_benchmark",):
         opt = _taxometer_run_options_from_args(args, device)
         runner = pipeline.run_taxonomy_cross_validation
+    elif command == ("avamb_ensemble",):
+        run(*_ensemble_runner(args, device))
+        return
     else:
         opt = _options_from_args(args, device)
-        runner = pipeline.run_vaevae if command == ("bin", "taxvamb") else pipeline.run_bin_default
+        runner = {("bin", "taxvamb"): pipeline.run_vaevae,
+                  ("bin", "avamb"): pipeline.run_bin_aae}.get(command, pipeline.run_bin_default)
     run(partial(runner, opt), opt.general)
 
 

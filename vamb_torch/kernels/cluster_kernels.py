@@ -47,7 +47,9 @@ what its design does about it):
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
 PyTorch version beside it only for a CPU tensor. It counts its launches in
-`<wrapper>.launches` and, by N_pad, in `<wrapper>.launches_by_width`. The
+`<wrapper>.launches`, by N_pad in `<wrapper>.launches_by_width` and, for the
+four that read the latent matrix, by F_pad in `<wrapper>.launches_by_fpad`
+(the Gumbel kernels see no matrix: theirs stays empty). The
 source is compiled by `nvcc` at first use into `kernels/_build/` and bound
 with ctypes; nothing is compiled or imported from CUDA while this module
 is imported.
@@ -178,10 +180,13 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
 
 
-def _count(kernel, n_pad: int) -> None:
-    "One launch of `kernel` on an (F_pad, n_pad) matrix: its count and tally."
+def _count(kernel, n_pad: int, f_pad=None) -> None:
+    """One launch of `kernel` on an (f_pad, n_pad) matrix (or n columns of a
+    step, f_pad None): its count and its tallies by N_pad and by F_pad."""
     kernel.launches += 1
     kernel.launches_by_width[n_pad] = kernel.launches_by_width.get(n_pad, 0) + 1
+    if f_pad is not None:
+        kernel.launches_by_fpad[f_pad] = kernel.launches_by_fpad.get(f_pad, 0) + 1
 
 
 # ------------------------------------------------------------- row_sweep
@@ -220,12 +225,13 @@ def row_sweep(matrixT: torch.Tensor, idx: int) -> torch.Tensor:
     stream = torch.cuda.current_stream(matrixT.device).cuda_stream
     err = lib.vt_row_sweep(matrixT.data_ptr(), f_pad, n_pad, idx, d.data_ptr(), stream)
     _raise_on(err, "row_sweep")
-    _count(row_sweep, n_pad)
+    _count(row_sweep, n_pad, f_pad)
     return d
 
 
 row_sweep.launches = 0
 row_sweep.launches_by_width = {}  # N_pad -> launches
+row_sweep.launches_by_fpad = {}  # F_pad -> launches
 
 
 # ---------------------------------------------- candidate_density_sweep
@@ -354,12 +360,13 @@ def candidate_density_sweep(
         wts.data_ptr(), groups, partials.data_ptr(), ticket.data_ptr(), dens.data_ptr(), stream,
     )
     _raise_on(err, "candidate_density_sweep")
-    _count(candidate_density_sweep, n_pad)
+    _count(candidate_density_sweep, n_pad, f_pad)
     return dens
 
 
 candidate_density_sweep.launches = 0
 candidate_density_sweep.launches_by_width = {}  # N_pad -> launches
+candidate_density_sweep.launches_by_fpad = {}  # F_pad -> launches
 
 
 # --------------------------------------------------------- gather_blocks
@@ -426,7 +433,7 @@ def _gather_launch(matrixT, bids, side=None):
     err = lib.vt_gather_blocks(matrixT.data_ptr(), f_pad, n_pad, bids32.data_ptr(), kb,
                                out.data_ptr(), *ptrs, stream)
     _raise_on(err, "gather_blocks")
-    _count(gather_blocks, n_pad)
+    _count(gather_blocks, n_pad, f_pad)
     return (out, *outs)
 
 
@@ -458,6 +465,7 @@ def gather_ball(matrixT, bids, nb: int, w, kept, d0):
 
 gather_blocks.launches = 0
 gather_blocks.launches_by_width = {}  # N_pad -> launches
+gather_blocks.launches_by_fpad = {}  # F_pad -> launches
 
 
 # ---------------------------------------------------------- medoid_sweep
@@ -560,12 +568,13 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
         sums.data_ptr() + 4 * _NBINS, n_close.data_ptr(), stream,
     )
     _raise_on(err, "medoid_sweep")
-    _count(medoid_sweep, n_pad)
+    _count(medoid_sweep, n_pad, f_pad)
     return d, sums[:_NBINS], sums[_NBINS], n_close
 
 
 medoid_sweep.launches = 0
 medoid_sweep.launches_by_width = {}  # N_pad -> launches
+medoid_sweep.launches_by_fpad = {}  # F_pad -> launches
 
 # ----------------------------------------------- gumbel_topc, gumbel_scores
 
@@ -680,6 +689,7 @@ def gumbel_topc(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor, m
 
 gumbel_topc.launches = 0
 gumbel_topc.launches_by_width = {}  # n -> launches
+gumbel_topc.launches_by_fpad = {}  # no matrix: stays empty
 
 
 def gumbel_scores(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
@@ -706,6 +716,7 @@ def gumbel_scores(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
 
 gumbel_scores.launches = 0
 gumbel_scores.launches_by_width = {}  # n -> launches
+gumbel_scores.launches_by_fpad = {}  # no matrix: stays empty
 
 KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep, gumbel_topc,
            gumbel_scores)
@@ -715,3 +726,4 @@ def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
         kernel.launches_by_width = {}
+        kernel.launches_by_fpad = {}

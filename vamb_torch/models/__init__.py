@@ -3,6 +3,7 @@
 * `vae` — the variational autoencoder (reference vamb/encode.py).
 * `taxometer` — the taxonomy predictor; `vaevae` — TaxVamb's bi-modal VAE;
   `hier` — the taxonomy tree and the hierarchical losses they train on.
+* `aae` — Avamb's adversarial autoencoder.
 * `training` — the shared epoch loop on jax's key chain.
 * `dataset` — the normalization contract (host numpy).
 * `layers` — Linear/BatchNorm/dropout modules with vamb_tpu's semantics.

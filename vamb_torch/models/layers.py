@@ -41,7 +41,9 @@ class Linear(nn.Module):
 
 
 class Block(nn.Module):
-    "Dense -> LeakyReLU -> Dropout -> BatchNorm, the hidden layer of every model."
+    """A hidden layer's Dense and BatchNorm; the model applies them in its
+    order: Dense -> LeakyReLU -> Dropout -> BatchNorm in the VAE family,
+    Dense -> BatchNorm -> LeakyReLU in the AAE."""
 
     def __init__(self, rng: np.random.Generator, nin: int, nout: int):
         super().__init__()

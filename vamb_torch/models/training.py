@@ -14,7 +14,9 @@ exactly (threefry, utils/threefry.py):
   returns None (no dropout);
 * the epoch's rows are `permutation(perm_key, n)[: nb * bs]` (drop-last
   batches, batch size doubled at the batchsteps);
-* step i takes `key, sub = split(key)` from `scan_key`;
+* step i takes `key, sub = split(key)` from `scan_key`, or with
+  `step_keys` k > 1, `key, *subs = split(key, k + 1)` (the AAE's five-way
+  split has k = 4);
 * an epoch's metrics are the mean over its steps.
 
 `MetricsDrain` lets epochs run back to back: an epoch's metrics are copied
@@ -42,15 +44,21 @@ def train_epochs(
     batchsteps_list: list[int],
     emit: Callable,
     epoch_extra: Optional[Callable] = None,
+    step_keys: int = 1,
+    step_draws: Optional[Callable] = None,
 ):
     """Run `nepochs` epochs of `step` over `data` (row-aligned tensors on
     one device) from the key chain `rng`; returns the chain's next key.
 
     `step(batch, key, extra, i) -> metrics` is one optimizer step on the
-    tuple of batch rows, with the step's key (a pair of ints), the epoch's
+    tuple of batch rows, with the step's key (a pair of ints; a tuple of
+    `step_keys` pairs when that is above 1), the epoch's
     `epoch_extra(extra_key, batchsize)` (None without the hook) and the
-    step index; `metrics` is a 1-D tensor. `emit(epoch, values, batchsize,
-    seconds)` logs an epoch's mean metrics (through `MetricsDrain`)."""
+    step index; `metrics` is a 1-D tensor. With `step_draws(keys,
+    batchsize)`, the epoch's step keys turn into the steps' random draws in
+    one call, and step i gets the result's item i in place of its key.
+    `emit(epoch, values, batchsize, seconds)` logs an epoch's mean metrics
+    (through `MetricsDrain`)."""
     drain = MetricsDrain(emit)
     device = data[0].device
     for epoch0, seg_len in segment_plan(nepochs, batchsteps_list):
@@ -66,11 +74,15 @@ def train_epochs(
                 extra = epoch_extra(extra_key, bs)
             idx = threefry.permutation(perm_key, n_obs, device)[: nb * bs]
             shuf = tuple(a[idx] for a in data)
+            keys = []
+            for _ in range(nb):
+                scan_key, *subs = threefry.split_host(scan_key, step_keys + 1)
+                keys.append(subs[0] if step_keys == 1 else tuple(subs))
+            per_step = keys if step_draws is None else step_draws(keys, bs)
             total = None
             for i in range(nb):
-                scan_key, sub = threefry.split_host(scan_key)
                 batch = tuple(a[i * bs : (i + 1) * bs] for a in shuf)
-                metrics = step(batch, sub, extra, i)
+                metrics = step(batch, per_step[i], extra, i)
                 total = metrics if total is None else total + metrics
             drain.push(epoch, total / nb, bs)
     drain.flush()

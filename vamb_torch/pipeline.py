@@ -4,11 +4,13 @@ Port of `vamb_tpu/pipeline.py`'s `bin default` path (reference
 vamb/__main__.py stage functions calc_tnf :885, calc_abundance :944,
 trainvae :1065, cluster_and_write_files :1254, create_cluster_fasta_files
 :1407, run_bin_default :1451), of `recluster` (load_markers :1030,
-run_reclustering :2071) and of the taxonomy paths: `taxometer`
+run_reclustering :2071), of the taxonomy paths: `taxometer`
 (predict_taxonomy :1542), `bin taxvamb` (:1941) and `taxonomy_benchmark`
-(:1822). Stage artifacts (`composition.npz`, `abundance.npz`, `latent.npz`,
-`model.npz`, `markers.npz`, `predictor_model.npz`, `vaevae_model.npz`,
-`vaevae_latent.npz`) and the output TSVs have `vamb_tpu`'s formats. The
+(:1822), and of `bin avamb` (run_bin_aae :1491). Stage artifacts
+(`composition.npz`, `abundance.npz`, `latent.npz`, `model.npz`,
+`markers.npz`, `predictor_model.npz`, `vaevae_model.npz`,
+`vaevae_latent.npz`, `aae_model.npz`, `aae_z_latent.npz`) and the output
+TSVs have `vamb_tpu`'s formats. The
 models, the clustering engine, the marker genes' Forward scores and
 k-means run on `GeneralOptions.device` ("cuda" unless the caller asks for
 "cpu").
@@ -43,6 +45,7 @@ class GeneralOptions:
     refcheck: bool = True
     seed: int = 0
     device: str = "cuda"
+    profile: bool = False
 
     def __post_init__(self):
         if self.min_contig_length < 250:
@@ -419,6 +422,19 @@ def cluster_and_write_files(
         )
 
 
+def fasta_output_paths(opt) -> tuple[Optional[Path], Optional[Path]]:
+    """(input FASTA, bins directory) for `--minfasta`, or (None, None)
+    without it; a `bin` run's options `opt` must then hold a FASTA input."""
+    if opt.output.min_fasta_output_size is None:
+        return None, None
+    if opt.comp.fasta is None:
+        raise ValueError(
+            "FASTA output was requested (--minfasta), but no FASTA input "
+            "was given (--fasta)"
+        )
+    return opt.comp.fasta, opt.general.outdir.joinpath("bins")
+
+
 def create_cluster_fasta_files(
     dir_to_populate: Path,
     clusters: Iterable[tuple[str, Collection[str]]],
@@ -474,16 +490,7 @@ def run_bin_default(opt: BinDefaultOptions) -> None:
     del composition, abundance, dataset
     assert comp_metadata.nseqs == len(latent)
 
-    fasta_out = None
-    bins_dir = None
-    if opt.output.min_fasta_output_size is not None:
-        if opt.comp.fasta is None:
-            raise ValueError(
-                "FASTA output was requested (--minfasta), but no FASTA input "
-                "was given (--fasta)"
-            )
-        fasta_out = opt.comp.fasta
-        bins_dir = opt.general.outdir.joinpath("bins")
+    fasta_out, bins_dir = fasta_output_paths(opt)
 
     cluster_and_write_files(
         opt.clustering,
@@ -733,16 +740,7 @@ def run_vaevae(opt: BinTaxVambOptions) -> None:
     logger.info(f"\tEncoded the joint latent in {round(time.time() - encode_begin, 2)} seconds.")
     del vae, dataset
 
-    fasta_out = None
-    bins_dir = None
-    if opt.output.min_fasta_output_size is not None:
-        if opt.comp.fasta is None:
-            raise ValueError(
-                "FASTA output was requested (--minfasta), but no FASTA input "
-                "was given (--fasta)"
-            )
-        fasta_out = opt.comp.fasta
-        bins_dir = opt.general.outdir.joinpath("bins")
+    fasta_out, bins_dir = fasta_output_paths(opt)
 
     cluster_and_write_files(
         opt.clustering,
@@ -800,6 +798,120 @@ def export_clusters(
         create_cluster_fasta_files(
             bins_dir, clusters, fasta_path, lens, names, min_size, compress
         )
+
+
+# --------------------------------------------------------------- avamb
+
+
+@dataclass
+class AAEOptions:
+    "Avamb AAE options (reference __main__.py:594-655 defaults)."
+    nhiddens: int = 547
+    nlatent_z: int = 283
+    nlatent_y: int = 700
+    sl: float = 0.00964
+    slr: float = 0.5
+    temp: float = 0.1596
+    nepochs: int = 70
+    batchsize: int = 256
+    batchsteps: list[int] = field(default_factory=lambda: [25, 50])
+
+
+@dataclass
+class BinAvambOptions:
+    general: GeneralOptions
+    comp: CompositionOptions
+    abundance: AbundanceOptions
+    vae: VAEOptions
+    aae: AAEOptions
+    clustering: ClusterOptions
+    output: BinOutputOptions
+
+
+def run_bin_aae(opt: BinAvambOptions) -> None:
+    """The `bin avamb` subcommand (reference __main__.py:1491-1539): train
+    the AAE, write `aae_model.npz` and `aae_z_latent.npz`, cluster the z
+    latent into `aae_z_clusters_*` (bins `z_<n>`) and export the y latent's
+    argmax clusters as `aae_y_clusters_*` (bins `y_<n>`), as `vamb_tpu`
+    does (the reference v5.0.2 promises the y export but never writes it)."""
+    from .models.aae import AAE
+
+    composition, abundance = load_composition_and_abundance(
+        opt.general, opt.comp, opt.abundance, opt.output.binsplitter
+    )
+    dataset = make_dataset(
+        abundance.matrix, composition.matrix, composition.metadata.lengths,
+        destroy=True,
+    )
+    comp_metadata = composition.metadata
+    del composition, abundance
+
+    begintime = time.time()
+    logger.info("Creating and training AAE")
+    aae = AAE(
+        dataset.nsamples,
+        nhiddens=opt.aae.nhiddens,
+        nlatent_z=opt.aae.nlatent_z,
+        nlatent_y=opt.aae.nlatent_y,
+        sl=opt.aae.sl,
+        slr=opt.aae.slr,
+        alpha=opt.vae.alpha,
+        seed=opt.general.seed,
+        device=opt.general.device,
+    )
+    logger.info(f"\tCreated AAE on {aae.device}")
+    aae.trainmodel(
+        dataset,
+        nepochs=opt.aae.nepochs,
+        batchsize=opt.aae.batchsize,
+        batchsteps=opt.aae.batchsteps,
+        temperature=opt.aae.temp,
+        modelfile=opt.general.outdir.joinpath("aae_model.npz"),
+        logger=logger.info,
+    )
+    logger.info("\tEncoding to latent representation")
+    encode_begin = time.time()
+    clusters_y_dict, latent_z = aae.get_latents(list(comp_metadata.identifiers), dataset)
+    write_npz(opt.general.outdir.joinpath("aae_z_latent.npz"), latent_z)
+    logger.info(f"\tEncoded the z latent and the y clusters in {round(time.time() - encode_begin, 2)} seconds.")
+    elapsed = round(time.time() - begintime, 2)
+    logger.info(f"\tTrained AAE and encoded in {elapsed} seconds.")
+    del aae, dataset
+
+    fasta_out, bins_dir = fasta_output_paths(opt)
+
+    cluster_and_write_files(
+        opt.clustering,
+        opt.output.binsplitter,
+        latent_z,
+        list(comp_metadata.identifiers),
+        comp_metadata.lengths,
+        opt.general.seed,
+        str(opt.general.outdir.joinpath("aae_z_clusters")),
+        fasta_path=fasta_out,
+        bins_dir=bins_dir,
+        min_fasta_size=opt.output.min_fasta_output_size or 0,
+        compress_fasta=opt.output.compress_fasta_output,
+        bin_prefix="z_",
+        device=opt.general.device,
+    )
+
+    y_clusters = [("y_" + k, sorted(v)) for k, v in clusters_y_dict.items()]
+    export_clusters(
+        opt.output.binsplitter,
+        y_clusters,
+        str(opt.general.outdir.joinpath("aae_y_clusters")),
+        None
+        if fasta_out is None
+        else (
+            fasta_out,
+            bins_dir,
+            opt.output.min_fasta_output_size or 0,
+            opt.output.compress_fasta_output,
+            list(comp_metadata.identifiers),
+            comp_metadata.lengths,
+        ),
+    )
 
 
 # ------------------------------------------------------------ reclustering

@@ -9,7 +9,9 @@ port's `state_dict` names (`enc.0.dense.w`, `dec.1.bn.var`, ...). The
 mapping covers every model of the port: the VAE and Taxometer
 (`params/out/w` -> `out.w`) and VAEVAE, whose sub-VAEs add a level
 (`params/joint/enc/0/dense/w` -> `joint.enc.0.dense.w`,
-`bn_state/vamb/dec/1/var` -> `vamb.dec.1.bn.var`).
+`bn_state/vamb/dec/1/var` -> `vamb.dec.1.bn.var`), and the AAE, whose
+discriminators are lists of dense layers (`params/disc_z/2/w` ->
+`disc_z.2.w`).
 """
 
 import json
@@ -75,7 +77,7 @@ def _flat_key(torch_key: str) -> str:
 def params_from_jax(
     flat: Union[dict, str, Path, IO[bytes]],
 ) -> dict[str, torch.Tensor]:
-    """A model's `state_dict` from `vamb_tpu` weights (VAE, Taxometer, VAEVAE).
+    """A model's `state_dict` from `vamb_tpu` weights (VAE, Taxometer, VAEVAE, AAE).
 
     `flat` is a `vamb_tpu` model.npz (path or file), a dict of its flat
     keys, or {"params": tree, "bn_state": tree} with the JAX trees as

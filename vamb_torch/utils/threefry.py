@@ -19,8 +19,9 @@ stages make, for the jax configuration the package is held against (jax
 * `bits(key, shape)`: `bits1 ^ bits2` of the counters 0..size-1 in
   row-major order, as uint32 words.
 * `uniform(key, n)`: float32 uniforms in [0, 1) from those words with the
-  mantissa trick of jax/_src/random.py:435-477; `bernoulli(key, p, shape)`
-  compares them with float32(p).
+  mantissa trick of jax/_src/random.py:435-477 (`uniform_batched`: one
+  draw for many keys); `bernoulli(key, p, shape)` compares them with
+  float32(p).
 * `permutation(key, n)`: jax's `_shuffle`, `ceil(3 ln n / ln(2^32 - 1))`
   rounds of a key split, 32-bit sort keys and a stable key-value sort.
 * `normal_batched(keys, n)`: `normal(key, (n,))` per key, a uniform on
@@ -132,9 +133,15 @@ def _unit_floats(words: torch.Tensor) -> torch.Tensor:
     return ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
+def uniform_batched(keys, n: int, device=None) -> torch.Tensor:
+    """`jax.random.uniform(keys[s], (n,))` float32 for every key of a (S, 2)
+    list or tensor, in one draw: an (S, n) tensor."""
+    return torch.clamp_min(_unit_floats(bits_batched(keys, n, device)), 0.0)
+
+
 def uniform(k, n: int, device=None) -> torch.Tensor:
     "jax.random.uniform(key, (n,)) as float32 on `device`."
-    return torch.clamp_min(_unit_floats(bits(k, n, device)), 0.0)
+    return uniform_batched([_words(k)], n, device)[0]
 
 
 def bernoulli(k, p: float, shape, device=None) -> torch.Tensor:
