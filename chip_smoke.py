@@ -15,6 +15,9 @@ of `vamb_tpu`. Phases, each of which fails the run:
 2. kernels: every hand-written kernel against its plain PyTorch version on
    the card, bit for bit, at the main paths' shapes and around them
    (`medoid_sweep`'s row, histogram, density and close count included;
+   `spec_sweep` at S 1, 3 and 8 and `row_stats` on its rows also against
+   `medoid_sweep` column by column, at 8,192, 100,003, 100,096, 150,016
+   and 300,032 columns and at F_pad 288 on 100,096;
    `gather_ball`'s side vectors; `gumbel_scores`' bits with no, some and
    all columns eligible; `gumbel_topc`'s candidates and their validity
    array-equal and its optional scores bit for bit, with no, some and all
@@ -24,7 +27,9 @@ of `vamb_tpu`. Phases, each of which fails the run:
    `gumbel_topc`, int32 operations), its plain version and a library
    yardstick (for `gumbel_topc`, the scores-only launch and `torch.topk`,
    the step as it was before the kernel took the selection, also on the
-   host's clock). At F_pad 288, the width phase 9 clusters at, where the
+   host's clock; for `spec_sweep`, `torch.matmul` of its rows alone, and 8
+   `medoid_sweep` launches beside it). At F_pad 288, the width phase 9
+   clusters at, where the
    matrix kernels take their generic code: `row_sweep`,
    `candidate_density_sweep` and `medoid_sweep` bit for bit at 100,096 and
    100,003 columns, the gather at 100,096, each timed at 100,096 beside
@@ -45,8 +50,11 @@ of `vamb_tpu`. Phases, each of which fails the run:
    entry point on a synthetic dataset (VAE 512-512-32, 2 epochs,
    clustering capped at 2,000 clusters), full-scope wander. Every kernel's
    launch counter and its tally by N_pad are set to 0 just before and read
-   just after; `candidate_density_sweep`, `medoid_sweep` and
-   `gumbel_topc` must be > 0. The stage artifacts and TSVs are read back
+   just after; `candidate_density_sweep`, `medoid_sweep`, `gumbel_topc`
+   and `spec_sweep` must be > 0; the engine's counters (the subset
+   wander's fallbacks, the seed cache's refills, the loner bursts, the
+   attempt lanes and their cuts) are read from log.txt and logged. The
+   stage artifacts and TSVs are read back
    and checked. Then 50 clusters of the engine on this path's latent on
    the card and on the CPU in lockstep, counting the clusters emitted alike
    and how often each decision input (the engine's Gumbel scores, through
@@ -57,7 +65,9 @@ of `vamb_tpu`. Phases, each of which fails the run:
 5. main path at 300,000 contigs from 3,000 genomes (6 samples, 2 epochs,
    `-c 3200`): the subset wander with `gather_ball` and `row_sweep` on the
    ball, at least one logged compaction and the switch back to full
-   sweeps. Counters as in phase 4; all five clustering kernels must be > 0.
+   sweeps, with attempt lanes on by "auto". Counters as in phase 4; all
+   seven clustering kernels but `gumbel_scores` must be > 0, and the
+   engine must have run lane passes.
 6. profile: on each main path's own data, 40 clusters of the engine and
    50 training steps under torch.profiler: time per cluster and per step,
    device kernels per attempt and per wander step, the device's busy share
@@ -115,6 +125,19 @@ of `vamb_tpu`. Phases, each of which fails the run:
    not near-complete): its bins disjoint, each a subset of its input bin.
    Logged: stage times, the bins' pairwise precision, the bins the
    ensemble kept, and 25 AAE training steps under torch.profiler.
+10. batched attempts: (a) a loner-tail latent of 20,000 points (140 wide
+   clumps of 100 and 6,000 isolated random directions, about 0.5 apart in
+   32 dimensions: loners) run to its last point at subset scope with
+   attempt lanes on and off, on the card and on the CPU: the four
+   emissions must be identical and the card's runs must launch
+   `spec_sweep` and `row_stats`; (b) the same recipe at 100,000 points
+   (700 clumps, 30,000 isolated) run to its last point on the card at auto
+   scope (full sweeps: the seed cache and the loner bursts): clusters,
+   loners, burst loners, refills, ms a cluster before the loner tail and
+   inside it, device kernels a cluster in a profiled window of each; (c)
+   an in-process A/B of the lanes on the 300,000-point latent of
+   `--engine-ab` at subset scope, off, on, on, off, 200 clusters each: ms
+   and device kernels a cluster, the medoids' hashes equal.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
@@ -140,6 +163,11 @@ runs phase 1 and phase 8.
     python3 chip_smoke.py --avamb
 
 runs phase 1, phase 2 at F_pad 288 and phase 9.
+
+    python3 chip_smoke.py --lanes
+
+runs phase 1, phase 2's checks and times of `spec_sweep` and `row_stats`
+(F_pad 32 and 288) and phase 10.
 
     python3 chip_smoke.py --engine-ab DIR [DIR ...]
 
@@ -316,11 +344,14 @@ def weights(n: int, seed: int, zero_half: bool = False) -> np.ndarray:
 CHECK_WIDTHS = {
     F_PAD: {"dens": (N_CONTIGS, N_CONTIGS + 3, BIG_PAD, BIG_HALF, BALL_KB * 128),
             "sweep": (N_CONTIGS + 3, -(-N_CONTIGS // 128) * 128, BIG_HALF, BIG_PAD),
-            "gather": (-(-N_CONTIGS // 128) * 128, BIG_PAD)},
+            "gather": (-(-N_CONTIGS // 128) * 128, BIG_PAD),
+            "batch": (BALL_KB * 128, N_CONTIGS + 3, -(-N_CONTIGS // 128) * 128, BIG_HALF, BIG_PAD)},
     AAE_F_PAD: {"dens": (-(-N_CONTIGS // 128) * 128, N_CONTIGS + 3),
                 "sweep": (-(-N_CONTIGS // 128) * 128, N_CONTIGS + 3),
-                "gather": (-(-N_CONTIGS // 128) * 128,)},
+                "gather": (-(-N_CONTIGS // 128) * 128,),
+                "batch": (-(-N_CONTIGS // 128) * 128,)},
 }
+SPEC_SEEDS = 8  # the seed cache's slots: the most rows spec_sweep and row_stats take
 
 
 def check_kernels(dev, f_pad: int = F_PAD) -> dict:
@@ -382,7 +413,8 @@ def check_kernels(dev, f_pad: int = F_PAD) -> dict:
                         f"{int(expect[3])}")
                 err_sweep = max(err_sweep, e)
     errs = {"row_sweep": err_row, "candidate_density_sweep": err_dens,
-            "gather_blocks": check_gather(dev, widths["gather"], f_pad), "medoid_sweep": err_sweep}
+            "gather_blocks": check_gather(dev, widths["gather"], f_pad), "medoid_sweep": err_sweep,
+            **check_batch(dev, f_pad)}
     log(f"kernels at F_pad {f_pad} agree with their plain versions (max|err| {json.dumps(errs)}): "
         "row_sweep (bit-identical, d[idx] == 0) and candidate_density_sweep (bit-identical, C 1, 25 "
         "and 32, int64 and int32 ids, all and half the weights) at N "
@@ -396,6 +428,56 @@ def check_kernels(dev, f_pad: int = F_PAD) -> dict:
             f"array-equal at N {', '.join(map(str, PATH_WIDTHS))}, no, some and all columns eligible "
             f"and tie keys {TIE_STEPS}, C 1, {MAXSTEPS} and 32, one launch a call")
     return errs
+
+
+def check_batch(dev, f_pad: int = F_PAD) -> dict:
+    """`spec_sweep` at S 1, 3 and 8 and `row_stats` on its rows at F_pad
+    `f_pad` and CHECK_WIDTHS' "batch" widths, all and half the weights: bit
+    for bit their plain versions on the card and, column by column,
+    `medoid_sweep`'s row and sums; the near count that of the kept columns
+    within 0.05; one launch a call. Returns max|err| by kernel."""
+    from vamb_torch import kernels as K
+
+    widths = CHECK_WIDTHS[f_pad]["batch"]
+    err = {"spec_sweep": 0.0, "row_stats": 0.0}
+    for n in widths:
+        mT = torch.as_tensor(clumpy_matrixT(n, f_pad, seed=n + 2), device=dev)
+        rng = np.random.default_rng(n)
+        for zero_half in (False, True):
+            w = torch.as_tensor(weights(n, seed=n + 3, zero_half=zero_half), device=dev)
+            for s in (1, 3, SPEC_SEEDS):
+                cols = [int(c) for c in rng.choice(n, s, replace=False)]
+                cols[0] = n - 1
+                before = (K.spec_sweep.launches, K.row_stats.launches)
+                got = K.spec_sweep(mT, cols, w)
+                stats = K.row_stats(got[0], w)
+                plain = K.spec_sweep_plain(mT, cols, w)
+                plain_stats = K.row_stats_plain(got[0], w)
+                torch.cuda.synchronize()
+                check((K.spec_sweep.launches, K.row_stats.launches) == (before[0] + 1, before[1] + 1),
+                      "spec_sweep / row_stats: not one launch a call")
+                label = f"F_pad {f_pad} n={n} S={s} zero_half={zero_half}"
+                for name, a, b in zip(("rows", "hist", "density", "n_close", "n_near"), got, plain):
+                    err["spec_sweep"] = max(err["spec_sweep"], float((a.double() - b.double()).abs().max()))
+                    if not (a.dtype == b.dtype and torch.equal(a, b)):
+                        raise AssertionError(f"spec_sweep {label}: {name} differs from the plain version")
+                for name, a, b, c in zip(("hist", "density", "n_close", "n_near"), stats, plain_stats,
+                                         got[1:]):
+                    err["row_stats"] = max(err["row_stats"], float((a.double() - b.double()).abs().max()))
+                    if not (torch.equal(a, b) and torch.equal(a, c)):
+                        raise AssertionError(f"row_stats {label}: {name} differs from the plain version "
+                                             "or from spec_sweep's")
+                for j, col in enumerate(cols):
+                    if not all(torch.equal(g[j], m) for g, m in zip(got, K.medoid_sweep(mT, col, w))):
+                        raise AssertionError(f"spec_sweep {label}: row {j} (column {col}) differs from "
+                                             "medoid_sweep's")
+                check(torch.equal(got[4], ((got[0] <= 0.05) & (w > 0)).sum(1).to(torch.int32)),
+                      f"spec_sweep {label}: near counts")
+    log(f"spec_sweep (S 1, 3 and 8) and row_stats on its rows at F_pad {f_pad}: bit for bit their plain "
+        "versions and, column by column, medoid_sweep's row, histogram, density and close count; near "
+        f"counts exact; all and half the weights; one launch a call; at N {', '.join(map(str, widths))} "
+        f"(max|err| {json.dumps(err)})")
+    return err
 
 
 def gumbel_inputs(n: int, dev, seed: int, mask: str = "some"):
@@ -533,16 +615,21 @@ PATH_WIDTHS = (BALL_KB * 128, -(-N_CONTIGS // 128) * 128, BIG_HALF, BIG_PAD)
 LIBRARY_NOTES = {
     "candidate_density_sweep": "none: no single call computes the weighted close-neighbour densities",
     "medoid_sweep": "none: no single call computes the row with its histogram, density and close count",
+    "row_stats": "none: no single call computes a row's histogram, density and counts",
     "hmm_forward": "none: no single call computes the Forward recurrence",
 }
 
 
-def time_kernels(dev, f_pad: int = F_PAD, widths=PATH_WIDTHS, gather_n: int = BIG_PAD) -> dict:
+def time_kernels(dev, f_pad: int = F_PAD, widths=PATH_WIDTHS, gather_n: int = BIG_PAD,
+                 only=None) -> dict:
     """Times at every width the main paths give each kernel, at F_pad
-    `f_pad`: `row_sweep` and `candidate_density_sweep` (C = 25) at a
+    `f_pad` (with `only`, of those kernels alone): `row_sweep` and
+    `candidate_density_sweep` (C = 25) at a
     subset ball's 8,192 columns, the 100,000-contig path's 100,096, the
     300,000-contig path's 300,032 and, after its compaction, 150,016;
-    `medoid_sweep` at the last three; `gather_ball` (64 blocks with their
+    `medoid_sweep`, `spec_sweep` (S = 8, beside 8 `medoid_sweep` launches
+    and the `torch.matmul` of its rows alone) and `row_stats` (S = 8) at
+    the last three; `gather_ball` (64 blocks with their
     side vectors, the call the subset wander makes) from `gather_n`
     columns, beside `index_select` of the matrix alone; at F_pad 32,
     `gumbel_topc` (C = 25, some columns eligible; it reads no matrix) at
@@ -590,6 +677,23 @@ def time_kernels(dev, f_pad: int = F_PAD, widths=PATH_WIDTHS, gather_n: int = BI
             fns["medoid_sweep"] = (
                 lambda: K.medoid_sweep(mT, idx, w), lambda: K.medoid_sweep_plain(mT, idx, w), None,
                 bound((f * n + 2 * n + 62) * 4, 2 * f * n + n + 2 * in_hist + 3 * near))
+            # the seed cache's batch of S rows: each row's work as
+            # medoid_sweep's, the matrix and w read once, S rows written; a
+            # row's sums alone: the row and w read, the row's work less its dot
+            spec_cols = [int(c) for c in np.random.default_rng(6).choice(n, SPEC_SEEDS, replace=False)]
+            rows = K.spec_sweep(mT, spec_cols, w)[0]
+            in_hist_s = int(((rows >= 0) & (rows <= 0.3) & kept).sum())
+            near_s = int(((rows <= 0.05) & kept).sum())
+            s_out = SPEC_SEEDS * (60 + 3) * 4  # a row's 60 bins, density and two counts
+            feats = mT[:, spec_cols].T.contiguous()
+            fns["spec_sweep"] = (
+                lambda: K.spec_sweep(mT, spec_cols, w), lambda: K.spec_sweep_plain(mT, spec_cols, w),
+                lambda: torch.matmul(feats, mT),
+                bound((f * n + n + SPEC_SEEDS * n) * 4 + s_out,
+                      SPEC_SEEDS * (2 * f * n + n) + 2 * in_hist_s + 3 * near_s))
+            fns["row_stats"] = (
+                lambda: K.row_stats(rows, w), lambda: K.row_stats_plain(rows, w), None,
+                bound((SPEC_SEEDS * n + n) * 4 + s_out, SPEC_SEEDS * n + 2 * in_hist_s + 3 * near_s))
         if f_pad == F_PAD:
             # the library yardstick of the draw and selection: the step as
             # it was before (the scores written by the same kernel, then topk)
@@ -612,24 +716,31 @@ def time_kernels(dev, f_pad: int = F_PAD, widths=PATH_WIDTHS, gather_n: int = BI
                 lambda: mTg.view(f, n // 128, 128).index_select(1, bids),
                 bound((2 * f * q + BALL_KB) * 4 + q * 22, 0))
         for name, (kern, plain, lib, bnd) in fns.items():
+            if only is not None and name not in only:
+                continue
             r = {"bound": bnd}
             for sfx, cold in (("", True), ("_l2_warm", False)):
                 r["ms" + sfx] = time_ms(kern, cold_l2=cold)
                 r["plain_ms" + sfx] = time_ms(plain, cold_l2=cold)
                 r["library_ms" + sfx] = None if lib is None else time_ms(lib, cold_l2=cold)
+            if name == "spec_sweep":  # the eight launches it replaces
+                r["eight_medoid_sweeps_ms"] = time_ms(
+                    lambda: [K.medoid_sweep(mT, c, w) for c in spec_cols])
             out[(name, n)] = r
             libs = LIBRARY_NOTES.get(name, "none") if lib is None else f"{r['library_ms']:.5f} ms"
+            eight = (f", 8 medoid_sweep launches {r['eight_medoid_sweeps_ms']:.5f} ms"
+                     if name == "spec_sweep" else "")
             log(f"{name} at F_pad {f}, N_pad {n}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-                f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share "
+                f"library {libs}{eight}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share "
                 f"{bnd[0] / r['ms']:.3f}, L2 cold; L2 warm: kernel {r['ms_l2_warm']:.5f} ms, "
                 f"plain {r['plain_ms_l2_warm']:.5f} ms")
-        if "gumbel_topc" in fns:
+        if "gumbel_topc" in fns and (only is None or "gumbel_topc" in only):
             # the engine is launch-bound: what a step's draw and selection
             # costs the host, back to back, beside the step as it was
             kern, _, lib, _ = fns["gumbel_topc"]
             log(f"gumbel_topc at N_pad {n}, back to back: {host_us(kern):.2f} us a call on the "
                 f"host's clock; gumbel_scores + torch.topk {host_us(lib):.2f} us")
-        if n == gather_n:  # the matrix alone, and the launch floor of this harness
+        if n == gather_n and only is None:  # the matrix alone, and the launch floor of this harness
             log(f"gather_blocks (the matrix alone) at F_pad {f_pad}, N_pad {n}, KB {BALL_KB}: "
                 f"{time_ms(lambda: K.gather_blocks(mTg, bids)):.5f} ms; an empty kernel "
                 f"(torch.cuda._sleep(0), the launch floor) {time_ms(lambda: torch.cuda._sleep(0)):.5f} ms; "
@@ -734,15 +845,17 @@ def check_engine(dev) -> None:
                 raise AssertionError(f"engine, {label}: cluster {i} differs between the card and the CPU")
         if gens[0].compactions != gens[1].compactions or (label == "compaction" and not gens[0].compactions):
             raise AssertionError(f"engine, {label}: compactions {gens[0].compactions} vs {gens[1].compactions}")
-        if gens[0].subset_counts != gens[1].subset_counts:
-            raise AssertionError(f"engine, {label}: subset counts {gens[0].subset_counts} on the card, "
-                                 f"{gens[1].subset_counts} on the CPU")
+        if gens[0].subset_counts != gens[1].subset_counts or gens[0].lane_counts != gens[1].lane_counts:
+            raise AssertionError(f"engine, {label}: subset counts {gens[0].subset_counts} and lane counts "
+                                 f"{gens[0].lane_counts} on the card, {gens[1].subset_counts} and "
+                                 f"{gens[1].lane_counts} on the CPU")
         if subset_q is not None and not (gens[0].subset_counts["overflow"] > 0
                                          and gens[0].subset_counts["drift"] > 0):
             raise AssertionError(f"engine, {label}: no overflow or no drift fallback ran: "
                                  f"{gens[0].subset_counts}")
         log(f"engine on the card is emission-identical to the CPU engine, {label}: {len(on_card)} clusters "
-            f"of {len(mat)} points; compactions {gens[0].compactions}; subset {gens[0].subset_counts}")
+            f"of {len(mat)} points; compactions {gens[0].compactions}; subset {gens[0].subset_counts}; "
+            f"cache and lanes {gens[0].lane_counts}")
     # training eps: XLA's erfinv and log1p transcribed op by op, so the card
     # draws the CPU's bits (and jax's)
     keys = threefry.split(threefry.key(SEED), 64)
@@ -974,6 +1087,19 @@ def stage_times(logfile: Path) -> dict:
     return out
 
 
+def engine_counts(log_lines: list) -> dict:
+    """The engine's counters from its run's `Engine:` line in log.txt: the
+    subset wander's attempts and fallbacks, and the seed cache's refills,
+    the loner bursts and the loners they emitted, and the attempt lanes:
+    passes, lanes, lanes admitted and deferred, and the passes cut by each
+    of the acceptance scan's reasons (conflict, pvr bump, full climb,
+    capacity)."""
+    line = next(ln for ln in log_lines if "Engine: subset wander" in ln)
+    subset, lanes = re.search(r"subset wander (\{.*?\}); seed cache, bursts and lanes (\{.*\})",
+                              line).groups()
+    return {"subset": json.loads(subset), "cache_and_lanes": json.loads(lanes)}
+
+
 def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: int,
                   required: tuple, epochs: int = 2, agreement: bool = False) -> dict:
     """`bin default` through its CLI entry point on a fresh synthetic
@@ -1010,12 +1136,14 @@ def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: 
     times["total_s"] = wall
     times["clusters_per_s"] = checked["clusters"] / times["cluster_write_s"]
     log("stage times: " + json.dumps(times))
-    compactions = [line.split("| ")[-1].strip() for line in (out / "log.txt").read_text().splitlines()
-                   if "Compacted the engine matrix" in line]
+    lines = (out / "log.txt").read_text().splitlines()
+    compactions = [line.split("| ")[-1].strip() for line in lines if "Compacted the engine matrix" in line]
     for line in compactions:
         log("compaction: " + line)
+    engine = engine_counts(lines)
+    log(f"the engine on the {n_contigs}-contig path: " + json.dumps(engine))
     result = {"launches": launches, "launches_by_width": tally, **checked, "times": times,
-              "compactions": compactions, "profile": profile_stages(dev, out)}
+              "compactions": compactions, "engine_counts": engine, "profile": profile_stages(dev, out)}
     if agreement:
         from vamb_torch.composition import Composition
         from vamb_torch.utils import read_npz
@@ -1946,6 +2074,182 @@ def run_avamb_path(dev, tmp: Path) -> dict:
             "profile": profiled(train_epoch, "AAE training")}
 
 
+# ------------------------------------------------ phase 10: batched attempts
+
+# loner-tail latents: (clumps, points a clump, isolated points); isolated
+# random directions in 32 dimensions lie about 0.5 +- 0.09 apart: loners
+TAIL_CARD_VS_CPU = (140, 100, 6_000)  # 20,000 points, run on the card and the CPU
+TAIL_BIG = (700, 100, 30_000)  # 100,000 points, on the card
+TAIL_PROFILED = (20, 400)  # clusters profiled before the loner tail and inside it
+AB_ORDER = ("off", "on", "on", "off")  # attempt_batch of phase 10(c)'s runs
+AB_PROFILED = 20  # clusters a run profiles after its timed 200
+
+
+def loner_tail(n_clumps: int, per: int, n_isolated: int, seed: int):
+    "`wide_clumps`' clumps (scale 0.06) and `n_isolated` isolated points after them; lengths."
+    m, lengths = wide_clumps(n_clumps, per, scale=0.06, noise_frac=n_isolated / (n_clumps * per),
+                             seed=seed)
+    check(len(m) == n_clumps * per + n_isolated, f"loner_tail: {len(m)} points")
+    return m, lengths
+
+
+def cluster_fields(c) -> tuple:
+    return (c.kind_str, c.medoid, c.seed, c.radius, c.observed_pvr, c.maximal_pvr, c.successes,
+            c.attempts, c.members.tolist())
+
+
+def tail_card_vs_cpu(dev) -> dict:
+    """Phase 10(a): the 20,000-point loner tail (TAIL_CARD_VS_CPU) run to
+    its last point at subset scope with attempt lanes on and off, each on
+    the card and on the CPU: the four emissions must be identical, every
+    point clustered, the card's runs must have launched `spec_sweep` and
+    `row_stats`, and the lanes' runs must have admitted lanes."""
+    from vamb_torch import kernels as K
+    from vamb_torch.cluster import ClusterGenerator
+
+    m, lengths = loner_tail(*TAIL_CARD_VS_CPU, seed=SEED)
+    runs, result = {}, {}
+    for ab in ("on", "off"):
+        for device in (dev, "cpu"):
+            K.reset_launch_counts()
+            t = time.time()
+            gen = ClusterGenerator(m.copy(), lengths, rng_seed=SEED, device=device,
+                                   wander_scope="subset", attempt_batch=ab)
+            clusters = [cluster_fields(c) for c in gen]
+            if device == dev:
+                torch.cuda.synchronize()
+            label = f"{ab}, {'card' if device == dev else 'cpu'}"
+            runs[label] = clusters
+            result[label] = {
+                "seconds": time.time() - t, "clusters": len(clusters),
+                "kinds": {k: sum(c[0] == k for c in clusters) for k in ("normal", "loner", "fallback")},
+                "lane_counts": gen.lane_counts, "subset_counts": gen.subset_counts,
+                **({"launches": {k.__name__: k.launches for k in K.KERNELS}} if device == dev else {})}
+            log(f"phase 10(a) {label}: " + json.dumps(result[label]))
+            check(sorted(x for c in clusters for x in c[8]) == list(range(len(m))),
+                  f"phase 10(a) {label}: the clusters do not partition the points")
+            if device == dev:
+                check(K.spec_sweep.launches > 0 and K.row_stats.launches > 0,
+                      f"phase 10(a) {label}: spec_sweep or row_stats never launched")
+            check((gen.lane_counts["admitted"] > 0) == (ab == "on"),
+                  f"phase 10(a) {label}: lanes admitted {gen.lane_counts['admitted']}")
+    first = runs["on, card"]
+    same = {label: r == first for label, r in runs.items()}
+    log(f"phase 10(a): emissions identical to the card's with lanes on: {json.dumps(same)}")
+    check(all(same.values()), "phase 10(a): the card's and the CPU's emissions differ")
+    return result
+
+
+def tail_big(dev) -> dict:
+    """Phase 10(b): the 100,000-point loner tail (TAIL_BIG) run to its last
+    point on the card at auto scope (full sweeps at 100,096 columns: the
+    seed cache and the loner bursts, no lanes). The loner tail begins once
+    every clump point is clustered. Logged: clusters, loners, loners the
+    bursts emitted, refills, ms a cluster before the tail and inside it
+    (host clock; the profiled clusters left out), and device kernels a
+    cluster in a profiled window before it and one inside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vamb_torch import kernels as K
+    from vamb_torch.cluster import ClusterGenerator
+
+    n_clumps, per, n_isolated = TAIL_BIG
+    m, lengths = loner_tail(n_clumps, per, n_isolated, seed=SEED + 1)
+    gen = ClusterGenerator(m, lengths, rng_seed=SEED, device=dev)
+    K.reset_launch_counts()
+    # profiled windows: the clusters after cluster `start`, `count` of them
+    windows = {"before": {"start": 100, "count": TAIL_PROFILED[0]},
+               "tail": {"start": None, "count": TAIL_PROFILED[1]}}
+    spans = {"before": [0.0, 0], "tail": [0.0, 0]}  # host seconds and clusters, unprofiled
+    kinds = {"normal": 0, "loner": 0, "fallback": 0}
+    clump_left = n_clumps * per  # the clumps' rows come first
+    tail_at, active, i = None, None, 0
+    torch.cuda.synchronize()
+    t0 = t = time.perf_counter()
+    for c in gen:
+        i += 1
+        kinds[c.kind_str] += 1
+        clump_left -= int((c.members < n_clumps * per).sum())
+        if active is None:
+            spans["before" if tail_at is None else "tail"][0] += time.perf_counter() - t
+            spans["before" if tail_at is None else "tail"][1] += 1
+        else:
+            active["seen"] = active.get("seen", 0) + 1
+            if active["seen"] == active["count"]:
+                torch.cuda.synchronize()
+                active["prof"].__exit__(None, None, None)
+                active["kernels"] = sum(1 for e in active["prof"].events()
+                                        if e.device_type == DeviceType.CUDA)
+                active = None
+        if tail_at is None and clump_left == 0:
+            tail_at = windows["tail"]["start"] = i
+        for win in windows.values():
+            if active is None and "prof" not in win and win["start"] is not None and win["start"] <= i:
+                torch.cuda.synchronize()
+                win["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                win["prof"].__enter__()
+                active = win
+        t = time.perf_counter()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if active is not None:  # the run ended inside a window
+        active["prof"].__exit__(None, None, None)
+        active["kernels"] = sum(1 for e in active["prof"].events() if e.device_type == DeviceType.CUDA)
+
+    def per_cluster(win):
+        return win["kernels"] / win["seen"] if win.get("seen") else None
+
+    result = {
+        "points": len(m), "clusters": i, "kinds": kinds, "tail_starts_after_cluster": tail_at,
+        "seconds": wall, "lane_counts": gen.lane_counts,
+        "ms_per_cluster_before_tail": spans["before"][0] / max(spans["before"][1], 1) * 1e3,
+        "ms_per_cluster_in_tail": spans["tail"][0] / max(spans["tail"][1], 1) * 1e3,
+        "unprofiled_clusters": {k: v[1] for k, v in spans.items()},
+        "kernels_per_cluster_before_tail": per_cluster(windows["before"]),
+        "kernels_per_cluster_in_tail": per_cluster(windows["tail"]),
+        "launches": {k.__name__: k.launches for k in K.KERNELS},
+    }
+    log("phase 10(b) loner tail at 100,000 points: " + json.dumps(result))
+    check(clump_left == 0 and tail_at is not None and kinds["loner"] > 0,
+          "phase 10(b): the run never reached its loner tail")
+    check(gen.lane_counts["burst_loners"] > 0 and K.spec_sweep.launches > 0 and K.row_stats.launches > 0,
+          "phase 10(b): no burst, or spec_sweep / row_stats never launched")
+    return result
+
+
+def lanes_ab() -> dict:
+    """Phase 10(c): the engine on `ab_latent()` at subset scope, attempt
+    lanes off, on, on, off (AB_ORDER), in one process: ms a cluster over
+    200 clusters, device kernels a cluster over AB_PROFILED more; the
+    medoids' hashes must agree."""
+    data = ab_latent()
+    runs = []
+    for ab in AB_ORDER:
+        r = engine_time(profiled=AB_PROFILED, data=data, wander_scope="subset", attempt_batch=ab)
+        runs.append({"attempt_batch": ab, **r})
+        log("phase 10(c): " + json.dumps(runs[-1]))
+    check(len({r["medoids_sha"] for r in runs}) == 1, "phase 10(c): lanes on and off emitted different medoids")
+    summary = {ab: {"ms_per_cluster": [r["ms_per_cluster"] for r in runs if r["attempt_batch"] == ab],
+                    "kernels_per_cluster": [r["kernels_per_cluster"] for r in runs
+                                            if r["attempt_batch"] == ab]}
+               for ab in ("off", "on")}
+    log("phase 10(c) lanes A/B on the 300,000-point latent: " + json.dumps(summary))
+    return {"runs": runs, "summary": summary}
+
+
+def batched_attempts(dev) -> dict:
+    "Phase 10: (a), (b) and (c), with each part's seconds."
+    out = {}
+    for key, fn in (("card_vs_cpu", lambda: tail_card_vs_cpu(dev)), ("tail_100k", lambda: tail_big(dev)),
+                    ("lanes_ab", lanes_ab)):
+        t = time.time()
+        out[key] = fn()
+        out[key + "_seconds"] = time.time() - t
+        log(f"phase 10 part {key} took {out[key + '_seconds']:.1f} s")
+    return out
+
+
 # --------------------------------------------------- phase 6: profile
 
 # Clusters a profiled window (was 100): a smaller window keeps the
@@ -2065,38 +2369,45 @@ def profile_stages(dev, out: Path) -> dict:
 # ------------------------------------------------- engine A/B across checkouts
 
 
-def engine_time(n_clusters: int = 200) -> dict:
-    """ms per cluster of the engine on the card, on a 300,000 x 32 latent
-    in 3,000 clumps (subset scope at 300,032 columns), after one warm-up
-    cluster; and a hash of the emitted medoids."""
-    import hashlib
-
-    from vamb_torch.cluster import ClusterGenerator
-
+def ab_latent():
+    "A 300,000 x 32 latent in 3,000 clumps (subset scope at 300,032 columns) and its lengths."
     rng = np.random.default_rng(SEED)
     centers = rng.normal(size=(BIG_GENOMES, 32))
     latent = (centers[rng.integers(0, BIG_GENOMES, BIG_CONTIGS)]
               + rng.normal(scale=0.1, size=(BIG_CONTIGS, 32))).astype(np.float32)
-    lengths = rng.integers(2000, 4001, BIG_CONTIGS).astype(np.float32)
-    gen = ClusterGenerator(latent, lengths, rng_seed=SEED, device="cuda")
+    return latent, rng.integers(2000, 4001, BIG_CONTIGS).astype(np.float32)
+
+
+def engine_time(n_clusters: int = 200, profiled: int = 50, data=None, **kwargs) -> dict:
+    """ms per cluster of the engine on the card, on `ab_latent()` (or
+    `data`), with generator arguments `kwargs`, after one warm-up cluster;
+    then device kernels a cluster and an attempt over `profiled` more under
+    the profiler; and a hash of the medoids of the timed clusters."""
+    import hashlib
+
+    from vamb_torch.cluster import ClusterGenerator
+
+    latent, lengths = ab_latent() if data is None else data
+    gen = ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device="cuda", **kwargs)
     next(gen)
     torch.cuda.synchronize()
     t = time.time()
     medoids = [c.medoid for c in itertools.islice(gen, n_clusters)]
     torch.cuda.synchronize()
     wall = time.time() - t
-    # then 50 clusters under the profiler: device kernels a cluster and an
+    # then clusters under the profiler: device kernels a cluster and an
     # attempt (one seed chosen each; a wrapper that any checkout's engine takes)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     attempts = count_attempts(gen)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        more = [c.medoid for c in itertools.islice(gen, 50)]
+        more = [c.medoid for c in itertools.islice(gen, profiled)]
         torch.cuda.synchronize()
     kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
     return {"ms_per_cluster": wall / len(medoids) * 1e3, "clusters": len(medoids),
             "subset_ball": gen.Q, "subset_counts": gen.subset_counts,
+            **({"lane_counts": gen.lane_counts} if hasattr(gen, "lane_counts") else {}),
             "kernels_per_cluster": kernels / len(more), "kernels_per_attempt": kernels / attempts[0],
             "medoids_sha": hashlib.sha256(np.array(medoids).tobytes()).hexdigest()[:16]}
 
@@ -2139,7 +2450,15 @@ REPLACES = {"row_sweep": "vamb_tpu/ops/pallas_cluster.py:219",
             "candidate_density_sweep": "vamb_tpu/ops/pallas_cluster.py:295",
             "gather_blocks": "vamb_tpu/ops/pallas_cluster.py:368",
             "medoid_sweep": "vamb_tpu/ops/pallas_cluster.py:140",
-            "gumbel_topc": "vamb_tpu/cluster.py:775"}
+            "gumbel_topc": "vamb_tpu/cluster.py:775",
+            "spec_sweep": "vamb_tpu/cluster.py:498",
+            "row_stats": "vamb_tpu/cluster.py:1104"}
+# what a kernel replaces where that is not a Pallas kernel
+REPLACES_KIND = {
+    "gumbel_topc": "eager threefry uniform, two jnp.log and jax.lax.top_k (:775-782, :674-681), not Pallas",
+    "spec_sweep": "XLA einsum (spec_batch, :498-515; the lanes' final rows, :1446-1456), not Pallas",
+    "row_stats": "XLA reductions (the loner flags, :1100 and :1104-1112), not Pallas",
+}
 
 
 def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict, run_tax: dict,
@@ -2165,13 +2484,14 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict, run_tax
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "n_pad": main_n,
-            **({"f_pad": F_PAD} if name != "gumbel_topc" else
+            **({"f_pad": F_PAD} if name not in ("gumbel_topc", "row_stats") else
                {"launches_avamb_path": run_avamb["launches"][name]}),
             **({"library_note": LIBRARY_NOTES[name]} if r["library_ms"] is None else {}),
-            **({"replaces_kind": "eager threefry uniform, two jnp.log and jax.lax.top_k "
-                                 "(:775-782, :674-681), not Pallas",
-                "library_what": "gumbel_scores + torch.topk, the step before the kernel selected"}
+            **({"replaces_kind": REPLACES_KIND[name]} if name in REPLACES_KIND else {}),
+            **({"library_what": "gumbel_scores + torch.topk, the step before the kernel selected"}
                if name == "gumbel_topc" else {}),
+            **({"library_what": "torch.matmul of the 8 rows alone (no sums)",
+                "eight_medoid_sweeps_ms": r["eight_medoid_sweeps_ms"]} if name == "spec_sweep" else {}),
             "ms_l2_warm": r["ms_l2_warm"], "plain_ms_l2_warm": r["plain_ms_l2_warm"],
             "library_ms_l2_warm": r["library_ms_l2_warm"],
             "launches_100k_path": run_100k["launches"][name],
@@ -2193,14 +2513,14 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict, run_tax
 
 
 def kernel_rows_aae(timed: dict, errs: dict, run_avamb: dict) -> list:
-    """The kernels JSON line's rows of the four matrix kernels at F_pad 288,
+    """The kernels JSON line's rows of the five matrix kernels at F_pad 288,
     the z latent's width: phase 2's checks and times there (100,096
     columns) and phase 9's launches at that width."""
     gaps = launch_gaps(timed, {k: v for k, v in run_avamb["launches_by_width"].items()
                                if k != "gumbel_topc"})
     log(f"launches x (ms - bound) at F_pad {AAE_F_PAD}, L2 cold, phase 9's path: " + json.dumps(gaps))
     rows = []
-    for name in ("row_sweep", "candidate_density_sweep", "gather_blocks", "medoid_sweep"):
+    for name in ("row_sweep", "candidate_density_sweep", "gather_blocks", "medoid_sweep", "spec_sweep"):
         r = timed[(name, PATH_WIDTHS[1])]
         rows.append({
             "name": name, "route": "cuda", "source": CLUSTER_SOURCE, "replaces": REPLACES[name],
@@ -2208,6 +2528,8 @@ def kernel_rows_aae(timed: dict, errs: dict, run_avamb: dict) -> list:
             "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **({"library_note": LIBRARY_NOTES.get(name, "none")} if r["library_ms"] is None else {}),
+            **({"replaces_kind": REPLACES_KIND[name], "eight_medoid_sweeps_ms": r["eight_medoid_sweeps_ms"]}
+               if name == "spec_sweep" else {}),
             "f_pad": AAE_F_PAD, "n_pad": PATH_WIDTHS[1], "path": "phase 9 (bin avamb)",
             "ms_l2_warm": r["ms_l2_warm"], "plain_ms_l2_warm": r["plain_ms_l2_warm"],
             "library_ms_l2_warm": r["library_ms_l2_warm"], "gap_s_avamb_path": gaps[name]["gap_s"],
@@ -2435,9 +2757,10 @@ def build_all() -> Path:
 
 
 def main(mode: str = "full") -> int:
-    """mode "full" runs phases 1-9; "kernels" phases 1-2; "recluster"
+    """mode "full" runs phases 1-10; "kernels" phases 1-2; "recluster"
     phase 1, the Forward kernel's check and phase 7; "taxonomy" phases 1
-    and 8; "avamb" phase 1, phase 2 at F_pad 288 and phase 9."""
+    and 8; "avamb" phase 1, phase 2 at F_pad 288 and phase 9; "lanes"
+    phase 1, phase 2's `spec_sweep` and `row_stats` and phase 10."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -2467,6 +2790,21 @@ def main(mode: str = "full") -> int:
         drop = ("launches_by_width",)
         print(json.dumps({"kernels": kernel_rows_aae(timed_aae, errs_aae, run_avamb),
                           "avamb_path": {k: v for k, v in run_avamb.items() if k not in drop}}))
+        print(card)
+        return 0
+    if mode == "lanes":  # phase 1, phase 2's seed-cache kernels, phase 10
+        errs = {**check_batch(dev), **{f"{k} at F_pad {AAE_F_PAD}": v
+                                       for k, v in check_batch(dev, AAE_F_PAD).items()}}
+        timed = time_kernels(dev, only=("spec_sweep", "row_stats"))
+        timed_aae = time_kernels(dev, AAE_F_PAD, (PATH_WIDTHS[1],), PATH_WIDTHS[1], only=("spec_sweep",))
+        phase_done("2 (spec_sweep and row_stats: checks and times)")
+        phase10 = batched_attempts(dev)
+        phase_done("10 (batched attempts)")
+        print(json.dumps({"max_abs_err": errs,
+                          "timed": {f"{k[0]} at F_pad {f}, N_pad {k[1]}": v
+                                    for f, t in ((F_PAD, timed), (AAE_F_PAD, timed_aae))
+                                    for k, v in t.items()},
+                          "batched_attempts": phase10}))
         print(card)
         return 0
     if mode == "taxonomy":  # phase 1, then phase 8 alone
@@ -2500,8 +2838,8 @@ def main(mode: str = "full") -> int:
     phase_done("3 (engine)")
     with tempfile.TemporaryDirectory() as tmp:
         run_100k = run_main_path(dev, Path(tmp), N_CONTIGS, N_GENOMES, 2000,
-                                 ("candidate_density_sweep", "medoid_sweep", "gumbel_topc"),
-                                 agreement=True)
+                                 ("candidate_density_sweep", "medoid_sweep", "gumbel_topc",
+                                  "spec_sweep"), agreement=True)
     phase_done("4 and 6 (100k path and its profile)")
     agree = run_100k["card_vs_cpu"]
     for kind in ("gumbel scores", "candidates"):
@@ -2512,8 +2850,10 @@ def main(mode: str = "full") -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_300k = run_main_path(dev, Path(tmp), BIG_CONTIGS, BIG_GENOMES, BIG_CLUSTERS,
                                  ("row_sweep", "candidate_density_sweep", "gather_blocks",
-                                  "medoid_sweep", "gumbel_topc"))
+                                  "medoid_sweep", "gumbel_topc", "spec_sweep", "row_stats"))
     phase_done("5 and 6 (300k path and its profile)")
+    check(run_300k["engine_counts"]["cache_and_lanes"]["passes"] > 0,
+          "the 300,000-contig path ran no attempt lanes")
     check(len(run_300k["compactions"]) >= 1, "the 300,000-contig path compacted no time")
     check("wander scope full" in run_300k["compactions"][-1],
           "the 300,000-contig path never went back to full sweeps")
@@ -2526,6 +2866,8 @@ def main(mode: str = "full") -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_avamb = run_avamb_path(dev, Path(tmp))
     phase_done("9 (the Avamb path)")
+    phase10 = batched_attempts(dev)
+    phase_done("10 (batched attempts)")
 
     kernels = (kernel_rows(timed, errs, run_100k, run_300k, run_tax, run_avamb)
                + kernel_rows_aae(timed_aae, errs_aae, run_avamb) + [hmm_row(hmm_timed, run_rc)])
@@ -2535,7 +2877,8 @@ def main(mode: str = "full") -> int:
                       "main_path_300k": {k: v for k, v in run_300k.items() if k not in drop},
                       "recluster_path": run_rc,
                       "taxonomy_path": {k: v for k, v in run_tax.items() if k not in drop},
-                      "avamb_path": {k: v for k, v in run_avamb.items() if k not in drop}}))
+                      "avamb_path": {k: v for k, v in run_avamb.items() if k not in drop},
+                      "batched_attempts": phase10}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -2555,5 +2898,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--layouts"]:
         sys.exit(gather_and_sweep_layouts() if torch.cuda.is_available() else 1)
     modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy",
-             "--avamb": "avamb"}
+             "--avamb": "avamb", "--lanes": "lanes"}
     sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

@@ -21,8 +21,9 @@
   `assert_same_emission` compares: members (in emission order), medoid,
   seed and kind exactly, radius atol 1e-7, observed pvr rtol 1e-5, pvr
   atol 1e-6. First the full-scope regimes of that file; then the subset
-  wander on its regimes (`vamb_tpu` with attempt lanes left at auto: they
-  are sequential-equivalent), the compaction ladder, and auto scope with
+  wander on its regimes (both engines with attempt lanes left at auto, so
+  on at subset scope; tests/test_torch_lanes.py holds "on" and "off"), the
+  compaction ladder, and auto scope with
   the subset floor patched low on both packages, so that the subset wander,
   the ladder and the switch back to full sweeps all happen in one run.
 
@@ -396,6 +397,12 @@ def test_wrappers_reject_bad_inputs():
         K.gather_blocks(torch.zeros(8, 200), torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError):
         K.medoid_sweep(mT, 0, torch.ones(255))
+    with pytest.raises(ValueError):
+        K.spec_sweep(mT, list(range(9)), torch.ones(256))  # more than 8 rows
+    with pytest.raises(IndexError):
+        K.spec_sweep(mT, [256], torch.ones(256))
+    with pytest.raises(ValueError):
+        K.row_stats(torch.zeros(256, 4).T, torch.ones(256))  # not contiguous
 
 
 # -------------------------------------------------------------- engine
@@ -583,10 +590,18 @@ def test_subset_and_compaction_switches_run(kwargs):
 
 
 @pytest.mark.parametrize(
-    "kwargs,match",
-    [({"attempt_batch": "on"}, "attempt lanes"), ({"distance_dtype": "bfloat16"}, "bfloat16")],
+    "kwargs,error,match",
+    [({"attempt_batch": "on"}, ValueError, "requires the subset wander"),
+     ({"distance_dtype": "bfloat16"}, NotImplementedError, "bfloat16")],
 )
-def test_unported_switches_fail_loudly(kwargs, match):
+def test_unported_switches_fail_loudly(kwargs, error, match):
+    """bfloat16 distances are not ported; attempt lanes are, and as in
+    `vamb_tpu` (cluster.py:1915-1920) "on" outside the subset scope (here
+    auto scope at 128 columns: full sweeps) raises ValueError."""
     m = np.ones((4, 8), np.float32)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         TorchGenerator(m, np.full(4, 2000.0, np.float32), device="cpu", **kwargs)
+    if error is ValueError:
+        with pytest.raises(ValueError, match="requires the subset wander"):
+            j_cluster.ClusterGenerator(m, np.full(4, 2000.0, np.float32), compact_async=False,
+                                       **kwargs)

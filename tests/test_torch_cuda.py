@@ -222,6 +222,77 @@ def test_gather_ball_is_one_launch(cuda):
     assert len(kernels) == 3, kernels
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f", [(8_192, 32), (100_003, 32), (100_096, 32), (150_016, 32),
+                                 (300_032, 32), (4_099, 288), (100_096, 288)])
+@pytest.mark.parametrize("zero_half", [False, True])
+def test_spec_sweep_and_row_stats_match_plain_and_medoid_sweep(cuda, n, f, zero_half):
+    """The seed cache's kernels at S 1, 3 and 8: rows and sums bit for bit
+    their plain versions' and, column by column, `medoid_sweep`'s; the near
+    count over the kept columns within 0.05."""
+    mT_np, lengths = _clumpy(n, f, seed=n + f)
+    rng = np.random.default_rng(n)
+    if zero_half:
+        lengths[rng.permutation(n)[: n // 2]] = 0.0
+    mT = torch.as_tensor(mT_np, device=cuda)
+    w = torch.as_tensor(lengths, device=cuda)
+    for s in (1, 3, 8):
+        cols = [int(c) for c in rng.choice(n, s, replace=False)]
+        cols[0] = n - 1
+        got = K.spec_sweep(mT, cols, w)
+        for name, a, b in zip(("rows", "hist", "density", "n_close", "n_near"), got,
+                              K.spec_sweep_plain(mT, cols, w)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, s)
+        stats = K.row_stats(got[0], w)
+        for name, a, b in zip(("hist", "density", "n_close", "n_near"), stats, got[1:]):
+            assert torch.equal(a, b), (name, s)
+        for j, col in enumerate(cols):
+            for a, b in zip((g[j] for g in got[:4]), K.medoid_sweep(mT, col, w)):
+                assert torch.equal(a, b), (s, j)
+            assert int(got[4][j]) == int(((got[0][j] <= 0.05) & (w > 0)).sum())
+
+
+@pytest.mark.cuda
+def test_spec_sweep_and_row_stats_are_one_launch(cuda):
+    "One device kernel a call each: the ticket's last CTA sums every row's partials."
+    mT_np, lengths = _clumpy(300_032, 32, seed=8)
+    mT = torch.as_tensor(mT_np, device=cuda)
+    w = torch.as_tensor(lengths, device=cuda)
+    kernels = _one_launch(cuda, lambda: K.spec_sweep(mT, range(8), w), "spec_sweep_kernel")
+    assert len(kernels) == 3, kernels
+    rows = K.spec_sweep(mT, range(8), w)[0]
+    kernels = _one_launch(cuda, lambda: K.row_stats(rows, w), "row_stats_kernel")
+    assert len(kernels) == 3, kernels
+
+
+@pytest.mark.cuda
+def test_engine_lanes_on_and_off_card_equals_cpu(cuda):
+    """The engine at subset scope with attempt lanes on and off, on the card
+    and on the CPU: four runs, one emission, and the card's runs launched
+    `spec_sweep` and `row_stats` (the lanes' run also counts its lanes)."""
+    from vamb_torch import cluster
+
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(30, 32))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    m = np.concatenate([c + rng.normal(scale=0.04, size=(30, 32)) for c in centers]
+                       + [rng.normal(size=(300, 32))]).astype(np.float32)
+    lengths = rng.integers(2000, 50_000, len(m)).astype(np.float32)
+    runs = {}
+    for ab in ("on", "off"):
+        for dev in (cuda, "cpu"):
+            K.reset_launch_counts()
+            gen = cluster.ClusterGenerator(m.copy(), lengths, rng_seed=7, device=dev,
+                                           wander_scope="subset", attempt_batch=ab)
+            runs[ab, str(dev)] = [(c.medoid, c.seed, c.kind_str, c.radius, c.maximal_pvr,
+                                   c.successes, c.attempts, c.members.tolist()) for c in gen]
+            if dev == cuda:
+                assert K.spec_sweep.launches > 0 and K.row_stats.launches > 0
+                assert (gen.lane_counts["admitted"] > 0) == (ab == "on"), gen.lane_counts
+    first = runs["on", "cuda"]
+    assert len(first) > 30 and all(r == first for r in runs.values())
+
+
 # the AAE's z latent: 283 features padded to 288; an aligned and an unaligned N
 _AAE_F_PAD = 288
 

@@ -19,8 +19,9 @@ Structure. `vamb_tpu` fuses K clusters into one `lax.while_loop`. Here the
 host drives the attempts, transcribing the sequential control flow of
 `tests/oracle_cluster.SequentialOracle` (proven emission-identical to that
 engine by tests/test_parity_cluster.py), and the numeric steps run on the
-device: the seed's and each new medoid's row with its histogram, density
-and close count in one sweep (`kernels.medoid_sweep`), the per-step Gumbel
+device: each new medoid's row with its histogram, density and close
+count in one sweep (`kernels.medoid_sweep`; the seeds' rows come from the
+seed cache below), the per-step Gumbel
 scores over the threefry stream and their top C in one launch
 (`kernels.gumbel_topc`: XLA's CPU log and `jax.lax.top_k`'s order on
 ties, so bit for bit `vamb_tpu`'s candidates), candidate densities
@@ -28,8 +29,9 @@ ties, so bit for bit `vamb_tpu`'s candidates), candidate densities
 per-slot vectors in one gather (`kernels.gather_ball`), rows inside the
 ball (`kernels.row_sweep`), the banded smoothing product and the valley
 scan. The attempt's sums (histogram, close count, the seed's density) come
-from `medoid_sweep` in an order fixed by the width, which its plain version
-reproduces, and the smoothing sums in XLA's CPU order, so the engine
+from `medoid_sweep` (or `spec_sweep` / `row_stats`, which share its code)
+in an order fixed by the width, which the plain versions reproduce, and
+the smoothing sums in XLA's CPU order, so the engine
 decides alike on the card and on the CPU. That
 kernel counts a column as kept where its weight is > 0, so contig lengths
 must be positive, as they are.
@@ -49,12 +51,30 @@ It reproduces `vamb_tpu`'s `ClusterGenerator` run with
   `vamb_tpu`'s `compact_async=True` makes that timing depend on a compile
   thread; the port has no compile step, so it has no counterpart.
 
-The speculative seed cache, loner bursts and attempt lanes of `vamb_tpu`
-change no decision (oracle_cluster.py:301-305), so they are left out
-(ROADMAP queue 1, item 4). Subset-wander attempts take the final row from
-`medoid_sweep` (`row_sweep`'s arithmetic), not from `vamb_tpu`'s batched
-einsum: distances that differ in the last ulp, the divergence class the
-full path already has.
+Seeds come from the speculative seed cache (cluster.py:1047-1095): the
+next `_SPEC_SEEDS` seeds of the cycling scan and their rows and sums from
+one `kernels.spec_sweep`, each row bit for bit `medoid_sweep`'s, so a
+cached row and a fresh sweep cannot be told apart; the first alive slot at
+or after `spec_next` is the seed, and after a removal the cached rows'
+sums follow the kept mask through one `kernels.row_stats`. A seed with no
+other kept point within 0.05 is a loner and emits with no wander and no
+threshold, and the cached seeds after it that are loners too emit in the
+same iteration (loner bursts, :1114-1260: one flags pass and one refill
+per `_SPEC_SEEDS` loners, the key split once per loner). Where the subset
+wander runs, attempt lanes (:1333-1640, `attempt_batch`) follow the exact
+attempt: the remaining alive cached seeds climb phase 1 one after another
+against the frozen state, with the chain's next keys, their final rows
+come from one `spec_sweep` and their thresholds from one batched scan,
+their decisions reach the host in one sync, and the sequential acceptance
+scan admits lanes by `vamb_tpu`'s conditions (a cut lane consumes no key
+and reruns as an exact attempt; the lanes after one that needs the full
+climb are not climbed, and a loner lane's conflict region is its row
+within 0.3, which holds every point its outcome reads). None of this
+changes a decision (oracle_cluster.py:301-305): the port emits what
+`vamb_tpu` emits under each setting. Subset-wander attempts
+take the final row from `medoid_sweep` (`row_sweep`'s arithmetic), not
+from `vamb_tpu`'s batched einsum: distances that differ in the last ulp,
+the divergence class the full path already has.
 
 Random stream. Columns are padded to a multiple of 128 on every device
 and the candidate Gumbel draws span the padded width (or the ball), with
@@ -71,7 +91,9 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .kernels import candidate_density_sweep, gather_ball, gumbel_topc, medoid_sweep, row_sweep
+from .kernels import (
+    candidate_density_sweep, gather_ball, gumbel_topc, medoid_sweep, row_stats, row_sweep, spec_sweep,
+)
 from .log import logger
 from .utils import threefry
 
@@ -119,11 +141,9 @@ _X_GT_01 = _X_GRID > 0.1
 
 _LANES = 128
 _SUBLANES = 8
-# Seed-rank sentinels, as in vamb_tpu: padding columns get distinct ranks
-# >= RANK_PAD_BASE (never kept, so they never win a scan); RANK_NONE is the
-# masked-scan identity.
+# Seed-rank sentinel, as in vamb_tpu: padding columns get distinct ranks
+# >= RANK_PAD_BASE (never kept, so never a seed).
 RANK_PAD_BASE = 1 << 29
-RANK_NONE = 1 << 30
 
 # The subset wander's constants (vamb_tpu/cluster.py:417-427). Read at call
 # time, so a test can patch them on both packages alike.
@@ -133,6 +153,7 @@ _SUBSET_RADIUS = 0.15
 _SUBSET_ABORT = _SUBSET_RADIUS - 2 * _MEDOID_RADIUS  # drift boundary
 _SUBSET_AUTO_MIN = 1 << 18  # auto scope: subset at this live padded width and above
 _DEFAULT_BATCH = 1024  # clusters per batch, the compaction ladder's clock
+_SPEC_SEEDS = 8  # the seed cache's slots (vamb_tpu/cluster.py:160)
 
 
 class Cluster:
@@ -242,52 +263,59 @@ def smooth_histogram(hist: torch.Tensor) -> torch.Tensor:
 def find_threshold(hist: torch.Tensor, pvr: float):
     """Smoothed-histogram valley scan in closed form (transcribed from
     vamb_tpu/cluster.py:281-339, itself property-tested against the
-    reference's sequential state machine).
+    reference's sequential state machine), of one histogram (60,) or of a
+    batch (..., 60) at once: every step is elementwise or an exact
+    reduction along the bins, so a batch's rows are each row's own.
 
-    Returns device scalars (threshold, observed_pvr, found); threshold < 0
-    means none was found."""
+    Returns device tensors (threshold, observed_pvr, found) of the batch's
+    shape; threshold < 0 means none was found."""
     dev = hist.device
     densities = smooth_histogram(hist)
+    lead = densities.shape[:-1]
     xs = torch.as_tensor(_X_GRID.astype(np.float32), device=dev)
     x_gt_01 = torch.as_tensor(_X_GT_01, device=dev)
     i = torch.arange(_NBINS, device=dev)
     inf = torch.tensor(float("inf"), device=dev)
     pvr_t = torch.tensor(pvr, dtype=torch.float32, device=dev)
 
+    def at(x, idx):  # x[..., idx] for a batch of indices
+        return x.gather(-1, idx[..., None])[..., 0]
+
     # Running peak: until the peak is over, peak == cumulative max.
-    run_max_incl = torch.cummax(densities, 0).values
-    run_max_excl = torch.cat([torch.zeros(1, device=dev), run_max_incl[:-1]])
+    run_max_incl = torch.cummax(densities, -1).values
+    run_max_excl = torch.cat([torch.zeros((*lead, 1), device=dev), run_max_incl[..., :-1]], -1)
 
     # Peak is over at the first index with density < 60% of running max.
     po_mask = densities < 0.6 * run_max_incl
-    po_exists = po_mask.any()
-    po_idx = torch.argmax(po_mask.to(torch.int32))
-    peak = run_max_incl[po_idx]
+    po_exists = po_mask.any(-1)
+    po_idx = torch.argmax(po_mask.to(torch.int32), -1)
+    peak = at(run_max_incl, po_idx)
+    po = po_idx[..., None]
 
     # Dead: still rising past x = 0.1 while the peak is not over.
-    pre_po = torch.where(po_exists, i < po_idx, True)
+    pre_po = torch.where(po_exists[..., None], i < po, True)
     rising = densities > run_max_excl
-    dead = (rising & x_gt_01 & pre_po).any()
+    dead = (rising & x_gt_01 & pre_po).any(-1)
 
     # After the peak: running minimum seeded with densities[po_idx].
-    seeded = torch.where(i >= po_idx, densities, inf)
-    cummin_incl = torch.cummin(seeded, 0).values
-    m_prev = torch.cat([inf.reshape(1), cummin_incl[:-1]])
-    after = i > po_idx
+    seeded = torch.where(i >= po, densities, inf)
+    cummin_incl = torch.cummin(seeded, -1).values
+    m_prev = torch.cat([inf.expand(*lead, 1), cummin_incl[..., :-1]], -1)
+    after = i > po
 
     # A second peak (> 1.5x the minimum so far) stops the scan.
     brk = after & (densities > 1.5 * m_prev)
-    brk_exists = brk.any()
-    brk_idx = torch.argmax(brk.to(torch.int32))
-    in_range = after & torch.where(brk_exists, i < brk_idx, True)
+    brk_exists = brk.any(-1)
+    brk_idx = torch.argmax(brk.to(torch.int32), -1)
+    in_range = after & torch.where(brk_exists[..., None], i < brk_idx[..., None], True)
 
     # The threshold is the x of the last new minimum, i.e. the first index
     # attaining the final minimum.
     new_min = in_range & (densities < m_prev)
-    range_min = torch.where(in_range, densities, inf).min()
-    dam = torch.minimum(densities[po_idx], range_min)
-    has_event = new_min.any()
-    thr_pos = torch.argmax((new_min & (densities == dam)).to(torch.int32))
+    range_min = torch.where(in_range, densities, inf).amin(-1)
+    dam = torch.minimum(at(densities, po_idx), range_min)
+    has_event = new_min.any(-1)
+    thr_pos = torch.argmax((new_min & (densities == dam[..., None])).to(torch.int32), -1)
     thr = torch.where(
         po_exists & has_event & (dam < pvr_t * peak), xs[thr_pos], -1.0
     )
@@ -312,16 +340,24 @@ class ClusterGenerator:
         compact: shrink the matrix as points are clustered [True]
         compact_min_pad: never compact below this padded width [65536]
         wander_scope: "auto", "subset" or "full" (see the module notes)
+        attempt_batch: "auto", "on" or "off": attempt lanes after each
+            exact attempt; "auto" runs them wherever the subset wander
+            runs, "on" requires the subset scope (else ValueError)
         device: "cuda" (default) or "cpu"
 
-    With its defaults it emits what `vamb_tpu`'s generator emits with
-    `compact_async=False` on the CPU. `attempt_batch` takes "auto" and
-    "off" (both mean no attempt lanes, which change no decision);
-    `distance_dtype="float32"` and `wander_kernel="auto"` are the only
-    values ported. Each compaction is logged and recorded in `compactions`
-    as (clusters emitted, old width, new width); `subset_counts` counts the
-    subset wander's attempts and how many fell back to the full climb
-    because the ball overflowed or the medoid drifted.
+    Under each setting it emits what `vamb_tpu`'s generator emits with
+    `compact_async=False` on the CPU. `distance_dtype="float32"` and
+    `wander_kernel="auto"` are the only values ported. Each compaction is
+    logged and recorded in `compactions` as (clusters emitted, old width,
+    new width); `subset_counts` counts the exact attempts' subset wanders
+    and how many fell back to the full climb because the ball overflowed
+    or the medoid drifted; `lane_counts` counts the cache's refills, the
+    loner bursts, the loners they emitted and the bursts the batch's
+    capacity stopped, the lane passes, the lanes
+    climbed and admitted, the lanes deferred, and the passes cut by each
+    of the acceptance scan's reasons: (a) a conflict with an admitted
+    lane's members, (b) a pvr bump, (c) a lane that needs the full climb,
+    (d) the batch's capacity or no points left.
     """
 
     def __init__(
@@ -363,12 +399,22 @@ class ClusterGenerator:
             raise ValueError("N sequences in lengths and matrix do not match")
         _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch)
         self.device = resolve_device(device)
+        n_pad = _pad_to(len(matrix), _LANES)
+        # vamb_tpu/cluster.py:1901-1920: lanes ride the subset wander
+        self._use_subset = wander_scope == "subset" or (
+            wander_scope == "auto" and n_pad >= _SUBSET_AUTO_MIN
+        )
+        if attempt_batch == "on" and not self._use_subset:
+            raise ValueError(
+                "attempt_batch='on' requires the subset wander path "
+                "(wander_scope 'subset', or 'auto' above the size floor)"
+            )
+        self._attempt_batch = attempt_batch
 
         if not normalized:
             matrix = normalize(matrix, inplace=destroy)
 
         n, f = matrix.shape
-        n_pad = _pad_to(n, _LANES)
         f_pad = _pad_to(f, _SUBLANES)
         order, ranks_np = engine_order(matrix, lengths, rng_seed)
         padded_t = np.zeros((f_pad, n_pad), np.float32)
@@ -397,9 +443,6 @@ class ClusterGenerator:
 
         # scope: decided at construction, re-read at each live width
         self._scope = wander_scope
-        self._use_subset = wander_scope == "subset" or (
-            wander_scope == "auto" and n_pad >= _SUBSET_AUTO_MIN
-        )
         self._subset_q = min(_SUBSET_Q, n_pad)
         self._set_scope()
         # compaction ladder
@@ -410,6 +453,12 @@ class ClusterGenerator:
         self._remaining_at_batch_start = n
         self.compactions: list[tuple[int, int, int]] = []
         self.subset_counts = {"attempts": 0, "overflow": 0, "drift": 0}
+        self.lane_counts = dict.fromkeys(
+            ("refills", "bursts", "burst_loners", "burst_capacity_stops", "passes", "lanes",
+             "admitted", "deferred", "cut_conflict", "cut_pvr", "cut_full", "cut_capacity"), 0)
+        self._queue: deque = deque()  # clusters an iteration emitted, not yet returned
+        self._removals = 0  # points removed so far: the cached sums' clock
+        self._clear_cache()
 
     def __repr__(self) -> str:
         return (
@@ -428,9 +477,20 @@ class ClusterGenerator:
         self.ranks = ranks  # host int64 seed ranks, travelling with columns
         self.lengths = lengths
         self.kept = kept  # host mirror of kept_t
-        self.kept_t = torch.as_tensor(kept, device=self.device)
+        self._kept_t = torch.as_tensor(kept, device=self.device)
+        self._unsynced: list = []  # removed columns not yet cleared in _kept_t
         self.n_pad = matrixT.shape[1]
         self.iota = torch.arange(self.n_pad, device=self.device)
+
+    @property
+    def kept_t(self) -> torch.Tensor:
+        """The kept mask on the device, the removals since its last use
+        applied in one launch (a burst's loners need not pay one each)."""
+        if self._unsynced:
+            rows = np.concatenate(self._unsynced)
+            self._unsynced = []
+            self._kept_t[torch.as_tensor(rows, device=self.device)] = False
+        return self._kept_t
 
     def _set_scope(self) -> None:
         "The subset wander's ball size Q at the live width, 0 for full sweeps."
@@ -438,6 +498,7 @@ class ClusterGenerator:
             self._use_subset and self.n_pad >= _SUBSET_AUTO_MIN
         )
         self.Q = min(self._subset_q, self.n_pad) if subset_here else 0
+        self._lanes_here = subset_here and self._attempt_batch != "off"
 
     def _next_target(self) -> Optional[int]:
         "Next (halved) padded width on the ladder, or None (cluster.py:2110-2116)."
@@ -476,6 +537,7 @@ class ClusterGenerator:
         self._set_columns(self.matrixT[:, idx_t].contiguous(), ranks, lengths, kept)
         self._order = self._order[survivors]
         self._set_scope()
+        self._clear_cache()  # _compact_arrays, cluster.py:1731-1737
         self.compactions.append((self.n_emitted_clusters, old, target))
         logger.info(
             f"\tCompacted the engine matrix from {old} to {target} columns after "
@@ -483,21 +545,87 @@ class ClusterGenerator:
             f"{'subset, Q ' + str(self.Q) if self.Q else 'full'}"
         )
 
-    # -- the reference control flow, one rule per method ------------------
+    # -- the speculative seed cache (cluster.py:1047-1095) -----------------
+
+    def _clear_cache(self) -> None:
+        "Empty the seed cache (at the start and at each compaction): the next attempt refills it."
+        self._spec_cols = None  # the cached seeds' columns, in scan order
+        self._spec_d = None  # their (S, N_pad) rows
+        self._spec_next = _SPEC_SEEDS  # the first slot the seed scan may take
+        self._stats = None  # the rows' (hist, density, n_close, n_near) ...
+        self._stats_at = -1  # ... under the kept mask after this many removals
+        self._near = None  # n_near on the host, once fetched
+        self._wk, self._wk_at = None, -1  # the weights, and the removals they follow
+
+    def _weights(self) -> torch.Tensor:
+        "The columns' weights: lengths where kept, else 0 (fixed between removals)."
+        if self._wk_at != self._removals:
+            self._wk, self._wk_at = torch.where(self.kept_t, self.lengths, 0.0), self._removals
+        return self._wk
+
+    def _next_seeds(self) -> list[int]:
+        """The next `_SPEC_SEEDS` columns of the cycling seed scan from rank
+        `order_pos` (next_seeds_batch, cluster.py:543-553): kept columns by
+        ascending rank, wrapping to the smallest kept rank (ref
+        cluster.py:342-384), repeated where fewer are kept."""
+        cols = np.flatnonzero(self.kept)
+        ranks = self.ranks[cols]
+
+        def smallest(sel):
+            "The (at most S) columns of `sel` with the smallest ranks, ascending."
+            if len(sel) > _SPEC_SEEDS:
+                sel = sel[np.argpartition(ranks[sel], _SPEC_SEEDS - 1)[:_SPEC_SEEDS]]
+            return cols[sel[np.argsort(ranks[sel])]]
+
+        seeds = list(smallest(np.flatnonzero(ranks >= self.order_pos)))
+        if len(seeds) < _SPEC_SEEDS:
+            wrap = smallest(np.arange(len(cols)))
+            seeds += [wrap[i % len(wrap)] for i in range(_SPEC_SEEDS - len(seeds))]
+        return [int(c) for c in seeds]
+
+    def _refill(self) -> None:
+        "Fill the cache from `order_pos`: the seeds' rows and sums in one `spec_sweep` (:1069-1076)."
+        self._spec_cols = self._next_seeds()
+        self._spec_d, *stats = spec_sweep(self.matrixT, self._spec_cols, self._weights())
+        self._stats, self._stats_at, self._near = tuple(stats), self._removals, None
+        self._spec_next = 0
+        self.lane_counts["refills"] += 1
+
+    def _slot_stats(self):
+        """The cached rows' (hist, density, n_close) under the current kept
+        mask, and their near counts (d <= 0.05) on the host: the refill's
+        while no point was removed since, else one `row_stats` of the S
+        rows (the loner flags of cluster.py:1104-1112)."""
+        if self._stats_at != self._removals:
+            self._stats = row_stats(self._spec_d, self._weights())
+            self._stats_at, self._near = self._removals, None
+        if self._near is None:
+            self._near = self._stats[3].tolist()
+        return (*self._stats[:3], self._near)
+
+    def _alive(self, start: int) -> list[int]:
+        "The cache's slots at or after `start` whose seed is still kept."
+        if self._spec_cols is None:
+            return []
+        return [s for s in range(start, _SPEC_SEEDS) if self.kept[self._spec_cols[s]]]
 
     def _next_seed(self) -> tuple[int, int]:
-        """Kept column with the smallest seed rank at or after `order_pos`,
-        wrapping to the smallest kept rank (ref cluster.py:342-384).
-        Returns (column, rank)."""
-        kept_ranks = np.where(self.kept, self.ranks, RANK_NONE)
-        ahead = np.where(kept_ranks >= self.order_pos, kept_ranks, RANK_NONE)
-        r = int(ahead.min())
-        if r >= RANK_NONE:
-            r = int(kept_ranks.min())
-        return int(np.argmax(kept_ranks == r)), r
+        """The attempt's seed: the first alive slot at or after `spec_next`,
+        which is the cycling scan's next seed (cached slots are the scan
+        from the fill position, and points are only removed), refilling the
+        cache when there is none. Returns (slot, column)."""
+        alive = self._alive(self._spec_next)
+        if not alive:
+            self._refill()
+            alive = [0]
+        return alive[0], self._spec_cols[alive[0]]
 
-    def _update_successes(self, success: bool) -> None:
-        "The success window + pvr bump (ref cluster.py:386-413)."
+    # -- the reference control flow, one rule per method ------------------
+
+    def _update_successes(self, success: bool) -> bool:
+        """The success window + pvr bump (ref cluster.py:386-413). A bump
+        restarts the seed scan and so forces a refill (cluster.py:1317-1329).
+        Returns whether it bumped."""
         if len(self.attempts) == self.attempts.maxlen:
             self.successes -= self.attempts.popleft()
         self.successes += success
@@ -510,6 +638,9 @@ class ClusterGenerator:
             self.attempts.clear()
             self.successes = 0
             self.order_pos = 0
+            self._spec_next = _SPEC_SEEDS
+            return True
+        return False
 
     def _step(self, key, d, kept, tried, medoid, n: int, matrixT, wk):
         """One wander step's draws: split the key, Gumbel top-C over the n
@@ -542,154 +673,314 @@ class ClusterGenerator:
             density = dens[j]
 
     def _wander(self, seed: int, sweep, wk, key):
-        """The full-scope wander (cluster.py:850-858) from the seed's sweep.
-        Returns (medoid, its sweep)."""
-        d0, _, density, _ = sweep
+        """The full-scope wander (cluster.py:850-858) from the sweep of a
+        seed with a kept neighbour within 0.05. Returns (medoid, its sweep)."""
         tried = torch.zeros(self.n_pad, dtype=torch.bool, device=self.device)
         tried[seed] = True
-        if int(((d0 <= _MEDOID_RADIUS) & self.kept_t & ~tried).sum()) == 0:
-            return seed, sweep
-        return self._climb(seed, sweep, density, tried, key, wk)
+        return self._climb(seed, sweep, sweep[2], tried, key, wk)
 
-    def _wander_subset(self, seed: int, sweep, wk, key):
-        """The two-phase subset wander (cluster.py:555-748, 860-935;
-        oracle_cluster.py:473-561). Phase 1 climbs inside the seed's ball:
-        the first KB = Q/128 blocks (ascending) holding a kept column within
-        0.15 of the seed, gathered with their per-slot vectors by
-        `gather_ball`, each step's draw a Q-wide uniform and its densities a
-        `candidate_density_sweep` over the ball. Phase 2, the full climb
-        with `tried` and the density carried over, runs if the ball
-        overflowed or the medoid drifted past `_SUBSET_ABORT` from the seed.
-        The seed's density is its sweep's: every column within 0.05 of the
-        seed lies in a flagged block. Returns (medoid, its sweep)."""
+    def _subset_phase1(self, seed: int, d0, density, wk, key):
+        """Phase 1 of the subset wander (subset_phase1, cluster.py:555-748;
+        oracle_cluster.py:473-561) from a seed with a kept neighbour within
+        0.05: the first KB = Q/128 blocks (ascending) holding a kept column
+        within 0.15 of the seed, gathered with their per-slot vectors by
+        `gather_ball`, and the climb inside them, each step's draw a Q-wide
+        uniform and its densities a `candidate_density_sweep` over the
+        ball. `density` is the seed's sweep's: every column within 0.05 of
+        the seed lies in a flagged block. Returns (medoid, status, density,
+        key, block_any, ball): status "done", or "overflow" (more than KB
+        blocks flagged; the medoid is the seed) or "drift" (the medoid moved
+        past `_SUBSET_ABORT` from the seed), where the climb must go on over
+        all columns; `block_any` the flagged blocks (a lane's conflict
+        region); `ball` (cols, tried_s, nb) of the gathered slots, None on
+        overflow."""
         B = _SUBSET_BLOCK
         Q, nblk = self.Q, self.n_pad // B
         kb = Q // B
         kept_t, dev = self.kept_t, self.device
-        d0, _, density, _ = sweep
-        near = (d0 <= _MEDOID_RADIUS) & kept_t
         block_any = (kept_t & (d0 <= _SUBSET_RADIUS)).view(nblk, B).any(dim=1)
-        # one host sync: neighbours to climb to, flagged blocks, and flagged
-        # blocks before the seed's (its slot in the ball)
-        n_near, nb, before = torch.stack([
-            (near & (self.iota != seed)).sum(), block_any.sum(), block_any[: seed // B].sum()
-        ]).tolist()
-        if n_near == 0:
-            return seed, sweep
+        # one host sync: flagged blocks, and flagged blocks before the
+        # seed's (its slot in the ball)
+        nb, before = torch.stack([block_any.sum(), block_any[: seed // B].sum()]).tolist()
+        if nb > kb:
+            return seed, "overflow", density, key, block_any, None
+        # the flagged block ids, ascending, built on the card with no host
+        # sync: block b goes to slot (flagged blocks up to b) - 1; unflagged
+        # blocks land in a spare slot kb that is cut off, and the ball's
+        # padding slots gather block 0, masked by the gather
+        dest = torch.where(block_any, torch.cumsum(block_any, 0) - 1, kb)
+        bids = torch.zeros(kb + 1, dtype=torch.int32, device=dev)
+        bids.scatter_(0, dest, torch.arange(nblk, dtype=torch.int32, device=dev))
+        xsT, cols, kept_s, wk_s, d0_s = gather_ball(self.matrixT, bids[:kb], nb, wk, kept_t, d0)
+        slot = before * B + seed % B
+        tried_s = torch.zeros(Q, dtype=torch.bool, device=dev)
+        tried_s[slot] = True
+        d_s, medoid, status = d0_s, seed, "done"
+        while True:
+            key, cand, cand_valid, dens = self._step(key, d_s, kept_s, tried_s, slot, Q, xsT, wk_s)
+            better = cand_valid & (dens > density)
+            # one host sync per step: the winner, its slot and column, and
+            # its drift (float64 holds all of them exactly)
+            better_h, cand_h, col_h, drift_h = torch.stack(
+                [better.to(torch.float64), cand.to(torch.float64),
+                 cols[cand].to(torch.float64), d0_s[cand].to(torch.float64)]
+            ).cpu().numpy()
+            if not better_h.any():
+                break
+            j = int(np.argmax(better_h))
+            tried_s[cand[: j + 1]] = True
+            slot, medoid = int(cand_h[j]), int(col_h[j])
+            d_s = row_sweep(xsT, slot)
+            density = dens[j]
+            if drift_h[j] > np.float32(_SUBSET_ABORT):
+                status = "drift"
+                break
+        return medoid, status, density, key, block_any, (cols, tried_s, nb)
+
+    def _wander_subset(self, seed: int, sweep, wk, key):
+        """The two-phase subset wander (cluster.py:555-748, 860-935):
+        phase 1 and, if the ball overflowed or the medoid drifted, the full
+        climb with `tried` and the density carried over. Returns (medoid,
+        its sweep)."""
         self.subset_counts["attempts"] += 1
-        medoid = seed
-        if nb <= kb:
-            # the flagged block ids, ascending, built on the card with no
-            # host sync: block b goes to slot (flagged blocks up to b) - 1;
-            # unflagged blocks land in a spare slot kb that is cut off, and
-            # the ball's padding slots gather block 0, masked by the gather
-            dest = torch.where(block_any, torch.cumsum(block_any, 0) - 1, kb)
-            bids = torch.zeros(kb + 1, dtype=torch.int32, device=dev)
-            bids.scatter_(0, dest, torch.arange(nblk, dtype=torch.int32, device=dev))
-            xsT, cols, kept_s, wk_s, d0_s = gather_ball(self.matrixT, bids[:kb], nb, wk, kept_t, d0)
-            slot = before * B + seed % B
-            tried_s = torch.zeros(Q, dtype=torch.bool, device=dev)
-            tried_s[slot] = True
-            d_s, drifted = d0_s, False
-            while True:
-                key, cand, cand_valid, dens = self._step(
-                    key, d_s, kept_s, tried_s, slot, Q, xsT, wk_s)
-                better = cand_valid & (dens > density)
-                # one host sync per step: the winner, its slot and column,
-                # and its drift (float64 holds all of them exactly)
-                better_h, cand_h, col_h, drift_h = torch.stack(
-                    [better.to(torch.float64), cand.to(torch.float64),
-                     cols[cand].to(torch.float64), d0_s[cand].to(torch.float64)]
-                ).cpu().numpy()
-                if not better_h.any():
-                    break
-                j = int(np.argmax(better_h))
-                tried_s[cand[: j + 1]] = True
-                slot, medoid = int(cand_h[j]), int(col_h[j])
-                d_s = row_sweep(xsT, slot)
-                density = dens[j]
-                if drift_h[j] > np.float32(_SUBSET_ABORT):
-                    drifted = True
-                    break
-            if not drifted:
-                return medoid, sweep if medoid == seed else medoid_sweep(self.matrixT, medoid, wk)
-            self.subset_counts["drift"] += 1
-            tried = torch.zeros(self.n_pad, dtype=torch.bool, device=dev)
-            tried[cols[: nb * B]] = tried_s[: nb * B]
-        else:  # the ball overflows: climb over all columns from the seed
-            self.subset_counts["overflow"] += 1
-            tried = torch.zeros(self.n_pad, dtype=torch.bool, device=dev)
+        medoid, status, density, key, _, ball = self._subset_phase1(seed, sweep[0], sweep[2], wk,
+                                                                    key)
+        if status == "done":
+            return medoid, sweep if medoid == seed else medoid_sweep(self.matrixT, medoid, wk)
+        self.subset_counts[status] += 1
+        tried = torch.zeros(self.n_pad, dtype=torch.bool, device=self.device)
+        if ball is None:
             tried[seed] = True
+        else:
+            cols, tried_s, nb = ball
+            tried[cols[: nb * _SUBSET_BLOCK]] = tried_s[: nb * _SUBSET_BLOCK]
         if medoid != seed:
             sweep = medoid_sweep(self.matrixT, medoid, wk)
         return self._climb(medoid, sweep, density, tried, key, wk)
 
+    def _decide(self, n_close, found, thr):
+        """An attempt's outcome from its decision inputs on the host (ref
+        :457, :550-600): (kind, radius), kind "loner", "normal",
+        "fallback" or "reject"."""
+        if n_close == 1:
+            return "loner", None
+        if found:
+            return "normal", np.float32(thr)
+        if self.pvr > np.float32(0.55):
+            return "fallback", np.float32(_DEFAULT_RADIUS)
+        return "reject", None
+
+    def _account(self, kind: str) -> bool:
+        "The window update of an outcome (ref :582, :599-600). Returns whether pvr bumped."
+        if kind == "reject":
+            return self._update_successes(False)
+        if kind == "normal" and self.pvr < np.float32(0.55):
+            return self._update_successes(True)
+        return False
+
     def __next__(self) -> Cluster:
-        if self.n_remaining == 0:
-            raise StopIteration
-        if self._in_batch == self._batch_clusters:
-            self._end_batch()
-        while True:
-            seed, seed_rank = self._next_seed()
-            self.order_pos = seed_rank + 1
-            wk = torch.where(self.kept_t, self.lengths, 0.0)  # kept is frozen per attempt
-            sweep = medoid_sweep(self.matrixT, seed, wk)
-            self.key, sub = threefry.split(self.key)
-            if self.Q:
-                medoid, sweep = self._wander_subset(seed, sweep, wk, sub)
-            else:
-                medoid, sweep = self._wander(seed, sweep, wk, sub)
+        while not self._queue:
+            if self.n_remaining == 0:
+                raise StopIteration
+            if self._in_batch == self._batch_clusters:
+                self._end_batch()
+            self._attempt()
+        return self._queue.popleft()
 
-            d, hist, _, n_close_t = sweep
-            thr_t, opvr_t, found_t = find_threshold(hist, float(self.pvr))
+    def _attempt(self) -> None:
+        """One round of `vamb_tpu`'s attempt (cluster.py:1047-1649): the seed
+        from the cache, wander, threshold, emit or reject; after a loner
+        seed its burst; then, where the subset wander runs, the lanes."""
+        slot, seed = self._next_seed()
+        self.order_pos = int(self.ranks[seed]) + 1
+        self._spec_next = slot + 1
+        hist, dens, n_close, near = self._slot_stats()
+        self.key, sub = threefry.split_host(self.key)
+        if near[slot] == 1:  # a loner: no wander, no threshold (ref :457, :550-562)
+            self._commit(self._record(seed, seed, "loner", None, None), np.array([seed]))
+            self._burst(slot)
+        else:
+            wk = self._weights()  # kept is frozen per attempt
+            sweep = (self._spec_d[slot], hist[slot], dens[slot], n_close[slot])
+            wander = self._wander_subset if self.Q else self._wander
+            medoid, (d, hist_m, _, close_m) = wander(seed, sweep, wk, sub)
+            thr_t, opvr_t, found_t = find_threshold(hist_m, float(self.pvr))
             # one host sync for the attempt's decision
-            n_close, thr, opvr, found = torch.stack(
-                [n_close_t.to(torch.float32), thr_t, opvr_t, found_t.to(torch.float32)]
+            close_h, thr, opvr, found = torch.stack(
+                [close_m.to(torch.float32), thr_t, opvr_t, found_t.to(torch.float32)]
             ).cpu().numpy()
+            kind, radius = self._decide(close_h, found, thr)
+            if kind != "reject":
+                members = np.array([medoid]) if kind == "loner" else self._members(d, radius)
+                self._commit(self._record(medoid, seed, kind, radius, opvr), members)
+            self._account(kind)
+        if self._lanes_here:
+            self._lanes()
 
-            if n_close == 1.0:  # loner (ref :457, :550-562)
-                return self._emit(medoid, seed, np.array([medoid]), None, None)
-            if not found:
-                if self.pvr > np.float32(0.55):  # fallback (ref :566-580)
-                    radius = np.float32(_DEFAULT_RADIUS)
-                    return self._emit(
-                        medoid, seed, self._members(d, radius), float(radius), None
-                    )
-                self._update_successes(False)  # reject (ref :582)
+    def _burst(self, slot0: int) -> None:
+        """Emit the consecutive cached seeds after the loner seed in
+        `slot0` that are loners too (burst_extension, cluster.py:1114-1260):
+        a loner has no neighbour within 0.05, so removing it changes no
+        other seed's neighbourhood, and each splits the key once, as its own
+        attempt would. Dead slots are skipped; an alive non-loner, the
+        batch's capacity or no points left ends the burst; a used-up cache
+        is refilled from `order_pos`, as the next attempt's miss would, and
+        the burst goes on."""
+        if self._in_batch >= self._batch_clusters or self.n_remaining == 0:
+            return
+        self.lane_counts["bursts"] += 1
+        start = slot0 + 1
+        while True:
+            near = self._slot_stats()[3]  # the loner flags: one pass, one sync
+            for s in range(start, _SPEC_SEEDS):
+                c = self._spec_cols[s]
+                if not self.kept[c]:
+                    continue
+                if near[s] != 1:
+                    return
+                if self._in_batch >= self._batch_clusters:
+                    self.lane_counts["burst_capacity_stops"] += 1
+                    return
+                self.key = threefry.split_host(self.key)[0]
+                self.order_pos = int(self.ranks[c]) + 1
+                self._commit(self._record(c, c, "loner", None, None), np.array([c]))
+                self.lane_counts["burst_loners"] += 1
+            if self._in_batch >= self._batch_clusters or self.n_remaining == 0:
+                return
+            self._refill()
+            start = 0
+
+    def _lanes(self) -> None:
+        """Speculative attempt lanes (lanes_extension, cluster.py:1333-1640):
+        each alive cached seed after the exact attempt runs as the next
+        attempt against the frozen state, with the key chain's next link:
+        its phase-1 climb (one lane after another, as `vamb_tpu`'s scan
+        runs them; a loner seed climbs not), then all lanes' final rows and
+        sums from one `spec_sweep`, their thresholds from one batched scan
+        and their decisions, members' counts and conflicts in one host
+        sync. The sequential acceptance scan admits lanes while (a) no
+        admitted lane removed a point of this lane's region (its row within
+        0.3, and its gathered blocks), (b) no admitted lane bumped the pvr,
+        (c) the lane finished inside the ball, (d) the batch has room and
+        points are left; each admitted lane is exactly the next sequential
+        attempt, and a cut lane consumes no key and reruns as an exact
+        attempt."""
+        K = self._batch_clusters
+        alive = self._alive(self._spec_next)
+        if not alive or self._in_batch >= K or self.n_remaining == 0:
+            return
+        counts, dev = self.lane_counts, self.device
+        counts["passes"] += 1
+        wk = self._weights()
+        _, dens, _, near = self._slot_stats()
+        links, key = [], self.key  # the chain: one split a processed attempt
+        for _ in alive:
+            key, sub = threefry.split_host(key)
+            links.append((key, sub))
+        medoids, blocks = [], []
+        for (_, sub), s in zip(links, alive):
+            seed = self._spec_cols[s]
+            counts["lanes"] += 1
+            if near[s] == 1:
+                medoids.append(seed)
+                blocks.append(None)
                 continue
-            rec = self._emit(
-                medoid, seed, self._members(d, thr), float(thr), float(opvr)
-            )
-            if self.pvr < np.float32(0.55):  # ref :599-600
-                self._update_successes(True)
-            return rec
+            medoid, status, _, _, block_any, _ = self._subset_phase1(
+                seed, self._spec_d[s], dens[s], wk, sub)
+            if status != "done":
+                break  # (c): this lane and the ones after it rerun as exact attempts
+            medoids.append(medoid)
+            blocks.append(block_any)
+        n = len(medoids)
+        cut = "full" if n < len(alive) else None
+        emitted, admitted = [], 0
+        if n:
+            rows, hist, _, n_close, _ = spec_sweep(self.matrixT, medoids, wk)
+            thr, opvr, found = find_threshold(hist, float(self.pvr))
+            radius = torch.where(found, thr, _DEFAULT_RADIUS if self.pvr > np.float32(0.55) else -1.0)
+            med_t = torch.as_tensor(medoids, device=dev)
+            sel = torch.where((n_close == 1)[:, None], self.iota[None, :] == med_t[:, None],
+                              rows <= radius[:, None]) & self.kept_t
+            no_ball = torch.zeros(self.n_pad // _SUBSET_BLOCK, dtype=torch.bool, device=dev)
+            ball = torch.stack([no_ball if b is None else b for b in blocks])
+            region = (rows <= _XMAX) | ball.repeat_interleave(_SUBSET_BLOCK, dim=1)
+            # hits[k, r]: lane k's members meet lane r's region (one small product)
+            hits = (sel.to(torch.float32) @ region.to(torch.float32).T) > 0
+            # one host sync for all lanes' decisions (float64 holds them exactly)
+            host = torch.cat([
+                torch.stack([n_close.double(), thr.double(), opvr.double(), found.double(),
+                             sel.sum(1).double()]).flatten(),
+                hits.double().flatten(),
+            ]).cpu().numpy()
+            close_h, thr_h, opvr_h, found_h, size_h = host[: 5 * n].reshape(5, n)
+            hits_h = host[5 * n:].reshape(n, n) > 0
+            in_batch, n_left = self._in_batch, self.n_remaining
+            for r, s in enumerate(alive[:n]):
+                if in_batch >= K or n_left == 0:
+                    cut = "capacity"
+                    break
+                if any(hits_h[k, r] for _, k in emitted):
+                    cut = "conflict"
+                    break
+                admitted += 1
+                seed = self._spec_cols[s]
+                self.key = links[r][0]
+                self.order_pos = int(self.ranks[seed]) + 1
+                self._spec_next = s + 1
+                kind, rad = self._decide(close_h[r], found_h[r], thr_h[r])
+                if kind != "reject":
+                    emitted.append((self._record(medoids[r], seed, kind, rad, opvr_h[r]), r))
+                    in_batch += 1
+                    n_left -= int(size_h[r])
+                if self._account(kind):
+                    cut = "pvr" if r + 1 < len(alive) else None
+                    break
+        counts["admitted"] += admitted
+        counts["deferred"] += len(alive) - admitted
+        if cut is not None:
+            counts["cut_" + cut] += 1
+        # the emitted lanes' members in one sync, then their removal in order
+        wide = [r for rec, r in emitted if rec.radius is not None]
+        members = {}
+        if wide:
+            nz = torch.nonzero(sel[wide]).cpu().numpy()
+            for i, r in enumerate(wide):
+                members[r] = nz[nz[:, 0] == i, 1]
+        for rec, r in emitted:
+            self._commit(rec, members.get(r, np.array([medoids[r]])))
 
     def _members(self, d: torch.Tensor, radius: np.float32) -> np.ndarray:
         sel = (d <= float(radius)) & self.kept_t
         return torch.nonzero(sel).squeeze(1).cpu().numpy()
 
-    def _emit(self, medoid, seed, members_rows, radius, observed_pvr) -> Cluster:
-        "Cluster record with the pre-update successes/attempts (ref :551-598)."
-        rec = Cluster(
+    def _record(self, medoid: int, seed: int, kind: str, radius, observed_pvr) -> Cluster:
+        """A cluster's record with the window as it stands before the
+        outcome's update (ref :551-598); its members come at `_commit`."""
+        return Cluster(
             int(self._order[medoid]),
             int(self._order[seed]),
-            self._order[members_rows].astype(np.int64),  # in engine column order
+            None,
             float(self.pvr),
-            observed_pvr,
-            radius,
+            float(observed_pvr) if kind == "normal" else None,
+            None if kind == "loner" else float(radius),
             self.successes,
             len(self.attempts),
         )
+
+    def _commit(self, rec: Cluster, members_rows: np.ndarray) -> None:
+        "Remove a cluster's members (engine columns, ascending) and queue its record."
+        rec.members = self._order[members_rows].astype(np.int64)  # in engine column order
         self.kept[members_rows] = False
-        self.kept_t[torch.as_tensor(members_rows, device=self.device)] = False
+        self._unsynced.append(members_rows)
         self.n_remaining -= len(members_rows)
+        self._removals += len(members_rows)
         self.n_emitted_clusters += 1
         self._in_batch += 1
-        return rec
+        self._queue.append(rec)
 
 
 def _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch):
-    "Reject the `vamb_tpu` engine switches this port does not implement yet."
+    "Reject bad values, and the `vamb_tpu` engine switches this port does not implement yet."
     if distance_dtype != "float32":
         if distance_dtype == "bfloat16":
             raise NotImplementedError(
@@ -706,10 +997,5 @@ def _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch):
         raise ValueError(f"wander_kernel must be auto/pallas/xla, not {wander_kernel}")
     if wander_scope not in ("auto", "subset", "full"):
         raise ValueError(f"wander_scope must be auto/subset/full, not {wander_scope}")
-    if attempt_batch not in ("auto", "off"):
-        if attempt_batch == "on":
-            raise NotImplementedError(
-                "attempt_batch='on' is not ported yet (ROADMAP queue 1, item 4: "
-                "attempt lanes and the speculative seed cache)"
-            )
+    if attempt_batch not in ("auto", "on", "off"):
         raise ValueError(f"attempt_batch must be auto/on/off, not {attempt_batch}")

@@ -15,8 +15,12 @@ from .cluster_kernels import (  # noqa: F401
     gumbel_topc_plain,
     medoid_sweep,
     medoid_sweep_plain,
+    row_stats,
+    row_stats_plain,
     row_sweep,
     row_sweep_plain,
+    spec_sweep,
+    spec_sweep_plain,
 )
 from .cluster_kernels import reset_launch_counts as _reset_cluster_counts
 from .hmm_kernels import build_hmm, hmm_forward, hmm_forward_plain  # noqa: F401

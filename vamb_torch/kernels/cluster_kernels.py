@@ -1,7 +1,7 @@
 """The clustering engine's kernels: wrappers, plain versions, launch
 counters and the on-demand build.
 
-Five CUDA C++ kernels for sm_90a live in `csrc/cluster_kernels.cu` (whose
+Seven CUDA C++ kernels for sm_90a live in `csrc/cluster_kernels.cu` (whose
 notes say which TPU kernel each replaces, what bounds it on the H100 and
 what its design does about it):
 
@@ -30,9 +30,21 @@ what its design does about it):
   medoid's distance row with its 60-bin histogram, density and close count
   in one pass and one launch, the attempt's whole payload. A thread keeps
   a private histogram row in shared memory; the sums follow an order that
-  depends on N_pad alone, which `sweep_ordered_sum` reproduces, so kernel
-  and plain version agree bit for bit. The engine takes the seed's and each
-  new medoid's row and sums from it;
+  depends on N_pad alone, which `row_stats_plain` reproduces, so kernel
+  and plain version agree bit for bit. The engine takes each new medoid's
+  row and sums from it;
+* `spec_sweep(matrixT, cols, wts)` replaces the speculative seed cache's
+  batched rows (`vamb_tpu/cluster.py` :498-515, an XLA einsum, also the
+  attempt lanes' final rows): S <= 8 columns' rows and sums in one pass
+  over the matrix, each bit for bit `medoid_sweep`'s for its column, and
+  each row's near count (d <= 0.05). A CTA holds a group of 64 threads a
+  row over medoid_sweep's grid and reuses its summation code; the matrix
+  is staged once through shared memory for all groups. The engine's cache
+  refills and the lanes' final rows take it;
+* `row_stats(rows, wts)`: the same sums of S given rows, for a cached row
+  after points were removed and for the loner flags of a burst
+  (:1100-1112); bit for bit what `medoid_sweep` returns for a column whose
+  row is the given one;
 * `gumbel_topc(key, d, kept, tried, medoid, C)` replaces a wander step's
   draw and selection (`vamb_tpu/cluster.py` :674-681, :775-782): every
   column's masked Gumbel score with jax's threefry bits and XLA's CPU log
@@ -48,8 +60,8 @@ what its design does about it):
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
 PyTorch version beside it only for a CPU tensor. It counts its launches in
 `<wrapper>.launches`, by N_pad in `<wrapper>.launches_by_width` and, for the
-four that read the latent matrix, by F_pad in `<wrapper>.launches_by_fpad`
-(the Gumbel kernels see no matrix: theirs stays empty). The
+five that read the latent matrix, by F_pad in `<wrapper>.launches_by_fpad`
+(the Gumbel kernels and `row_stats` see no matrix: theirs stay empty). The
 source is compiled by `nvcc` at first use into `kernels/_build/` and bound
 with ctypes; nothing is compiled or imported from CUDA while this module
 is imported.
@@ -79,6 +91,7 @@ _SWEEP_VEC = 4  # kSweepVec: neighbouring columns a thread owns in a tile
 _SWEEP_TILE_COLS = _SWEEP_THREADS * _SWEEP_VEC
 _SWEEP_MAX_BLOCKS = 128  # kSweepMaxBlocks: the width of the last CTA's tree
 _SWEEP_SLOTS = 64  # kSweepSlots: a CTA's partial row
+_SPEC_SEEDS = 8  # kSpecSeeds: the most rows spec_sweep and row_stats take
 _NBINS = 60
 _DELTA_X = 0.005
 _XMAX = 0.3
@@ -151,10 +164,15 @@ def _load():
             lib.vt_gumbel_topc.argtypes = [cu, cu, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, ci,
                                            vp]
             lib.vt_gumbel_topc.restype = ci
+            lib.vt_spec_sweep.argtypes = [vp, ci, ci, *[ci] * _SPEC_SEEDS, ci, vp, vp, vp, vp, vp,
+                                          vp, vp, vp]
+            lib.vt_spec_sweep.restype = ci
+            lib.vt_row_stats.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp]
+            lib.vt_row_stats.restype = ci
             consts = (lib.vt_max_candidates, lib.vt_density_threads, lib.vt_density_tile_cols,
                       lib.vt_density_max_blocks, lib.vt_density_tile, lib.vt_sweep_threads,
                       lib.vt_sweep_vec, lib.vt_sweep_max_blocks, lib.vt_sweep_slots,
-                      lib.vt_block_cols)
+                      lib.vt_block_cols, lib.vt_spec_seeds)
             for fn in consts:
                 fn.argtypes, fn.restype = [], ci
             # the scratch shapes, grid sizes and the plain versions' sum order
@@ -162,7 +180,7 @@ def _load():
             if tuple(fn() for fn in consts) != (_MAX_CAND, _DENS_THREADS, _DENS_TILE_COLS,
                                                 _DENS_MAX_BLOCKS, _DENS_TILE, _SWEEP_THREADS,
                                                 _SWEEP_VEC, _SWEEP_MAX_BLOCKS, _SWEEP_SLOTS,
-                                                _BLOCK):
+                                                _BLOCK, _SPEC_SEEDS):
                 raise RuntimeError(f"{_SOURCE.name} and {__name__} disagree on its constants")
             _lib = lib
     return _lib
@@ -480,41 +498,65 @@ def sweep_col_blocks(n_pad: int) -> tuple[int, int]:
     return k, -(-tiles // k)
 
 
-def sweep_ordered_sum(terms: torch.Tensor) -> torch.Tensor:
-    """(R, N) float32 terms, each >= +0 -> (R,) row sums in medoid_sweep's
-    order (csrc/cluster_kernels.cu): column n = ((i*B + b)*64 + tid)*4 + v
-    goes to thread tid of CTA b, which adds its terms in (i, v) order; then
-    halving trees over the 64 threads and over the B CTAs padded with zeros
-    to 128. Every stage is a separately rounded f32 tensor add."""
-    r, n = terms.shape
+def row_stats_plain(rows: torch.Tensor, wts: torch.Tensor):
+    """Plain version of `row_stats`: for each row of `rows` (S, N), the sums
+    `medoid_sweep` takes of its row, in the kernel's order, and the near
+    count. The order (csrc/cluster_kernels.cu): column n = ((i*B + b)*64 +
+    tid)*4 + v goes to thread tid of CTA b, which adds its terms in (i, v)
+    order; then halving trees over the 64 threads and over the B CTAs
+    padded with zeros to 128, every stage a separately rounded f32 add. In
+    the threads' loop a column adds its weight to one bin only (a
+    `scatter_add_` into distinct places, so each is one rounded add), and
+    adding +0 to the other sums changes none, every sum being >= +0.
+    Returns (hist (S, 60), density (S,), n_close (S,) int32, n_near (S,)
+    int32)."""
+    s, n = rows.shape
     k, b = sweep_col_blocks(n)
-    x = torch.nn.functional.pad(terms, (0, k * b * _SWEEP_TILE_COLS - n))
-    x = x.view(r, k, b, _SWEEP_THREADS, _SWEEP_VEC)
-    acc = torch.zeros((r, b, _SWEEP_THREADS), dtype=terms.dtype, device=terms.device)
+    pad = k * b * _SWEEP_TILE_COLS - n
+    pos = wts > 0.0
+    bins = torch.clamp((rows / _DELTA_X).to(torch.int32), 0, _NBINS - 1)
+    in_hist = (rows >= 0.0) & (rows <= _XMAX) & pos
+    near = (rows <= _MEDOID_RADIUS) & pos
+    w_hist = torch.where(in_hist, wts, 0.0)
+    w_dens = torch.where(near, wts * (_MEDOID_RADIUS - rows), 0.0)
+
+    def tiles(x):  # (S, N) -> (S, K, B, threads, vec), zeros past N
+        return torch.nn.functional.pad(x, (0, pad)).view(s, k, b, _SWEEP_THREADS, _SWEEP_VEC)
+
+    bins, w_hist, w_dens = tiles(bins.to(torch.int64)), tiles(w_hist), tiles(w_dens)
+    acc = torch.zeros((s, _NBINS + 1, b, _SWEEP_THREADS), dtype=torch.float32, device=rows.device)
     for i in range(k):
         for v in range(_SWEEP_VEC):
-            acc = acc + x[:, i, :, :, v]
-    acc = _halving_tree(acc)  # threads -> (r, b)
-    return _halving_tree(torch.nn.functional.pad(acc, (0, _SWEEP_MAX_BLOCKS - b)))
+            acc.scatter_add_(1, bins[:, None, i, :, :, v], w_hist[:, None, i, :, :, v])
+            acc[:, _NBINS] += w_dens[:, i, :, :, v]
+    acc = _halving_tree(acc)  # threads -> (S, 61, B)
+    sums = _halving_tree(torch.nn.functional.pad(acc, (0, _SWEEP_MAX_BLOCKS - b)))
+    n_close = ((rows < _MEDOID_RADIUS) & pos).sum(1).to(torch.int32)
+    return sums[:, :_NBINS], sums[:, _NBINS], n_close, near.sum(1).to(torch.int32)
+
+
+def spec_sweep_plain(matrixT: torch.Tensor, cols, wts: torch.Tensor):
+    """Plain version of `spec_sweep`: each column's `row_sweep_plain` row
+    (the same elementwise ops, batched) and `row_stats_plain`'s sums."""
+    cols = torch.as_tensor([int(c) for c in cols], dtype=torch.int64, device=matrixT.device)
+    feats = matrixT[:, cols]  # (F, S)
+    acc = torch.zeros((len(cols), matrixT.shape[1]), dtype=torch.float32, device=matrixT.device)
+    for f in range(matrixT.shape[0]):
+        acc = acc + matrixT[f][None, :] * feats[f][:, None]
+    rows = 0.5 - acc
+    rows[torch.arange(len(cols), device=matrixT.device), cols] = 0.0
+    return (rows, *row_stats_plain(rows, wts))
 
 
 def medoid_sweep_plain(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
     """Plain version of `medoid_sweep` (the XLA contract of
     tests/test_pallas.py:40-55): `row_sweep_plain`'s row, then the
-    histogram's and the density's terms summed by `sweep_ordered_sum`, the
-    kernel's order, so it equals the kernel bit for bit; the close count."""
+    histogram's and the density's sums in the kernel's order
+    (`row_stats_plain`), so it equals the kernel bit for bit; the close
+    count."""
     d = row_sweep_plain(matrixT, idx)
-    pos = wts > 0.0
-    bins = torch.clamp((d / _DELTA_X).to(torch.int32), 0, _NBINS - 1)
-    in_hist = (d >= 0.0) & (d <= _XMAX) & pos
-    onehot = bins[None, :] == torch.arange(_NBINS, device=d.device)[:, None]
-    terms = torch.cat([
-        torch.where(onehot & in_hist[None, :], wts[None, :], 0.0),
-        torch.where((d <= _MEDOID_RADIUS) & pos, wts * (_MEDOID_RADIUS - d), 0.0)[None, :],
-    ])
-    sums = sweep_ordered_sum(terms)
-    n_close = ((d < _MEDOID_RADIUS) & pos).sum().to(torch.int32)
-    return d, sums[:_NBINS], sums[_NBINS], n_close
+    hist, dens, n_close, _ = row_stats_plain(d[None], wts)
+    return d, hist[0], dens[0], n_close[0]
 
 
 _sweep_ws: dict = {}
@@ -575,6 +617,118 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
 medoid_sweep.launches = 0
 medoid_sweep.launches_by_width = {}  # N_pad -> launches
 medoid_sweep.launches_by_fpad = {}  # F_pad -> launches
+
+# ------------------------------------------------------ spec_sweep, row_stats
+
+_batch_ws: dict = {}
+
+
+def _batch_workspace(dev: torch.device, stream: int):
+    """The batch kernels' per-stream (8, 128, 64) partial rows, (8, 128, 2)
+    count partials and int32 ticket (the last CTA resets it)."""
+    key = (dev.index, stream)
+    ws = _batch_ws.get(key)
+    if ws is None:
+        ws = (torch.zeros((_SPEC_SEEDS, _SWEEP_MAX_BLOCKS, _SWEEP_SLOTS), dtype=torch.float32,
+                          device=dev),
+              torch.zeros((_SPEC_SEEDS, _SWEEP_MAX_BLOCKS, 2), dtype=torch.int32, device=dev),
+              torch.zeros(1, dtype=torch.int32, device=dev))
+        _batch_ws[key] = ws
+    return ws
+
+
+def _batch_outputs(s: int, dev):
+    "The (S, 61) sums (histogram, density) and (S, 2) counts (close, near) a batch kernel writes."
+    return (torch.empty((s, _NBINS + 1), dtype=torch.float32, device=dev),
+            torch.empty((s, 2), dtype=torch.int32, device=dev))
+
+
+def _check_wts(wts: torch.Tensor, n_pad: int, dev) -> None:
+    if wts.shape != (n_pad,) or wts.dtype != torch.float32:
+        raise ValueError("wts must be a float32 tensor of shape (N_pad,)")
+    if wts.device != dev:
+        raise ValueError(f"wts must lie on {dev}, not {wts.device}")
+
+
+def spec_sweep(matrixT: torch.Tensor, cols, wts: torch.Tensor):
+    """The distance rows of S <= 8 columns and their sums in one pass over
+    the matrix: (F_pad, N_pad) f32, `cols` S column ids (ints; repeats
+    allowed), (N_pad,) f32 weights (lengths where kept, else 0) -> (rows
+    (S, N_pad) with rows[s, cols[s]] = 0, hist (S, 60), density (S,),
+    n_close (S,) int32 over d < 0.05, n_near (S,) int32 over d <= 0.05).
+    Row s and its sums equal `medoid_sweep(matrixT, cols[s], wts)` bit for
+    bit. Launches the CUDA kernel for a CUDA tensor (one launch, counted in
+    `spec_sweep.launches`), runs the plain version for a CPU tensor."""
+    _check_matrix(matrixT)
+    f_pad, n_pad = matrixT.shape
+    cols = [int(c) for c in cols]
+    if not 1 <= len(cols) <= _SPEC_SEEDS:
+        raise ValueError(f"need 1 to {_SPEC_SEEDS} columns, got {len(cols)}")
+    if not all(0 <= c < n_pad for c in cols):
+        raise IndexError(f"a column of {cols} lies outside [0, {n_pad})")
+    _check_wts(wts, n_pad, matrixT.device)
+    if matrixT.device.type == "cpu":
+        return spec_sweep_plain(matrixT, cols, wts)
+    if matrixT.device.type != "cuda":
+        raise ValueError(f"spec_sweep runs on cuda or cpu, not {matrixT.device}")
+    lib = _load()
+    dev = matrixT.device
+    s = len(cols)
+    wts = wts.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partials, count_partials, ticket = _batch_workspace(dev, stream)
+    rows = torch.empty((s, n_pad), dtype=torch.float32, device=dev)
+    sums, counts = _batch_outputs(s, dev)
+    err = lib.vt_spec_sweep(
+        matrixT.data_ptr(), f_pad, n_pad, *cols, *[0] * (_SPEC_SEEDS - s), s, wts.data_ptr(),
+        rows.data_ptr(), partials.data_ptr(), count_partials.data_ptr(), ticket.data_ptr(),
+        sums.data_ptr(), counts.data_ptr(), stream,
+    )
+    _raise_on(err, "spec_sweep")
+    _count(spec_sweep, n_pad, f_pad)
+    return rows, sums[:, :_NBINS], sums[:, _NBINS], counts[:, 0], counts[:, 1]
+
+
+spec_sweep.launches = 0
+spec_sweep.launches_by_width = {}  # N_pad -> launches
+spec_sweep.launches_by_fpad = {}  # F_pad -> launches
+
+
+def row_stats(rows: torch.Tensor, wts: torch.Tensor):
+    """The sums `medoid_sweep` takes of a row, for S <= 8 given rows: (S,
+    N_pad) f32 (contiguous), (N_pad,) f32 weights -> (hist (S, 60),
+    density (S,), n_close (S,) int32 over d < 0.05, n_near (S,) int32 over
+    d <= 0.05, each over the columns with weight > 0), bit for bit what
+    `medoid_sweep` returns for a column whose row is rows[s]. Launches the
+    CUDA kernel for a CUDA tensor (one launch, counted in
+    `row_stats.launches`), runs the plain version for a CPU tensor."""
+    if rows.dtype != torch.float32 or rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous (S, N_pad) float32 tensor")
+    s, n_pad = rows.shape
+    if not 1 <= s <= _SPEC_SEEDS:
+        raise ValueError(f"need 1 to {_SPEC_SEEDS} rows, got {s}")
+    _check_wts(wts, n_pad, rows.device)
+    if rows.device.type == "cpu":
+        return row_stats_plain(rows, wts)
+    if rows.device.type != "cuda":
+        raise ValueError(f"row_stats runs on cuda or cpu, not {rows.device}")
+    lib = _load()
+    dev = rows.device
+    wts = wts.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partials, count_partials, ticket = _batch_workspace(dev, stream)
+    sums, counts = _batch_outputs(s, dev)
+    err = lib.vt_row_stats(rows.data_ptr(), n_pad, s, wts.data_ptr(), partials.data_ptr(),
+                           count_partials.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
+                           counts.data_ptr(), stream)
+    _raise_on(err, "row_stats")
+    _count(row_stats, n_pad)
+    return sums[:, :_NBINS], sums[:, _NBINS], counts[:, 0], counts[:, 1]
+
+
+row_stats.launches = 0
+row_stats.launches_by_width = {}  # N_pad -> launches
+row_stats.launches_by_fpad = {}  # reads no matrix: stays empty
 
 # ----------------------------------------------- gumbel_topc, gumbel_scores
 
@@ -719,7 +873,7 @@ gumbel_scores.launches_by_width = {}  # n -> launches
 gumbel_scores.launches_by_fpad = {}  # no matrix: stays empty
 
 KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep, gumbel_topc,
-           gumbel_scores)
+           gumbel_scores, spec_sweep, row_stats)
 
 
 def reset_launch_counts() -> None:

@@ -673,13 +673,14 @@ __host__ __device__ inline int sweep_col_blocks(int n_pad) {
 constexpr int kSweepChunk = 8;  // features a cp.async group brings
 constexpr int kSweepChunks = kEngineF / kSweepChunk;  // = the ring's buffers
 
-// One column's terms, added to the thread's sums.
-__device__ __forceinline__ void sweep_column(float (*s_acc)[kSweepThreads], float d, float wv,
-                                             float& dens, int& close) {
+// One column's terms, added to the sums of thread `tid` (its histogram row
+// in s_acc, its density, its close count).
+__device__ __forceinline__ void sweep_column(float (*s_acc)[kSweepThreads], int tid, float d,
+                                             float wv, float& dens, int& close) {
   if (wv > 0.0f) {
     if (d >= 0.0f && d <= kXmax) {
       const int bin = min(max((int)__fdiv_rn(d, kDeltaX), 0), kNbins - 1);
-      s_acc[bin][threadIdx.x] = __fadd_rn(s_acc[bin][threadIdx.x], wv);
+      s_acc[bin][tid] = __fadd_rn(s_acc[bin][tid], wv);
     }
     if (d <= kMedoidRadius) {
       dens = __fadd_rn(dens, __fmul_rn(wv, __fsub_rn(kMedoidRadius, d)));
@@ -701,6 +702,45 @@ __device__ __forceinline__ float halving64(float (&w)[64]) {
     for (int k = 0; k < h; ++k) w[k] = __fadd_rn(w[k], w[k + h]);
   }
   return w[0];
+}
+
+// A CTA's partial row: thread r < 61 of a group of 64 sums row r of the
+// group's s_acc (60 bins, the density) over its 64 threads.
+__device__ __forceinline__ void sweep_cta_row(float (*s_acc)[kSweepThreads], int r,
+                                              float* __restrict__ partial) {
+  static_assert(kSweepThreads == 64 && kSweepRows <= kSweepThreads, "a thread a row");
+  if (r < kSweepRows) {
+    float w[kSweepThreads];
+#pragma unroll
+    for (int k = 0; k < kSweepThreads; ++k) w[k] = s_acc[r][(k + r) & (kSweepThreads - 1)];
+    partial[r] = halving64(w);
+  }
+}
+
+// The last CTA's total of row r over the nb CTAs' partial rows (kSweepSlots
+// apart): the halving tree over kSweepMaxBlocks rows (zeros past nb), rows t
+// and t + 64 folded first, then the tree over t.
+__device__ __forceinline__ float sweep_total(const float* __restrict__ partials, int nb, int r) {
+  constexpr int kFold = kSweepMaxBlocks / kSweepThreads;  // partial rows a t
+  static_assert(kFold * kSweepThreads == kSweepMaxBlocks && (kFold & (kFold - 1)) == 0,
+                "a power-of-two number of partial rows a t");
+  float y[kSweepThreads];
+#pragma unroll
+  for (int t = 0; t < kSweepThreads; ++t) {
+    float x[kFold];
+#pragma unroll
+    for (int j = 0; j < kFold; ++j) {
+      const int b = t + j * kSweepThreads;
+      x[j] = b < nb ? __ldcg(partials + (size_t)b * kSweepSlots + r) : 0.0f;
+    }
+#pragma unroll
+    for (int h = kFold / 2; h > 0; h >>= 1) {
+#pragma unroll
+      for (int j = 0; j < h; ++j) x[j] = __fadd_rn(x[j], x[j + h]);
+    }
+    y[t] = x[0];
+  }
+  return halving64(y);
 }
 
 // F_pad 32: stage s = 4*i + q of a thread is chunk q of its i-th tile, in
@@ -811,25 +851,19 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
     for (int v = 0; v < kSweepVec; ++v) {
       if (n0 + v < n_pad) {
         if (!kF32) d_out[n0 + v] = dv[v];
-        sweep_column(s_acc, dv[v], wv[v], dens, close);
+        sweep_column(s_acc, threadIdx.x, dv[v], wv[v], dens, close);
       }
     }
   }
 
   // this CTA's sums: row kNbins is the density; thread r sums row r over
   // the 64 threads
-  static_assert(kSweepThreads == 64 && kSweepRows <= kSweepThreads, "a thread a row");
   s_acc[kNbins][threadIdx.x] = dens;
   const int warp_close = __reduce_add_sync(0xffffffffu, close);
   if ((threadIdx.x & 31) == 0) s_close[threadIdx.x >> 5] = warp_close;
   __syncthreads();
   const int r = threadIdx.x;
-  if (r < kSweepRows) {
-    float w[kSweepThreads];
-#pragma unroll
-    for (int k = 0; k < kSweepThreads; ++k) w[k] = s_acc[r][(k + r) & (kSweepThreads - 1)];
-    partials[(size_t)blockIdx.x * kSweepSlots + r] = halving64(w);
-  }
+  sweep_cta_row(s_acc, r, partials + (size_t)blockIdx.x * kSweepSlots);
   if (threadIdx.x == 0) close_partials[blockIdx.x] = s_close[0] + s_close[1];
 
   // the ticket: publish this CTA's partials, then count it as done
@@ -839,34 +873,13 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  // the last CTA: thread r sums row r over the CTAs, the halving tree over
-  // kSweepMaxBlocks rows (zeros past B): rows t and t + 64 fold first, then
-  // the tree over t
-  constexpr int kFold = kSweepMaxBlocks / kSweepThreads;  // partial rows a t
-  static_assert(kFold * kSweepThreads == kSweepMaxBlocks && (kFold & (kFold - 1)) == 0,
-                "a power-of-two number of partial rows a t");
+  // the last CTA: thread r sums row r over the CTAs (sweep_total)
   const int nb = gridDim.x;
   int c = 0;
   for (int b = threadIdx.x; b < nb; b += kSweepThreads) c += __ldcg(close_partials + b);
   c = __reduce_add_sync(0xffffffffu, c);
   if (r < kSweepRows) {
-    float y[kSweepThreads];
-#pragma unroll
-    for (int t = 0; t < kSweepThreads; ++t) {
-      float x[kFold];
-#pragma unroll
-      for (int j = 0; j < kFold; ++j) {
-        const int b = t + j * kSweepThreads;
-        x[j] = b < nb ? __ldcg(partials + (size_t)b * kSweepSlots + r) : 0.0f;
-      }
-#pragma unroll
-      for (int h = kFold / 2; h > 0; h >>= 1) {
-#pragma unroll
-        for (int j = 0; j < h; ++j) x[j] = __fadd_rn(x[j], x[j + h]);
-      }
-      y[t] = x[0];
-    }
-    const float total = halving64(y);
+    const float total = sweep_total(partials, nb, r);
     if (r < kNbins) {
       hist[r] = total;
     } else {
@@ -879,6 +892,268 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
     *n_close = s_close[0] + s_close[1];
     *ticket = 0u;
   }
+}
+
+// ------------------------------------------------------ spec_sweep, row_stats
+// `spec_sweep` replaces the speculative seed cache's batched rows in
+// `vamb_tpu` (cluster.py:498-515, `spec_batch`, an XLA einsum outside
+// Pallas, also the attempt lanes' final rows, :1446-1456): the distance rows
+// of S <= 8 columns in one pass over the matrix, rows[s, cols[s]] = 0, with
+// each row's 60-bin histogram, density, close count (d < 0.05) and near
+// count (d <= 0.05) over the columns with w > 0. `row_stats` takes S given
+// rows and computes the same sums: a cached row's sums under the current
+// kept mask, and the loner flags of the burst (:1100, :1104-1112; near
+// count 1). Contract: row s and its sums are bit for bit what medoid_sweep
+// returns for column cols[s] (for row_stats, for a column whose row is
+// rows[s]), so a cached row and a fresh sweep cannot be told apart.
+//
+// Bound on the H100: bytes. spec_sweep reads the matrix and w once and
+// writes S rows; row_stats reads S rows and w. Design:
+// * Summation order: medoid_sweep's, by construction. A CTA holds S groups
+//   of 64 threads, group g for row g, and the grid is medoid_sweep's; thread
+//   tid of group g owns the columns that thread tid of medoid_sweep's CTA
+//   owns (the same tiles, the same 4 columns of each), adds their terms in
+//   the same order into its own [bin][thread] histogram row
+//   (`sweep_column`), and the partial rows and the last CTA's totals are
+//   medoid_sweep's code (`sweep_cta_row`, `sweep_total`), a group a row.
+// * One read of the matrix (spec_sweep). The CTA stages a tile's columns 8
+//   features at a time through a ring of 4 shared-memory chunks, cp.async
+//   copies shared by all S groups with one barrier a chunk, and each group
+//   multiplies the chunk by its column's features in feature order with
+//   separately rounded products and sums (row_sweep's arithmetic). Any
+//   F_pad: the last chunk stops at F_pad.
+// * Shared memory: S private histograms (61 x 64 floats each, 125 KB at S
+//   8) and the 32 KB ring, so a CTA takes up to ~170 KB of dynamic shared
+//   memory and an SM runs one CTA of up to 16 warps.
+// * One launch: an integer ticket elects the last CTA, as in medoid_sweep;
+//   the counts are integers.
+constexpr int kSpecSeeds = 8;  // S at most: vamb_tpu's _SPEC_SEEDS
+constexpr int kSpecChunk = 8;  // features a staged chunk holds
+constexpr int kSpecRing = 4;  // staged chunks in flight
+constexpr int kBatchThreads = kSweepThreads * kSpecSeeds;
+
+inline size_t spec_ring_bytes() {
+  return (size_t)kSpecRing * kSpecChunk * kSweepThreads * sizeof(float4);
+}
+
+inline size_t batch_hist_bytes(int s_count) {
+  return (size_t)s_count * kSweepRows * kSweepThreads * sizeof(float);
+}
+
+// Group g's sums once its columns are added: the CTA's partial rows and
+// counts, then in the CTA that draws the last ticket the totals of each row
+// (`sweep_total`) and of its counts. Every thread of the CTA calls it.
+__device__ __forceinline__ void batch_finish(float (*s_acc)[kSweepThreads], int g, int tid,
+                                             float dens, int close, int near,
+                                             float* __restrict__ partials,
+                                             int* __restrict__ count_partials,
+                                             unsigned int* __restrict__ ticket,
+                                             float* __restrict__ sums, int* __restrict__ counts) {
+  __shared__ int s_cnt[kSpecSeeds][2][2];  // [group][warp][close, near]
+  __shared__ bool s_last;
+  s_acc[kNbins][tid] = dens;
+  const int wc = __reduce_add_sync(0xffffffffu, close);
+  const int wn = __reduce_add_sync(0xffffffffu, near);
+  if ((tid & 31) == 0) {
+    s_cnt[g][tid >> 5][0] = wc;
+    s_cnt[g][tid >> 5][1] = wn;
+  }
+  __syncthreads();
+  const size_t row0 = (size_t)g * kSweepMaxBlocks;  // group g's partial rows
+  sweep_cta_row(s_acc, tid, partials + (row0 + blockIdx.x) * kSweepSlots);
+  if (tid < 2) count_partials[(row0 + blockIdx.x) * 2 + tid] = s_cnt[g][0][tid] + s_cnt[g][1][tid];
+
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int nb = gridDim.x;
+  int c = 0, m = 0;
+  for (int b = tid; b < nb; b += kSweepThreads) {
+    c += __ldcg(count_partials + (row0 + b) * 2);
+    m += __ldcg(count_partials + (row0 + b) * 2 + 1);
+  }
+  c = __reduce_add_sync(0xffffffffu, c);
+  m = __reduce_add_sync(0xffffffffu, m);
+  if (tid < kSweepRows) {
+    sums[(size_t)g * kSweepRows + tid] = sweep_total(partials + row0 * kSweepSlots, nb, tid);
+  }
+  if ((tid & 31) == 0) {
+    s_cnt[g][tid >> 5][0] = c;
+    s_cnt[g][tid >> 5][1] = m;
+  }
+  __syncthreads();
+  if (tid < 2) counts[g * 2 + tid] = s_cnt[g][0][tid] + s_cnt[g][1][tid];
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// A column's terms for group g: medoid_sweep's, and the near count.
+__device__ __forceinline__ void batch_column(float (*s_acc)[kSweepThreads], int tid, float d,
+                                             float wv, float& dens, int& close, int& near) {
+  sweep_column(s_acc, tid, d, wv, dens, close);
+  near += wv > 0.0f && d <= kMedoidRadius;
+}
+
+// kVec: N_pad % 4 == 0 and m, w, rows 16-byte aligned (cp.async copies and
+// float4 loads and stores); else scalar loads and stores, zeros past N_pad.
+template <bool kVec>
+__global__ void __launch_bounds__(kBatchThreads)
+spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int c1, int c2,
+                  int c3, int c4, int c5, int c6, int c7, int s_count,
+                  const float* __restrict__ w, float* __restrict__ rows,
+                  float* __restrict__ partials, int* __restrict__ count_partials,
+                  unsigned int* __restrict__ ticket, float* __restrict__ sums,
+                  int* __restrict__ counts) {
+  extern __shared__ float4 s_dyn[];
+  float4* ring = s_dyn;  // [kSpecRing][kSpecChunk][kSweepThreads]
+  float* hist0 = reinterpret_cast<float*>(s_dyn + kSpecRing * kSpecChunk * kSweepThreads);
+  float* feat = hist0 + (size_t)s_count * kSweepRows * kSweepThreads;  // [S][f_pad]
+  const int g = threadIdx.x / kSweepThreads;
+  const int tid = threadIdx.x % kSweepThreads;
+  float (*s_acc)[kSweepThreads] =
+      reinterpret_cast<float (*)[kSweepThreads]>(hist0 + (size_t)g * kSweepRows * kSweepThreads);
+  const int cols[kSpecSeeds] = {c0, c1, c2, c3, c4, c5, c6, c7};
+  const int tiles = (n_pad + kSweepTileCols - 1) / kSweepTileCols;
+  const int ntile = (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int nq = (f_pad + kSpecChunk - 1) / kSpecChunk;
+  const int total = ntile * nq;  // stages: chunk q of tile i is stage i * nq + q
+  auto first_col = [&](int i, int t) {
+    return ((blockIdx.x + i * gridDim.x) * kSweepThreads + t) * kSweepVec;
+  };
+  auto issue = [&](int st) {  // stage st into ring buffer st % kSpecRing
+    if (st < total) {
+      const int i = st / nq;
+      const int q = st % nq;
+      float4* buf = ring + (st % kSpecRing) * kSpecChunk * kSweepThreads;
+      for (int k = threadIdx.x; k < kSpecChunk * kSweepThreads; k += blockDim.x) {
+        const int f = q * kSpecChunk + k / kSweepThreads;
+        const int n0 = first_col(i, k % kSweepThreads);
+        if (f < f_pad && n0 < n_pad) {
+          const float* src = m + (size_t)f * n_pad + n0;
+          if constexpr (kVec) {
+            cp_async16(buf + k, src);
+          } else {
+            buf[k] = make_float4(src[0], n0 + 1 < n_pad ? src[1] : 0.0f,
+                                 n0 + 2 < n_pad ? src[2] : 0.0f, n0 + 3 < n_pad ? src[3] : 0.0f);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < kSpecRing - 1; ++st) issue(st);  // copies overlap the set-up
+  for (int i = threadIdx.x; i < s_count * f_pad; i += blockDim.x) {
+    feat[i] = m[(size_t)(i % f_pad) * n_pad + cols[i / f_pad]];
+  }
+#pragma unroll 4
+  for (int r = 0; r < kSweepRows; ++r) s_acc[r][tid] = 0.0f;
+  const int col = cols[g];
+  const float* my_feat = feat + (size_t)g * f_pad;
+  float dens = 0.0f;
+  int close = 0, near = 0;
+  float a[kSweepVec] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int st = 0; st < total; ++st) {
+    cp_async_wait<kSpecRing - 2>();  // this thread's copies of stage st have landed
+    __syncthreads();  // everyone's, and stage st - 1's buffer is free again
+    issue(st + kSpecRing - 1);
+    const int i = st / nq;
+    const int q = st % nq;
+    if (q == 0) {
+#pragma unroll
+      for (int v = 0; v < kSweepVec; ++v) a[v] = 0.0f;
+    }
+    const int n0 = first_col(i, tid);
+    if (n0 >= n_pad) continue;
+    const float4* buf = ring + (st % kSpecRing) * kSpecChunk * kSweepThreads + tid;
+    const int kn = min(kSpecChunk, f_pad - q * kSpecChunk);
+    for (int k = 0; k < kn; ++k) {
+      const float4 v = buf[k * kSweepThreads];
+      const float c = my_feat[q * kSpecChunk + k];
+      a[0] = mul_add_rn(a[0], v.x, c);
+      a[1] = mul_add_rn(a[1], v.y, c);
+      a[2] = mul_add_rn(a[2], v.z, c);
+      a[3] = mul_add_rn(a[3], v.w, c);
+    }
+    if (q != nq - 1) continue;
+    // the tile's last chunk: its row and its terms
+    float dv[kSweepVec], wv[kSweepVec];
+#pragma unroll
+    for (int v = 0; v < kSweepVec; ++v) {
+      dv[v] = (n0 + v == col) ? 0.0f : __fsub_rn(0.5f, a[v]);
+    }
+    float* out = rows + (size_t)g * n_pad + n0;
+    if constexpr (kVec) {
+      unpack(*reinterpret_cast<const float4*>(w + n0), wv);
+      *reinterpret_cast<float4*>(out) = make_float4(dv[0], dv[1], dv[2], dv[3]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kSweepVec; ++v) {
+        wv[v] = n0 + v < n_pad ? w[n0 + v] : 0.0f;
+        if (n0 + v < n_pad) out[v] = dv[v];
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < kSweepVec; ++v) {
+      if (n0 + v < n_pad) batch_column(s_acc, tid, dv[v], wv[v], dens, close, near);
+    }
+  }
+  cp_async_wait<0>();
+  batch_finish(s_acc, g, tid, dens, close, near, partials, count_partials, ticket, sums, counts);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBatchThreads)
+row_stats_kernel(const float* __restrict__ rows, int n_pad, const float* __restrict__ w,
+                 float* __restrict__ partials, int* __restrict__ count_partials,
+                 unsigned int* __restrict__ ticket, float* __restrict__ sums,
+                 int* __restrict__ counts) {
+  extern __shared__ float4 s_dyn[];
+  const int g = threadIdx.x / kSweepThreads;
+  const int tid = threadIdx.x % kSweepThreads;
+  float (*s_acc)[kSweepThreads] = reinterpret_cast<float (*)[kSweepThreads]>(
+      reinterpret_cast<float*>(s_dyn) + (size_t)g * kSweepRows * kSweepThreads);
+#pragma unroll 4
+  for (int r = 0; r < kSweepRows; ++r) s_acc[r][tid] = 0.0f;
+  const int tiles = (n_pad + kSweepTileCols - 1) / kSweepTileCols;
+  const int ntile = (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const float* row = rows + (size_t)g * n_pad;
+  float dens = 0.0f;
+  int close = 0, near = 0;
+#pragma unroll 2
+  for (int i = 0; i < ntile; ++i) {
+    const int n0 = ((blockIdx.x + i * gridDim.x) * kSweepThreads + tid) * kSweepVec;
+    if (n0 >= n_pad) continue;
+    float dv[kSweepVec], wv[kSweepVec];
+    if constexpr (kVec) {
+      unpack(__ldg(reinterpret_cast<const float4*>(row + n0)), dv);
+      unpack(__ldg(reinterpret_cast<const float4*>(w + n0)), wv);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kSweepVec; ++v) {
+        dv[v] = n0 + v < n_pad ? row[n0 + v] : 0.0f;
+        wv[v] = n0 + v < n_pad ? w[n0 + v] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < kSweepVec; ++v) {
+      if (n0 + v < n_pad) batch_column(s_acc, tid, dv[v], wv[v], dens, close, near);
+    }
+  }
+  batch_finish(s_acc, g, tid, dens, close, near, partials, count_partials, ticket, sums, counts);
+}
+
+// The dynamic shared memory a batch kernel may take above 48 KB, raised
+// once for each kernel to the most it has asked for.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) allowed = smem;
+  return e;
 }
 
 // -------------------------------------------------------------- gumbel_topc
@@ -1203,6 +1478,48 @@ int vt_medoid_sweep(const float* m, int f_pad, int n_pad, int idx, const float* 
   }
   return (int)cudaGetLastError();
 }
+
+int vt_spec_sweep(const float* m, int f_pad, int n_pad, int c0, int c1, int c2, int c3, int c4,
+                  int c5, int c6, int c7, int s_count, const float* w, float* rows,
+                  float* partials, int* count_partials, unsigned int* ticket, float* sums,
+                  int* counts, void* stream) {
+  const int cols[kSpecSeeds] = {c0, c1, c2, c3, c4, c5, c6, c7};
+  if (n_pad < 1 || f_pad < 1 || s_count < 1 || s_count > kSpecSeeds) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int s = 0; s < s_count; ++s) {
+    if (cols[s] < 0 || cols[s] >= n_pad) return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = spec_ring_bytes() + batch_hist_bytes(s_count) +
+                      (size_t)s_count * f_pad * sizeof(float);
+  const bool vec = n_pad % kSweepVec == 0 && (uintptr_t)m % 16 == 0 && (uintptr_t)w % 16 == 0 &&
+                   (uintptr_t)rows % 16 == 0;
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};
+  const auto kernel = vec ? spec_sweep_kernel<true> : spec_sweep_kernel<false>;
+  const cudaError_t e = allow_smem(kernel, smem, allowed[vec]);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<sweep_col_blocks(n_pad), kSweepThreads * s_count, smem, (cudaStream_t)stream>>>(
+      m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, w, rows, partials,
+      count_partials, ticket, sums, counts);
+  return (int)cudaGetLastError();
+}
+
+int vt_row_stats(const float* rows, int n_pad, int s_count, const float* w, float* partials,
+                 int* count_partials, unsigned int* ticket, float* sums, int* counts,
+                 void* stream) {
+  if (n_pad < 1 || s_count < 1 || s_count > kSpecSeeds) return (int)cudaErrorInvalidValue;
+  const size_t smem = batch_hist_bytes(s_count);
+  const bool vec = n_pad % kSweepVec == 0 && (uintptr_t)rows % 16 == 0 && (uintptr_t)w % 16 == 0;
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};
+  const auto kernel = vec ? row_stats_kernel<true> : row_stats_kernel<false>;
+  const cudaError_t e = allow_smem(kernel, smem, allowed[vec]);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<sweep_col_blocks(n_pad), kSweepThreads * s_count, smem, (cudaStream_t)stream>>>(
+      rows, n_pad, w, partials, count_partials, ticket, sums, counts);
+  return (int)cudaGetLastError();
+}
+
+int vt_spec_seeds() { return kSpecSeeds; }
 
 int vt_gumbel_topc(unsigned int k0, unsigned int k1, int n, const float* d,
                    const unsigned char* kept, const unsigned char* tried, int medoid, int c,

@@ -17,6 +17,7 @@ k-means run on `GeneralOptions.device` ("cuda" unless the caller asks for
 """
 
 import itertools
+import json
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -405,6 +406,10 @@ def cluster_and_write_files(
         if split_path is not None:
             split_path.close()
 
+    logger.info(
+        f"\tEngine: subset wander {json.dumps(generator.subset_counts)}; "
+        f"seed cache, bursts and lanes {json.dumps(generator.lane_counts)}"
+    )
     binsplitter.log_clustering_result(
         n_total, n_split_clusters, n_unsplit_clusters, begintime
     )
