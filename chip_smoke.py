@@ -186,11 +186,15 @@ and times each at every
 path width for several candidate-group counts, each held bit for bit
 against its plain version: the measurement behind the committed layout.
 
-    python3 chip_smoke.py --layouts
+    python3 chip_smoke.py --layouts [SOURCE]
 
-does the same for the gather (copies a thread) and for `medoid_sweep`
-(its most CTAs, which fixes its summation order) at the widths the main
-paths give them.
+does the same for the gather (copies a thread), for `medoid_sweep` (its
+most CTAs, which fixes its summation order) and for `spec_sweep` and
+`row_stats` (`BATCH_LAYOUTS`) at the widths the main paths give them,
+with unchecked diagnostic variants that show where the time goes. With
+SOURCE, a `cluster_kernels.cu` of another checkout (say the parent's,
+unpacked by `git archive` under `chip_scratch/`), it builds and times
+that source's `spec_sweep` and `row_stats` layouts alone.
 """
 
 import itertools
@@ -2565,29 +2569,72 @@ SWEEP_LAYOUTS = {
                          {"_SWEEP_MAX_BLOCKS": 512}),
     # diagnostics, not checked against a plain version: where the time goes
     "diagnostic: no histogram adds": ([("    if (d >= 0.0f && d <= kXmax) {", "    if (false) {")], None),
-    "diagnostic: no last CTA": ([("== gridDim.x - 1;\n  __syncthreads();\n  if (!s_last) return;",
-                                  "== gridDim.x - 1;\n  __syncthreads();\n  return;")], None),
+    "diagnostic: no last CTA": ([("  if (!s_last) return;\n  __threadfence();\n  // the last CTA: thread r",
+                                  "  return;\n  __threadfence();\n  // the last CTA: thread r")], None),
+}
+# `spec_sweep` and `row_stats` (S 8). `--layouts SOURCE` builds them from
+# another checkout's source (e.g. the parent's) for a comparison in one
+# call, where a layout whose text that source lacks is skipped.
+# The `spec_sweep` variants change the register tile's columns a thread;
+# "phases" stamps each CTA's phases with the card's clock (`batch_phases`);
+# "no histogram adds" skips every histogram add (`sweep_column`);
+# "spec_sweep's stream alone" stops it once its rows are written; "no last
+# CTA" skips the cross-CTA totals; "rows only, no finish" stops each CTA
+# before any sum leaves it (a compiler may then drop sums nothing reads).
+BATCH_LAYOUTS = {
+    "committed": ([], {}),
+    "spec_sweep: 1 column a thread": ([("constexpr int kSpecVec = 2;", "constexpr int kSpecVec = 1;")], {}),
+    "spec_sweep: 4 columns a thread": ([("constexpr int kSpecVec = 2;", "constexpr int kSpecVec = 4;")], {}),
+    "diagnostic: phases": ([
+        ("#define BATCH_PHASE(k)\n",
+         "__device__ unsigned long long g_batch_phase[4096 * 8 * 2];\n"
+         "#define BATCH_PHASE(k) do { if (threadIdx.x == 0) { unsigned long long t_;"
+         " asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_));"
+         " const size_t i_ = ((size_t)(blockIdx.y * gridDim.x + blockIdx.x) * 8 + (k)) * 2;"
+         " g_batch_phase[i_] = t_; g_batch_phase[i_ + 1] = clock64(); } } while (0)\n"),
+        ("}  // extern \"C\"\n",
+         "int vt_batch_phases(void* dst) {\n  void* p = nullptr;\n"
+         "  cudaError_t e = cudaGetSymbolAddress(&p, g_batch_phase);\n"
+         "  if (e == cudaSuccess) e = cudaMemcpy(dst, p, sizeof(g_batch_phase), cudaMemcpyDeviceToHost);\n"
+         "  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(g_batch_phase));\n"
+         "  return (int)e;\n}\n}  // extern \"C\"\n")], None),
+    "diagnostic: no histogram adds": ([("    if (d >= 0.0f && d <= kXmax) {", "    if (false) {")], None),
+    "diagnostic: spec_sweep's stream alone": ([
+        ("  __syncthreads();  // the CTA's rows are written and the ring is free\n", "  return;\n")], None),
+    "diagnostic: no last CTA": ([("s_last = atomicAdd(ticket, 1u) == n - 1;",
+                                  "s_last = atomicAdd(ticket, 1u) == n - 1 && false;")], None),
+    "diagnostic: rows only, no finish": ([("  // the CTA's partial rows\n", "  return;\n")], None),
 }
 
 
-def build_layouts(layouts: dict) -> dict:
-    """Build each layout's edited source into its own library, one nvcc
-    each, all started together; log each kernel's registers. Returns
-    {name: (ctypes library, plain-version constants)}."""
+def build_layouts(layouts: dict, kind: str, source: Path = None) -> dict:
+    """Build each layout's edited source (the checkout's, or `source`) into
+    its own library (named by `kind`, the layout and the source), one nvcc
+    each, all started together; log each kernel's registers. An edit is a
+    pair (text, replacement). On the checkout's source an edit whose text
+    is missing, or a layout that does not build, fails the run; on another
+    `source` (a design the layouts were not written for) such a layout is
+    logged and left out. Returns {name: (ctypes library, plain-version
+    constants)}."""
     import ctypes
+    import hashlib
 
     from vamb_torch.kernels import cluster_kernels as CK
 
-    src = CK._SOURCE.read_text()
+    src = Path(source or CK._SOURCE).read_text()
     out = ROOT / "vamb_torch" / "kernels" / "_build" / "layouts"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (edits, _) in layouts.items():
+    for name, (edits, consts) in layouts.items():
         text = src
+        missing = [a for a, _ in edits if a not in src]
+        if missing and source is not None:
+            log(f"layout {name}: not in {source}, skipped")
+            continue
+        check(not missing, f"layout {name}: its edits' text {missing} is not in the source")
         for a, b in edits:
-            check(a in text, f"layout {name}: {a!r} not in the source")
             text = text.replace(a, b)
-        tag = re.sub(r"\W+", "_", name)
+        tag = re.sub(r"\W+", "_", f"{kind} {name}") + "_" + hashlib.sha256(src.encode()).hexdigest()[:8]
         (out / f"{tag}.cu").write_text(text)
         procs[name] = (tag, subprocess.Popen(
             [CK._nvcc(), *CK.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / f"{tag}.so"), str(out / f"{tag}.cu")],
@@ -2595,6 +2642,9 @@ def build_layouts(layouts: dict) -> dict:
     libs = {}
     for name, (tag, proc) in procs.items():
         text = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0 and source is not None:
+            log(f"layout {name} failed to build from {source}, left out: {text[-1500:]}")
+            continue
         check(proc.returncode == 0, f"layout {name} failed to build: {text[-2000:]}")
         regs = [ln.split(":")[-1].strip() for ln in text.splitlines() if "Used" in ln]
         log(f"layout {name}: registers of its kernels {regs}")
@@ -2628,7 +2678,7 @@ def density_layouts() -> int:
 
     from vamb_torch.kernels import cluster_kernels as CK
 
-    libs = build_layouts(DENSITY_LAYOUTS)
+    libs = build_layouts(DENSITY_LAYOUTS, "density")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -2673,7 +2723,7 @@ def gather_and_sweep_layouts() -> int:
 
     from vamb_torch.kernels import cluster_kernels as CK
 
-    libs = build_layouts({**GATHER_LAYOUTS, **SWEEP_LAYOUTS})
+    libs = build_layouts({**GATHER_LAYOUTS, **SWEEP_LAYOUTS}, "sweep")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -2731,6 +2781,108 @@ def gather_and_sweep_layouts() -> int:
                             "ms": time_ms(run)}))
     print(nvidia_smi_line())
     return 0
+
+
+def batch_phases(lib, fn, n: int, rows: int) -> dict:
+    """One L2-cold call of a batch kernel built with its phase marks
+    (`BATCH_PHASE`, the "diagnostic: phases" layout): the card's clock
+    (ns) at each mark of each CTA, relative to the first CTA's start; per
+    mark, the median and the latest over the CTAs; the last CTA's marks;
+    and the median cycles (clock64) a CTA spends between marks. Marks: 0
+    start, 1 stream done (spec_sweep), 2 rows written, 3 chains done, 4
+    counts gathered, 5 partial rows written, 6 ticket drawn, 7 totals
+    written (the last CTA)."""
+    import ctypes
+
+    lib.vt_batch_phases.argtypes = [ctypes.c_void_p]
+    lib.vt_batch_phases.restype = ctypes.c_int
+    buf = np.zeros((4096, 8, 2), dtype=np.uint64)
+    from vamb_torch.kernels import cluster_kernels as CK
+
+    ctas = CK.sweep_col_blocks(n)[1] * rows
+    for _ in range(3):  # the last call's marks, L2 cold
+        torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_()
+        check(lib.vt_batch_phases(buf.ctypes.data) == 0, "phases: reset")
+        fn()
+        torch.cuda.synchronize()
+    check(lib.vt_batch_phases(buf.ctypes.data) == 0, "phases: read")
+    gt, clk = buf[:ctas, :, 0].astype(np.float64), buf[:ctas, :, 1].astype(np.float64)
+    t0 = gt[:, 0].min()
+    out = {"ctas": ctas, "median_ns": {}, "latest_ns": {}, "median_cycles_since_previous_mark": {}}
+    for k in range(7):
+        seen = gt[:, k] > 0
+        if seen.any():
+            out["median_ns"][k] = float(np.median(gt[seen, k] - t0))
+            out["latest_ns"][k] = float((gt[seen, k] - t0).max())
+            prev = [j for j in range(k) if (gt[seen, j] > 0).all()]
+            if prev:
+                out["median_cycles_since_previous_mark"][k] = float(np.median(clk[seen, k] - clk[seen, prev[-1]]))
+    last = np.nonzero(gt[:, 7] > 0)[0]
+    out["last_ctas_ns"] = {int(c): {k: float(gt[c, k] - t0) for k in range(8) if gt[c, k] > 0} for c in last[:8]}
+    return out
+
+
+def batch_layouts(source: Path = None) -> None:
+    """Time each layout of `BATCH_LAYOUTS`, built from the checkout's
+    source or `source`: `spec_sweep` and `row_stats` at S 8 (its rows the
+    plain version's), L2 cold, at the widths the main paths give them (F_pad
+    32) and at 100,096 columns (F_pad 288); each layout that is not a
+    diagnostic equal to the plain versions bit for bit. One JSON line per
+    (kernel, F_pad, width, layout), with the card's name and power limit."""
+    import ctypes
+
+    from vamb_torch.kernels import cluster_kernels as CK
+
+    libs = build_layouts(BATCH_LAYOUTS, "batch", source)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    card = nvidia_smi_line()
+    s = SPEC_SEEDS
+    for f_pad, widths in ((F_PAD, PATH_WIDTHS[1:]), (AAE_F_PAD, PATH_WIDTHS[1:2])):
+        for n in widths:
+            mT = torch.as_tensor(clumpy_matrixT(n, f_pad, seed=5), device=dev)
+            w = torch.as_tensor(weights(n, seed=5), device=dev)
+            cols = [int(c) for c in np.random.default_rng(6).choice(n, s, replace=False)]
+            expect = CK.spec_sweep_plain(mT, cols, w)
+            for name, (lib, consts) in libs.items():
+                lib.vt_spec_sweep.argtypes = [vp, ci, ci, *[ci] * s, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+                lib.vt_spec_sweep.restype = ci
+                lib.vt_row_stats.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp]
+                lib.vt_row_stats.restype = ci
+                # a workspace of its own: a diagnostic leaves its tickets counted
+                partials = torch.zeros((s, CK._SWEEP_MAX_BLOCKS, CK._SWEEP_SLOTS), device=dev)
+                count_partials = torch.zeros((s, CK._SWEEP_MAX_BLOCKS, 2), dtype=torch.int32, device=dev)
+                ticket = torch.zeros(s, dtype=torch.int32, device=dev)
+                rows = torch.empty((s, n), device=dev)
+                sums = torch.empty((s, CK._NBINS + 1), device=dev)
+                counts = torch.empty((s, 2), dtype=torch.int32, device=dev)
+                ws = (partials.data_ptr(), count_partials.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
+                      counts.data_ptr(), stream)
+
+                def spec():
+                    err = lib.vt_spec_sweep(mT.data_ptr(), f_pad, n, *cols, s, w.data_ptr(), rows.data_ptr(), *ws)
+                    check(err == 0, f"layout {name}: spec_sweep launch error {err}")
+
+                def stats():
+                    err = lib.vt_row_stats(expect[0].data_ptr(), n, s, w.data_ptr(), *ws)
+                    check(err == 0, f"layout {name}: row_stats launch error {err}")
+                checked = consts is not None
+                for kernel, fn, got in (("spec_sweep", spec, (rows, sums, counts)), ("row_stats", stats, (sums, counts))):
+                    if name == "diagnostic: phases":
+                        log(json.dumps({"kernel": kernel, "f_pad": f_pad, "n_pad": n, "layout": name,
+                                        "phases": batch_phases(lib, fn, n, s if kernel == "row_stats" else 1),
+                                        "card": card}))
+                    fn()
+                    torch.cuda.synchronize()
+                    if checked:
+                        want = (*expect[:1], torch.cat([expect[1], expect[2][:, None]], 1),
+                                torch.stack(expect[3:], 1))[-len(got):]
+                        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                              f"layout {name}, {kernel}, F_pad {f_pad}, N {n}: differs from its plain version")
+                    log(json.dumps({"kernel": kernel, "f_pad": f_pad, "n_pad": n, "s": s, "layout": name,
+                                    "source": str(source or CLUSTER_SOURCE), "checked": checked,
+                                    "ms": time_ms(fn), "card": card}))
 
 
 # ------------------------------------------------------------------ main
@@ -2896,7 +3048,14 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--density-layouts"]:
         sys.exit(density_layouts() if torch.cuda.is_available() else 1)
     if sys.argv[1:2] == ["--layouts"]:
-        sys.exit(gather_and_sweep_layouts() if torch.cuda.is_available() else 1)
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        if len(sys.argv) > 2:  # another checkout's source: its batch kernels alone
+            batch_layouts(Path(sys.argv[2]).resolve())
+            sys.exit(0)
+        gather_and_sweep_layouts()
+        batch_layouts()
+        sys.exit(0)
     modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy",
              "--avamb": "avamb", "--lanes": "lanes"}
     sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

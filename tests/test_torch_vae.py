@@ -24,7 +24,11 @@
   two packages' f32 matmuls sum in another order, so a value within an ulp
   of a step can land one mask step (4096 ulps) away. Those are counted
   (1 of 6000 here) and each must be exactly one step off.
+* a model `vamb_tpu` trained at bf16 loads, encodes within the same
+  tolerance, saves back as "bf16" and refuses to train.
 """
+
+import io
 
 import numpy as np
 import pytest
@@ -388,6 +392,40 @@ def test_encode_shared_model(tmp_path):
     assert (~close).sum() <= lat_t.size // 1000, (~close).sum()
     assert (steps[~close] == 4096).all(), steps[~close]
     assert (np.sign(lat_t) == np.sign(lat_j))[~close].all()
+
+
+def test_bf16_model_loads_encodes_and_round_trips():
+    """A model.npz that vamb_tpu trained at bf16 loads into the port: it
+    encodes as vamb_tpu's does (encode runs at f32 whatever the training
+    precision; the mask-straddle tolerance of test_encode_shared_model),
+    saves again as "bf16" in a file vamb_tpu loads, and refuses to train
+    (bf16 training is ROADMAP queue 1, item 3)."""
+    buf = io.BytesIO()
+    jvae = JVAE(nsamples=3, nhiddens=[16, 16], nlatent=4, precision="bf16")
+    jvae.save(buf)
+    buf.seek(0)
+    tvae = TVAE.load(buf, device=CPU)
+    assert tvae.precision == "bf16"
+    ab, tnf, lengths = _raw(400, 3, seed=11)
+    lat_j = jvae.encode(j_dataset.make_dataset(ab.copy(), tnf.copy(), lengths))
+    ds_t = t_dataset.make_dataset(ab.copy(), tnf.copy(), lengths)
+    lat_t = tvae.encode(ds_t)
+    assert lat_t.dtype == np.float32 and lat_t.shape == (400, 4)
+    close = np.abs(lat_t - lat_j) <= 1e-6
+    steps = np.abs(lat_t.view(np.int32).astype(np.int64) - lat_j.view(np.int32))
+    assert (~close).sum() <= lat_t.size // 1000, (~close).sum()
+    assert (steps[~close] == 4096).all(), steps[~close]
+
+    out = io.BytesIO()
+    tvae.save(out)
+    out.seek(0)
+    assert load_flat(out)[1]["precision"] == "bf16"
+    out.seek(0)
+    back = JVAE.load(out)
+    assert back.precision == "bf16"
+    assert np.array_equal(back.params["enc"][0]["dense"]["w"], jvae.params["enc"][0]["dense"]["w"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
+        tvae.trainmodel(ds_t, nepochs=1, batchsize=64, batchsteps=None)
 
 
 def test_cuda_without_card_raises():

@@ -37,14 +37,17 @@ what its design does about it):
   batched rows (`vamb_tpu/cluster.py` :498-515, an XLA einsum, also the
   attempt lanes' final rows): S <= 8 columns' rows and sums in one pass
   over the matrix, each bit for bit `medoid_sweep`'s for its column, and
-  each row's near count (d <= 0.05). A CTA holds a group of 64 threads a
-  row over medoid_sweep's grid and reuses its summation code; the matrix
-  is staged once through shared memory for all groups. The engine's cache
-  refills and the lanes' final rows take it;
+  each row's near count (d <= 0.05). A CTA a `medoid_sweep` CTA: a
+  register tile computes all S rows of 2 columns a thread from each matrix
+  value loaded once, then each of medoid_sweep's threads adds its columns'
+  terms in its order, and the last CTA (an integer ticket) sums the CTAs'
+  rows from shared memory. The engine's cache refills and the lanes' final
+  rows take it;
 * `row_stats(rows, wts)`: the same sums of S given rows, for a cached row
   after points were removed and for the loner flags of a burst
   (:1100-1112); bit for bit what `medoid_sweep` returns for a column whose
-  row is the given one;
+  row is the given one. A CTA per (`medoid_sweep` CTA, row), and a ticket
+  and last CTA per row;
 * `gumbel_topc(key, d, kept, tried, medoid, C)` replaces a wander step's
   draw and selection (`vamb_tpu/cluster.py` :674-681, :775-782): every
   column's masked Gumbel score with jax's threefry bits and XLA's CPU log
@@ -624,15 +627,17 @@ _batch_ws: dict = {}
 
 
 def _batch_workspace(dev: torch.device, stream: int):
-    """The batch kernels' per-stream (8, 128, 64) partial rows, (8, 128, 2)
-    count partials and int32 ticket (the last CTA resets it)."""
+    """The batch kernels' per-stream (8, 64, 128) partial sums (row, sum,
+    CTA), (8, 128, 2) count partials and 8 int32 tickets (`row_stats`
+    draws one a row, `spec_sweep` the first; each last CTA resets its
+    own)."""
     key = (dev.index, stream)
     ws = _batch_ws.get(key)
     if ws is None:
-        ws = (torch.zeros((_SPEC_SEEDS, _SWEEP_MAX_BLOCKS, _SWEEP_SLOTS), dtype=torch.float32,
+        ws = (torch.zeros((_SPEC_SEEDS, _SWEEP_SLOTS, _SWEEP_MAX_BLOCKS), dtype=torch.float32,
                           device=dev),
               torch.zeros((_SPEC_SEEDS, _SWEEP_MAX_BLOCKS, 2), dtype=torch.int32, device=dev),
-              torch.zeros(1, dtype=torch.int32, device=dev))
+              torch.zeros(_SPEC_SEEDS, dtype=torch.int32, device=dev))
         _batch_ws[key] = ws
     return ws
 

@@ -81,8 +81,15 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
                : "memory");
 }
 
-// A thread's kDensVec neighbouring columns as one vector (8 or 16 bytes).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
+}
+
+// A thread's V neighbouring columns as one vector (4, 8 or 16 bytes).
 template <int V> struct VecOf;
+template <> struct VecOf<1> { using T = float; };
 template <> struct VecOf<2> { using T = float2; };
 template <> struct VecOf<4> { using T = float4; };
 
@@ -98,8 +105,10 @@ template <class T>
 __device__ __forceinline__ void cp_async_vec(T* smem, const float* gmem) {
   if constexpr (sizeof(T) == 16) {
     cp_async16(smem, gmem);
-  } else {
+  } else if constexpr (sizeof(T) == 8) {
     cp_async8(smem, gmem);
+  } else {
+    cp_async4(smem, gmem);
   }
 }
 
@@ -908,85 +917,217 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
 // rows[s]), so a cached row and a fresh sweep cannot be told apart.
 //
 // Bound on the H100: bytes. spec_sweep reads the matrix and w once and
-// writes S rows; row_stats reads S rows and w. Design:
-// * Summation order: medoid_sweep's, by construction. A CTA holds S groups
-//   of 64 threads, group g for row g, and the grid is medoid_sweep's; thread
-//   tid of group g owns the columns that thread tid of medoid_sweep's CTA
-//   owns (the same tiles, the same 4 columns of each), adds their terms in
-//   the same order into its own [bin][thread] histogram row
-//   (`sweep_column`), and the partial rows and the last CTA's totals are
-//   medoid_sweep's code (`sweep_cta_row`, `sweep_total`), a group a row.
-// * One read of the matrix (spec_sweep). The CTA stages a tile's columns 8
-//   features at a time through a ring of 4 shared-memory chunks, cp.async
-//   copies shared by all S groups with one barrier a chunk, and each group
-//   multiplies the chunk by its column's features in feature order with
-//   separately rounded products and sums (row_sweep's arithmetic). Any
-//   F_pad: the last chunk stops at F_pad.
-// * Shared memory: S private histograms (61 x 64 floats each, 125 KB at S
-//   8) and the 32 KB ring, so a CTA takes up to ~170 KB of dynamic shared
-//   memory and an SM runs one CTA of up to 16 warps.
-// * One launch: an integer ticket elects the last CTA, as in medoid_sweep;
-//   the counts are integers.
+// writes S rows; row_stats reads S rows and w. The sums keep medoid_sweep's
+// order: its logical thread tid < 64 of logical CTA b < B owns the same
+// columns and adds their terms in (tile, v) order into a private histogram
+// row (`sweep_column`), then halving trees run over the 64 threads
+// (`sweep_cta_row`) and over the B CTAs padded with zeros to 128. Which
+// physical thread computes a distance is free. Design:
+// * row_stats: a CTA of 64 threads per (logical CTA, row), S x B small CTAs
+//   (15.6 KB of histogram each, several an SM). A thread issues the loads
+//   of 8 of its tiles (its row and w) at once, then adds their terms in
+//   order (`batch_chains`).
+// * spec_sweep: a CTA of 512 threads per logical CTA, and a register tile:
+//   a thread computes all S rows of kSpecVec = 2 of logical thread tid's 4
+//   columns (two threads share them) in every fourth tile. Each matrix
+//   value is read once and multiplied by the S seeds' features, read as
+//   shared-memory broadcasts, in feature order with separately rounded
+//   products and sums (row_sweep's arithmetic). The values come through a
+//   ring of 128 KB, 4 stages of 8 features a thread, cp.async copies that
+//   the thread alone reads back (no barrier in the stream): 96 KB an SM in
+//   flight while a stage is read (loaded into registers 8 features ahead,
+//   the stream reached ~12 GB/s an SM). After one barrier, group q of 64
+//   threads runs logical thread tid's chains for row q, reading the rows
+//   back (L2), into S private histograms (61 x 64 floats each) in the
+//   ring's shared memory. The tile has 8 rows whatever S (rows past S
+//   multiply zero features and are not written): at S 8 its arithmetic is
+//   about a third of the bytes' time. 2 columns a thread against 1 and 4:
+//   chip_smoke.py --layouts. Any F_pad: features past it stage as zeros,
+//   which add +0 to sums that are never -0.
+// * The trees. In a CTA (`batch_cta_rows`) a warp sums 8 or more trees at
+//   once by shuffles, whose levels overlap; in the last CTA (`batch_total`),
+//   4 lanes a tree keep its first five levels in registers and shuffle the
+//   last two. A tree summed by one thread (`sweep_total`, whose 128 loads
+//   issue in turn) or kept as an array indexed by a halving loop (which
+//   nvcc leaves in local memory) costs microseconds a call; so do shuffles
+//   in a loop whose count depends on the warp (they compile as collectives)
+//   and 64-bit index arithmetic (chip_smoke.py --layouts, its phase stamps).
+// * The cross-CTA finish: an integer ticket elects the last CTA (row_stats
+//   has one a row, so its S last CTAs run at once), which copies the
+//   partial sums ([s][r][CTA], a sum's CTAs side by side) into its shared
+//   memory by 16-byte cp.async copies, all in flight at once, and sums each
+//   tree from there with `sweep_total`'s additions, zeros past B. No float
+//   atomics; the counts are integers.
 constexpr int kSpecSeeds = 8;  // S at most: vamb_tpu's _SPEC_SEEDS
-constexpr int kSpecChunk = 8;  // features a staged chunk holds
-constexpr int kSpecRing = 4;  // staged chunks in flight
-constexpr int kBatchThreads = kSweepThreads * kSpecSeeds;
+constexpr int kSpecThreads = 512;  // spec_sweep: 8 groups of 64 threads, a row's chains each
+constexpr int kSpecChainRows = kSpecThreads / kSweepThreads;  // group q: row q's chains
+constexpr int kSpecVec = 2;  // columns of a tile a thread computes, of its logical thread's 4
+constexpr int kSpecParts = kSweepVec / kSpecVec;  // threads that share those 4 columns
+constexpr int kSpecGroups = kSpecThreads / (kSweepThreads * kSpecParts);  // tiles at once
+constexpr int kSpecChunk = 8;  // features of a tile a stage of the ring holds
+constexpr int kSpecRingBytes = 128 * 1024;
+// stages a thread has staged: all but one in flight while one is read
+constexpr int kSpecRing = kSpecRingBytes / (kSpecChunk * kSpecThreads * kSpecVec * 4);
+constexpr int kChainTiles = 8;  // tiles whose loads a chain issues at once
+constexpr int kBatchHist = kSweepRows * kSweepThreads;  // a row's histogram: 61 x 64 floats
+constexpr int kRowStatsSmem = 16 * 1024;  // row_stats: the histogram, then 32 staged sums
+static_assert(kSweepThreads == 64, "the CTA tree folds t and t + 32, then a warp's");
+static_assert(kSweepMaxBlocks >= 8 && (kSweepMaxBlocks & (kSweepMaxBlocks - 1)) == 0,
+              "the last CTA's trees: 4 lanes a tree, a power of two");
+static_assert(kSpecSeeds == kSpecChainRows, "group q of 64 threads runs row q's chains");
+static_assert(kBatchHist * sizeof(float) <= kRowStatsSmem, "row_stats' histogram fits");
+static_assert(kSpecSeeds * kBatchHist * sizeof(float) <= kSpecRingBytes,
+              "spec_sweep's histograms fit the ring's shared memory");
 
-inline size_t spec_ring_bytes() {
-  return (size_t)kSpecRing * kSpecChunk * kSweepThreads * sizeof(float4);
-}
+// Phase marks of the batch kernels: empty here. A diagnostic build of
+// chip_smoke.py --layouts defines them to stamp each CTA's phases with the
+// card's clock.
+#define BATCH_PHASE(k)
 
-inline size_t batch_hist_bytes(int s_count) {
-  return (size_t)s_count * kSweepRows * kSweepThreads * sizeof(float);
-}
-
-// Group g's sums once its columns are added: the CTA's partial rows and
-// counts, then in the CTA that draws the last ticket the totals of each row
-// (`sweep_total`) and of its counts. Every thread of the CTA calls it.
-__device__ __forceinline__ void batch_finish(float (*s_acc)[kSweepThreads], int g, int tid,
-                                             float dens, int close, int near,
-                                             float* __restrict__ partials,
-                                             int* __restrict__ count_partials,
-                                             unsigned int* __restrict__ ticket,
-                                             float* __restrict__ sums, int* __restrict__ counts) {
-  __shared__ int s_cnt[kSpecSeeds][2][2];  // [group][warp][close, near]
+// Publish this CTA's partials and draw a ticket out of n: true in the CTA
+// that draws the last one, once every other CTA's partials are visible.
+// One thread fences, after the barrier that orders the others' writes
+// before its own (fences are cumulative).
+__device__ __forceinline__ bool batch_ticket(unsigned int* ticket, unsigned int n) {
   __shared__ bool s_last;
-  s_acc[kNbins][tid] = dens;
-  const int wc = __reduce_add_sync(0xffffffffu, close);
-  const int wn = __reduce_add_sync(0xffffffffu, near);
-  if ((tid & 31) == 0) {
-    s_cnt[g][tid >> 5][0] = wc;
-    s_cnt[g][tid >> 5][1] = wn;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == n - 1;
+    if (s_last) __threadfence();
   }
   __syncthreads();
-  const size_t row0 = (size_t)g * kSweepMaxBlocks;  // group g's partial rows
-  sweep_cta_row(s_acc, tid, partials + (row0 + blockIdx.x) * kSweepSlots);
-  if (tid < 2) count_partials[(row0 + blockIdx.x) * 2 + tid] = s_cnt[g][0][tid] + s_cnt[g][1][tid];
+  return s_last;
+}
 
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  const int nb = gridDim.x;
-  int c = 0, m = 0;
-  for (int b = tid; b < nb; b += kSweepThreads) {
-    c += __ldcg(count_partials + (row0 + b) * 2);
-    m += __ldcg(count_partials + (row0 + b) * 2 + 1);
+// `warp_tree` of kN values at once, level by level, so their shuffles
+// overlap: lane 0 of v[j] ends with warp_tree(v[j]).
+template <int kN>
+__device__ __forceinline__ void warp_trees(float (&v)[kN]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) v[j] = __fadd_rn(v[j], __shfl_down_sync(0xffffffffu, v[j], off));
   }
-  c = __reduce_add_sync(0xffffffffu, c);
-  m = __reduce_add_sync(0xffffffffu, m);
-  if (tid < kSweepRows) {
-    sums[(size_t)g * kSweepRows + tid] = sweep_total(partials + row0 * kSweepSlots, nb, tid);
+}
+
+// The CTA's partial rows: for each of its rows s < n_rows and sums r < 61, a warp sums the 64 threads' values hist_s[r][t] by
+// halving64's tree, lane l adding t = l and t = l + 32 from shared memory,
+// `warp_trees` the rest, and lane 0 writes partial [s][r][b] (b =
+// blockIdx.x; the CTAs of a sum side by side, so the last CTA reads them
+// in whole lines). Warp w takes the sums r = w, w + kWarps, ... of each
+// row at once (r past 60 reads sum 0 and writes nothing): loops whose
+// counts are the same in every warp, so the shuffles are under no branch
+// and overlap.
+template <int kWarps>
+__device__ __forceinline__ void batch_cta_rows(const float* __restrict__ hist0, int n_rows,
+                                               float* __restrict__ partials) {
+  constexpr int kPer = (kSweepRows + kWarps - 1) / kWarps;  // a warp's sums of a row
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int s = 0; s < n_rows; ++s) {
+    float v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int r = warp + j * kWarps;
+      const float* row = hist0 + s * kBatchHist + (r < kSweepRows ? r : 0) * kSweepThreads;
+      v[j] = __fadd_rn(row[lane], row[lane + 32]);
+    }
+    warp_trees(v);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int r = warp + j * kWarps;
+      if (lane == 0 && r < kSweepRows) {
+        partials[(s * kSweepSlots + r) * kSweepMaxBlocks + blockIdx.x] = v[j];
+      }
+    }
   }
-  if ((tid & 31) == 0) {
-    s_cnt[g][tid >> 5][0] = c;
-    s_cnt[g][tid >> 5][1] = m;
+}
+
+constexpr int kStagedStride = kSweepMaxBlocks + 4;  // a staged sum's floats: 4 mod 32
+
+// x[m] += x[m + kH] for m < kH, then the same for kH / 2, ..., 1: levels
+// written out by the template (a loop that halves its bound is not
+// unrolled by nvcc, and the array then lives in local memory, as
+// halving64's does).
+template <int kH, int kN>
+__device__ __forceinline__ void fold_levels(float (&x)[kN]) {
+  if constexpr (kH >= 1) {
+#pragma unroll
+    for (int m = 0; m < kH; ++m) x[m] = __fadd_rn(x[m], x[m + kH]);
+    fold_levels<kH / 2>(x);
   }
-  __syncthreads();
-  if (tid < 2) counts[g * 2 + tid] = s_cnt[g][0][tid] + s_cnt[g][1][tid];
-  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// The last CTA: the totals of rows s0 <= s < s1 over the nb CTAs' partials
+// ([s][r][b]) into sums (S, 61), and of their counts into counts (S, 2).
+// The (s, r) pairs go kRound at a time, as many as `stage` holds: each
+// pair's kSweepMaxBlocks partials copied by 16-byte cp.async copies, all
+// in flight at once (the first round's while a warp a (row, count) adds
+// the counts), kStagedStride floats apart. Then 4 lanes a pair: lane q
+// holds t = q, q + 4, ... (zeros past nb), and sweep_total's tree pairs t
+// with t + 64, + 32, + 16, + 8 and + 4 (at 128 CTAs) within the lane, in
+// registers; t + 2 and t + 1 are two shuffles. 8 pairs a warp at once,
+// whose loads meet no bank twice.
+template <int kWarps, int kRound>
+__device__ void batch_total(const float* __restrict__ partials,
+                            const int* __restrict__ count_partials, int nb, int s0, int s1,
+                            float* __restrict__ stage, float* __restrict__ sums,
+                            int* __restrict__ counts) {
+  constexpr int kSumVecs = kSweepMaxBlocks / 4;  // float4 of a sum's partials
+  constexpr int kGroups = (kRound + 8 * kWarps - 1) / (8 * kWarps);  // a warp's 8 pairs at once
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int total = (s1 - s0) * kSweepRows;  // pair e: row s0 + e / 61, sum e % 61
+  const float4* src = reinterpret_cast<const float4*>(partials);
+  float4* dst = reinterpret_cast<float4*>(stage);
+  auto issue = [&](int e0) {
+    for (int k = threadIdx.x; k < kRound * kSumVecs; k += blockDim.x) {
+      const int e = e0 + k / kSumVecs;
+      if (e < total) {
+        const int sr = (s0 + e / kSweepRows) * kSweepSlots + e % kSweepRows;
+        cp_async16(dst + k / kSumVecs * (kStagedStride / 4) + k % kSumVecs,
+                   src + sr * kSumVecs + k % kSumVecs);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  for (int i = 0; i < (2 * kSpecSeeds + kWarps - 1) / kWarps; ++i) {
+    const int e = warp + i * kWarps;  // (row s0 + e / 2, count e % 2)
+    const int row = (s0 + e / 2) * kSweepMaxBlocks;
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < kSweepMaxBlocks / 32; ++j) {
+      const int b = lane + 32 * j;
+      c += e < (s1 - s0) * 2 && b < nb ? __ldcg(count_partials + (row + b) * 2 + e % 2) : 0;
+    }
+    c = __reduce_add_sync(0xffffffffu, c);
+    if (lane == 0 && e < (s1 - s0) * 2) counts[(s0 + e / 2) * 2 + e % 2] = c;
+  }
+  const int q = lane & 3;
+  for (int e0 = 0; e0 < total; e0 += kRound) {
+    if (e0 != 0) issue(e0);
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 1
+    for (int g = 0; g < kGroups; ++g) {
+      const int i = (g * kWarps + warp) * 8 + (lane >> 2);  // this lane's staged pair
+      const float* p = stage + (i < kRound ? i : 0) * kStagedStride + q;
+      float x[kSweepMaxBlocks / 4];
+#pragma unroll
+      for (int m = 0; m < kSweepMaxBlocks / 4; ++m) x[m] = q + 4 * m < nb ? p[4 * m] : 0.0f;
+      fold_levels<kSweepMaxBlocks / 8>(x);
+      x[0] = __fadd_rn(x[0], __shfl_down_sync(0xffffffffu, x[0], 2));
+      x[0] = __fadd_rn(x[0], __shfl_down_sync(0xffffffffu, x[0], 1));
+      const int e = e0 + i;
+      if (q == 0 && i < kRound && e < total) {
+        sums[(s0 + e / kSweepRows) * kSweepRows + e % kSweepRows] = x[0];
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // A column's terms for group g: medoid_sweep's, and the near count.
@@ -996,153 +1137,293 @@ __device__ __forceinline__ void batch_column(float (*s_acc)[kSweepThreads], int 
   near += wv > 0.0f && d <= kMedoidRadius;
 }
 
-// kVec: N_pad % 4 == 0 and m, w, rows 16-byte aligned (cp.async copies and
-// float4 loads and stores); else scalar loads and stores, zeros past N_pad.
+// A thread's 4 columns from n0 (zeros past n_pad, or all of them where
+// !live); kVec: one 16-byte load, made whatever `live` (from column 0 where
+// not), so that a batch of them issues at once. kRO reads through the
+// read-only cache; else plain loads, for rows this CTA wrote before a
+// barrier.
+template <bool kVec, bool kRO>
+__device__ __forceinline__ void load_cols(const float* p, int n0, int n_pad, bool live,
+                                          float (&x)[kSweepVec]) {
+  if constexpr (kVec) {
+    const float4* q = reinterpret_cast<const float4*>(p + (live ? n0 : 0));
+    float4 v = kRO ? __ldg(q) : *q;
+    if (!live) v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    unpack(v, x);
+  } else {
+#pragma unroll
+    for (int v = 0; v < kSweepVec; ++v) {
+      x[v] = live && n0 + v < n_pad ? (kRO ? __ldg(p + n0 + v) : p[n0 + v]) : 0.0f;
+    }
+  }
+}
+
+// Logical thread tid's chains of one row (its histogram at hist): the
+// terms of its columns in (tile, v) order, as medoid_sweep's thread adds
+// them, and the row's close and near counts. The row and w loads of
+// kChainTiles tiles go out at once; the row's are plain loads (spec_sweep's
+// were written by this CTA).
 template <bool kVec>
-__global__ void __launch_bounds__(kBatchThreads)
+__device__ __forceinline__ void batch_chains(const float* row, const float* __restrict__ w,
+                                             int n_pad, int ntile, int tid, float* hist,
+                                             int& close, int& near) {
+  float (*s_acc)[kSweepThreads] = reinterpret_cast<float (*)[kSweepThreads]>(hist);
+  float dens = 0.0f;
+  close = 0;
+  near = 0;
+  auto first_col = [&](int i) {
+    return ((blockIdx.x + i * gridDim.x) * kSweepThreads + tid) * kSweepVec;
+  };
+  for (int i0 = 0; i0 < ntile; i0 += kChainTiles) {
+    float dv[kChainTiles][kSweepVec], wv[kChainTiles][kSweepVec];
+#pragma unroll
+    for (int k = 0; k < kChainTiles; ++k) {
+      const int n0 = first_col(i0 + k);
+      const bool live = i0 + k < ntile && n0 < n_pad;
+      load_cols<kVec, true>(w, n0, n_pad, live, wv[k]);
+      load_cols<kVec, false>(row, n0, n_pad, live, dv[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kChainTiles; ++k) {
+      const int n0 = first_col(i0 + k);
+      if (i0 + k >= ntile || n0 >= n_pad) continue;
+#pragma unroll
+      for (int v = 0; v < kSweepVec; ++v) {
+        if (n0 + v < n_pad) batch_column(s_acc, tid, dv[k][v], wv[k][v], dens, close, near);
+      }
+    }
+  }
+  hist[kNbins * kSweepThreads + tid] = dens;
+}
+
+// kVec: N_pad % 4 == 0 and m, w, rows 16-byte aligned (cp.async copies,
+// float4 loads and stores); else scalar loads and stores, zeros past N_pad.
+// The register tile has kSpecSeeds rows whatever S: those past S are
+// computed on zero features and not written.
+template <bool kVec>
+__global__ void __launch_bounds__(kSpecThreads, 1)
 spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int c1, int c2,
                   int c3, int c4, int c5, int c6, int c7, int s_count,
                   const float* __restrict__ w, float* __restrict__ rows,
                   float* __restrict__ partials, int* __restrict__ count_partials,
-                  unsigned int* __restrict__ ticket, float* __restrict__ sums,
+                  unsigned int* __restrict__ tickets, float* __restrict__ sums,
                   int* __restrict__ counts) {
+  // dynamic: the seeds' features, feature f's 8 at feat4[2f], feat4[2f + 1]
+  // (zeros past f_pad and S), then one region that holds in turn the ring
+  // of staged features, the S histograms and the last CTA's staged rows
   extern __shared__ float4 s_dyn[];
-  float4* ring = s_dyn;  // [kSpecRing][kSpecChunk][kSweepThreads]
-  float* hist0 = reinterpret_cast<float*>(s_dyn + kSpecRing * kSpecChunk * kSweepThreads);
-  float* feat = hist0 + (size_t)s_count * kSweepRows * kSweepThreads;  // [S][f_pad]
-  const int g = threadIdx.x / kSweepThreads;
+  __shared__ int s_cnt[kSpecSeeds][2][2];  // [row][its warp][close, near]
+  const int nq = (f_pad + kSpecChunk - 1) / kSpecChunk;
+  const float4* feat4 = s_dyn;
+  // [kSpecRing][kSpecChunk][kSpecThreads] vectors of kSpecVec columns
+  auto ring = reinterpret_cast<typename VecOf<kSpecVec>::T*>(s_dyn + (size_t)nq * kSpecChunk * 2);
+  float* hist0 = reinterpret_cast<float*>(ring);
+  auto col_of = [&](int s) {
+    const int c[kSpecSeeds] = {c0, c1, c2, c3, c4, c5, c6, c7};
+    int x = c0;
+#pragma unroll
+    for (int k = 1; k < kSpecSeeds; ++k) x = s == k ? c[k] : x;
+    return x;
+  };
+  using Vec = typename VecOf<kSpecVec>::T;
+  const int q0 = threadIdx.x / kSweepThreads;
   const int tid = threadIdx.x % kSweepThreads;
-  float (*s_acc)[kSweepThreads] =
-      reinterpret_cast<float (*)[kSweepThreads]>(hist0 + (size_t)g * kSweepRows * kSweepThreads);
-  const int cols[kSpecSeeds] = {c0, c1, c2, c3, c4, c5, c6, c7};
+  const int part = q0 % kSpecParts;  // columns 4 tid + kSpecVec part, ... of a tile
+  const int grp = q0 / kSpecParts;  // tiles grp, grp + kSpecGroups, ...
   const int tiles = (n_pad + kSweepTileCols - 1) / kSweepTileCols;
   const int ntile = (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
-  const int nq = (f_pad + kSpecChunk - 1) / kSpecChunk;
-  const int total = ntile * nq;  // stages: chunk q of tile i is stage i * nq + q
-  auto first_col = [&](int i, int t) {
-    return ((blockIdx.x + i * gridDim.x) * kSweepThreads + t) * kSweepVec;
+  const int mine = grp < ntile ? (ntile - 1 - grp) / kSpecGroups + 1 : 0;
+  auto first_col = [&](int j) {  // of this thread's j-th tile
+    return ((blockIdx.x + (grp + j * kSpecGroups) * gridDim.x) * kSweepThreads + tid) *
+               kSweepVec + part * kSpecVec;
   };
-  auto issue = [&](int st) {  // stage st into ring buffer st % kSpecRing
-    if (st < total) {
-      const int i = st / nq;
-      const int q = st % nq;
-      float4* buf = ring + (st % kSpecRing) * kSpecChunk * kSweepThreads;
-      for (int k = threadIdx.x; k < kSpecChunk * kSweepThreads; k += blockDim.x) {
-        const int f = q * kSpecChunk + k / kSweepThreads;
-        const int n0 = first_col(i, k % kSweepThreads);
-        if (f < f_pad && n0 < n_pad) {
-          const float* src = m + (size_t)f * n_pad + n0;
-          if constexpr (kVec) {
-            cp_async16(buf + k, src);
-          } else {
-            buf[k] = make_float4(src[0], n0 + 1 < n_pad ? src[1] : 0.0f,
-                                 n0 + 2 < n_pad ? src[2] : 0.0f, n0 + 3 < n_pad ? src[3] : 0.0f);
-          }
+  // the stages in order: features 8q.. of the thread's j-th tile, q < nq;
+  // stage i goes to ring buffer i % kSpecRing, this thread's kSpecVec
+  // columns of each of its 8 features, read back by this thread alone (no
+  // barrier)
+  int iss_j = 0, iss_q = 0, iss_buf = 0;  // the next stage to issue
+  auto issue = [&]() {
+    const int n0 = first_col(iss_j);
+    if (iss_j < mine && n0 < n_pad) {
+      Vec* dst = ring + iss_buf * kSpecChunk * kSpecThreads + threadIdx.x;
+      const float* src = m + (size_t)(iss_q * kSpecChunk) * n_pad + n0;
+#pragma unroll
+      for (int k = 0; k < kSpecChunk; ++k) {
+        const float* p = src + (size_t)k * n_pad;
+        if (iss_q * kSpecChunk + k >= f_pad) {
+          dst[k * kSpecThreads] = Vec{};
+        } else if constexpr (kVec) {
+          cp_async_vec(dst + k * kSpecThreads, p);
+        } else {
+          float* x = reinterpret_cast<float*>(dst + k * kSpecThreads);
+#pragma unroll
+          for (int v = 0; v < kSpecVec; ++v) x[v] = n0 + v < n_pad ? p[v] : 0.0f;
         }
       }
     }
     cp_async_commit();
+    iss_buf = iss_buf + 1 == kSpecRing ? 0 : iss_buf + 1;
+    if (++iss_q == nq) {
+      iss_q = 0;
+      ++iss_j;
+    }
   };
+  float acc[kSpecSeeds][kSpecVec];
+  // stage (j, q) from ring buffer `buf`
+  auto compute = [&](int n0, int q, int buf) {
+    const Vec* x = ring + buf * kSpecChunk * kSpecThreads + threadIdx.x;
 #pragma unroll
-  for (int st = 0; st < kSpecRing - 1; ++st) issue(st);  // copies overlap the set-up
-  for (int i = threadIdx.x; i < s_count * f_pad; i += blockDim.x) {
-    feat[i] = m[(size_t)(i % f_pad) * n_pad + cols[i / f_pad]];
-  }
-#pragma unroll 4
-  for (int r = 0; r < kSweepRows; ++r) s_acc[r][tid] = 0.0f;
-  const int col = cols[g];
-  const float* my_feat = feat + (size_t)g * f_pad;
-  float dens = 0.0f;
-  int close = 0, near = 0;
-  float a[kSweepVec] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int st = 0; st < total; ++st) {
-    cp_async_wait<kSpecRing - 2>();  // this thread's copies of stage st have landed
-    __syncthreads();  // everyone's, and stage st - 1's buffer is free again
-    issue(st + kSpecRing - 1);
-    const int i = st / nq;
-    const int q = st % nq;
-    if (q == 0) {
+    for (int k = 0; k < kSpecChunk; ++k) {
+      float xv[kSpecVec];
+      unpack(x[k * kSpecThreads], xv);
+      float c[kSpecSeeds];
+      const float4 lo = feat4[(q * kSpecChunk + k) * 2];
+      const float4 hi = feat4[(q * kSpecChunk + k) * 2 + 1];
+      c[0] = lo.x;
+      c[1] = lo.y;
+      c[2] = lo.z;
+      c[3] = lo.w;
+      c[4] = hi.x;
+      c[5] = hi.y;
+      c[6] = hi.z;
+      c[7] = hi.w;
 #pragma unroll
-      for (int v = 0; v < kSweepVec; ++v) a[v] = 0.0f;
-    }
-    const int n0 = first_col(i, tid);
-    if (n0 >= n_pad) continue;
-    const float4* buf = ring + (st % kSpecRing) * kSpecChunk * kSweepThreads + tid;
-    const int kn = min(kSpecChunk, f_pad - q * kSpecChunk);
-    for (int k = 0; k < kn; ++k) {
-      const float4 v = buf[k * kSweepThreads];
-      const float c = my_feat[q * kSpecChunk + k];
-      a[0] = mul_add_rn(a[0], v.x, c);
-      a[1] = mul_add_rn(a[1], v.y, c);
-      a[2] = mul_add_rn(a[2], v.z, c);
-      a[3] = mul_add_rn(a[3], v.w, c);
-    }
-    if (q != nq - 1) continue;
-    // the tile's last chunk: its row and its terms
-    float dv[kSweepVec], wv[kSweepVec];
+      for (int s = 0; s < kSpecSeeds; ++s) {
 #pragma unroll
-    for (int v = 0; v < kSweepVec; ++v) {
-      dv[v] = (n0 + v == col) ? 0.0f : __fsub_rn(0.5f, a[v]);
-    }
-    float* out = rows + (size_t)g * n_pad + n0;
-    if constexpr (kVec) {
-      unpack(*reinterpret_cast<const float4*>(w + n0), wv);
-      *reinterpret_cast<float4*>(out) = make_float4(dv[0], dv[1], dv[2], dv[3]);
-    } else {
-#pragma unroll
-      for (int v = 0; v < kSweepVec; ++v) {
-        wv[v] = n0 + v < n_pad ? w[n0 + v] : 0.0f;
-        if (n0 + v < n_pad) out[v] = dv[v];
+        for (int v = 0; v < kSpecVec; ++v) acc[s][v] = mul_add_rn(acc[s][v], xv[v], c[s]);
       }
     }
+  };
+  // a tile's rows, once its last stage is in
+  auto write_rows = [&](int n0) {
 #pragma unroll
-    for (int v = 0; v < kSweepVec; ++v) {
-      if (n0 + v < n_pad) batch_column(s_acc, tid, dv[v], wv[v], dens, close, near);
+    for (int s = 0; s < kSpecSeeds; ++s) {
+      if (s >= s_count) continue;
+      Vec out;
+      float* dv = reinterpret_cast<float*>(&out);
+#pragma unroll
+      for (int v = 0; v < kSpecVec; ++v) {
+        dv[v] = (n0 + v == col_of(s)) ? 0.0f : __fsub_rn(0.5f, acc[s][v]);
+      }
+      float* dst = rows + (size_t)s * n_pad + n0;
+      if constexpr (kVec) {
+        *reinterpret_cast<Vec*>(dst) = out;
+      } else {
+#pragma unroll
+        for (int v = 0; v < kSpecVec; ++v) {
+          if (n0 + v < n_pad) dst[v] = dv[v];
+        }
+      }
+    }
+  };
+
+  BATCH_PHASE(0);
+#pragma unroll 1
+  for (int st = 0; st < kSpecRing; ++st) issue();  // the copies overlap the set-up
+  {
+    float* feat = reinterpret_cast<float*>(s_dyn);
+    for (int k = threadIdx.x; k < nq * kSpecChunk * kSpecSeeds; k += kSpecThreads) {
+      const int f = k / kSpecSeeds;
+      const int s = k % kSpecSeeds;
+      feat[k] = f < f_pad && s < s_count ? m[(size_t)f * n_pad + col_of(s)] : 0.0f;
     }
   }
+  __syncthreads();
+  int buf = 0;  // the ring buffer of the next stage to read
+  for (int j = 0; j < mine; ++j) {
+    const int n0 = first_col(j);
+#pragma unroll
+    for (int s = 0; s < kSpecSeeds; ++s) {
+#pragma unroll
+      for (int v = 0; v < kSpecVec; ++v) acc[s][v] = 0.0f;
+    }
+    for (int q = 0; q < nq; ++q) {
+      cp_async_wait<kSpecRing - 1>();  // this stage has landed
+      if (n0 < n_pad) compute(n0, q, buf);
+      issue();  // into the buffer just read
+      buf = buf + 1 == kSpecRing ? 0 : buf + 1;
+    }
+    if (n0 < n_pad) write_rows(n0);
+  }
+  BATCH_PHASE(1);
   cp_async_wait<0>();
-  batch_finish(s_acc, g, tid, dens, close, near, partials, count_partials, ticket, sums, counts);
+  __syncthreads();  // the CTA's rows are written and the ring is free
+  BATCH_PHASE(2);
+
+  // thread (q0, tid) runs logical thread tid's chains of row q0
+  int close = 0, near = 0;
+  if (q0 < s_count) {
+#pragma unroll 4
+    for (int k = 0; k < kSweepRows; ++k) hist0[q0 * kBatchHist + k * kSweepThreads + tid] = 0.0f;
+    batch_chains<kVec>(rows + (size_t)q0 * n_pad, w, n_pad, ntile, tid, hist0 + q0 * kBatchHist,
+                       close, near);
+  }
+  BATCH_PHASE(3);
+  const int wc = __reduce_add_sync(0xffffffffu, close);
+  const int wn = __reduce_add_sync(0xffffffffu, near);
+  if ((threadIdx.x & 31) == 0 && q0 < s_count) {
+    s_cnt[q0][(threadIdx.x >> 5) & 1][0] = wc;
+    s_cnt[q0][(threadIdx.x >> 5) & 1][1] = wn;
+  }
+  __syncthreads();
+  // the CTA's partial rows
+  BATCH_PHASE(4);
+  batch_cta_rows<kSpecThreads / 32>(hist0, s_count, partials);
+  BATCH_PHASE(5);
+  if (threadIdx.x < s_count * 2) {
+    const int s = threadIdx.x / 2;
+    const int j = threadIdx.x % 2;
+    count_partials[((size_t)s * kSweepMaxBlocks + blockIdx.x) * 2 + j] = s_cnt[s][0][j] + s_cnt[s][1][j];
+  }
+  const bool last = batch_ticket(tickets, gridDim.x);
+  BATCH_PHASE(6);
+  if (!last) return;
+  batch_total<kSpecThreads / 32, kSpecRingBytes / 4 / kStagedStride>(
+      partials, count_partials, gridDim.x, 0, s_count, hist0, sums, counts);
+  if (threadIdx.x == 0) tickets[0] = 0u;
+  BATCH_PHASE(7);
 }
 
+// A CTA of 64 threads per (logical CTA blockIdx.x, row blockIdx.y); the
+// row's ticket elects its last CTA.
 template <bool kVec>
-__global__ void __launch_bounds__(kBatchThreads)
+__global__ void __launch_bounds__(kSweepThreads)
 row_stats_kernel(const float* __restrict__ rows, int n_pad, const float* __restrict__ w,
                  float* __restrict__ partials, int* __restrict__ count_partials,
-                 unsigned int* __restrict__ ticket, float* __restrict__ sums,
+                 unsigned int* __restrict__ tickets, float* __restrict__ sums,
                  int* __restrict__ counts) {
-  extern __shared__ float4 s_dyn[];
-  const int g = threadIdx.x / kSweepThreads;
-  const int tid = threadIdx.x % kSweepThreads;
-  float (*s_acc)[kSweepThreads] = reinterpret_cast<float (*)[kSweepThreads]>(
-      reinterpret_cast<float*>(s_dyn) + (size_t)g * kSweepRows * kSweepThreads);
+  extern __shared__ float4 s_dyn[];  // the histogram, then the last CTA's staged rows
+  __shared__ int s_cnt[2][2];  // [warp][close, near]
+  float* hist = reinterpret_cast<float*>(s_dyn);
+  const int s = blockIdx.y;
+  const int tid = threadIdx.x;
+  BATCH_PHASE(0);
 #pragma unroll 4
-  for (int r = 0; r < kSweepRows; ++r) s_acc[r][tid] = 0.0f;
+  for (int r = 0; r < kSweepRows; ++r) hist[r * kSweepThreads + tid] = 0.0f;
   const int tiles = (n_pad + kSweepTileCols - 1) / kSweepTileCols;
   const int ntile = (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
-  const float* row = rows + (size_t)g * n_pad;
-  float dens = 0.0f;
-  int close = 0, near = 0;
-#pragma unroll 2
-  for (int i = 0; i < ntile; ++i) {
-    const int n0 = ((blockIdx.x + i * gridDim.x) * kSweepThreads + tid) * kSweepVec;
-    if (n0 >= n_pad) continue;
-    float dv[kSweepVec], wv[kSweepVec];
-    if constexpr (kVec) {
-      unpack(__ldg(reinterpret_cast<const float4*>(row + n0)), dv);
-      unpack(__ldg(reinterpret_cast<const float4*>(w + n0)), wv);
-    } else {
-#pragma unroll
-      for (int v = 0; v < kSweepVec; ++v) {
-        dv[v] = n0 + v < n_pad ? row[n0 + v] : 0.0f;
-        wv[v] = n0 + v < n_pad ? w[n0 + v] : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < kSweepVec; ++v) {
-      if (n0 + v < n_pad) batch_column(s_acc, tid, dv[v], wv[v], dens, close, near);
-    }
+  int close, near;
+  batch_chains<kVec>(rows + (size_t)s * n_pad, w, n_pad, ntile, tid, hist, close, near);
+  BATCH_PHASE(3);
+  const int wc = __reduce_add_sync(0xffffffffu, close);
+  const int wn = __reduce_add_sync(0xffffffffu, near);
+  if ((tid & 31) == 0) {
+    s_cnt[tid >> 5][0] = wc;
+    s_cnt[tid >> 5][1] = wn;
   }
-  batch_finish(s_acc, g, tid, dens, close, near, partials, count_partials, ticket, sums, counts);
+  __syncthreads();
+  // the CTA's partial rows
+  BATCH_PHASE(4);
+  batch_cta_rows<kSweepThreads / 32>(hist, 1, partials + (size_t)s * kSweepSlots * kSweepMaxBlocks);
+  BATCH_PHASE(5);
+  if (tid < 2) count_partials[((size_t)s * kSweepMaxBlocks + blockIdx.x) * 2 + tid] = s_cnt[0][tid] + s_cnt[1][tid];
+  const bool last = batch_ticket(tickets + s, gridDim.x);
+  BATCH_PHASE(6);
+  if (!last) return;
+  batch_total<kSweepThreads / 32, kRowStatsSmem / 4 / kStagedStride>(
+      partials, count_partials, gridDim.x, s, s + 1, hist, sums, counts);
+  if (tid == 0) tickets[s] = 0u;
+  BATCH_PHASE(7);
 }
 
 // The dynamic shared memory a batch kernel may take above 48 KB, raised
@@ -1481,7 +1762,7 @@ int vt_medoid_sweep(const float* m, int f_pad, int n_pad, int idx, const float* 
 
 int vt_spec_sweep(const float* m, int f_pad, int n_pad, int c0, int c1, int c2, int c3, int c4,
                   int c5, int c6, int c7, int s_count, const float* w, float* rows,
-                  float* partials, int* count_partials, unsigned int* ticket, float* sums,
+                  float* partials, int* count_partials, unsigned int* tickets, float* sums,
                   int* counts, void* stream) {
   const int cols[kSpecSeeds] = {c0, c1, c2, c3, c4, c5, c6, c7};
   if (n_pad < 1 || f_pad < 1 || s_count < 1 || s_count > kSpecSeeds) {
@@ -1490,32 +1771,35 @@ int vt_spec_sweep(const float* m, int f_pad, int n_pad, int c0, int c1, int c2, 
   for (int s = 0; s < s_count; ++s) {
     if (cols[s] < 0 || cols[s] >= n_pad) return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = spec_ring_bytes() + batch_hist_bytes(s_count) +
-                      (size_t)s_count * f_pad * sizeof(float);
+  // the features, then the ring, which later holds the histograms and the
+  // staged rows
+  const size_t nq = (f_pad + kSpecChunk - 1) / kSpecChunk;
+  const size_t smem = nq * kSpecChunk * kSpecSeeds * sizeof(float) + kSpecRingBytes;
   const bool vec = n_pad % kSweepVec == 0 && (uintptr_t)m % 16 == 0 && (uintptr_t)w % 16 == 0 &&
                    (uintptr_t)rows % 16 == 0;
-  static size_t allowed[2] = {48 * 1024, 48 * 1024};
   const auto kernel = vec ? spec_sweep_kernel<true> : spec_sweep_kernel<false>;
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};
   const cudaError_t e = allow_smem(kernel, smem, allowed[vec]);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<sweep_col_blocks(n_pad), kSweepThreads * s_count, smem, (cudaStream_t)stream>>>(
+  kernel<<<sweep_col_blocks(n_pad), kSpecThreads, smem, (cudaStream_t)stream>>>(
       m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, w, rows, partials,
-      count_partials, ticket, sums, counts);
+      count_partials, tickets, sums, counts);
   return (int)cudaGetLastError();
 }
 
 int vt_row_stats(const float* rows, int n_pad, int s_count, const float* w, float* partials,
-                 int* count_partials, unsigned int* ticket, float* sums, int* counts,
+                 int* count_partials, unsigned int* tickets, float* sums, int* counts,
                  void* stream) {
   if (n_pad < 1 || s_count < 1 || s_count > kSpecSeeds) return (int)cudaErrorInvalidValue;
-  const size_t smem = batch_hist_bytes(s_count);
+  // the histogram, then the last CTA's staged sums: 16 KB, so the S x B
+  // CTAs fit the card at once
+  constexpr size_t smem = kRowStatsSmem;
+  static_assert(smem <= 48 * 1024, "more than 48 KB of dynamic shared memory needs cudaFuncSetAttribute");
   const bool vec = n_pad % kSweepVec == 0 && (uintptr_t)rows % 16 == 0 && (uintptr_t)w % 16 == 0;
-  static size_t allowed[2] = {48 * 1024, 48 * 1024};
   const auto kernel = vec ? row_stats_kernel<true> : row_stats_kernel<false>;
-  const cudaError_t e = allow_smem(kernel, smem, allowed[vec]);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<sweep_col_blocks(n_pad), kSweepThreads * s_count, smem, (cudaStream_t)stream>>>(
-      rows, n_pad, w, partials, count_partials, ticket, sums, counts);
+  const dim3 grid(sweep_col_blocks(n_pad), s_count);
+  kernel<<<grid, kSweepThreads, smem, (cudaStream_t)stream>>>(rows, n_pad, w, partials,
+                                                              count_partials, tickets, sums, counts);
   return (int)cudaGetLastError();
 }
 

@@ -47,6 +47,11 @@ from .training import validate_batchsteps
 _ENCODE_CHUNK = 1 << 16  # rows per encode forward
 
 
+def _bf16_unported(precision: str) -> str:
+    return (f"training at precision={precision!r} is not ported yet (ROADMAP queue 1, item 3: "
+            "bf16 training); vamb_torch trains in f32")
+
+
 class VAE(nn.Module):
     """Variational autoencoder with fixed-sigma latent noise.
 
@@ -85,10 +90,7 @@ class VAE(nn.Module):
         if not (0 <= dropout < 1):
             raise ValueError(f"dropout must be 0 <= dropout < 1, not {dropout}")
         if precision != "f32":
-            raise NotImplementedError(
-                f"precision={precision!r} is not ported yet (ROADMAP queue 1, item 3: "
-                "bf16 training); vamb_torch trains in f32"
-            )
+            raise NotImplementedError(_bf16_unported(precision))
 
         self.nsamples = nsamples
         self.ntnf = 103
@@ -98,6 +100,9 @@ class VAE(nn.Module):
         self.beta = beta
         self.dropout = dropout
         self.seed = seed
+        # the precision it trained at; `load` records a bf16 model's, whose
+        # latents `encode` gives at f32 as vamb_tpu's does (vae.py:193)
+        self.precision = "f32"
         self.device = resolve_device(device)
         self.rng = threefry.key(seed)  # the training key chain, as vamb_tpu's
 
@@ -249,6 +254,8 @@ class VAE(nn.Module):
         logger: Optional[Callable[[str], None]] = None,
     ) -> None:
         "Train in place. Mirrors reference trainmodel (encode.py:543-610)."
+        if self.precision != "f32":
+            raise NotImplementedError(_bf16_unported(self.precision))
         if nepochs < 1:
             raise ValueError(f"Minimum 1 epoch, not {nepochs}")
         if dataset.n_obs < 2:
@@ -347,7 +354,7 @@ class VAE(nn.Module):
             "beta": self.beta,
             "dropout": self.dropout,
             "seed": self.seed,
-            "precision": "f32",
+            "precision": self.precision,
         }
 
     def save(self, io: Union[str, Path, IO[bytes]]) -> None:
@@ -356,7 +363,9 @@ class VAE(nn.Module):
 
     @classmethod
     def load(cls, io: Union[str, Path, IO[bytes]], device="cuda") -> "VAE":
-        "Read a `model.npz` written by either package."
+        """Read a `model.npz` written by either package. A model trained at
+        bf16 loads at f32 with its precision recorded: it encodes as
+        vamb_tpu's does and saves as "bf16", but does not train."""
         flat, meta = load_flat(io)
         vae = cls(
             nsamples=meta["nsamples"],
@@ -367,8 +376,11 @@ class VAE(nn.Module):
             dropout=meta["dropout"],
             seed=meta.get("seed", 0),
             device=device,
-            precision=meta.get("precision", "f32"),
         )
+        precision = meta.get("precision", "f32")
+        if precision not in ("f32", "bf16"):
+            raise ValueError(f"precision must be 'f32' or 'bf16', not {precision}")
+        vae.precision = precision
         vae.load_state_dict(params_from_jax(flat))
         vae.eval()
         return vae
