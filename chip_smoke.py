@@ -33,7 +33,17 @@ of `vamb_tpu`. Phases, each of which fails the run:
    matrix kernels take their generic code: `row_sweep`,
    `candidate_density_sweep` and `medoid_sweep` bit for bit at 100,096 and
    100,003 columns, the gather at 100,096, each timed at 100,096 beside
-   its bound, plain version and library yardstick. The profile-HMM
+   its bound, plain version and library yardstick. The bf16 variants of
+   `medoid_sweep`, `spec_sweep` (S 1, 3 and 8) and
+   `candidate_density_sweep` (the kernels a bfloat16 engine runs) on a
+   bf16 matrix, bit for bit the f32 kernels on the widened matrix and
+   their plain versions at 8,192, 100,003, 100,096, 150,016 and 300,032
+   columns and at F_pad 288 on 100,096, then timed at 100,096, 150,016 and
+   300,032 (and 100,096 at 288) beside their bounds (the matrix's bytes
+   at 2 an element), their plain versions, the f32 kernels' times and,
+   for `spec_sweep`, `torch.mm(rows, matrixT, out_dtype=torch.float32)` on
+   the bf16 operands (or, where the card's PyTorch lacks it, the
+   bf16-output `torch.matmul`, labelled so). The profile-HMM
    Forward kernel `hmm_forward` against
    its plain version within 1e-3 + 1e-5 |score| bits at M 50, 200, 600 and
    1,000 on 256 genes of 30-1,000 residues (null residues mid-sequence)
@@ -51,7 +61,8 @@ of `vamb_tpu`. Phases, each of which fails the run:
    clustering capped at 2,000 clusters), full-scope wander. Every kernel's
    launch counter and its tally by N_pad are set to 0 just before and read
    just after; `candidate_density_sweep`, `medoid_sweep`, `gumbel_topc`
-   and `spec_sweep` must be > 0; the engine's counters (the subset
+   and `spec_sweep` must be > 0, and no bf16 variant may have run (this
+   path is f32; so in phase 5); the engine's counters (the subset
    wander's fallbacks, the seed cache's refills, the loner bursts, the
    attempt lanes and their cuts) are read from log.txt and logged. The
    stage artifacts and TSVs are read back
@@ -138,13 +149,30 @@ of `vamb_tpu`. Phases, each of which fails the run:
    an in-process A/B of the lanes on the 300,000-point latent of
    `--engine-ab` at subset scope, off, on, on, off, 200 clusters each: ms
    and device kernels a cluster, the medoids' hashes equal.
+11. the bf16 path at 100,000 contigs: `bin default --precision bf16
+   --distance_dtype bfloat16` through the CLI entry point on phase 4's
+   dataset (VAE 512-512-32 trained at bf16, 2 epochs, `-c 2000`), the
+   counters set to 0 just before and read just after. Gates: the bf16
+   variants of `medoid_sweep`, `spec_sweep` and `candidate_density_sweep`
+   launched and their f32 versions not, `row_sweep` and the gather never
+   (a bf16 engine takes no subset wander); the artifacts and TSVs read
+   back, `model.npz` recording "bf16"; 50 clusters of the bf16 engine on
+   this path's latent on the card and on the CPU in lockstep (Gumbel
+   scores and candidates different in no step, all 50 identical); phase
+   4's f32 latent clustered at bf16 on the card agreeing with phase 4's
+   f32 clusters on more than 0.95 of 1,000,000 sampled contig pairs
+   (`vamb_tpu`'s criterion). Logged: stage times, the bins' pairwise
+   precision beside phase 4's, and 50 bf16 training steps under
+   torch.profiler beside phase 6's f32 steps.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
 kernels JSON object (its `launches` are the 300,000-contig path's, and
 phase 7's for `hmm_forward`; each row also holds every timed width under
 `at_widths` and phase 8's launches; the rows with `f_pad` 288 are the
-matrix kernels at the z latent's width, with phase 9's launches), the
+matrix kernels at the z latent's width, with phase 9's launches; the rows
+with `dtype` "bfloat16" are the bf16 variants, one a timed width, with
+phase 11's launches), the
 card's `nvidia-smi` name and power limit, and
 `{"ok": true, "device": ...}`.
 
@@ -163,6 +191,12 @@ runs phase 1 and phase 8.
     python3 chip_smoke.py --avamb
 
 runs phase 1, phase 2 at F_pad 288 and phase 9.
+
+    python3 chip_smoke.py --bf16
+
+runs phase 1, phase 2's checks and times of the bf16 variants, phase 4's
+`bin default` (the f32 latent and clusters phase 11 compares with; no
+profile, no card-vs-CPU run) and phase 11.
 
     python3 chip_smoke.py --lanes
 
@@ -752,6 +786,156 @@ def time_kernels(dev, f_pad: int = F_PAD, widths=PATH_WIDTHS, gather_n: int = BI
     return out
 
 
+# ------------------------------------------- phase 2: the bf16 variants
+
+# the kernels that read the matrix on a bfloat16 engine's path, each with a
+# variant for a bf16 matrix; their checks' widths (the main paths', an
+# unaligned one and a subset ball's at F_pad 32, the 100k path's at 288)
+# and their times' (phase 11's 100,096, and the 300k path's two, at F_pad
+# 32; 100,096 at 288)
+BF16_KERNELS = ("medoid_sweep", "spec_sweep", "candidate_density_sweep")
+BF16_CHECK_WIDTHS = {F_PAD: (BALL_KB * 128, N_CONTIGS + 3, -(-N_CONTIGS // 128) * 128, BIG_HALF, BIG_PAD),
+                     AAE_F_PAD: (-(-N_CONTIGS // 128) * 128,)}
+BF16_TIME_WIDTHS = {F_PAD: PATH_WIDTHS[1:], AAE_F_PAD: (PATH_WIDTHS[1],)}
+
+
+def check_bf16(dev) -> dict:
+    """The bf16 variants of `medoid_sweep` (columns 0, 37, N - 1),
+    `spec_sweep` (S 1, 3 and 8) and `candidate_density_sweep` (C 1, 25 and
+    32, int64 and int32 ids) on a bf16 matrix at BF16_CHECK_WIDTHS, all and
+    half the weights: bit for bit the f32 kernel on the widened matrix and
+    the plain version on the card, one launch a call, tallied as
+    "bfloat16". Returns max|kernel - plain| by kernel (0 where equal)."""
+    from vamb_torch import kernels as K
+
+    err = dict.fromkeys(BF16_KERNELS, 0.0)
+
+    def held(name, label, got, f32, plain):
+        for a, b, c in zip(got, f32, plain):
+            err[name] = max(err[name], float((a.double() - c.double()).abs().max()))
+            if not (a.dtype == b.dtype == c.dtype and torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"{name} bf16 {label}: differs from the f32 kernel on the widened "
+                                     f"matrix ({torch.equal(a, b)}) or the plain version ({torch.equal(a, c)})")
+
+    def one_bf16_launch(kernel, fn, n):
+        # NaN in the blocks the caching allocator hands out next, so a
+        # kernel that leaves part of its output unwritten cannot pass on a
+        # freed block that held the right values
+        for shape in ((n,), (SPEC_SEEDS, n), (1, n), (3, n)):
+            torch.full(shape, float("nan"), device=dev)
+        before = kernel.launches_by_dtype.get("bfloat16", 0)
+        out = fn()
+        check(kernel.launches_by_dtype.get("bfloat16", 0) == before + 1,
+              f"{kernel.__name__} bf16: not one launch tallied as bfloat16 a call")
+        return out
+
+    for f_pad, widths in BF16_CHECK_WIDTHS.items():
+        for n in widths:
+            mT = torch.as_tensor(clumpy_matrixT(n, f_pad, seed=n + 4), device=dev).to(torch.bfloat16)
+            wide = mT.float()
+            rng = np.random.default_rng(n + 5)
+            for zero_half in (False, True):
+                w = torch.as_tensor(weights(n, seed=n + 6, zero_half=zero_half), device=dev)
+                label = f"F_pad {f_pad} n={n} zero_half={zero_half}"
+                for idx in (0, 37, n - 1):
+                    got = one_bf16_launch(K.medoid_sweep, lambda: K.medoid_sweep(mT, idx, w), n)
+                    held("medoid_sweep", f"{label} idx={idx}", got, K.medoid_sweep(wide, idx, w),
+                         K.medoid_sweep_plain(mT, idx, w))
+                for s in (1, 3, SPEC_SEEDS):
+                    cols = [int(c) for c in rng.choice(n, s, replace=False)]
+                    cols[0] = n - 1
+                    got = one_bf16_launch(K.spec_sweep, lambda: K.spec_sweep(mT, cols, w), n)
+                    held("spec_sweep", f"{label} S={s}", got, K.spec_sweep(wide, cols, w),
+                         K.spec_sweep_plain(mT, cols, w))
+                for c in (1, MAXSTEPS, 32):
+                    cand = torch.as_tensor(rng.choice(n, c, replace=False), device=dev)
+                    for ids in (cand, cand.to(torch.int32)):
+                        got = one_bf16_launch(K.candidate_density_sweep,
+                                              lambda: K.candidate_density_sweep(mT, ids, w), n)
+                        held("candidate_density_sweep", f"{label} C={c} {ids.dtype}", (got,),
+                             (K.candidate_density_sweep(wide, ids, w),),
+                             (K.candidate_density_plain(mT, ids, w),))
+    torch.cuda.synchronize()
+    log(f"bf16 variants on a bf16 matrix: medoid_sweep (columns 0, 37, N - 1), spec_sweep (S 1, 3, 8) and "
+        f"candidate_density_sweep (C 1, {MAXSTEPS}, 32; int64 and int32 ids) bit for bit the f32 kernels "
+        "on the widened matrix and their plain versions, all and half the weights, one launch a call, "
+        f"at {json.dumps({f: list(w) for f, w in BF16_CHECK_WIDTHS.items()})} (max|err| {json.dumps(err)})")
+    return err
+
+
+def spec_library(feats: torch.Tensor, mT: torch.Tensor):
+    """`spec_sweep`'s library yardstick on bf16 operands: the (S, F) x (F, N)
+    product summed in f32, `torch.mm(..., out_dtype=torch.float32)`, where
+    the card's PyTorch has `aten::mm.dtype` for CUDA; else the bf16-output
+    `torch.matmul`. Returns (call, what it is)."""
+    try:
+        torch.mm(feats, mT, out_dtype=torch.float32)
+        return (lambda: torch.mm(feats, mT, out_dtype=torch.float32),
+                "torch.mm(rows, matrixT, out_dtype=torch.float32) on bf16 operands, rows alone (no sums)")
+    except (TypeError, RuntimeError, NotImplementedError):
+        return (lambda: torch.matmul(feats, mT),
+                "torch.matmul on bf16 operands, bf16 output (aten::mm.dtype absent), rows alone")
+
+
+def time_bf16(dev) -> dict:
+    """Each bf16 variant at BF16_TIME_WIDTHS, L2 cold, beside its bound
+    (the matrix's bytes at 2 an element; operations as the f32 kernel's),
+    its plain version, the f32 kernel on the widened matrix and, for
+    `spec_sweep` (S 8), `spec_library`. `candidate_density_sweep` at C =
+    25. Returns {(name, F_pad, N_pad): {"ms", "plain_ms", "f32_ms",
+    "library_ms", "library_what", "bound"}}."""
+    from vamb_torch import kernels as K
+
+    out = {}
+    for f_pad, widths in BF16_TIME_WIDTHS.items():
+        for n in widths:
+            mT = torch.as_tensor(clumpy_matrixT(n, f_pad, seed=5), device=dev).to(torch.bfloat16)
+            wide = mT.float()
+            w = torch.as_tensor(weights(n, seed=5), device=dev)
+            kept = w > 0
+            n_kept = int(kept.sum())
+            f = f_pad
+            idx = 37
+            cand = torch.as_tensor(np.random.default_rng(5).choice(n, MAXSTEPS, replace=False), device=dev)
+            c = len(cand)
+            D = 0.5 - wide[:, cand].T @ wide
+            n_within = int(((D <= 0.05) & kept[None, :]).sum())
+            d_row = K.medoid_sweep(mT, idx, w)[0]
+            near = int(((d_row <= 0.05) & kept).sum())
+            in_hist = int(((d_row >= 0) & (d_row <= 0.3) & kept).sum())
+            spec_cols = [int(x) for x in np.random.default_rng(6).choice(n, SPEC_SEEDS, replace=False)]
+            rows = K.spec_sweep(mT, spec_cols, w)[0]
+            in_hist_s = int(((rows >= 0) & (rows <= 0.3) & kept).sum())
+            near_s = int(((rows <= 0.05) & kept).sum())
+            s_out = SPEC_SEEDS * (60 + 3) * 4
+            lib, lib_what = spec_library(mT[:, spec_cols].T.contiguous(), mT)
+            fns = {
+                # the f32 kernels' bounds with the matrix at 2 bytes an element
+                "medoid_sweep": (lambda: K.medoid_sweep(mT, idx, w), lambda: K.medoid_sweep(wide, idx, w),
+                                 lambda: K.medoid_sweep_plain(mT, idx, w), None,
+                                 bound(f * n * 2 + (2 * n + 62) * 4, 2 * f * n + n + 2 * in_hist + 3 * near)),
+                "spec_sweep": (lambda: K.spec_sweep(mT, spec_cols, w), lambda: K.spec_sweep(wide, spec_cols, w),
+                               lambda: K.spec_sweep_plain(mT, spec_cols, w), lib,
+                               bound(f * n * 2 + (n + SPEC_SEEDS * n) * 4 + s_out,
+                                     SPEC_SEEDS * (2 * f * n + n) + 2 * in_hist_s + 3 * near_s)),
+                "candidate_density_sweep": (
+                    lambda: K.candidate_density_sweep(mT, cand, w),
+                    lambda: K.candidate_density_sweep(wide, cand, w),
+                    lambda: K.candidate_density_plain(mT, cand, w), None,
+                    bound(f * n_kept * 2 + (n + 2 * c) * 4, (2 * f + 1) * c * n_kept + 3 * n_within)),
+            }
+            for name, (kern, f32, plain, library, bnd) in fns.items():
+                r = {"bound": bnd, "ms": time_ms(kern), "f32_ms": time_ms(f32), "plain_ms": time_ms(plain),
+                     "library_ms": None if library is None else time_ms(library),
+                     "library_what": lib_what if library is not None else LIBRARY_NOTES[name]}
+                out[(name, f_pad, n)] = r
+                libs = "" if library is None else f", library {r['library_ms']:.5f} ms ({lib_what})"
+                log(f"{name} bf16 at F_pad {f_pad}, N_pad {n}: kernel {r['ms']:.5f} ms, f32 kernel "
+                    f"{r['f32_ms']:.5f} ms, plain {r['plain_ms']:.5f} ms{libs}, bound {bnd[0] * 1e3:.3f} us "
+                    f"({bnd[1]}), roofline share {bnd[0] / r['ms']:.3f}, L2 cold")
+    return out
+
+
 def launch_gaps(timed: dict, tally: dict) -> dict:
     """Per kernel, the sum over widths of launches x (ms - bound ms), L2
     cold, from one main path's tally {name: {N_pad: launches}}: the time the
@@ -871,7 +1055,7 @@ def check_engine(dev) -> None:
 
 
 def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: int = 50,
-                     label: str = "the 100k path's latent", max_steps=None) -> dict:
+                     label: str = "the 100k path's latent", max_steps=None, **engine_kwargs) -> dict:
     """The engine on the card and on the CPU, cluster by cluster in
     lockstep on one latent, both recording the inputs of their decisions:
     each wander step's Gumbel scores (the engine's own, through
@@ -886,12 +1070,14 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
     (`engines_exhausted`); one running out first is a difference. With
     `max_steps`, the comparison also ends after the cluster in which the
     wander steps compared reach it (`step_cap_reached`): the CPU's plain
-    density takes ~0.2 s a step at F_pad 288. The caller gates on the
-    result (phases 4 and 9)."""
+    density takes ~0.2 s a step at F_pad 288. `engine_kwargs` go to both
+    generators (phase 11's bfloat16 distances). The caller gates on the
+    result (phases 4, 9 and 11)."""
     from vamb_torch import cluster as engine
 
     def instrumented(device):
-        gen = engine.ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device=device)
+        gen = engine.ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device=device,
+                                      **engine_kwargs)
         events = []
         step = gen._step
 
@@ -1104,12 +1290,26 @@ def engine_counts(log_lines: list) -> dict:
     return {"subset": json.loads(subset), "cache_and_lanes": json.loads(lanes)}
 
 
+def clusters_of(path: Path, n_contigs: int) -> np.ndarray:
+    """Each contig's cluster in a clusters TSV (contigs S?C{i}), as an int
+    label; a contig in no cluster gets a label of its own (-1 - i)."""
+    labels = -1 - np.arange(n_contigs)
+    names = {}
+    for row in read_tsv(path)[1:]:
+        labels[int(row[1].split("C")[1])] = names.setdefault(row[0], len(names))
+    return labels
+
+
 def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: int,
-                  required: tuple, epochs: int = 2, agreement: bool = False) -> dict:
+                  required: tuple, epochs: int = 2, agreement: bool = False,
+                  profile: bool = True) -> dict:
     """`bin default` through its CLI entry point on a fresh synthetic
     dataset; the launch counters are set to 0 just before and read just
-    after, and each kernel in `required` must have launched. With
-    `agreement`, `engine_agreement` on the path's latent follows."""
+    after, and each kernel in `required` must have launched, the bf16
+    variants none. With `agreement`, `engine_agreement` on the path's
+    latent follows; with `profile`, `profile_stages`. The result keeps the
+    latent, the lengths and each contig's cluster (`clusters_of`) under
+    "_latent", "_lengths" and "_labels", for phase 11."""
     from vamb_torch import kernels as K
     from vamb_torch.__main__ import main
 
@@ -1135,6 +1335,9 @@ def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: 
     for name in required:
         if launches[name] <= 0:
             raise AssertionError(f"the main path on {n_contigs} contigs never launched {name}")
+    bf16 = {k.__name__: k.launches_by_dtype["bfloat16"] for k in K.KERNELS
+            if k.launches_by_dtype.get("bfloat16")}
+    check(not bf16, f"the f32 main path on {n_contigs} contigs launched bf16 variants: {bf16}")
     checked = check_outputs(out, genome, max_clusters)
     times = stage_times(out / "log.txt")
     times["total_s"] = wall
@@ -1146,14 +1349,19 @@ def run_main_path(dev, tmp: Path, n_contigs: int, n_genomes: int, max_clusters: 
         log("compaction: " + line)
     engine = engine_counts(lines)
     log(f"the engine on the {n_contigs}-contig path: " + json.dumps(engine))
-    result = {"launches": launches, "launches_by_width": tally, **checked, "times": times,
-              "compactions": compactions, "engine_counts": engine, "profile": profile_stages(dev, out)}
-    if agreement:
-        from vamb_torch.composition import Composition
-        from vamb_torch.utils import read_npz
+    from vamb_torch.composition import Composition
+    from vamb_torch.utils import read_npz
 
-        result["card_vs_cpu"] = engine_agreement(
-            dev, read_npz(out / "latent.npz"), Composition.load(out / "composition.npz").metadata.lengths)
+    latent = read_npz(out / "latent.npz")
+    lengths = Composition.load(out / "composition.npz").metadata.lengths
+    result = {"launches": launches, "launches_by_width": tally, **checked, "times": times,
+              "compactions": compactions, "engine_counts": engine,
+              "_latent": latent, "_lengths": lengths,
+              "_labels": clusters_of(out / "vae_clusters_unsplit.tsv", n_contigs)}
+    if profile:
+        result["profile"] = profile_stages(dev, out)
+    if agreement:
+        result["card_vs_cpu"] = engine_agreement(dev, latent, lengths)
     return result
 
 
@@ -2254,6 +2462,143 @@ def batched_attempts(dev) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 11: the bf16 path
+
+BF16_FLAGS = ("--precision", "bf16", "--distance_dtype", "bfloat16")
+BF16_CLUSTERS = 2000  # -c, as phase 4
+BF16_PROFILE_STEPS = 50  # training steps profiled, as phase 6's
+BF16_PAIRS = 1_000_000  # contig pairs sampled for the agreement with f32
+
+
+def pair_agreement(a: np.ndarray, b: np.ndarray, seed: int) -> dict:
+    """Co-membership of two labellings of the same contigs: the share of
+    BF16_PAIRS sampled pairs on which they agree (together or apart:
+    `vamb_tpu`'s test_bf16_partition_and_agreement), and the share of the
+    pairs `a` puts together that `b` puts together too (random pairs seldom
+    share a cluster, so this is the sharper number)."""
+    idx = np.random.default_rng(seed).integers(0, len(a), (BF16_PAIRS, 2))
+    same_a = a[idx[:, 0]] == a[idx[:, 1]]
+    same_b = b[idx[:, 0]] == b[idx[:, 1]]
+    pairs = lambda counts: float((counts * (counts - 1) // 2).sum())  # noqa: E731
+    _, joint = np.unique(np.stack([a, b]), axis=1, return_counts=True)
+    return {"sampled_pairs": BF16_PAIRS, "agreement": float(np.mean(same_a == same_b)),
+            "kept_together": pairs(joint) / max(pairs(np.unique(a, return_counts=True)[1]), 1.0)}
+
+
+def run_bf16_path(dev, tmp: Path, f32_run: dict) -> dict:
+    """Phase 11: `bin default --precision bf16 --distance_dtype bfloat16`
+    through the CLI entry point on the card, on phase 4's dataset (VAE
+    512-512-32, 2 epochs, `-c 2000`); the launch counters are set to 0 just
+    before and read just after. Gates: the bf16 variants of the three
+    kernels launched, their f32 versions and `row_sweep` and the gather
+    not; the artifacts and TSVs read back, `model.npz` recording "bf16";
+    50 clusters of the bf16 engine on this path's latent on the card and
+    on the CPU in lockstep (Gumbel scores and candidates different in no
+    step, all 50 identical); phase 4's f32 latent (`f32_run`) clustered at
+    bf16 on the card agreeing with phase 4's f32 clusters on more than 0.95
+    of sampled pairs. Logged: stage times, the bins' pairwise precision
+    beside phase 4's, and BF16_PROFILE_STEPS bf16 training steps under
+    torch.profiler beside phase 6's f32 steps."""
+    from vamb_torch import kernels as K
+    from vamb_torch.__main__ import main
+    from vamb_torch.abundance import Abundance
+    from vamb_torch.cluster import ClusterGenerator
+    from vamb_torch.composition import Composition
+    from vamb_torch.models import VAE, make_dataset
+    from vamb_torch.models.dataset import num_batches
+    from vamb_torch.utils import read_npz
+    from vamb_torch.utils.checkpoint import load_flat
+
+    data = tmp / "data"
+    data.mkdir()
+    t = time.time()
+    genome = write_dataset(data, N_CONTIGS, N_GENOMES, N_SAMPLES, SEED)
+    log(f"phase 11 inputs: {N_CONTIGS} contigs from {N_GENOMES} genomes, {N_SAMPLES} samples, "
+        f"written in {time.time() - t:.1f} s")
+    out = tmp / "bf16"
+    K.reset_launch_counts()
+    t = time.time()
+    main(["bin", "default", "--outdir", str(out), "--fasta", str(data / "contigs.fna"),
+          "--abundance_tsv", str(data / "abundance.tsv"), "-e", "2", "-q", "1",
+          "-c", str(BF16_CLUSTERS), "--seed", str(SEED), *BF16_FLAGS], device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    tally = {k.__name__: dict(sorted(k.launches_by_width.items())) for k in K.KERNELS}
+    by_dtype = {k.__name__: dict(k.launches_by_dtype) for k in K.KERNELS}
+    log(f"phase 11: bin default {' '.join(BF16_FLAGS)} ran end to end in {wall:.2f} s; kernel launches "
+        f"{launches}; by N_pad {json.dumps(tally)}; by the matrix's type {json.dumps(by_dtype)}")
+    for name in BF16_KERNELS:
+        check(by_dtype[name].get("bfloat16", 0) > 0 and "float32" not in by_dtype[name],
+              f"phase 11: {name} launches by type {by_dtype[name]}: the bf16 variant alone must run")
+    check(launches["row_sweep"] == 0 and launches["gather_blocks"] == 0,
+          "phase 11: row_sweep or the gather ran on the bf16 path")
+    check(launches["gumbel_topc"] > 0, "phase 11: gumbel_topc never ran")
+    t_checks = time.time()
+    checked = check_outputs(out, genome, BF16_CLUSTERS)
+    meta = load_flat(out / "model.npz")[1]
+    check(meta["precision"] == "bf16", f"phase 11: model.npz records precision {meta['precision']!r}")
+    lines = (out / "log.txt").read_text().splitlines()
+    check(any("Precision: bf16" in ln for ln in lines), "phase 11: log.txt does not say it trained at bf16")
+    times = stage_times(out / "log.txt")
+    times["total_s"] = wall
+    times["clusters_per_s"] = checked["clusters"] / times["cluster_write_s"]
+    engine = engine_counts(lines)
+    check(engine["subset"]["attempts"] == 0 and engine["cache_and_lanes"]["passes"] == 0,
+          f"phase 11: the bf16 engine took the subset wander or ran lanes: {engine}")
+    log(f"phase 11: the engine {json.dumps(engine)}; pairwise precision {checked['precision']:.4f} "
+        f"(phase 4, f32: {f32_run['precision']:.4f}); stage times {json.dumps(times)}")
+
+    comp = Composition.load(out / "composition.npz")
+    t = time.time()
+    agree = engine_agreement(dev, read_npz(out / "latent.npz"), comp.metadata.lengths,
+                             label="phase 11's latent at bfloat16 distances", distance_dtype="bfloat16")
+    times["card_vs_cpu_engine_s"] = time.time() - t
+    for kind in ("gumbel scores", "candidates"):
+        check(agree["inputs_seen"][kind] > 0 and agree["inputs_that_differed"][kind] == 0,
+              f"phase 11: the card's {kind} differ from the CPU's")
+    check(agree["identical_clusters"] == agree["clusters_compared"] == agree["clusters_requested"],
+          "phase 11: the card and the CPU emitted different clusters")
+
+    # phase 4's f32 latent at bf16 distances against phase 4's f32 clusters
+    t = time.time()
+    gen = ClusterGenerator(f32_run["_latent"].copy(), f32_run["_lengths"], rng_seed=SEED, device=dev,
+                           distance_dtype="bfloat16")
+    labels = -1 - np.arange(N_CONTIGS)
+    n_bf16 = 0
+    for i, c in enumerate(itertools.islice(gen, BF16_CLUSTERS)):
+        labels[c.members] = i
+        n_bf16 += 1
+    torch.cuda.synchronize()
+    times["f32_latent_at_bf16_s"] = time.time() - t
+    vs_f32 = {"bf16_clusters": n_bf16, **pair_agreement(f32_run["_labels"], labels, SEED)}
+    log("phase 11: phase 4's f32 latent clustered at bfloat16 distances on the card against phase 4's "
+        f"f32 clusters: {json.dumps(vs_f32)}")
+    check(vs_f32["agreement"] > 0.95, f"phase 11: pairwise agreement with f32 {vs_f32['agreement']}")
+    times["checks_s"] = time.time() - t_checks
+
+    ab = Abundance.load(out / "abundance.npz", comp.metadata.refhash)
+    rows = 256 * BF16_PROFILE_STEPS
+    ds = make_dataset(ab.matrix[:rows], comp.matrix[:rows], comp.metadata.lengths[:rows])
+    vae = VAE(N_SAMPLES, seed=SEED, device=dev, precision="bf16")
+
+    def train_epoch():
+        vae.trainmodel(ds, nepochs=1, batchsize=256, batchsteps=None)
+        return num_batches(ds.n_obs, 256)
+
+    prof = profiled(train_epoch, "bf16 training")
+    f32_prof = f32_run.get("profile", {}).get("train")
+    log("phase 11: a bf16 training step " + json.dumps(
+        {k: prof[k] for k in ("ms_per_unit", "kernels_per_unit", "device_busy_share")})
+        + "; phase 6's f32 step " + (json.dumps(
+            {k: f32_prof[k] for k in ("ms_per_unit", "kernels_per_unit", "device_busy_share")})
+            if f32_prof else "not measured in this run"))
+    log("phase 11 stage times: " + json.dumps(times))
+    return {"launches": launches, "launches_by_width": tally, "launches_by_dtype": by_dtype, **checked,
+            "f32_precision": f32_run["precision"], "times": times, "engine_counts": engine,
+            "card_vs_cpu": agree, "f32_latent_at_bf16": vs_f32, "profile": prof}
+
+
 # --------------------------------------------------- phase 6: profile
 
 # Clusters a profiled window (was 100): a smaller window keeps the
@@ -2488,7 +2833,7 @@ def kernel_rows(timed: dict, errs: dict, run_100k: dict, run_300k: dict, run_tax
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "n_pad": main_n,
-            **({"f_pad": F_PAD} if name not in ("gumbel_topc", "row_stats") else
+            **({"f_pad": F_PAD, "dtype": "float32"} if name not in ("gumbel_topc", "row_stats") else
                {"launches_avamb_path": run_avamb["launches"][name]}),
             **({"library_note": LIBRARY_NOTES[name]} if r["library_ms"] is None else {}),
             **({"replaces_kind": REPLACES_KIND[name]} if name in REPLACES_KIND else {}),
@@ -2534,9 +2879,29 @@ def kernel_rows_aae(timed: dict, errs: dict, run_avamb: dict) -> list:
             **({"library_note": LIBRARY_NOTES.get(name, "none")} if r["library_ms"] is None else {}),
             **({"replaces_kind": REPLACES_KIND[name], "eight_medoid_sweeps_ms": r["eight_medoid_sweeps_ms"]}
                if name == "spec_sweep" else {}),
-            "f_pad": AAE_F_PAD, "n_pad": PATH_WIDTHS[1], "path": "phase 9 (bin avamb)",
+            "f_pad": AAE_F_PAD, "dtype": "float32", "n_pad": PATH_WIDTHS[1], "path": "phase 9 (bin avamb)",
             "ms_l2_warm": r["ms_l2_warm"], "plain_ms_l2_warm": r["plain_ms_l2_warm"],
             "library_ms_l2_warm": r["library_ms_l2_warm"], "gap_s_avamb_path": gaps[name]["gap_s"],
+        })
+    return rows
+
+
+def kernel_rows_bf16(timed: dict, errs: dict, run_bf16: dict) -> list:
+    """The kernels JSON line's rows of the bf16 variants, one a kernel and
+    timed width: `time_bf16`'s times, `check_bf16`'s errors and phase 11's
+    launches at that width (its path runs at F_pad 32 alone)."""
+    rows = []
+    for (name, f_pad, n), r in timed.items():
+        rows.append({
+            "name": name, "dtype": "bfloat16", "route": "cuda", "source": CLUSTER_SOURCE,
+            "replaces": REPLACES[name],
+            "launches": run_bf16["launches_by_width"][name].get(n, 0) if f_pad == F_PAD else 0,
+            "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            ("library_what" if r["library_ms"] is not None else "library_note"): r["library_what"],
+            "f32_ms": r["f32_ms"], "f_pad": f_pad, "n_pad": n,
+            **({"replaces_kind": REPLACES_KIND[name]} if name in REPLACES_KIND else {}),
+            "path": "phase 11 (bin default --precision bf16 --distance_dtype bfloat16)",
         })
     return rows
 
@@ -2909,10 +3274,12 @@ def build_all() -> Path:
 
 
 def main(mode: str = "full") -> int:
-    """mode "full" runs phases 1-10; "kernels" phases 1-2; "recluster"
+    """mode "full" runs phases 1-11; "kernels" phases 1-2; "recluster"
     phase 1, the Forward kernel's check and phase 7; "taxonomy" phases 1
     and 8; "avamb" phase 1, phase 2 at F_pad 288 and phase 9; "lanes"
-    phase 1, phase 2's `spec_sweep` and `row_stats` and phase 10."""
+    phase 1, phase 2's `spec_sweep` and `row_stats` and phase 10; "bf16"
+    phase 1, phase 2's bf16 checks and times, phase 4's `bin default`
+    (without its profile and card-vs-CPU run) and phase 11."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -2959,6 +3326,23 @@ def main(mode: str = "full") -> int:
                           "batched_attempts": phase10}))
         print(card)
         return 0
+    if mode == "bf16":  # phase 1, phase 2's bf16 variants, phase 4's run, phase 11
+        errs_bf16 = check_bf16(dev)
+        timed_bf16 = time_bf16(dev)
+        phase_done("2 (the bf16 variants: checks and times)")
+        with tempfile.TemporaryDirectory() as tmp:
+            run_100k = run_main_path(dev, Path(tmp), N_CONTIGS, N_GENOMES, 2000,
+                                     ("candidate_density_sweep", "medoid_sweep", "gumbel_topc",
+                                      "spec_sweep"), profile=False)
+        phase_done("4 (100k path, f32: the latent phase 11 compares with)")
+        with tempfile.TemporaryDirectory() as tmp:
+            run_bf16 = run_bf16_path(dev, Path(tmp), run_100k)
+        phase_done("11 (the bf16 path)")
+        drop = ("launches_by_width",)
+        print(json.dumps({"kernels": kernel_rows_bf16(timed_bf16, errs_bf16, run_bf16),
+                          "bf16_path": {k: v for k, v in run_bf16.items() if k not in drop}}))
+        print(card)
+        return 0
     if mode == "taxonomy":  # phase 1, then phase 8 alone
         with tempfile.TemporaryDirectory() as tmp:
             run_tax = run_taxonomy_path(dev, Path(tmp))
@@ -2970,6 +3354,7 @@ def main(mode: str = "full") -> int:
     if mode != "recluster":
         errs = check_kernels(dev)
         errs_aae = check_kernels(dev, AAE_F_PAD)
+        errs_bf16 = check_bf16(dev)
         phase_done("2 (kernel checks)")
     hmm_timed = check_and_time_hmm(dev)
     phase_done("2 (hmm_forward check and times)")
@@ -2982,6 +3367,7 @@ def main(mode: str = "full") -> int:
         return 0
     timed = time_kernels(dev)
     timed_aae = time_kernels(dev, AAE_F_PAD, (PATH_WIDTHS[1],), PATH_WIDTHS[1])
+    timed_bf16 = time_bf16(dev)
     phase_done("2 (kernel times)")
     if mode == "kernels":
         print(card)
@@ -3020,17 +3406,22 @@ def main(mode: str = "full") -> int:
     phase_done("9 (the Avamb path)")
     phase10 = batched_attempts(dev)
     phase_done("10 (batched attempts)")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_bf16 = run_bf16_path(dev, Path(tmp), run_100k)
+    phase_done("11 (the bf16 path)")
 
     kernels = (kernel_rows(timed, errs, run_100k, run_300k, run_tax, run_avamb)
-               + kernel_rows_aae(timed_aae, errs_aae, run_avamb) + [hmm_row(hmm_timed, run_rc)])
-    drop = ("launches", "launches_by_width", "launches_by_fpad")
+               + kernel_rows_aae(timed_aae, errs_aae, run_avamb)
+               + kernel_rows_bf16(timed_bf16, errs_bf16, run_bf16) + [hmm_row(hmm_timed, run_rc)])
+    drop = ("launches", "launches_by_width", "launches_by_fpad", "_latent", "_lengths", "_labels")
     print(json.dumps({"kernels": kernels,
                       "main_path_100k": {k: v for k, v in run_100k.items() if k not in drop},
                       "main_path_300k": {k: v for k, v in run_300k.items() if k not in drop},
                       "recluster_path": run_rc,
                       "taxonomy_path": {k: v for k, v in run_tax.items() if k not in drop},
                       "avamb_path": {k: v for k, v in run_avamb.items() if k not in drop},
-                      "batched_attempts": phase10}))
+                      "batched_attempts": phase10,
+                      "bf16_path": {k: v for k, v in run_bf16.items() if k not in drop}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -3057,5 +3448,5 @@ if __name__ == "__main__":
         batch_layouts()
         sys.exit(0)
     modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy",
-             "--avamb": "avamb", "--lanes": "lanes"}
+             "--avamb": "avamb", "--lanes": "lanes", "--bf16": "bf16"}
     sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

@@ -592,16 +592,17 @@ def test_subset_and_compaction_switches_run(kwargs):
 @pytest.mark.parametrize(
     "kwargs,error,match",
     [({"attempt_batch": "on"}, ValueError, "requires the subset wander"),
-     ({"distance_dtype": "bfloat16"}, NotImplementedError, "bfloat16")],
+     ({"distance_dtype": "bfloat16", "wander_scope": "subset"}, ValueError,
+      "requires float32 distances")],
 )
 def test_unported_switches_fail_loudly(kwargs, error, match):
-    """bfloat16 distances are not ported; attempt lanes are, and as in
-    `vamb_tpu` (cluster.py:1915-1920) "on" outside the subset scope (here
-    auto scope at 128 columns: full sweeps) raises ValueError."""
+    """Switch combinations `vamb_tpu` refuses, refused alike: attempt lanes
+    "on" outside the subset scope (here auto scope at 128 columns: full
+    sweeps; cluster.py:1915-1920), and the subset wander with bfloat16
+    distances (cluster.py:1880-1881)."""
     m = np.ones((4, 8), np.float32)
     with pytest.raises(error, match=match):
         TorchGenerator(m, np.full(4, 2000.0, np.float32), device="cpu", **kwargs)
-    if error is ValueError:
-        with pytest.raises(ValueError, match="requires the subset wander"):
-            j_cluster.ClusterGenerator(m, np.full(4, 2000.0, np.float32), compact_async=False,
-                                       **kwargs)
+    with pytest.raises(error, match=match):
+        j_cluster.ClusterGenerator(m, np.full(4, 2000.0, np.float32), compact_async=False,
+                                   **kwargs)

@@ -26,7 +26,11 @@ Taxometer and VAEVAE train on the card as on the CPU (four steps, rtol
 1e-4) without launching a hand-written kernel, and so does the AAE. At
 F_pad 288, the width `bin avamb` clusters its z latent at, every matrix
 kernel takes its generic code and is still bit for bit its plain version,
-each launch tallied under that width.
+each launch tallied under that width. On a bf16 matrix, the variants of
+`medoid_sweep`, `spec_sweep` and `candidate_density_sweep` equal the f32
+kernels on the widened matrix and their plain versions bit for bit, in
+one launch each, tallied as "bfloat16"; the engine with bfloat16
+distances emits on the card what it emits on the CPU.
 """
 
 import numpy as np
@@ -300,6 +304,91 @@ def test_engine_lanes_on_and_off_card_equals_cpu(cuda):
                 assert (gen.lane_counts["admitted"] > 0) == (ab == "on"), gen.lane_counts
     first = runs["on", "cuda"]
     assert len(first) > 30 and all(r == first for r in runs.values())
+
+
+# the bf16 variants of the three kernels a bfloat16 engine runs, at the
+# widths the 100k and 300k paths give them, an unaligned one and F_pad 288
+_BF16_WIDTHS = [(8_192, 32), (100_003, 32), (100_096, 32), (150_016, 32), (300_032, 32),
+                (4_099, 288), (100_096, 288)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f", _BF16_WIDTHS)
+def test_bf16_variants_match_the_f32_kernels_and_plain(cuda, n, f):
+    """On a bf16 matrix, `medoid_sweep`, `spec_sweep` (S 1 to 8) and
+    `candidate_density_sweep` (C 1, 25, 32; int64 and int32 ids) are bit for
+    bit the f32 kernels on the widened matrix and the plain versions, and
+    each launch is tallied as "bfloat16"."""
+    mT_np, lengths = _clumpy(n, f, seed=n + f + 1)
+    lengths[np.random.default_rng(n).permutation(n)[: n // 3]] = 0.0
+    mT = torch.as_tensor(mT_np, device=cuda).to(torch.bfloat16)
+    wide = mT.float()
+    w = torch.as_tensor(lengths, device=cuda)
+    rng = np.random.default_rng(n + 1)
+    K.reset_launch_counts()
+    for idx in (0, 37, n - 1):
+        got = K.medoid_sweep(mT, idx, w)
+        for a, b, c in zip(got, K.medoid_sweep(wide, idx, w), K.medoid_sweep_plain(mT, idx, w)):
+            assert a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, c), idx
+    for s in range(1, 9):
+        cols = [int(c) for c in rng.choice(n, s, replace=False)]
+        got = K.spec_sweep(mT, cols, w)
+        for name, a, b, c in zip(("rows", "hist", "density", "n_close", "n_near"), got,
+                                 K.spec_sweep(wide, cols, w), K.spec_sweep_plain(mT, cols, w)):
+            assert torch.equal(a, b) and torch.equal(a, c), (name, s)
+    for c in (1, 25, 32):
+        cand = torch.as_tensor(rng.choice(n, c, replace=False), device=cuda)
+        got = K.candidate_density_sweep(mT, cand, w)
+        assert torch.equal(got, K.candidate_density_sweep(wide, cand, w))
+        assert torch.equal(got, K.candidate_density_sweep(mT, cand.to(torch.int32), w))
+        assert torch.equal(got, K.candidate_density_plain(mT, cand, w))
+    assert K.medoid_sweep.launches_by_dtype == {"bfloat16": 3, "float32": 3}
+    assert K.spec_sweep.launches_by_dtype == {"bfloat16": 8, "float32": 8}
+    assert K.candidate_density_sweep.launches_by_dtype == {"bfloat16": 6, "float32": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["medoid_sweep", "spec_sweep", "candidate_density"])
+def test_bf16_variants_are_one_launch(cuda, kernel):
+    "One device kernel a call, as the f32 kernels."
+    mT_np, lengths = _clumpy(300_032, 32, seed=9)
+    mT = torch.as_tensor(mT_np, device=cuda).to(torch.bfloat16)
+    w = torch.as_tensor(lengths, device=cuda)
+    cand = torch.arange(25, device=cuda) * 1000
+    fn = {"medoid_sweep": lambda: K.medoid_sweep(mT, 11, w),
+          "spec_sweep": lambda: K.spec_sweep(mT, range(8), w),
+          "candidate_density": lambda: K.candidate_density_sweep(mT, cand, w)}[kernel]
+    kernels = _one_launch(cuda, fn, kernel + "_kernel")
+    assert len(kernels) == 3, kernels
+
+
+@pytest.mark.cuda
+def test_bf16_engine_card_equals_cpu(cuda):
+    """The engine with bfloat16 distances on the card and on the CPU, with
+    the compaction ladder forced: one emission; the card launched the bf16
+    variants alone and never `row_sweep` or the gather."""
+    from vamb_torch import cluster
+
+    rng = np.random.default_rng(4)
+    centers = rng.normal(size=(40, 32))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    m = np.concatenate([c + rng.normal(scale=0.04, size=(30, 32)) for c in centers]
+                       + [rng.normal(size=(200, 32))]).astype(np.float32)
+    lengths = rng.integers(2000, 50_000, len(m)).astype(np.float32)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        K.reset_launch_counts()
+        gen = cluster.ClusterGenerator(m.copy(), lengths, rng_seed=5, device=dev,
+                                       distance_dtype="bfloat16", compact_min_pad=128,
+                                       batch_clusters=8)
+        runs[str(dev)] = [(c.medoid, c.seed, c.kind_str, c.radius, c.maximal_pvr, c.successes,
+                           c.attempts, c.members.tolist()) for c in gen]
+        if dev == cuda:
+            assert gen.compactions
+            for k in (K.medoid_sweep, K.spec_sweep, K.candidate_density_sweep):
+                assert set(k.launches_by_dtype) == {"bfloat16"}, (k.__name__, k.launches_by_dtype)
+            assert K.row_sweep.launches == 0 and K.gather_blocks.launches == 0
+    assert len(runs["cuda"]) > 40 and runs["cuda"] == runs["cpu"]
 
 
 # the AAE's z latent: 283 features padded to 288; an aligned and an unaligned N

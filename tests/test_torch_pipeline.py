@@ -120,8 +120,8 @@ def test_bin_default_end_to_end(data, tmp_path):
 
 def test_unported_subcommands_and_flags_fail_loudly(data, tmp_path):
     # every subcommand runs now: `bin avamb` and `avamb_ensemble` fail on
-    # their missing inputs, not as unported; the open switches still raise
-    # with their ROADMAP item
+    # their missing inputs, not as unported; `--dist`, the one open switch,
+    # still raises with its ROADMAP item
     with pytest.raises(ValueError, match="abundance"):
         torch_main(["bin", "avamb", "--outdir", str(tmp_path), "--fasta",
                     str(data / "contigs.fna")], device="cpu")
@@ -132,7 +132,9 @@ def test_unported_subcommands_and_flags_fail_loudly(data, tmp_path):
         torch_main(["bin", "avamb", "--outdir", str(tmp_path / "o3"), "--fasta",
                     str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),
                     "--dist"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_main(["bin", "default", "--outdir", str(tmp_path / "o2"), "--fasta",
-                    str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),
-                    "--precision", "bf16", "-e", "2", "-q", "1"], device="cpu")
+    # bf16 training and bfloat16 distances are ported: the run completes
+    torch_main(["bin", "default", "--outdir", str(tmp_path / "o2"), "--fasta",
+                str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),
+                "--precision", "bf16", "--distance_dtype", "bfloat16", "-e", "2", "-q", "1"],
+               device="cpu")
+    assert (tmp_path / "o2" / "vae_clusters_unsplit.tsv").is_file()

@@ -25,7 +25,7 @@
   of a step can land one mask step (4096 ulps) away. Those are counted
   (1 of 6000 here) and each must be exactly one step off.
 * a model `vamb_tpu` trained at bf16 loads, encodes within the same
-  tolerance, saves back as "bf16" and refuses to train.
+  tolerance, saves back as "bf16" and trains on at bf16.
 """
 
 import io
@@ -398,8 +398,8 @@ def test_bf16_model_loads_encodes_and_round_trips():
     """A model.npz that vamb_tpu trained at bf16 loads into the port: it
     encodes as vamb_tpu's does (encode runs at f32 whatever the training
     precision; the mask-straddle tolerance of test_encode_shared_model),
-    saves again as "bf16" in a file vamb_tpu loads, and refuses to train
-    (bf16 training is ROADMAP queue 1, item 3)."""
+    saves again as "bf16" in a file vamb_tpu loads, and trains on at bf16
+    (tests/test_torch_bf16.py holds that training to vamb_tpu's)."""
     buf = io.BytesIO()
     jvae = JVAE(nsamples=3, nhiddens=[16, 16], nlatent=4, precision="bf16")
     jvae.save(buf)
@@ -424,8 +424,11 @@ def test_bf16_model_loads_encodes_and_round_trips():
     back = JVAE.load(out)
     assert back.precision == "bf16"
     assert np.array_equal(back.params["enc"][0]["dense"]["w"], jvae.params["enc"][0]["dense"]["w"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        tvae.trainmodel(ds_t, nepochs=1, batchsize=64, batchsteps=None)
+    assert tvae._compute_dtype == torch.bfloat16
+    tvae.trainmodel(ds_t, nepochs=1, batchsize=64, batchsteps=None)
+    assert tvae.precision == "bf16"
+    assert not np.array_equal(tvae.enc[0].dense.w.detach().numpy(),
+                              jvae.params["enc"][0]["dense"]["w"])
 
 
 def test_cuda_without_card_raises():
@@ -436,5 +439,8 @@ def test_cuda_without_card_raises():
 
 
 def test_unported_precision_raises():
-    with pytest.raises(NotImplementedError):
-        TVAE(4, nhiddens=[8, 8], nlatent=2, device=CPU, precision="bf16")
+    "Precisions are f32 and bf16, as in vamb_tpu (vae.py:92-93); others raise."
+    with pytest.raises(ValueError, match="precision"):
+        TVAE(4, nhiddens=[8, 8], nlatent=2, device=CPU, precision="fp8")
+    with pytest.raises(ValueError, match="precision"):
+        JVAE(4, nhiddens=[8, 8], nlatent=2, precision="fp8")

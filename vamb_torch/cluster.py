@@ -81,6 +81,19 @@ and the candidate Gumbel draws span the padded width (or the ball), with
 one key split per attempt and one split + one uniform per wander step,
 from jax's threefry stream (utils/threefry.py) — so given a latent the port
 draws exactly the candidates `vamb_tpu` draws on the CPU.
+
+bfloat16 distances (`distance_dtype="bfloat16"`, `vamb_tpu`'s opt-in
+reduced-precision mode, cluster.py:1836-1943): the engine order is taken
+from the float32 normalized matrix, which is then stored as bfloat16 (round
+to nearest even, as `astype(jnp.bfloat16)`), half the bytes every sweep
+reads. `vamb_tpu` accumulates its bf16 products in float32, and a bf16 x
+bf16 product is exact in float32, so its bf16 engine is its float32 engine
+on the rounded matrix; the port's is too: `medoid_sweep`, `spec_sweep` and
+`candidate_density_sweep` read the bf16 matrix and run their float32
+arithmetic on the widened values. As in `vamb_tpu` the mode never takes the
+subset wander ("auto" picks full sweeps; "subset" raises ValueError, :1880),
+so it runs no attempt lanes ("on" raises) and never `row_sweep` or the
+gather.
 """
 
 from collections import deque
@@ -346,8 +359,9 @@ class ClusterGenerator:
         device: "cuda" (default) or "cpu"
 
     Under each setting it emits what `vamb_tpu`'s generator emits with
-    `compact_async=False` on the CPU. `distance_dtype="float32"` and
-    `wander_kernel="auto"` are the only values ported. Each compaction is
+    `compact_async=False` on the CPU. `distance_dtype` is "float32" or
+    "bfloat16" (full scope only; see the module notes); `wander_kernel`
+    "auto" is the only value ported. Each compaction is
     logged and recorded in `compactions` as (clusters emitted, old width,
     new width); `subset_counts` counts the exact attempts' subset wanders
     and how many fell back to the full climb because the ball overflowed
@@ -399,10 +413,14 @@ class ClusterGenerator:
             raise ValueError("N sequences in lengths and matrix do not match")
         _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch)
         self.device = resolve_device(device)
+        bf16 = distance_dtype == "bfloat16"
+        if wander_scope == "subset" and bf16:  # vamb_tpu/cluster.py:1880-1881
+            raise ValueError("wander_scope='subset' requires float32 distances")
         n_pad = _pad_to(len(matrix), _LANES)
-        # vamb_tpu/cluster.py:1901-1920: lanes ride the subset wander
+        # vamb_tpu/cluster.py:1901-1920: lanes ride the subset wander, which
+        # "auto" takes at float32 only
         self._use_subset = wander_scope == "subset" or (
-            wander_scope == "auto" and n_pad >= _SUBSET_AUTO_MIN
+            wander_scope == "auto" and not bf16 and n_pad >= _SUBSET_AUTO_MIN
         )
         if attempt_batch == "on" and not self._use_subset:
             raise ValueError(
@@ -424,7 +442,9 @@ class ClusterGenerator:
         kept = np.zeros(n_pad, bool)
         kept[:n] = True
         lengths_pad = np.pad(lengths.astype(np.float32)[order], (0, n_pad - n))
-        self._set_columns(torch.as_tensor(padded_t, device=self.device), ranks,
+        # the order above is the float32 matrix's; bf16 rounds after it (:1943)
+        self._set_columns(torch.as_tensor(padded_t, device=self.device).to(
+                              torch.bfloat16 if bf16 else torch.float32), ranks,
                           torch.as_tensor(lengths_pad, device=self.device), kept)
 
         self.n_points = n
@@ -980,13 +1000,8 @@ class ClusterGenerator:
 
 
 def _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch):
-    "Reject bad values, and the `vamb_tpu` engine switches this port does not implement yet."
-    if distance_dtype != "float32":
-        if distance_dtype == "bfloat16":
-            raise NotImplementedError(
-                "bfloat16 distances are not ported yet (ROADMAP queue 1, item 4: "
-                "bfloat16 distances)"
-            )
+    "Reject bad values, and the `vamb_tpu` engine switches this port does not implement."
+    if distance_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"distance_dtype must be float32/bfloat16, not {distance_dtype}")
     if wander_kernel != "auto":
         if wander_kernel in ("pallas", "xla"):

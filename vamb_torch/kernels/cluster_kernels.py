@@ -60,14 +60,26 @@ what its design does about it):
   CTA (an integer ticket) across CTAs. `gumbel_scores` runs the same kernel
   for the scores alone.
 
+The engine's `distance_dtype="bfloat16"` stores the matrix as bfloat16.
+`medoid_sweep`, `spec_sweep` and `candidate_density_sweep`, the kernels
+that read it on that path, take a float32 or a bfloat16 matrix and launch
+the variant of its type: the same kernel templated on the element type,
+which widens each bf16 value exactly to float as it arrives and then runs
+the float kernel's arithmetic in its order, so it equals the float kernel
+on `matrixT.float()` bit for bit and reads half the bytes. Their plain
+versions widen a bf16 matrix and reuse the float arithmetic. `row_sweep`
+and the gather run only inside the subset wander, which a bf16 engine
+never takes, and raise on a bf16 matrix.
+
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
 PyTorch version beside it only for a CPU tensor. It counts its launches in
 `<wrapper>.launches`, by N_pad in `<wrapper>.launches_by_width` and, for the
 five that read the latent matrix, by F_pad in `<wrapper>.launches_by_fpad`
-(the Gumbel kernels and `row_stats` see no matrix: theirs stay empty). The
-source is compiled by `nvcc` at first use into `kernels/_build/` and bound
-with ctypes; nothing is compiled or imported from CUDA while this module
-is imported.
+and by the matrix's type ("float32" or "bfloat16") in
+`<wrapper>.launches_by_dtype` (the Gumbel kernels and `row_stats` see no
+matrix: theirs stay empty). The source is compiled by `nvcc` at first use
+into `kernels/_build/` and bound with ctypes; nothing is compiled or
+imported from CUDA while this module is imported.
 """
 
 import ctypes
@@ -156,20 +168,22 @@ def _load():
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.vt_row_sweep.argtypes = [vp, ci, ci, ci, vp, vp]
             lib.vt_row_sweep.restype = ci
-            lib.vt_candidate_density.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp]
-            lib.vt_candidate_density.restype = ci
+            for fn in (lib.vt_candidate_density, lib.vt_candidate_density_bf16):
+                fn.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp, vp, vp]
+                fn.restype = ci
             lib.vt_gather_blocks.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp, vp, vp, vp, vp, vp,
                                              vp, vp]
             lib.vt_gather_blocks.restype = ci
-            lib.vt_medoid_sweep.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-            lib.vt_medoid_sweep.restype = ci
+            for fn in (lib.vt_medoid_sweep, lib.vt_medoid_sweep_bf16):
+                fn.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+                fn.restype = ci
             cu = ctypes.c_uint
             lib.vt_gumbel_topc.argtypes = [cu, cu, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, ci,
                                            vp]
             lib.vt_gumbel_topc.restype = ci
-            lib.vt_spec_sweep.argtypes = [vp, ci, ci, *[ci] * _SPEC_SEEDS, ci, vp, vp, vp, vp, vp,
-                                          vp, vp, vp]
-            lib.vt_spec_sweep.restype = ci
+            for fn in (lib.vt_spec_sweep, lib.vt_spec_sweep_bf16):
+                fn.argtypes = [vp, ci, ci, *[ci] * _SPEC_SEEDS, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+                fn.restype = ci
             lib.vt_row_stats.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp]
             lib.vt_row_stats.restype = ci
             consts = (lib.vt_max_candidates, lib.vt_density_threads, lib.vt_density_tile_cols,
@@ -189,11 +203,29 @@ def _load():
     return _lib
 
 
-def _check_matrix(matrixT: torch.Tensor) -> None:
-    if matrixT.dtype != torch.float32 or matrixT.dim() != 2:
-        raise ValueError("matrixT must be a 2-D float32 tensor (F_pad, N_pad)")
+_MATRIX_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _check_matrix(matrixT: torch.Tensor, bf16: bool = False) -> None:
+    """A (F_pad, N_pad) contiguous float32 matrix or, where the kernel has a
+    bf16 variant (`bf16`), a bfloat16 one."""
+    if matrixT.dim() != 2 or matrixT.dtype not in (
+            (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)):
+        raise ValueError("matrixT must be a 2-D float32 tensor (F_pad, N_pad)"
+                         + (" or a bfloat16 one" if bf16 else
+                            "; only the subset wander runs this kernel, and it is float32 only"))
     if not matrixT.is_contiguous():
         raise ValueError("matrixT must be contiguous")
+
+
+def _widened(matrixT: torch.Tensor) -> torch.Tensor:
+    "A plain version's float32 matrix: a bf16 one widened (exact), a float32 one as it is."
+    return matrixT.float() if matrixT.dtype == torch.bfloat16 else matrixT
+
+
+def _launcher(lib, name: str, matrixT: torch.Tensor):
+    "The C function of kernel `name` for the matrix's element type."
+    return getattr(lib, name + ("_bf16" if matrixT.dtype == torch.bfloat16 else ""))
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -201,13 +233,16 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
 
 
-def _count(kernel, n_pad: int, f_pad=None) -> None:
-    """One launch of `kernel` on an (f_pad, n_pad) matrix (or n columns of a
-    step, f_pad None): its count and its tallies by N_pad and by F_pad."""
+def _count(kernel, n_pad: int, matrixT=None) -> None:
+    """One launch of `kernel` on the (F_pad, N_pad) matrix `matrixT` (or on
+    n_pad columns of a step or of rows, no matrix): its count and its
+    tallies by N_pad, by F_pad and by the matrix's type."""
     kernel.launches += 1
     kernel.launches_by_width[n_pad] = kernel.launches_by_width.get(n_pad, 0) + 1
-    if f_pad is not None:
+    if matrixT is not None:
+        f_pad, dtype = matrixT.shape[0], _MATRIX_DTYPES[matrixT.dtype]
         kernel.launches_by_fpad[f_pad] = kernel.launches_by_fpad.get(f_pad, 0) + 1
+        kernel.launches_by_dtype[dtype] = kernel.launches_by_dtype.get(dtype, 0) + 1
 
 
 # ------------------------------------------------------------- row_sweep
@@ -229,9 +264,10 @@ def row_sweep_plain(matrixT: torch.Tensor, idx: int) -> torch.Tensor:
 def row_sweep(matrixT: torch.Tensor, idx: int) -> torch.Tensor:
     """Distance row of column `idx`: `d = 0.5 - M^T M[:, idx]`, `d[idx] = 0`.
 
-    (F_pad, N_pad) float32 -> (N_pad,) float32. Launches the CUDA kernel
-    for a CUDA tensor (counted in `row_sweep.launches`), runs the plain
-    version for a CPU tensor."""
+    (F_pad, N_pad) float32 -> (N_pad,) float32 (a bfloat16 matrix raises:
+    only the subset wander runs it). Launches the CUDA kernel for a CUDA
+    tensor (counted in `row_sweep.launches`), runs the plain version for a
+    CPU tensor."""
     _check_matrix(matrixT)
     f_pad, n_pad = matrixT.shape
     idx = int(idx)
@@ -246,13 +282,14 @@ def row_sweep(matrixT: torch.Tensor, idx: int) -> torch.Tensor:
     stream = torch.cuda.current_stream(matrixT.device).cuda_stream
     err = lib.vt_row_sweep(matrixT.data_ptr(), f_pad, n_pad, idx, d.data_ptr(), stream)
     _raise_on(err, "row_sweep")
-    _count(row_sweep, n_pad, f_pad)
+    _count(row_sweep, n_pad, matrixT)
     return d
 
 
 row_sweep.launches = 0
 row_sweep.launches_by_width = {}  # N_pad -> launches
 row_sweep.launches_by_fpad = {}  # F_pad -> launches
+row_sweep.launches_by_dtype = {}  # the matrix's type -> launches
 
 
 # ---------------------------------------------- candidate_density_sweep
@@ -264,7 +301,9 @@ def candidate_density_plain(
     """Plain version of `candidate_density_sweep` (the XLA contract of
     tests/test_pallas.py:106-129): candidate distances with the kernel's
     feature-ordered arithmetic, the masked terms, then `density_ordered_sum`,
-    the kernel's summation order, so it equals the kernel bit for bit."""
+    the kernel's summation order, so it equals the kernel bit for bit. A
+    bf16 matrix is widened first, as the kernel widens it."""
+    matrixT = _widened(matrixT)
     rows = matrixT[:, cand.long()]  # (F, C)
     dot = torch.zeros(len(cand), matrixT.shape[1], dtype=torch.float32,
                       device=matrixT.device)
@@ -344,12 +383,13 @@ def candidate_density_sweep(
 ) -> torch.Tensor:
     """Densities of C <= 32 candidate medoids in one matrix pass.
 
-    matrixT (F_pad, N_pad) f32, cand (C,) int64 or int32 columns, wts
-    (N_pad,) f32 (= lengths where kept, else 0) -> (C,) f32. Launches the
-    one-pass CUDA kernel for CUDA tensors (ids go in as they are; counted in
-    `candidate_density_sweep.launches`), runs the plain version for CPU
-    tensors; both give the same bits."""
-    _check_matrix(matrixT)
+    matrixT (F_pad, N_pad) f32 or bf16, cand (C,) int64 or int32 columns,
+    wts (N_pad,) f32 (= lengths where kept, else 0) -> (C,) f32. Launches
+    the one-pass CUDA kernel of the matrix's type for CUDA tensors (ids go
+    in as they are; counted in `candidate_density_sweep.launches`), runs the
+    plain version for CPU tensors; both give the same bits, a bf16 matrix's
+    those of its widened float32 copy."""
+    _check_matrix(matrixT, bf16=True)
     f_pad, n_pad = matrixT.shape
     c = int(cand.shape[0])
     if not 1 <= c <= _MAX_CAND:
@@ -376,18 +416,19 @@ def candidate_density_sweep(
     partials, ticket, sms = _density_workspace(dev, stream)
     groups = density_groups(c, density_col_blocks(n_pad)[1], sms)
     dens = torch.empty(c, dtype=torch.float32, device=dev)
-    err = lib.vt_candidate_density(
+    err = _launcher(lib, "vt_candidate_density", matrixT)(
         matrixT.data_ptr(), f_pad, n_pad, cand.data_ptr(), int(cand.dtype == torch.int64), c,
         wts.data_ptr(), groups, partials.data_ptr(), ticket.data_ptr(), dens.data_ptr(), stream,
     )
     _raise_on(err, "candidate_density_sweep")
-    _count(candidate_density_sweep, n_pad, f_pad)
+    _count(candidate_density_sweep, n_pad, matrixT)
     return dens
 
 
 candidate_density_sweep.launches = 0
 candidate_density_sweep.launches_by_width = {}  # N_pad -> launches
 candidate_density_sweep.launches_by_fpad = {}  # F_pad -> launches
+candidate_density_sweep.launches_by_dtype = {}  # the matrix's type -> launches
 
 
 # --------------------------------------------------------- gather_blocks
@@ -454,7 +495,7 @@ def _gather_launch(matrixT, bids, side=None):
     err = lib.vt_gather_blocks(matrixT.data_ptr(), f_pad, n_pad, bids32.data_ptr(), kb,
                                out.data_ptr(), *ptrs, stream)
     _raise_on(err, "gather_blocks")
-    _count(gather_blocks, n_pad, f_pad)
+    _count(gather_blocks, n_pad, matrixT)
     return (out, *outs)
 
 
@@ -487,6 +528,7 @@ def gather_ball(matrixT, bids, nb: int, w, kept, d0):
 gather_blocks.launches = 0
 gather_blocks.launches_by_width = {}  # N_pad -> launches
 gather_blocks.launches_by_fpad = {}  # F_pad -> launches
+gather_blocks.launches_by_dtype = {}  # the matrix's type -> launches
 
 
 # ---------------------------------------------------------- medoid_sweep
@@ -540,7 +582,9 @@ def row_stats_plain(rows: torch.Tensor, wts: torch.Tensor):
 
 def spec_sweep_plain(matrixT: torch.Tensor, cols, wts: torch.Tensor):
     """Plain version of `spec_sweep`: each column's `row_sweep_plain` row
-    (the same elementwise ops, batched) and `row_stats_plain`'s sums."""
+    (the same elementwise ops, batched) and `row_stats_plain`'s sums; a
+    bf16 matrix widened first."""
+    matrixT = _widened(matrixT)
     cols = torch.as_tensor([int(c) for c in cols], dtype=torch.int64, device=matrixT.device)
     feats = matrixT[:, cols]  # (F, S)
     acc = torch.zeros((len(cols), matrixT.shape[1]), dtype=torch.float32, device=matrixT.device)
@@ -556,8 +600,8 @@ def medoid_sweep_plain(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
     tests/test_pallas.py:40-55): `row_sweep_plain`'s row, then the
     histogram's and the density's sums in the kernel's order
     (`row_stats_plain`), so it equals the kernel bit for bit; the close
-    count."""
-    d = row_sweep_plain(matrixT, idx)
+    count. A bf16 matrix is widened first."""
+    d = row_sweep_plain(_widened(matrixT), idx)
     hist, dens, n_close, _ = row_stats_plain(d[None], wts)
     return d, hist[0], dens[0], n_close[0]
 
@@ -579,14 +623,15 @@ def _sweep_workspace(dev: torch.device, stream: int):
 
 
 def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
-    """One medoid's fused sweep: (F_pad, N_pad) f32, column `idx`, (N_pad,)
-    f32 weights (lengths where kept, else 0) -> (d (N_pad,) with d[idx] =
-    0, hist (60,) f32 over 0 <= d <= 0.3, density f32 over d <= 0.05,
-    n_close int32 over d < 0.05). Launches the one-pass CUDA kernel for a
-    CUDA tensor (counted in `medoid_sweep.launches`); its d equals
-    `row_sweep`'s bit for bit and its sums the plain version's. Runs the
-    plain version for a CPU tensor."""
-    _check_matrix(matrixT)
+    """One medoid's fused sweep: (F_pad, N_pad) f32 or bf16, column `idx`,
+    (N_pad,) f32 weights (lengths where kept, else 0) -> (d (N_pad,) f32
+    with d[idx] = 0, hist (60,) f32 over 0 <= d <= 0.3, density f32 over d
+    <= 0.05, n_close int32 over d < 0.05). Launches the one-pass CUDA kernel
+    of the matrix's type for a CUDA tensor (counted in
+    `medoid_sweep.launches`); its d equals `row_sweep`'s on the float32
+    matrix (a bf16 one widened) bit for bit and its sums the plain
+    version's. Runs the plain version for a CPU tensor."""
+    _check_matrix(matrixT, bf16=True)
     f_pad, n_pad = matrixT.shape
     idx = int(idx)
     if not 0 <= idx < n_pad:
@@ -607,19 +652,20 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
     d = torch.empty(n_pad, dtype=torch.float32, device=dev)
     sums = torch.empty(_NBINS + 1, dtype=torch.float32, device=dev)  # histogram, density
     n_close = torch.empty((), dtype=torch.int32, device=dev)
-    err = lib.vt_medoid_sweep(
+    err = _launcher(lib, "vt_medoid_sweep", matrixT)(
         matrixT.data_ptr(), f_pad, n_pad, idx, wts.data_ptr(), d.data_ptr(),
         partials.data_ptr(), close_partials.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
         sums.data_ptr() + 4 * _NBINS, n_close.data_ptr(), stream,
     )
     _raise_on(err, "medoid_sweep")
-    _count(medoid_sweep, n_pad, f_pad)
+    _count(medoid_sweep, n_pad, matrixT)
     return d, sums[:_NBINS], sums[_NBINS], n_close
 
 
 medoid_sweep.launches = 0
 medoid_sweep.launches_by_width = {}  # N_pad -> launches
 medoid_sweep.launches_by_fpad = {}  # F_pad -> launches
+medoid_sweep.launches_by_dtype = {}  # the matrix's type -> launches
 
 # ------------------------------------------------------ spec_sweep, row_stats
 
@@ -657,14 +703,15 @@ def _check_wts(wts: torch.Tensor, n_pad: int, dev) -> None:
 
 def spec_sweep(matrixT: torch.Tensor, cols, wts: torch.Tensor):
     """The distance rows of S <= 8 columns and their sums in one pass over
-    the matrix: (F_pad, N_pad) f32, `cols` S column ids (ints; repeats
+    the matrix: (F_pad, N_pad) f32 or bf16, `cols` S column ids (ints; repeats
     allowed), (N_pad,) f32 weights (lengths where kept, else 0) -> (rows
     (S, N_pad) with rows[s, cols[s]] = 0, hist (S, 60), density (S,),
     n_close (S,) int32 over d < 0.05, n_near (S,) int32 over d <= 0.05).
     Row s and its sums equal `medoid_sweep(matrixT, cols[s], wts)` bit for
-    bit. Launches the CUDA kernel for a CUDA tensor (one launch, counted in
-    `spec_sweep.launches`), runs the plain version for a CPU tensor."""
-    _check_matrix(matrixT)
+    bit. Launches the CUDA kernel of the matrix's type for a CUDA tensor
+    (one launch, counted in `spec_sweep.launches`), runs the plain version
+    for a CPU tensor."""
+    _check_matrix(matrixT, bf16=True)
     f_pad, n_pad = matrixT.shape
     cols = [int(c) for c in cols]
     if not 1 <= len(cols) <= _SPEC_SEEDS:
@@ -684,19 +731,20 @@ def spec_sweep(matrixT: torch.Tensor, cols, wts: torch.Tensor):
     partials, count_partials, ticket = _batch_workspace(dev, stream)
     rows = torch.empty((s, n_pad), dtype=torch.float32, device=dev)
     sums, counts = _batch_outputs(s, dev)
-    err = lib.vt_spec_sweep(
+    err = _launcher(lib, "vt_spec_sweep", matrixT)(
         matrixT.data_ptr(), f_pad, n_pad, *cols, *[0] * (_SPEC_SEEDS - s), s, wts.data_ptr(),
         rows.data_ptr(), partials.data_ptr(), count_partials.data_ptr(), ticket.data_ptr(),
         sums.data_ptr(), counts.data_ptr(), stream,
     )
     _raise_on(err, "spec_sweep")
-    _count(spec_sweep, n_pad, f_pad)
+    _count(spec_sweep, n_pad, matrixT)
     return rows, sums[:, :_NBINS], sums[:, _NBINS], counts[:, 0], counts[:, 1]
 
 
 spec_sweep.launches = 0
 spec_sweep.launches_by_width = {}  # N_pad -> launches
 spec_sweep.launches_by_fpad = {}  # F_pad -> launches
+spec_sweep.launches_by_dtype = {}  # the matrix's type -> launches
 
 
 def row_stats(rows: torch.Tensor, wts: torch.Tensor):
@@ -734,6 +782,7 @@ def row_stats(rows: torch.Tensor, wts: torch.Tensor):
 row_stats.launches = 0
 row_stats.launches_by_width = {}  # N_pad -> launches
 row_stats.launches_by_fpad = {}  # reads no matrix: stays empty
+row_stats.launches_by_dtype = {}  # reads no matrix: stays empty
 
 # ----------------------------------------------- gumbel_topc, gumbel_scores
 
@@ -849,6 +898,7 @@ def gumbel_topc(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor, m
 gumbel_topc.launches = 0
 gumbel_topc.launches_by_width = {}  # n -> launches
 gumbel_topc.launches_by_fpad = {}  # no matrix: stays empty
+gumbel_topc.launches_by_dtype = {}  # no matrix: stays empty
 
 
 def gumbel_scores(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
@@ -876,6 +926,7 @@ def gumbel_scores(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
 gumbel_scores.launches = 0
 gumbel_scores.launches_by_width = {}  # n -> launches
 gumbel_scores.launches_by_fpad = {}  # no matrix: stays empty
+gumbel_scores.launches_by_dtype = {}  # no matrix: stays empty
 
 KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep, gumbel_topc,
            gumbel_scores, spec_sweep, row_stats)
@@ -886,3 +937,4 @@ def reset_launch_counts() -> None:
         kernel.launches = 0
         kernel.launches_by_width = {}
         kernel.launches_by_fpad = {}
+        kernel.launches_by_dtype = {}

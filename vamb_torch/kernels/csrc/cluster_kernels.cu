@@ -5,6 +5,15 @@
 // Layout contract (the engine's): the normalized latent matrix is stored
 // transposed, (F_pad, N_pad) row-major float32, so one latent's features
 // sit N_pad floats apart and neighbouring columns sit next to each other.
+// With the engine's `distance_dtype="bfloat16"` the matrix is bfloat16 in
+// the same layout. The three kernels that read it on that path
+// (medoid_sweep, spec_sweep, candidate_density_sweep) are templated on the
+// element type T: a bf16 value is widened to the float with the same bits
+// in its top half (exact) as it arrives, and from there every operation
+// and its order are the float kernel's, on the same thread-to-column map.
+// So a bf16 variant equals the float kernel on the widened matrix bit for
+// bit; only the bytes read halve (the copies of a thread's columns are half
+// as wide: 8 bytes where the float ring copies 16).
 //
 // The distance kernels accumulate the feature dot product in float32 in fixed
 // feature order with separately rounded multiplies and adds (__fmul_rn /
@@ -101,14 +110,40 @@ __device__ __forceinline__ void unpack(const T& a, float (&x)[N]) {
   for (int k = 0; k < N; ++k) x[k] = f[k];
 }
 
-template <class T>
-__device__ __forceinline__ void cp_async_vec(T* smem, const float* gmem) {
-  if constexpr (sizeof(T) == 16) {
+// A bfloat16 matrix element: its 16 bits, the top half of a float's.
+using bf16_t = uint16_t;
+
+// An element as a float: bf16 widened exactly (its bits in the top half).
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16_t x) { return __uint_as_float((uint32_t)x << 16); }
+
+// V neighbouring columns of a matrix of elements T as one vector.
+template <class T, int V> struct ColsOf { using Vec = typename VecOf<V>::T; };
+template <> struct ColsOf<bf16_t, 1> { using Vec = bf16_t; };
+template <> struct ColsOf<bf16_t, 2> { using Vec = uint32_t; };
+template <> struct ColsOf<bf16_t, 4> { using Vec = uint2; };
+
+// A vector of N elements T, widened to N floats.
+template <class T, class Vec, int N>
+__device__ __forceinline__ void widen_cols(const Vec& a, float (&x)[N]) {
+  static_assert(sizeof(Vec) == N * sizeof(T), "one element a column");
+  const T* e = reinterpret_cast<const T*>(&a);
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = widen(e[k]);
+}
+
+// One vector from device to shared memory: cp.async for 4, 8 or 16 bytes;
+// below that (a bf16 column alone) a plain copy.
+template <class V>
+__device__ __forceinline__ void cp_async_vec(V* smem, const void* gmem) {
+  if constexpr (sizeof(V) == 16) {
     cp_async16(smem, gmem);
-  } else if constexpr (sizeof(T) == 8) {
+  } else if constexpr (sizeof(V) == 8) {
     cp_async8(smem, gmem);
-  } else {
+  } else if constexpr (sizeof(V) == 4) {
     cp_async4(smem, gmem);
+  } else {
+    *smem = *static_cast<const V*>(gmem);
   }
 }
 
@@ -339,9 +374,9 @@ __device__ __forceinline__ void cta_partials(const float (&acc)[CT], float* s_re
 }
 
 // Any F_pad and N_pad: plain loads, a column a load.
-template <int CT>
+template <class T, int CT>
 __device__ __forceinline__ void density_tile_any(
-    const float* __restrict__ m, int f_pad, int n_pad,
+    const T* __restrict__ m, int f_pad, int n_pad,
     const float* __restrict__ w, const float* s_cand, const int* s_cid,
     float* s_red, int c0, float* __restrict__ partials) {
   float acc[CT];
@@ -368,7 +403,7 @@ __device__ __forceinline__ void density_tile_any(
       float x[kDensVec];
 #pragma unroll
       for (int v = 0; v < kDensVec; ++v) {
-        x[v] = n0 + v < n_pad ? m[(size_t)f * n_pad + n0 + v] : 0.0f;
+        x[v] = n0 + v < n_pad ? widen(m[(size_t)f * n_pad + n0 + v]) : 0.0f;
       }
       dot_feature<CT>(dot, s_cand, f, x);
     }
@@ -387,18 +422,30 @@ constexpr int kDensChunk = 8;
 constexpr int kDensChunks = kEngineF / kDensChunk;
 constexpr int kDensRing = kDensChunks;  // chunk buffers: one tile ahead
 static_assert(kDensRing <= 2 * kDensChunks, "two weight buffers cover the ring");
-using DensVec = VecOf<kDensVec>::T;
+using DensVec = VecOf<kDensVec>::T;  // a thread's weights of a tile
+template <class T>
+using DensCols = typename ColsOf<T, kDensVec>::Vec;  // a thread's columns of a feature
 
-__device__ __forceinline__ void density_issue(const float* __restrict__ m, int n_pad,
-                                              const float* __restrict__ w, DensVec* stage,
+// The dynamic shared memory of the F_pad 32 path: the candidates' features,
+// the ring of chunk buffers and the two weight buffers.
+template <class T>
+constexpr size_t density_smem() {
+  return kEngineF * kDensTile * sizeof(float) +
+         kDensRing * kDensChunk * kDensThreads * sizeof(DensCols<T>) +
+         2 * kDensThreads * sizeof(DensVec);
+}
+
+template <class T>
+__device__ __forceinline__ void density_issue(const T* __restrict__ m, int n_pad,
+                                              const float* __restrict__ w, DensCols<T>* stage,
                                               DensVec* wstage, int tiles, int s) {
   const int i = s / kDensChunks;
   const int q = s % kDensChunks;
   const int t = blockIdx.x + i * gridDim.x;
   const int n0 = t * kDensTileCols + threadIdx.x * kDensVec;
   if (t < tiles && n0 < n_pad) {
-    DensVec* dst = stage + (s % kDensRing) * kDensChunk * kDensThreads + threadIdx.x;
-    const float* src = m + (size_t)(q * kDensChunk) * n_pad + n0;
+    DensCols<T>* dst = stage + (s % kDensRing) * kDensChunk * kDensThreads + threadIdx.x;
+    const T* src = m + (size_t)(q * kDensChunk) * n_pad + n0;
 #pragma unroll
     for (int k = 0; k < kDensChunk; ++k) {
       cp_async_vec(dst + k * kDensThreads, src + (size_t)k * n_pad);
@@ -408,10 +455,10 @@ __device__ __forceinline__ void density_issue(const float* __restrict__ m, int n
   cp_async_commit();
 }
 
-template <int CT>
+template <class T, int CT>
 __device__ __forceinline__ void density_tile_f32(
-    const float* __restrict__ m, int n_pad, const float* __restrict__ w,
-    DensVec* stage, DensVec* wstage, const float* s_cand, const int* s_cid,
+    const T* __restrict__ m, int n_pad, const float* __restrict__ w,
+    DensCols<T>* stage, DensVec* wstage, const float* s_cand, const int* s_cid,
     float* s_red, int c0, float* __restrict__ partials) {
   float acc[CT];
 #pragma unroll
@@ -443,12 +490,12 @@ __device__ __forceinline__ void density_tile_f32(
         }
       }
       if (live) {
-        const DensVec* src =
+        const DensCols<T>* src =
             stage + ((kDensChunks * i + q) % kDensRing) * kDensChunk * kDensThreads + threadIdx.x;
 #pragma unroll
         for (int k = 0; k < kDensChunk; ++k) {
           float x[kDensVec];
-          unpack(src[k * kDensThreads], x);
+          widen_cols<T>(src[k * kDensThreads], x);
           dot_feature<CT>(dot, s_cand, q * kDensChunk + k, x);
         }
       }
@@ -459,20 +506,21 @@ __device__ __forceinline__ void density_tile_f32(
   cta_partials<CT>(acc, s_red, c0, partials);
 }
 
-template <bool kF32>
+template <class T, bool kF32>
 __global__ void __launch_bounds__(kDensThreads)
-candidate_density_kernel(const float* __restrict__ m, int f_pad, int n_pad,
+candidate_density_kernel(const T* __restrict__ m, int f_pad, int n_pad,
                          const void* __restrict__ cand, int cand64, int n_cand,
                          const float* __restrict__ w,
                          float* __restrict__ partials,
                          unsigned int* __restrict__ ticket,
                          float* __restrict__ dens) {
-  // dynamic shared memory: F_pad x 8 candidate features, feature-major;
-  // with kF32 then the two chunk buffers and the weights of the pipeline
+  // dynamic shared memory: F_pad x 16 candidate features (widened to
+  // float), feature-major; with kF32 then the ring of chunk buffers and the
+  // weights of the pipeline
   extern __shared__ float4 s_dyn[];
   float* s_cand = reinterpret_cast<float*>(s_dyn);
-  DensVec* stage = reinterpret_cast<DensVec*>(s_dyn + kEngineF * kDensTile / 4);
-  DensVec* wstage = stage + kDensRing * kDensChunk * kDensThreads;
+  DensCols<T>* stage = reinterpret_cast<DensCols<T>*>(s_dyn + kEngineF * kDensTile / 4);
+  DensVec* wstage = reinterpret_cast<DensVec*>(stage + kDensRing * kDensChunk * kDensThreads);
   __shared__ int s_cid[kDensTile];
   __shared__ float s_red[kDensWarps * kDensTile];
   __shared__ bool s_last;
@@ -504,18 +552,18 @@ candidate_density_kernel(const float* __restrict__ m, int f_pad, int n_pad,
   for (int i = threadIdx.x; i < nf * kDensTile; i += kDensThreads) {
     const int f = i / kDensTile;
     const int j = i - f * kDensTile;
-    s_cand[i] = j < ct ? m[(size_t)f * n_pad + s_cid[j]] : 0.0f;
+    s_cand[i] = j < ct ? widen(m[(size_t)f * n_pad + s_cid[j]]) : 0.0f;
   }
   __syncthreads();
   switch (ct) {
 #define VT_DENSITY_TILE(K)                                                    \
   case K:                                                                     \
     if constexpr (kF32) {                                                     \
-      density_tile_f32<K>(m, n_pad, w, stage, wstage, s_cand, s_cid, s_red,   \
-                          c0, partials);                                      \
+      density_tile_f32<T, K>(m, n_pad, w, stage, wstage, s_cand, s_cid,      \
+                             s_red, c0, partials);                            \
     } else {                                                                  \
-      density_tile_any<K>(m, f_pad, n_pad, w, s_cand, s_cid, s_red, c0,       \
-                          partials);                                          \
+      density_tile_any<T, K>(m, f_pad, n_pad, w, s_cand, s_cid, s_red, c0,    \
+                             partials);                                       \
     }                                                                         \
     break;
     VT_DENSITY_TILE(1)
@@ -752,27 +800,32 @@ __device__ __forceinline__ float sweep_total(const float* __restrict__ partials,
   return halving64(y);
 }
 
+// A thread's 4 columns of a feature: 16 bytes of float, 8 of bf16.
+template <class T>
+using SweepCols = typename ColsOf<T, kSweepVec>::Vec;
+
 // F_pad 32: stage s = 4*i + q of a thread is chunk q of its i-th tile, in
 // ring buffer q.
-__device__ __forceinline__ void sweep_issue(const float* __restrict__ m, int n_pad,
-                                            float4* stage, int ntile, int s) {
+template <class T>
+__device__ __forceinline__ void sweep_issue(const T* __restrict__ m, int n_pad,
+                                            SweepCols<T>* stage, int ntile, int s) {
   const int i = s / kSweepChunks;
   const int q = s % kSweepChunks;
   const int n0 = ((blockIdx.x + i * gridDim.x) * kSweepThreads + threadIdx.x) * kSweepVec;
   if (i < ntile && n0 < n_pad) {
-    float4* dst = stage + q * kSweepChunk * kSweepThreads + threadIdx.x;
-    const float* src = m + (size_t)(q * kSweepChunk) * n_pad + n0;
+    SweepCols<T>* dst = stage + q * kSweepChunk * kSweepThreads + threadIdx.x;
+    const T* src = m + (size_t)(q * kSweepChunk) * n_pad + n0;
 #pragma unroll
     for (int k = 0; k < kSweepChunk; ++k) {
-      cp_async16(dst + k * kSweepThreads, src + (size_t)k * n_pad);
+      cp_async_vec(dst + k * kSweepThreads, src + (size_t)k * n_pad);
     }
   }
   cp_async_commit();
 }
 
-template <bool kF32>
+template <class T, bool kF32>
 __global__ void __launch_bounds__(kSweepThreads)
-medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
+medoid_sweep_kernel(const T* __restrict__ m, int f_pad, int n_pad, int idx,
                     const float* __restrict__ w, float* __restrict__ d_out,
                     float* __restrict__ partials, int* __restrict__ close_partials,
                     unsigned int* __restrict__ ticket, float* __restrict__ hist,
@@ -781,11 +834,12 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
   __shared__ int s_close[kSweepThreads / 32];
   __shared__ bool s_last;
   // dynamic: with kF32 the ring (4 chunks of 8 features x 64 threads x 16
-  // bytes), then the medoid's features; else the medoid's f_pad features
+  // bytes, 8 for bf16), then the medoid's features (widened to float); else
+  // the medoid's f_pad features
   extern __shared__ float4 s_dyn[];
-  float4* stage = s_dyn;
-  float* col = reinterpret_cast<float*>(kF32 ? s_dyn + kSweepChunks * kSweepChunk * kSweepThreads
-                                             : s_dyn);
+  SweepCols<T>* stage = reinterpret_cast<SweepCols<T>*>(s_dyn);
+  float* col = reinterpret_cast<float*>(kF32 ? stage + kSweepChunks * kSweepChunk * kSweepThreads
+                                             : stage);
   const int tiles = (n_pad + kSweepTileCols - 1) / kSweepTileCols;
   const int ntile = (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   auto first_col = [&](int i) {
@@ -796,7 +850,7 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
     for (int st = 0; st < kSweepChunks; ++st) sweep_issue(m, n_pad, stage, ntile, st);
   }
   const int nf = kF32 ? kEngineF : f_pad;
-  for (int f = threadIdx.x; f < nf; f += kSweepThreads) col[f] = m[(size_t)f * n_pad + idx];
+  for (int f = threadIdx.x; f < nf; f += kSweepThreads) col[f] = widen(m[(size_t)f * n_pad + idx]);
 #pragma unroll 4
   for (int r = 0; r < kSweepRows; ++r) s_acc[r][threadIdx.x] = 0.0f;
   __syncthreads();
@@ -824,15 +878,14 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
       for (int q = 0; q < kSweepChunks; ++q) {
         cp_async_wait<kSweepChunks - 1>();  // stage 4i + q has landed
         if (n0 < n_pad) {
-          const float4* src = stage + q * kSweepChunk * kSweepThreads + threadIdx.x;
+          const SweepCols<T>* src = stage + q * kSweepChunk * kSweepThreads + threadIdx.x;
 #pragma unroll
           for (int k = 0; k < kSweepChunk; ++k) {
-            const float4 v = src[k * kSweepThreads];
+            float v[kSweepVec];
+            widen_cols<T>(src[k * kSweepThreads], v);
             const float c = col[q * kSweepChunk + k];
-            a[0] = mul_add_rn(a[0], v.x, c);
-            a[1] = mul_add_rn(a[1], v.y, c);
-            a[2] = mul_add_rn(a[2], v.z, c);
-            a[3] = mul_add_rn(a[3], v.w, c);
+#pragma unroll
+            for (int j = 0; j < kSweepVec; ++j) a[j] = mul_add_rn(a[j], v[j], c);
           }
         }
         sweep_issue(m, n_pad, stage, ntile, kSweepChunks * (i + 1) + q);
@@ -844,7 +897,7 @@ medoid_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int idx,
         const float c = col[f];
 #pragma unroll
         for (int v = 0; v < kSweepVec; ++v) {
-          if (n0 + v < n_pad) a[v] = mul_add_rn(a[v], m[(size_t)f * n_pad + n0 + v], c);
+          if (n0 + v < n_pad) a[v] = mul_add_rn(a[v], widen(m[(size_t)f * n_pad + n0 + v]), c);
         }
       }
     }
@@ -966,8 +1019,13 @@ constexpr int kSpecParts = kSweepVec / kSpecVec;  // threads that share those 4 
 constexpr int kSpecGroups = kSpecThreads / (kSweepThreads * kSpecParts);  // tiles at once
 constexpr int kSpecChunk = 8;  // features of a tile a stage of the ring holds
 constexpr int kSpecRingBytes = 128 * 1024;
-// stages a thread has staged: all but one in flight while one is read
-constexpr int kSpecRing = kSpecRingBytes / (kSpecChunk * kSpecThreads * kSpecVec * 4);
+// stages a thread has staged: all but one in flight while one is read; the
+// ring's bytes are the same for both element types, so a bf16 ring holds
+// twice the stages
+template <class T>
+__host__ __device__ constexpr int spec_ring() {
+  return kSpecRingBytes / (kSpecChunk * kSpecThreads * kSpecVec * (int)sizeof(T));
+}
 constexpr int kChainTiles = 8;  // tiles whose loads a chain issues at once
 constexpr int kBatchHist = kSweepRows * kSweepThreads;  // a row's histogram: 61 x 64 floats
 constexpr int kRowStatsSmem = 16 * 1024;  // row_stats: the histogram, then 32 staged sums
@@ -1200,9 +1258,9 @@ __device__ __forceinline__ void batch_chains(const float* row, const float* __re
 // float4 loads and stores); else scalar loads and stores, zeros past N_pad.
 // The register tile has kSpecSeeds rows whatever S: those past S are
 // computed on zero features and not written.
-template <bool kVec>
+template <class T, bool kVec>
 __global__ void __launch_bounds__(kSpecThreads, 1)
-spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int c1, int c2,
+spec_sweep_kernel(const T* __restrict__ m, int f_pad, int n_pad, int c0, int c1, int c2,
                   int c3, int c4, int c5, int c6, int c7, int s_count,
                   const float* __restrict__ w, float* __restrict__ rows,
                   float* __restrict__ partials, int* __restrict__ count_partials,
@@ -1213,10 +1271,13 @@ spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int
   // of staged features, the S histograms and the last CTA's staged rows
   extern __shared__ float4 s_dyn[];
   __shared__ int s_cnt[kSpecSeeds][2][2];  // [row][its warp][close, near]
+  constexpr int kSpecRing = spec_ring<T>();
+  using Vec = typename ColsOf<T, kSpecVec>::Vec;  // a thread's columns of a feature
+  using RowVec = typename VecOf<kSpecVec>::T;  // and of a row
   const int nq = (f_pad + kSpecChunk - 1) / kSpecChunk;
   const float4* feat4 = s_dyn;
   // [kSpecRing][kSpecChunk][kSpecThreads] vectors of kSpecVec columns
-  auto ring = reinterpret_cast<typename VecOf<kSpecVec>::T*>(s_dyn + (size_t)nq * kSpecChunk * 2);
+  auto ring = reinterpret_cast<Vec*>(s_dyn + (size_t)nq * kSpecChunk * 2);
   float* hist0 = reinterpret_cast<float*>(ring);
   auto col_of = [&](int s) {
     const int c[kSpecSeeds] = {c0, c1, c2, c3, c4, c5, c6, c7};
@@ -1225,7 +1286,6 @@ spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int
     for (int k = 1; k < kSpecSeeds; ++k) x = s == k ? c[k] : x;
     return x;
   };
-  using Vec = typename VecOf<kSpecVec>::T;
   const int q0 = threadIdx.x / kSweepThreads;
   const int tid = threadIdx.x % kSweepThreads;
   const int part = q0 % kSpecParts;  // columns 4 tid + kSpecVec part, ... of a tile
@@ -1246,18 +1306,18 @@ spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int
     const int n0 = first_col(iss_j);
     if (iss_j < mine && n0 < n_pad) {
       Vec* dst = ring + iss_buf * kSpecChunk * kSpecThreads + threadIdx.x;
-      const float* src = m + (size_t)(iss_q * kSpecChunk) * n_pad + n0;
+      const T* src = m + (size_t)(iss_q * kSpecChunk) * n_pad + n0;
 #pragma unroll
       for (int k = 0; k < kSpecChunk; ++k) {
-        const float* p = src + (size_t)k * n_pad;
+        const T* p = src + (size_t)k * n_pad;
         if (iss_q * kSpecChunk + k >= f_pad) {
           dst[k * kSpecThreads] = Vec{};
         } else if constexpr (kVec) {
           cp_async_vec(dst + k * kSpecThreads, p);
         } else {
-          float* x = reinterpret_cast<float*>(dst + k * kSpecThreads);
+          T* x = reinterpret_cast<T*>(dst + k * kSpecThreads);
 #pragma unroll
-          for (int v = 0; v < kSpecVec; ++v) x[v] = n0 + v < n_pad ? p[v] : 0.0f;
+          for (int v = 0; v < kSpecVec; ++v) x[v] = n0 + v < n_pad ? p[v] : T{};
         }
       }
     }
@@ -1275,7 +1335,7 @@ spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int
 #pragma unroll
     for (int k = 0; k < kSpecChunk; ++k) {
       float xv[kSpecVec];
-      unpack(x[k * kSpecThreads], xv);
+      widen_cols<T>(x[k * kSpecThreads], xv);
       float c[kSpecSeeds];
       const float4 lo = feat4[(q * kSpecChunk + k) * 2];
       const float4 hi = feat4[(q * kSpecChunk + k) * 2 + 1];
@@ -1299,7 +1359,7 @@ spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int
 #pragma unroll
     for (int s = 0; s < kSpecSeeds; ++s) {
       if (s >= s_count) continue;
-      Vec out;
+      RowVec out;  // the rows are float whatever the matrix's type
       float* dv = reinterpret_cast<float*>(&out);
 #pragma unroll
       for (int v = 0; v < kSpecVec; ++v) {
@@ -1307,7 +1367,7 @@ spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int
       }
       float* dst = rows + (size_t)s * n_pad + n0;
       if constexpr (kVec) {
-        *reinterpret_cast<Vec*>(dst) = out;
+        *reinterpret_cast<RowVec*>(dst) = out;
       } else {
 #pragma unroll
         for (int v = 0; v < kSpecVec; ++v) {
@@ -1325,7 +1385,7 @@ spec_sweep_kernel(const float* __restrict__ m, int f_pad, int n_pad, int c0, int
     for (int k = threadIdx.x; k < nq * kSpecChunk * kSpecSeeds; k += kSpecThreads) {
       const int f = k / kSpecSeeds;
       const int s = k % kSpecSeeds;
-      feat[k] = f < f_pad && s < s_count ? m[(size_t)f * n_pad + col_of(s)] : 0.0f;
+      feat[k] = f < f_pad && s < s_count ? widen(m[(size_t)f * n_pad + col_of(s)]) : 0.0f;
     }
   }
   __syncthreads();
@@ -1679,6 +1739,86 @@ __global__ void __launch_bounds__(kTopcThreads) gumbel_topc_kernel(
   if (threadIdx.x == 0) *ticket = 0u;
 }
 
+// The launches of the three kernels that read the matrix, for either
+// element type (the C functions below name the type).
+template <class T>
+int density_launch(const T* m, int f_pad, int n_pad, const void* cand, int cand64, int c,
+                   const float* w, int groups, float* partials, unsigned int* ticket,
+                   float* dens, void* stream) {
+  if (c < 1 || c > kMaxCand || groups < 1 || groups > c ||
+      (c + groups - 1) / groups > kDensTile || n_pad < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(density_col_blocks(n_pad), groups);
+  const bool f32 = f_pad == kEngineF && n_pad % kDensVec == 0 &&
+                   (uintptr_t)m % sizeof(DensCols<T>) == 0 &&
+                   (uintptr_t)w % sizeof(DensVec) == 0;
+  if (f32) {
+    static_assert(density_smem<T>() <= 48 * 1024,
+                  "more than 48 KB of dynamic shared memory needs cudaFuncSetAttribute");
+    candidate_density_kernel<T, true><<<grid, kDensThreads, density_smem<T>(),
+                                        (cudaStream_t)stream>>>(
+        m, f_pad, n_pad, cand, cand64, c, w, partials, ticket, dens);
+  } else {
+    const size_t smem = (size_t)f_pad * kDensTile * sizeof(float);
+    candidate_density_kernel<T, false><<<grid, kDensThreads, smem, (cudaStream_t)stream>>>(
+        m, f_pad, n_pad, cand, cand64, c, w, partials, ticket, dens);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int medoid_sweep_launch(const T* m, int f_pad, int n_pad, int idx, const float* w, float* d,
+                        float* partials, int* close_partials, unsigned int* ticket, float* hist,
+                        float* density, int* n_close, void* stream) {
+  if (n_pad < 1 || idx < 0 || idx >= n_pad) return (int)cudaErrorInvalidValue;
+  const int blocks = sweep_col_blocks(n_pad);
+  const bool f32 = f_pad == kEngineF && n_pad % kSweepVec == 0 &&
+                   (uintptr_t)m % sizeof(SweepCols<T>) == 0 && (uintptr_t)w % 16 == 0 &&
+                   (uintptr_t)d % 16 == 0;
+  if (f32) {
+    constexpr size_t smem = kSweepChunks * kSweepChunk * kSweepThreads * sizeof(SweepCols<T>) +
+                            kEngineF * sizeof(float);
+    static_assert(smem + sizeof(float) * kSweepRows * (kSweepThreads + 1) + 64 <= 48 * 1024,
+                  "more than 48 KB of shared memory needs cudaFuncSetAttribute");
+    medoid_sweep_kernel<T, true><<<blocks, kSweepThreads, smem, (cudaStream_t)stream>>>(
+        m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist, density, n_close);
+  } else {
+    medoid_sweep_kernel<T, false><<<blocks, kSweepThreads, f_pad * sizeof(float),
+                                    (cudaStream_t)stream>>>(
+        m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist, density, n_close);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int spec_sweep_launch(const T* m, int f_pad, int n_pad, int c0, int c1, int c2, int c3, int c4,
+                      int c5, int c6, int c7, int s_count, const float* w, float* rows,
+                      float* partials, int* count_partials, unsigned int* tickets, float* sums,
+                      int* counts, void* stream) {
+  const int cols[kSpecSeeds] = {c0, c1, c2, c3, c4, c5, c6, c7};
+  if (n_pad < 1 || f_pad < 1 || s_count < 1 || s_count > kSpecSeeds) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int s = 0; s < s_count; ++s) {
+    if (cols[s] < 0 || cols[s] >= n_pad) return (int)cudaErrorInvalidValue;
+  }
+  // the features, then the ring, which later holds the histograms and the
+  // staged rows
+  const size_t nq = (f_pad + kSpecChunk - 1) / kSpecChunk;
+  const size_t smem = nq * kSpecChunk * kSpecSeeds * sizeof(float) + kSpecRingBytes;
+  const bool vec = n_pad % kSweepVec == 0 && (uintptr_t)m % 16 == 0 && (uintptr_t)w % 16 == 0 &&
+                   (uintptr_t)rows % 16 == 0;
+  const auto kernel = vec ? spec_sweep_kernel<T, true> : spec_sweep_kernel<T, false>;
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};
+  const cudaError_t e = allow_smem(kernel, smem, allowed[vec]);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<sweep_col_blocks(n_pad), kSpecThreads, smem, (cudaStream_t)stream>>>(
+      m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, w, rows, partials,
+      count_partials, tickets, sums, counts);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1702,27 +1842,15 @@ int vt_candidate_density(const float* m, int f_pad, int n_pad, const void* cand,
                          int cand64, int c, const float* w, int groups,
                          float* partials, unsigned int* ticket, float* dens,
                          void* stream) {
-  if (c < 1 || c > kMaxCand || groups < 1 || groups > c ||
-      (c + groups - 1) / groups > kDensTile || n_pad < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid(density_col_blocks(n_pad), groups);
-  const bool f32 = f_pad == kEngineF && n_pad % kDensVec == 0 &&
-                   (uintptr_t)m % sizeof(DensVec) == 0 && (uintptr_t)w % sizeof(DensVec) == 0;
-  if (f32) {
-    const size_t smem = kEngineF * kDensTile * sizeof(float) +
-                        (kDensRing * kDensChunk + 2) * kDensThreads * sizeof(DensVec);
-    static_assert((kEngineF * kDensTile * sizeof(float) +
-                   (kDensRing * kDensChunk + 2) * kDensThreads * sizeof(DensVec)) <= 48 * 1024,
-                  "more than 48 KB of dynamic shared memory needs cudaFuncSetAttribute");
-    candidate_density_kernel<true><<<grid, kDensThreads, smem, (cudaStream_t)stream>>>(
-        m, f_pad, n_pad, cand, cand64, c, w, partials, ticket, dens);
-  } else {
-    const size_t smem = (size_t)f_pad * kDensTile * sizeof(float);
-    candidate_density_kernel<false><<<grid, kDensThreads, smem, (cudaStream_t)stream>>>(
-        m, f_pad, n_pad, cand, cand64, c, w, partials, ticket, dens);
-  }
-  return (int)cudaGetLastError();
+  return density_launch(m, f_pad, n_pad, cand, cand64, c, w, groups, partials, ticket, dens,
+                        stream);
+}
+
+int vt_candidate_density_bf16(const bf16_t* m, int f_pad, int n_pad, const void* cand,
+                              int cand64, int c, const float* w, int groups, float* partials,
+                              unsigned int* ticket, float* dens, void* stream) {
+  return density_launch(m, f_pad, n_pad, cand, cand64, c, w, groups, partials, ticket, dens,
+                        stream);
 }
 
 int vt_gather_blocks(const float* m, int f_pad, int n_pad, const int* bids, int kb,
@@ -1741,50 +1869,31 @@ int vt_gather_blocks(const float* m, int f_pad, int n_pad, const int* bids, int 
 int vt_medoid_sweep(const float* m, int f_pad, int n_pad, int idx, const float* w, float* d,
                     float* partials, int* close_partials, unsigned int* ticket, float* hist,
                     float* density, int* n_close, void* stream) {
-  if (n_pad < 1 || idx < 0 || idx >= n_pad) return (int)cudaErrorInvalidValue;
-  const int blocks = sweep_col_blocks(n_pad);
-  const bool f32 = f_pad == kEngineF && n_pad % kSweepVec == 0 && (uintptr_t)m % 16 == 0 &&
-                   (uintptr_t)w % 16 == 0 && (uintptr_t)d % 16 == 0;
-  if (f32) {
-    constexpr size_t smem = kSweepChunks * kSweepChunk * kSweepThreads * sizeof(float4) +
-                            kEngineF * sizeof(float);
-    static_assert(smem + sizeof(float) * kSweepRows * (kSweepThreads + 1) + 64 <= 48 * 1024,
-                  "more than 48 KB of shared memory needs cudaFuncSetAttribute");
-    medoid_sweep_kernel<true><<<blocks, kSweepThreads, smem, (cudaStream_t)stream>>>(
-        m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist, density, n_close);
-  } else {
-    medoid_sweep_kernel<false><<<blocks, kSweepThreads, f_pad * sizeof(float),
-                                 (cudaStream_t)stream>>>(
-        m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist, density, n_close);
-  }
-  return (int)cudaGetLastError();
+  return medoid_sweep_launch(m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist,
+                             density, n_close, stream);
+}
+
+int vt_medoid_sweep_bf16(const bf16_t* m, int f_pad, int n_pad, int idx, const float* w,
+                         float* d, float* partials, int* close_partials, unsigned int* ticket,
+                         float* hist, float* density, int* n_close, void* stream) {
+  return medoid_sweep_launch(m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist,
+                             density, n_close, stream);
 }
 
 int vt_spec_sweep(const float* m, int f_pad, int n_pad, int c0, int c1, int c2, int c3, int c4,
                   int c5, int c6, int c7, int s_count, const float* w, float* rows,
                   float* partials, int* count_partials, unsigned int* tickets, float* sums,
                   int* counts, void* stream) {
-  const int cols[kSpecSeeds] = {c0, c1, c2, c3, c4, c5, c6, c7};
-  if (n_pad < 1 || f_pad < 1 || s_count < 1 || s_count > kSpecSeeds) {
-    return (int)cudaErrorInvalidValue;
-  }
-  for (int s = 0; s < s_count; ++s) {
-    if (cols[s] < 0 || cols[s] >= n_pad) return (int)cudaErrorInvalidValue;
-  }
-  // the features, then the ring, which later holds the histograms and the
-  // staged rows
-  const size_t nq = (f_pad + kSpecChunk - 1) / kSpecChunk;
-  const size_t smem = nq * kSpecChunk * kSpecSeeds * sizeof(float) + kSpecRingBytes;
-  const bool vec = n_pad % kSweepVec == 0 && (uintptr_t)m % 16 == 0 && (uintptr_t)w % 16 == 0 &&
-                   (uintptr_t)rows % 16 == 0;
-  const auto kernel = vec ? spec_sweep_kernel<true> : spec_sweep_kernel<false>;
-  static size_t allowed[2] = {48 * 1024, 48 * 1024};
-  const cudaError_t e = allow_smem(kernel, smem, allowed[vec]);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<sweep_col_blocks(n_pad), kSpecThreads, smem, (cudaStream_t)stream>>>(
-      m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, w, rows, partials,
-      count_partials, tickets, sums, counts);
-  return (int)cudaGetLastError();
+  return spec_sweep_launch(m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, w, rows,
+                           partials, count_partials, tickets, sums, counts, stream);
+}
+
+int vt_spec_sweep_bf16(const bf16_t* m, int f_pad, int n_pad, int c0, int c1, int c2, int c3,
+                       int c4, int c5, int c6, int c7, int s_count, const float* w, float* rows,
+                       float* partials, int* count_partials, unsigned int* tickets, float* sums,
+                       int* counts, void* stream) {
+  return spec_sweep_launch(m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, w, rows,
+                           partials, count_partials, tickets, sums, counts, stream);
 }
 
 int vt_row_stats(const float* rows, int n_pad, int s_count, const float* w, float* partials,

@@ -16,6 +16,13 @@ the reference):
   1 / (1 - t/256) (layers.py:123-145). Every model draws its bytes once an
   epoch as one bank (`dropout_bank`) and rotates it by `i * 97` at step i
   (`step_bank`), as `vamb_tpu`'s VAE, Taxometer and VAEVAE do.
+* Reduced precision (the VAE's bf16 training, layers.py:44-111): Linear
+  casts x, w and b to a compute dtype and keeps the product and sum in it;
+  BatchNorm takes its statistics and affine in float32 and casts back to
+  its input's type; LeakyReLU and dropout multiply a bf16 tensor by their
+  constant rounded to bf16, as jax does with a Python float beside a bf16
+  array. At float32 (no compute dtype) each is the float32 operation
+  unchanged.
 """
 
 import numpy as np
@@ -36,7 +43,12 @@ class Linear(nn.Module):
         self.w = nn.Parameter(torch.from_numpy(w))
         self.b = nn.Parameter(torch.from_numpy(b))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        """`x @ w + b`; with a compute `dtype` (bf16), x, w and b are cast
+        to it and the product and the sum stay in it, while the parameters
+        stay float32 (their gradients come back through the casts)."""
+        if dtype is not None:
+            return x.to(dtype) @ self.w.to(dtype) + self.b.to(dtype)
         return x @ self.w + self.b
 
 
@@ -69,9 +81,13 @@ class BatchNorm(nn.Module):
         `(1 - momentum) * old + momentum * batch`, where `old` is the
         buffers or, when given, the (mean, var) pair `base`: a model that
         runs one layer several times a step and keeps the last call's
-        statistics (VAEVAE) passes the step's starting buffers."""
+        statistics (VAEVAE) passes the step's starting buffers. In training
+        mode a reduced-precision `x` is normalized in float32 and the output
+        cast back to its type."""
         if not self.training:
             return (x - self.mean) * torch.rsqrt(self.var + self.eps) * self.scale + self.bias
+        in_dtype = x.dtype
+        x = x.float()
         old_mean, old_var = (self.mean, self.var) if base is None else base
         mean = x.mean(dim=0)
         mean2 = (x * x).mean(dim=0)
@@ -82,11 +98,17 @@ class BatchNorm(nn.Module):
             unbiased = var * (n / max(n - 1, 1))
             self.mean.copy_((1 - self.momentum) * old_mean + self.momentum * mean)
             self.var.copy_((1 - self.momentum) * old_var + self.momentum * unbiased)
-        return out
+        return out.to(in_dtype)
+
+
+def _in_type_of(c: float, x: torch.Tensor) -> float:
+    """The constant `c` as jax applies it to `x`: rounded to bf16 where x
+    is bf16 (a weak-typed Python scalar takes the array's type)."""
+    return float(torch.tensor(c, dtype=x.dtype)) if x.dtype == torch.bfloat16 else c
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
-    return torch.where(x >= 0, x, negative_slope * x)
+    return torch.where(x >= 0, x, _in_type_of(negative_slope, x) * x)
 
 
 def dropout_threshold(rate: float) -> tuple[int, float]:
@@ -101,7 +123,7 @@ def dropout_from_bits(bits: torch.Tensor, x: torch.Tensor, rate: float) -> torch
     if rate == 0.0:
         return x
     t, keep_scale = dropout_threshold(rate)
-    return torch.where(bits >= t, x * keep_scale, 0.0)
+    return torch.where(bits >= t, x * _in_type_of(keep_scale, x), 0.0)
 
 
 def dropout_bank(key, batchsize: int, widths: list[int], device):

@@ -24,8 +24,15 @@ Behavioral spec: `vamb_tpu/models/vae.py` (reference vamb/encode.py:149-610):
   same batches and dropout masks as `vamb_tpu`, and its eps differs only
   by the few ulps of `log1p` inside erfinv. The step keys are split on the
   host and the whole epoch's eps is drawn in one call;
+* precision: "f32", or "bf16" (vae.py:94-108, 226-262): training passes
+  run the encoder and decoder stacks' dense layers in bf16 (x, w and b
+  cast, the product and sum in bf16, the float32 master parameters
+  updated), LeakyReLU and the byte dropout in bf16, BatchNorm's statistics
+  and affine in float32 cast back to bf16, the `mu` head, the output head
+  and the loss in float32; `encode` runs at float32 whatever the precision;
 * `encode` returns `mu` with the 12 low mantissa bits masked (vae.py:684);
-* `save`/`load` use `vamb_tpu`'s `model.npz` flat-key format.
+* `save`/`load` use `vamb_tpu`'s `model.npz` flat-key format, precision
+  included.
 """
 
 import time
@@ -45,11 +52,6 @@ from .dataset import VAEDataset, batchsize_at_epoch, num_batches
 from .training import validate_batchsteps
 
 _ENCODE_CHUNK = 1 << 16  # rows per encode forward
-
-
-def _bf16_unported(precision: str) -> str:
-    return (f"training at precision={precision!r} is not ported yet (ROADMAP queue 1, item 3: "
-            "bf16 training); vamb_torch trains in f32")
 
 
 class VAE(nn.Module):
@@ -89,8 +91,8 @@ class VAE(nn.Module):
             raise ValueError(f"alpha must be 0 < alpha < 1, not {alpha}")
         if not (0 <= dropout < 1):
             raise ValueError(f"dropout must be 0 <= dropout < 1, not {dropout}")
-        if precision != "f32":
-            raise NotImplementedError(_bf16_unported(precision))
+        if precision not in ("f32", "bf16"):
+            raise ValueError(f"precision must be 'f32' or 'bf16', not {precision}")
 
         self.nsamples = nsamples
         self.ntnf = 103
@@ -100,9 +102,10 @@ class VAE(nn.Module):
         self.beta = beta
         self.dropout = dropout
         self.seed = seed
-        # the precision it trained at; `load` records a bf16 model's, whose
-        # latents `encode` gives at f32 as vamb_tpu's does (vae.py:193)
-        self.precision = "f32"
+        # the training passes' compute type; `encode` is float32 whatever it
+        # is, as vamb_tpu's (vae.py:193, :232)
+        self.precision = precision
+        self._compute_dtype = torch.bfloat16 if precision == "bf16" else None
         self.device = resolve_device(device)
         self.rng = threefry.key(seed)  # the training key chain, as vamb_tpu's
 
@@ -131,8 +134,9 @@ class VAE(nn.Module):
     # ------------------------------------------------------------- forward
 
     def _stack(self, blocks, x, masks, bits):
+        dtype = self._compute_dtype if self.training else None
         for i, block in enumerate(blocks):
-            x = layers.leaky_relu(block.dense(x))
+            x = layers.leaky_relu(block.dense(x, dtype))
             if self.training:
                 if masks is not None:
                     x = x * masks[i]
@@ -173,10 +177,10 @@ class VAE(nn.Module):
         if self.training and eps is None:
             raise ValueError("a training-mode forward needs `eps` or `inject`")
         h = self._stack(self.enc, x, enc_masks, enc_bits)
-        mu = self.mu(h)
+        mu = self.mu(h.float())  # the heads and the loss in float32 at any precision
         latent = mu + eps if self.training else mu
         h = self._stack(self.dec, latent, dec_masks, dec_bits)
-        rec = self.out(h)
+        rec = self.out(h.float())
         S, T = self.nsamples, self.ntnf
         depths_out = torch.softmax(rec[:, :S], dim=1)
         return depths_out, rec[:, S : S + T], rec[:, S + T :], mu
@@ -254,8 +258,6 @@ class VAE(nn.Module):
         logger: Optional[Callable[[str], None]] = None,
     ) -> None:
         "Train in place. Mirrors reference trainmodel (encode.py:543-610)."
-        if self.precision != "f32":
-            raise NotImplementedError(_bf16_unported(self.precision))
         if nepochs < 1:
             raise ValueError(f"Minimum 1 epoch, not {nepochs}")
         if dataset.n_obs < 2:
@@ -272,6 +274,8 @@ class VAE(nn.Module):
         log(f"\t    Alpha: {self.alpha}")
         log(f"\t    Beta: {self.beta}")
         log(f"\t    Dropout: {self.dropout}")
+        if self.precision != "f32":
+            log(f"\t    Precision: {self.precision}")
         log(f"\t    N hidden: {', '.join(map(str, self.nhiddens))}")
         log(f"\t    N latent: {self.nlatent}")
         log("\tTraining properties:")
@@ -363,9 +367,8 @@ class VAE(nn.Module):
 
     @classmethod
     def load(cls, io: Union[str, Path, IO[bytes]], device="cuda") -> "VAE":
-        """Read a `model.npz` written by either package. A model trained at
-        bf16 loads at f32 with its precision recorded: it encodes as
-        vamb_tpu's does and saves as "bf16", but does not train."""
+        """Read a `model.npz` written by either package, at the precision it
+        records ("f32" where it records none)."""
         flat, meta = load_flat(io)
         vae = cls(
             nsamples=meta["nsamples"],
@@ -376,11 +379,8 @@ class VAE(nn.Module):
             dropout=meta["dropout"],
             seed=meta.get("seed", 0),
             device=device,
+            precision=meta.get("precision", "f32"),
         )
-        precision = meta.get("precision", "f32")
-        if precision not in ("f32", "bf16"):
-            raise ValueError(f"precision must be 'f32' or 'bf16', not {precision}")
-        vae.precision = precision
         vae.load_state_dict(params_from_jax(flat))
         vae.eval()
         return vae
