@@ -129,7 +129,7 @@ of `vamb_tpu`. Phases, each of which fails the run:
    the CPU's, its
    y clusters equal but where the top two y probabilities lie within 1e-5
    (counted); 50 clusters of the z latent (fewer where it holds fewer, or
-   where 250 wander steps are reached first) on the card and on the CPU as
+   where 150 wander steps are reached first) on the card and on the CPU as
    in phase 4 (scores and candidates different in no step, all
    identical); `avamb_ensemble` over the z and y bins with a CheckM2-style
    report from the planted genomes, every bin admitted (the cut's bins are
@@ -164,6 +164,29 @@ of `vamb_tpu`. Phases, each of which fails the run:
    (`vamb_tpu`'s criterion). Logged: stage times, the bins' pairwise
    precision beside phase 4's, and 50 bf16 training steps under
    torch.profiler beside phase 6's f32 steps.
+12. several processes: the four shard entry points (`medoid_sweep_shard`,
+   `spec_sweep_shard`, `candidate_density_shard`, `gumbel_topc_shard`) on
+   the shards of 100,096 columns over 1, 2 and 4 ranks, bit for bit their
+   plain versions on the card and the index entry points on the shard, the
+   Gumbel shards merged bit for bit `gumbel_topc` over the whole width,
+   then timed; (a) a world of one on NCCL: phase 4's dataset trained for 2
+   epochs at batch 512 with `mesh=` (the replicas checked after each
+   epoch), and 200
+   clusters of its latent from the unsharded engine and from the
+   row-sharded one, the counters set to 0 just before the sharded run and
+   read just after (every shard entry point and `row_stats` launched, the
+   index entry points of those kernels not; emission and every attempt's
+   sums bit for bit the unsharded engine's), its NCCL collectives tallied
+   by kind, calls and bytes an attempt; (b) two processes sharing the card
+   over gloo (`--dist-rank`; gloo moves each collective through host
+   memory): `bin default`'s library path at W = 2 on (a)'s composition
+   and abundance (2 epochs at batch 512, 200 clusters), the parameters'
+   checksums equal across ranks after every epoch, then the same W = 2
+   engine on the CPU over the same group, its first 20 clusters identical
+   to the card's; the W = 2
+   clusters' agreement with (a)'s W = 1 clusters on sampled pairs. A rank
+   that fails or outlives its 420 s fails the phase; its children are
+   killed.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
@@ -172,7 +195,8 @@ phase 7's for `hmm_forward`; each row also holds every timed width under
 `at_widths` and phase 8's launches; the rows with `f_pad` 288 are the
 matrix kernels at the z latent's width, with phase 9's launches; the rows
 with `dtype` "bfloat16" are the bf16 variants, one a timed width, with
-phase 11's launches), the
+phase 11's launches; the rows with `entry_point_of` are the shard entry
+points, with phase 12(a)'s launches), the
 card's `nvidia-smi` name and power limit, and
 `{"ok": true, "device": ...}`.
 
@@ -197,6 +221,10 @@ runs phase 1, phase 2 at F_pad 288 and phase 9.
 runs phase 1, phase 2's checks and times of the bf16 variants, phase 4's
 `bin default` (the f32 latent and clusters phase 11 compares with; no
 profile, no card-vs-CPU run) and phase 11.
+
+    python3 chip_smoke.py --dist
+
+runs phase 1 and phase 12 (about 2 minutes).
 
     python3 chip_smoke.py --lanes
 
@@ -2089,8 +2117,9 @@ AAE_PROBE_ROWS = 4096  # contigs on which the card's encode is held to the CPU's
 AAE_ENCODE_TOL = 1e-5
 AAE_PROFILE_STEPS = 25
 # wander steps after which the card-vs-CPU engine comparison may end (at the
-# end of a cluster): phase 4's 50 clusters hold ~200
-AAE_AGREEMENT_STEPS = 250
+# end of a cluster): phase 4's 50 clusters hold ~200; 150 (from 250 up to
+# PR 12) keeps the full run, phase 12 included, well inside its time limit
+AAE_AGREEMENT_STEPS = 150
 # the ensemble's quality gates: the cut's bins are far from near-complete
 # (the AAE's z latent after 2 epochs holds a few giant clusters), so every
 # bin enters, and dereplication and ripping resolve the z and y bins' overlaps
@@ -2604,6 +2633,380 @@ def run_bf16_path(dev, tmp: Path, f32_run: dict) -> dict:
 # Clusters a profiled window (was 100): a smaller window keeps the
 # profiler's events, and the run's time, down.
 PROFILE_CLUSTERS = 40
+
+
+# ------------------------------------------- phase 12: several processes
+
+DIST_CLUSTERS = 200  # clusters each of phase 12's engine runs takes: a cap on their time
+DIST_CPU_CLUSTERS = 20  # clusters of 12(b)'s run on the card held to the same run on the CPU
+# phase 12's training batch (doubled after epoch 1, as phase 4's -q 1): twice
+# phase 4's, half the steps, each of which gathers the gradient over gloo in 12(b)
+DIST_BATCH = 512
+DIST_SHARD_WORLDS = (1, 2, 4)  # the shards checked: the 100k path's 100,096 columns over W ranks
+DIST_RANK_TIMEOUT_S = 420  # a 12(b) rank's limit, and every process group's timeout
+SHARD_KERNELS = ("medoid_sweep_shard", "spec_sweep_shard", "candidate_density_shard",
+                 "gumbel_topc_shard")
+# the index entry point whose kernel each shard entry point launches
+SHARD_OF = {"medoid_sweep_shard": "medoid_sweep", "spec_sweep_shard": "spec_sweep",
+            "candidate_density_shard": "candidate_density_sweep",
+            "gumbel_topc_shard": "gumbel_topc"}
+
+
+def check_and_time_shards(dev) -> tuple[dict, dict]:
+    """Phase 12's kernel checks and times of the four shard entry points.
+    Checks: on the first and last shard of the 100k path's 100,096 columns
+    over W = 1, 2 and 4 ranks, each with queries on the shard and held by
+    another rank (-1), against its plain version on the card and, given a
+    shard column's own features and index, against the index entry point
+    on the shard, bit for bit; each shard's `gumbel_topc_shard` keys against
+    its plain version and their `topc_merge` against `gumbel_topc` over the
+    whole width. Times at W = 1's shard (the whole width), as
+    `time_kernels` times the index entry points. Returns ({kernel: max abs
+    error}, {kernel: times})."""
+    from vamb_torch import kernels as K
+
+    n = PATH_WIDTHS[1]
+    mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=9), device=dev)
+    w = torch.as_tensor(weights(n, seed=9, zero_half=True), device=dev)
+    errs = dict.fromkeys(SHARD_KERNELS, 0.0)
+
+    def held(name, got, want, what):
+        for a, b in zip(got, want):
+            check(a.dtype == b.dtype and torch.equal(a, b), f"phase 12: {name} differs from {what}")
+            if a.is_floating_point():
+                errs[name] = max(errs[name], float((a.double() - b.double()).abs().max()))
+
+    gkey, gd, gkept, gtried, gmedoid = gumbel_inputs(n, dev, seed=8)
+    for world in DIST_SHARD_WORLDS:
+        keys = []
+        for r in range(world):
+            lo, hi = r * n // world, (r + 1) * n // world
+            k = K.gumbel_topc_shard(gkey, gd[lo:hi], gkept[lo:hi], gtried[lo:hi], gmedoid,
+                                    MAXSTEPS, n, lo)
+            held("gumbel_topc_shard", (k,), (K.gumbel_topc_shard_plain(
+                gkey, gd[lo:hi], gkept[lo:hi], gtried[lo:hi], gmedoid, MAXSTEPS, lo),),
+                f"its plain version (W {world}, rank {r})")
+            keys.append(k)
+            if r not in (0, world - 1):
+                continue
+            part, wp = mT[:, lo:hi].contiguous(), w[lo:hi].contiguous()
+            own, other = 37, (hi + 5) % n  # a shard column, and one on the next shard
+            q_own, q_other = part[:, own].contiguous(), mT[:, other].contiguous()
+            where = f"(W {world}, rank {r})"
+            for q, idx in ((q_own, own), (q_other, -1)):
+                held("medoid_sweep_shard", K.medoid_sweep_shard(part, q, idx, wp),
+                     K.medoid_sweep_shard_plain(part, q, idx, wp), f"its plain version {where}")
+            held("medoid_sweep_shard", K.medoid_sweep_shard(part, q_own, own, wp),
+                 K.medoid_sweep(part, own, wp), f"medoid_sweep on the shard {where}")
+            m_loc = hi - lo
+            cols = [own, -1, 5, m_loc - 1, -1, 200, own, 9]
+            feats = torch.stack([part[:, c] if c >= 0 else mT[:, (other + s) % n]
+                                 for s, c in enumerate(cols)], 1).contiguous()
+            held("spec_sweep_shard", K.spec_sweep_shard(part, feats, cols, wp),
+                 K.spec_sweep_shard_plain(part, feats, cols, wp), f"its plain version {where}")
+            mine = [own, 5, m_loc - 1, 200, 9, own, 1, 2]
+            held("spec_sweep_shard", K.spec_sweep_shard(part, part[:, mine].contiguous(), mine, wp),
+                 K.spec_sweep(part, mine, wp), f"spec_sweep on the shard {where}")
+            cand = torch.tensor([own, -1, 5, m_loc - 1, -1] * 5, device=dev)
+            q = torch.stack([part[:, c] if c >= 0 else mT[:, (other + j) % n]
+                             for j, c in enumerate(cand.tolist())], 1).contiguous()
+            held("candidate_density_shard", (K.candidate_density_shard(part, q, cand, wp),),
+                 (K.candidate_density_shard_plain(part, q, cand, wp),), f"its plain version {where}")
+            ids = torch.tensor([own, 5, m_loc - 1, 200] * 6 + [9], device=dev)
+            held("candidate_density_shard",
+                 (K.candidate_density_shard(part, part[:, ids].contiguous(), ids, wp),),
+                 (K.candidate_density_sweep(part, ids, wp),), f"the density kernel on the shard {where}")
+        merged = K.topc_merge(torch.stack(keys), MAXSTEPS)
+        held("gumbel_topc_shard", merged, K.gumbel_topc(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS),
+             f"gumbel_topc over the whole width once merged (W {world})")
+    log(f"phase 12 shard entry points: bit for bit their plain versions and the index entry "
+        f"points on the shards at W {DIST_SHARD_WORLDS} ({n} columns): " + json.dumps(errs))
+
+    # times at W = 1's shard, with the bounds of `time_kernels`
+    idx, f = 37, F_PAD
+    kept = w > 0
+    n_kept = int(kept.sum())
+    q = mT[:, idx].contiguous()
+    d_row = K.row_sweep(mT, idx)
+    near = int(((d_row <= 0.05) & kept).sum())
+    in_hist = int(((d_row >= 0) & (d_row <= 0.3) & kept).sum())
+    spec_cols = [int(c) for c in np.random.default_rng(6).choice(n, SPEC_SEEDS, replace=False)]
+    feats = mT[:, spec_cols].contiguous()
+    rows = K.spec_sweep(mT, spec_cols, w)[0]
+    in_hist_s = int(((rows >= 0) & (rows <= 0.3) & kept).sum())
+    near_s = int(((rows <= 0.05) & kept).sum())
+    cand = torch.as_tensor(np.random.default_rng(5).choice(n, MAXSTEPS, replace=False), device=dev)
+    qc = mT[:, cand].contiguous()
+    n_within = int((((0.5 - qc.T @ mT) <= 0.05) & kept[None, :]).sum())
+    fns = {
+        "medoid_sweep_shard": (
+            lambda: K.medoid_sweep_shard(mT, q, idx, w), lambda: K.medoid_sweep_shard_plain(mT, q, idx, w),
+            None, bound((f * n + 2 * n + 62 + f) * 4, 2 * f * n + n + 2 * in_hist + 3 * near)),
+        "spec_sweep_shard": (
+            lambda: K.spec_sweep_shard(mT, feats, spec_cols, w),
+            lambda: K.spec_sweep_shard_plain(mT, feats, spec_cols, w),
+            lambda: torch.matmul(feats.T, mT),
+            bound((f * n + n + SPEC_SEEDS * n + f * SPEC_SEEDS) * 4 + SPEC_SEEDS * 63 * 4,
+                  SPEC_SEEDS * (2 * f * n + n) + 2 * in_hist_s + 3 * near_s)),
+        "candidate_density_shard": (
+            lambda: K.candidate_density_shard(mT, qc, cand, w),
+            lambda: K.candidate_density_shard_plain(mT, qc, cand, w), None,
+            bound((f * n_kept + n + (2 + f) * MAXSTEPS) * 4,
+                  (2 * f + 1) * MAXSTEPS * n_kept + 3 * n_within)),
+        "gumbel_topc_shard": (
+            lambda: K.gumbel_topc_shard(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS, n, 0),
+            lambda: K.gumbel_topc_shard_plain(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS, 0),
+            lambda: torch.topk(K.gumbel_scores(gkey, gd, gkept, gtried, gmedoid), MAXSTEPS),
+            bound(GUMBEL_READ_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n)),
+    }
+    times = {}
+    for name, (kern, plain, lib, bnd) in fns.items():
+        r = {"bound": bnd, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+             "library_ms": None if lib is None else time_ms(lib)}
+        times[name] = r
+        libs = (LIBRARY_NOTES.get(SHARD_OF[name], "none") if lib is None
+                else f"{r['library_ms']:.5f} ms")
+        log(f"{name} at F_pad {f}, N_local {n}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+            f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share "
+            f"{bnd[0] / r['ms']:.3f}, L2 cold")
+    return errs, times
+
+
+def engine_run(gen, n_clusters: int) -> list:
+    "The first `n_clusters` clusters of `gen` as (medoid, kind, members)."
+    return [(c.medoid, c.kind_str, c.members.tolist()) for c in itertools.islice(gen, n_clusters)]
+
+
+def labels_of(clusters: list, n: int) -> np.ndarray:
+    "Each point's cluster among `clusters`, a label of its own (-1 - i) where none."
+    labels = -1 - np.arange(n)
+    for i, (_, _, members) in enumerate(clusters):
+        labels[members] = i
+    return labels
+
+
+def run_dist_one(dev, tmp: Path) -> dict:
+    """Phase 12(a): a world of one on NCCL, on the card. Phase 4's dataset
+    (written anew into `tmp / "data"`) trains for 2 epochs with `mesh=`
+    (batch DIST_BATCH, doubled at 1, as phase 4's `-q 1`), and
+    `DIST_CLUSTERS` clusters of its latent come from the unsharded engine
+    and then from the row-sharded one, the launch counters set to 0 just
+    before the sharded run and read just after: every shard entry point and
+    `row_stats` launched, the index entry points of the same kernels not;
+    the emission and every attempt's sums (`sums_trace`) bit for bit the
+    unsharded engine's. The NCCL collectives of the sharded run are
+    tallied, calls and bytes per attempt by kind."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from vamb_torch import kernels as K
+    from vamb_torch import pipeline
+    from vamb_torch.cluster import ClusterGenerator
+    from vamb_torch.models import VAE, make_dataset
+    from vamb_torch.parallel import make_mesh
+    from vamb_torch.utils import BinSplitter
+
+    data = tmp / "data"
+    data.mkdir()
+    t = time.time()
+    write_dataset(data, N_CONTIGS, N_GENOMES, N_SAMPLES, SEED)
+    log(f"phase 12: wrote phase 4's dataset in {time.time() - t:.1f} s")
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'rendezvous_a'}", world_size=1,
+                            rank=0, timeout=timedelta(seconds=DIST_RANK_TIMEOUT_S))
+    try:
+        mesh = make_mesh(1, device="cuda")
+        check(dist.get_backend(mesh.group) == "nccl", "phase 12(a): the group is not NCCL's")
+        general = pipeline.GeneralOptions(tmp / "a", seed=SEED, device=str(mesh.device))
+        general.outdir.mkdir()
+        comp, ab = pipeline.load_composition_and_abundance(
+            general, pipeline.CompositionOptions(fasta=data / "contigs.fna"),
+            pipeline.AbundanceOptions(abundance_tsv=data / "abundance.tsv"), BinSplitter(None))
+        ds = make_dataset(ab.matrix, comp.matrix, comp.metadata.lengths)
+        vae = VAE(N_SAMPLES, seed=SEED, device=mesh.device)
+        lines = []
+        t = time.time()
+        vae.trainmodel(ds, nepochs=2, batchsize=DIST_BATCH, batchsteps=[1], mesh=mesh,
+                       logger=lines.append)
+        latent = vae.encode(ds)
+        train_s = time.time() - t
+        check(sum("Parameters identical on 1 ranks" in ln for ln in lines) == 2,
+              "phase 12(a): the replicas were not checked after each epoch")
+        lengths = comp.metadata.lengths
+        t = time.time()
+        plain_gen = ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device=dev)
+        plain_gen.sums_trace = []
+        plain = engine_run(plain_gen, DIST_CLUSTERS)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t
+        K.reset_launch_counts()
+        mesh.reset_traffic()
+        t = time.time()
+        gen = ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, mesh=mesh)
+        gen.sums_trace = []
+        sharded = engine_run(gen, DIST_CLUSTERS)
+        torch.cuda.synchronize()
+        sharded_s = time.time() - t
+        launches = {k.__name__: k.launches for k in K.KERNELS}
+        traffic = mesh.traffic
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 12(a): trained 2 epochs with mesh= and encoded in {train_s:.2f} s; "
+        f"{DIST_CLUSTERS} clusters: unsharded engine {plain_s:.2f} s, sharded {sharded_s:.2f} s; "
+        f"launches in the sharded run {launches}")
+    for name in (*SHARD_KERNELS, "row_stats"):
+        check(launches[name] > 0, f"phase 12(a): the sharded engine never launched {name}")
+    for name in set(SHARD_OF.values()):
+        check(launches[name] == 0, f"phase 12(a): the sharded engine launched {name}")
+    check(sharded == plain, "phase 12(a): the sharded engine's emission differs from the unsharded one's")
+    check(gen.sums_trace == plain_gen.sums_trace and len(gen.sums_trace) > 0,
+          "phase 12(a): the sharded engine's sums differ from the unsharded one's")
+    attempts = len(gen.sums_trace)
+    per_attempt = {k: {"calls_per_attempt": v["calls"] / attempts,
+                       "bytes_per_attempt": v["bytes"] / attempts, "max_bytes": v["max_bytes"]}
+                   for k, v in traffic.items()}
+    log(f"phase 12(a): NCCL collectives over {attempts} attempts (the seeds taken; a burst's "
+        "loners after the first not counted), "
+        "by kind: " + json.dumps(per_attempt))
+    return {"launches": launches, "train_encode_s": train_s, "unsharded_engine_s": plain_s,
+            "sharded_engine_s": sharded_s, "clusters": len(sharded), "attempts": attempts,
+            "identical": True, "collectives": per_attempt,
+            "_labels": labels_of(sharded, N_CONTIGS)}
+
+
+def run_dist_two(tmp: Path, labels_one: np.ndarray) -> dict:
+    """Phase 12(b): two processes sharing the card over gloo (`dist_rank`),
+    on 12(a)'s dataset (its `composition.npz` and `abundance.npz`, so the
+    two ranks do not parse the FASTA anew): `bin default`'s library path at
+    W = 2, then the
+    same W = 2 engine on the CPU. A rank that fails or outlives
+    DIST_RANK_TIMEOUT_S fails the phase; the children are killed whatever
+    happens. Gates: the parameters' checksums equal across ranks after
+    every epoch, and the first DIST_CPU_CLUSTERS clusters on the card
+    identical to the CPU's. Logged: the W = 2 clusters' agreement with
+    12(a)'s W = 1 clusters on sampled pairs."""
+    out = tmp / "b"
+    out.mkdir()
+    cmd = lambda r: [sys.executable, str(Path(__file__).resolve()), "--dist-rank",  # noqa: E731
+                     str(tmp / "rendezvous_b"), str(r), str(tmp / "a"), str(out)]
+    t = time.time()
+    procs = [subprocess.Popen(cmd(r), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=str(ROOT)) for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=max(1.0, t + DIST_RANK_TIMEOUT_S - time.time()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"check failed: phase 12(b): rank {r} outlived "
+                                     f"{DIST_RANK_TIMEOUT_S} s") from None
+            check(p.returncode == 0, f"phase 12(b): rank {r} failed ({p.returncode}):\n{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.time() - t
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    check(len(ranks[0]["checksums"]) == 2 and ranks[0]["checksums"] == ranks[1]["checksums"],
+          f"phase 12(b): the ranks' parameter checksums differ: {[r['checksums'] for r in ranks]}")
+    for r in ranks:
+        check(all(r["launches"].get(name, 0) > 0 for name in (*SHARD_KERNELS, "row_stats")),
+              f"phase 12(b): rank {r['rank']} did not launch every shard entry point: {r['launches']}")
+        check(r["card_vs_cpu_identical"] == DIST_CPU_CLUSTERS,
+              f"phase 12(b): rank {r['rank']}: the W = 2 clusters on the card differ from the CPU's "
+              f"after {r['card_vs_cpu_identical']}")
+    labels_two = clusters_of(out / "rank0" / "vae_clusters_unsplit.tsv", N_CONTIGS)
+    agree = pair_agreement(labels_one, labels_two, SEED)
+    result = {"wall_s": wall, "ranks": ranks, "w2_vs_w1": agree}
+    log("phase 12(b): " + json.dumps(result))
+    return result
+
+
+def dist_rank(rendezvous: str, rank: int, inputs: Path, out: Path) -> int:
+    """One rank of phase 12(b): join a gloo group of 2 on the card, run
+    `bin default`'s library path (`pipeline.run_bin_default` on the
+    composition and abundance in `inputs`, 2 epochs at batch DIST_BATCH, -q
+    1, DIST_CLUSTERS clusters) into `out/rank<r>`, then cluster rank 0's
+    latent on the CPU over the same group and hold its first
+    DIST_CPU_CLUSTERS clusters to the card's. Writes `out/rank<r>.json`."""
+    import torch.distributed as dist
+    from vamb_torch import kernels as K
+    from vamb_torch import pipeline
+    from vamb_torch.cluster import ClusterGenerator
+    from vamb_torch.composition import Composition
+    from vamb_torch.log import setup_logging
+    from vamb_torch.parallel import distributed_init, make_mesh
+    from vamb_torch.utils import read_npz
+
+    torch.set_num_threads(4)
+    distributed_init(f"file://{rendezvous}", 2, rank, device="cuda", backend="gloo",
+                     timeout_s=DIST_RANK_TIMEOUT_S)
+    outdir = out / f"rank{rank}"
+    outdir.mkdir()
+    setup_logging(outdir)
+    opt = pipeline.BinDefaultOptions(
+        general=pipeline.GeneralOptions(outdir, seed=SEED, device=pipeline.process_device("cuda")),
+        comp=pipeline.CompositionOptions(composition=inputs / "composition.npz"),
+        abundance=pipeline.AbundanceOptions(abundancepath=inputs / "abundance.npz"),
+        vae=pipeline.VAEOptions(nepochs=2, batchsize=DIST_BATCH, batchsteps=[1]),
+        clustering=pipeline.ClusterOptions(max_clusters=DIST_CLUSTERS),
+        output=pipeline.BinOutputOptions())
+    K.reset_launch_counts()
+    t = time.time()
+    pipeline.run_bin_default(opt)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = {k.__name__: k.launches for k in K.KERNELS if k.launches}
+    text = (outdir / "log.txt").read_text()
+    checksums = re.findall(r"Parameters identical on 2 ranks \(checksum (-?\d+)\)", text)
+    dist.barrier()  # rank 0's latent and clusters are written
+    latent = read_npz(out / "rank0" / "latent.npz")
+    lengths = Composition.load(inputs / "composition.npz").metadata.lengths
+    t = time.time()
+    gen = ClusterGenerator(latent, lengths, rng_seed=SEED, device="cpu", mesh=make_mesh(2, device="cpu"))
+    cpu = [sorted(int(i) for i in c.members) for c in itertools.islice(gen, DIST_CPU_CLUSTERS)]
+    cpu_s = time.time() - t
+    card = {}
+    for name, contig in read_tsv(out / "rank0" / "vae_clusters_unsplit.tsv")[1:]:
+        card.setdefault(name, []).append(int(contig.split("C")[1]))
+    card = [sorted(m) for m in card.values()][:DIST_CPU_CLUSTERS]
+    same = next((i for i, (a, b) in enumerate(zip(card, cpu)) if a != b), min(len(card), len(cpu)))
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "device": opt.general.device, "bin_default_s": wall,
+        "stage_times": stage_times(outdir / "log.txt"), "cpu_engine_s": cpu_s,
+        "checksums": checksums, "launches": launches, "card_vs_cpu_identical": same}))
+    dist.destroy_process_group()
+    return 0
+
+
+def shard_rows_json(errs: dict, times: dict, run_one: dict) -> list:
+    """The kernels JSON line's rows of the shard entry points: phase 12's
+    checks and times at the whole width of a world of one, and 12(a)'s
+    launches."""
+    rows = []
+    for name in SHARD_KERNELS:
+        r = times[name]
+        base = SHARD_OF[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": CLUSTER_SOURCE, "replaces": REPLACES[base],
+            "launches": run_one["launches"][name], "max_abs_err": errs[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"library_note": LIBRARY_NOTES.get(base, "none")} if r["library_ms"] is None else {}),
+            **({"replaces_kind": REPLACES_KIND[base]} if base in REPLACES_KIND else {}),
+            "entry_point_of": base, "f_pad": F_PAD, "n_pad": PATH_WIDTHS[1], "dtype": "float32",
+            "path": "phase 12(a) (the row-sharded engine, a world of one on NCCL)",
+        })
+    return rows
+
+
+def run_dist(dev) -> tuple[list, dict]:
+    """Phase 12: the shard entry points' checks and times, 12(a) and 12(b).
+    Returns (the kernels JSON rows, the phase's results)."""
+    errs, times = check_and_time_shards(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        one = run_dist_one(dev, Path(tmp))
+        two = run_dist_two(Path(tmp), one.pop("_labels"))
+    return shard_rows_json(errs, times, one), {"world_of_one": one, "two_processes": two}
 
 
 def count_attempts(gen) -> list:
@@ -3274,7 +3677,7 @@ def build_all() -> Path:
 
 
 def main(mode: str = "full") -> int:
-    """mode "full" runs phases 1-11; "kernels" phases 1-2; "recluster"
+    """mode "full" runs phases 1-12; "dist" phases 1 and 12; "kernels" phases 1-2; "recluster"
     phase 1, the Forward kernel's check and phase 7; "taxonomy" phases 1
     and 8; "avamb" phase 1, phase 2 at F_pad 288 and phase 9; "lanes"
     phase 1, phase 2's `spec_sweep` and `row_stats` and phase 10; "bf16"
@@ -3343,6 +3746,12 @@ def main(mode: str = "full") -> int:
                           "bf16_path": {k: v for k, v in run_bf16.items() if k not in drop}}))
         print(card)
         return 0
+    if mode == "dist":  # phase 1, then phase 12 alone
+        shard_rows, phase12 = run_dist(dev)
+        phase_done("12 (several processes)")
+        print(json.dumps({"kernels": shard_rows, "dist": phase12}))
+        print(card)
+        return 0
     if mode == "taxonomy":  # phase 1, then phase 8 alone
         with tempfile.TemporaryDirectory() as tmp:
             run_tax = run_taxonomy_path(dev, Path(tmp))
@@ -3409,10 +3818,13 @@ def main(mode: str = "full") -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_bf16 = run_bf16_path(dev, Path(tmp), run_100k)
     phase_done("11 (the bf16 path)")
+    shard_rows, phase12 = run_dist(dev)
+    phase_done("12 (several processes)")
 
     kernels = (kernel_rows(timed, errs, run_100k, run_300k, run_tax, run_avamb)
                + kernel_rows_aae(timed_aae, errs_aae, run_avamb)
-               + kernel_rows_bf16(timed_bf16, errs_bf16, run_bf16) + [hmm_row(hmm_timed, run_rc)])
+               + kernel_rows_bf16(timed_bf16, errs_bf16, run_bf16) + shard_rows
+               + [hmm_row(hmm_timed, run_rc)])
     drop = ("launches", "launches_by_width", "launches_by_fpad", "_latent", "_lengths", "_labels")
     print(json.dumps({"kernels": kernels,
                       "main_path_100k": {k: v for k, v in run_100k.items() if k not in drop},
@@ -3421,7 +3833,8 @@ def main(mode: str = "full") -> int:
                       "taxonomy_path": {k: v for k, v in run_tax.items() if k not in drop},
                       "avamb_path": {k: v for k, v in run_avamb.items() if k not in drop},
                       "batched_attempts": phase10,
-                      "bf16_path": {k: v for k, v in run_bf16.items() if k not in drop}}))
+                      "bf16_path": {k: v for k, v in run_bf16.items() if k not in drop},
+                      "dist": phase12}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -3447,6 +3860,8 @@ if __name__ == "__main__":
         gather_and_sweep_layouts()
         batch_layouts()
         sys.exit(0)
+    if sys.argv[1:2] == ["--dist-rank"]:  # one rank of phase 12(b)
+        sys.exit(dist_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5])))
     modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy",
-             "--avamb": "avamb", "--lanes": "lanes", "--bf16": "bf16"}
+             "--avamb": "avamb", "--lanes": "lanes", "--bf16": "bf16", "--dist": "dist"}
     sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

@@ -1,0 +1,136 @@
+"""One rank of a multi-process run of `vamb_torch` on the CPU (gloo).
+
+Launched by tests/test_torch_parallel.py, W times, as
+
+    python tests/_torch_dist_worker.py <rendezvous file> <W> <rank> <dir> <scenario>...
+
+It joins a gloo group of W processes through a file rendezvous (so
+concurrent test workers never race for a port), reads its inputs from
+`<dir>/inputs.npz` (made by the parent with numpy, the same for every rank)
+and writes each scenario's results to `<dir>/<scenario>_r<rank>.npz`. It
+imports no jax: the parent holds the results against `vamb_tpu`.
+
+Scenarios:
+  mesh    the sharding helpers and collectives;
+  bn      one training-mode BatchNorm forward and backward over a global
+          batch split across the ranks;
+  train   3 epochs of data-parallel VAE training;
+  engine  the row-sharded engine on the parent's latents;
+  traffic the engine's collective tally over its first clusters at two
+          widths.
+"""
+
+import itertools
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from vamb_torch.cluster import ClusterGenerator  # noqa: E402
+from vamb_torch.models import VAE, make_dataset  # noqa: E402
+from vamb_torch.models import layers  # noqa: E402
+from vamb_torch.parallel import (  # noqa: E402
+    distributed_init, make_mesh, replicate, shard_rows, shard_rows_padded,
+)
+from vamb_torch.utils.checkpoint import params_to_jax  # noqa: E402
+
+TRAFFIC_CLUSTERS = 40  # clusters the traffic scenario takes at each width
+
+
+def scenario_mesh(mesh, inp) -> dict:
+    x = np.arange(64, dtype=np.float32).reshape(16, 4)
+    odd = np.arange(30, dtype=np.float32).reshape(10, 3)
+    lin = layers.Linear(np.random.default_rng(100 + mesh.rank), 5, 3)
+    replicate(lin, mesh)
+    rep = replicate({"a": torch.full((3,), float(mesh.rank + 1)), "b": [torch.tensor(mesh.rank)]}, mesh)
+    # summands whose float32 sum depends on the order
+    mine = torch.tensor(inp["order_terms"][mesh.rank])
+    return {
+        "rows": shard_rows(x, mesh).numpy(),
+        "padded": shard_rows_padded(odd, mesh).numpy(),
+        "lin_w": lin.w.detach().numpy(), "lin_b": lin.b.detach().numpy(),
+        "rep_a": rep["a"].numpy(), "rep_b": rep["b"][0].numpy(),
+        "sum": mesh.sum_ranks(mine, "test").numpy(),
+        "gathered": mesh.gather_rows(torch.full((mesh.rank + 1, 2), mesh.rank), "test").numpy(),
+        "block": np.array(mesh.block(10)),
+    }
+
+
+def scenario_bn(mesh, inp) -> dict:
+    x_all, coef_all = inp["bn_x"], inp["bn_coef"]
+    lo, hi = mesh.block(len(x_all))
+    bn = layers.BatchNorm(x_all.shape[1])
+    with torch.no_grad():
+        bn.scale.copy_(torch.as_tensor(inp["bn_scale"]))
+        bn.bias.copy_(torch.as_tensor(inp["bn_bias"]))
+    bn.train()
+    x = torch.tensor(x_all[lo:hi], requires_grad=True)
+    with layers.global_batch(mesh):
+        out = bn(x)
+        (out * torch.as_tensor(coef_all[lo:hi])).sum().backward()
+    return {"out": out.detach().numpy(), "x_grad": x.grad.numpy(),
+            "scale_grad": bn.scale.grad.numpy(), "bias_grad": bn.bias.grad.numpy(),
+            "mean": bn.mean.numpy(), "var": bn.var.numpy()}
+
+
+def scenario_train(mesh, inp) -> dict:
+    ds = make_dataset(inp["train_ab"], inp["train_tnf"], inp["train_len"])
+    vae = VAE(nsamples=3, nhiddens=[32, 32], nlatent=8, seed=2, device="cpu")
+    lines = []
+    vae.trainmodel(ds, nepochs=3, batchsize=64, batchsteps=None, mesh=mesh, logger=lines.append)
+    flat = params_to_jax(vae.state_dict())
+    checks = [line for line in lines if "Parameters identical" in line]
+    return {**{k: v for k, v in flat.items()}, "_checks": np.array(len(checks))}
+
+
+def emission(gen) -> np.ndarray:
+    "Each cluster as (medoid, kind, then its sorted members), -1 padded into rows."
+    rows = [[c.medoid, ("normal", "loner", "fallback").index(c.kind_str), *np.sort(c.members)]
+            for c in gen]
+    width = max(len(r) for r in rows)
+    return np.array([r + [-1] * (width - len(r)) for r in rows], np.int64)
+
+
+def scenario_engine(mesh, inp) -> dict:
+    out = {}
+    for name in ("random300", "clumpy", "compact"):
+        kw = dict(inp[f"{name}_kw"].item())
+        gen = ClusterGenerator(inp[f"{name}_m"].copy(), inp[f"{name}_len"], device="cpu",
+                               mesh=mesh, **kw)
+        out[name] = emission(gen)
+        out[f"{name}_compactions"] = np.array(gen.compactions, np.int64).reshape(-1, 3)
+    return out
+
+
+def scenario_traffic(mesh, inp) -> dict:
+    out = {}
+    for n in (2048, 8192):
+        gen = ClusterGenerator(inp[f"traffic{n}_m"].copy(), inp[f"traffic{n}_len"], device="cpu",
+                               mesh=mesh, rng_seed=5, windowsize=60)
+        mesh.reset_traffic()  # the attempts' traffic, not the construction's broadcast of the latent
+        sizes = [len(c.members) for c in itertools.islice(gen, TRAFFIC_CLUSTERS)]
+        out[f"n{n}_kinds"] = np.array(sorted(mesh.traffic))
+        out[f"n{n}_max_bytes"] = np.array([mesh.traffic[k]["max_bytes"] for k in sorted(mesh.traffic)])
+        out[f"n{n}_largest_cluster"] = np.array(max(sizes))
+    return out
+
+
+def main() -> None:
+    rendezvous, world, rank, outdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
+    torch.set_num_threads(1)
+    distributed_init(f"file://{rendezvous}", world, rank, device="cpu", timeout_s=60)
+    mesh = make_mesh(world, device="cpu")
+    inp = np.load(outdir / "inputs.npz", allow_pickle=True)
+    for name in sys.argv[5:]:
+        result = globals()[f"scenario_{name}"](mesh, inp)
+        np.savez(outdir / f"{name}_r{rank}.npz", **result)
+    torch.distributed.destroy_process_group()
+    print("WORKER_OK", rank, flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -278,6 +278,138 @@ def test_spec_sweep_and_row_stats_are_one_launch(cuda):
     assert len(kernels) == 3, kernels
 
 
+# ------------------------------------------------ the shard entry points
+
+# a shard of a mesh's matrix: the 100k path's 100,096 columns split over W
+# ranks (W = 1, 2, 4), and an unaligned width
+_SHARD_WIDTHS = [100_096, 50_048, 25_024, 25_003]
+
+
+def _shard_case(cuda, n, seed):
+    "A (32, n + 512) clumpy matrix and weights on the card; the shard is [256, 256 + n)."
+    mT_np, lengths = _clumpy(n + 512, 32, seed=seed)
+    lengths[np.random.default_rng(seed).random(n + 512) < 0.2] = 0.0
+    mT = torch.as_tensor(mT_np, device=cuda)
+    w = torch.as_tensor(lengths, device=cuda)
+    return mT, w, mT[:, 256:256 + n].contiguous(), w[256:256 + n].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _SHARD_WIDTHS)
+def test_shard_sweeps_match_plain_and_the_index_entry_points(cuda, n):
+    """`medoid_sweep_shard`, `spec_sweep_shard` and `candidate_density_shard`
+    equal their plain versions bit for bit, with queries on the shard and
+    held elsewhere (-1); given a shard column's own features and index
+    they equal the index entry points on the shard bit for bit, and a
+    query held elsewhere gets the full matrix's row, sliced."""
+    mT, w, part, wp = _shard_case(cuda, n, seed=n)
+    full_row = lambda c: K.row_sweep(mT, c)[256:256 + n]  # noqa: E731
+    own, other = 37, 100  # shard column 37; full column 100, before the shard: held elsewhere
+    q_own = part[:, own].contiguous()
+    q_other = mT[:, other].contiguous()
+    for q, idx in ((q_own, own), (q_other, -1)):
+        got = K.medoid_sweep_shard(part, q, idx, wp)
+        for a, b in zip(got, K.medoid_sweep_shard_plain(part, q, idx, wp)):
+            assert a.dtype == b.dtype and torch.equal(a, b), idx
+    for a, b in zip(K.medoid_sweep_shard(part, q_own, own, wp), K.medoid_sweep(part, own, wp)):
+        assert torch.equal(a, b)
+    assert torch.equal(K.medoid_sweep_shard(part, q_other, -1, wp)[0], full_row(other))
+    cols = [own, -1, 5, n - 1, -1, 200, own, 9]
+    feats = torch.stack([part[:, c] if c >= 0 else mT[:, other + s] for s, c in enumerate(cols)], 1)
+    got = K.spec_sweep_shard(part, feats.contiguous(), cols, wp)
+    for a, b in zip(got, K.spec_sweep_shard_plain(part, feats, cols, wp)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(got[0][1], full_row(other + 1))
+    mine = [own, 5, n - 1, 200]
+    for a, b in zip(K.spec_sweep_shard(part, part[:, mine].contiguous(), mine, wp),
+                    K.spec_sweep(part, mine, wp)):
+        assert torch.equal(a, b)
+    cand = torch.tensor([own, -1, 5, n - 1, -1] * 5, dtype=torch.int64, device=cuda)
+    q = torch.stack([part[:, c] if c >= 0 else mT[:, other + j] for j, c in
+                     enumerate(cand.tolist())], 1).contiguous()
+    assert torch.equal(K.candidate_density_shard(part, q, cand, wp),
+                       K.candidate_density_shard_plain(part, q, cand, wp))
+    ids = torch.tensor([own, 5, n - 1, 200], device=cuda)
+    assert torch.equal(K.candidate_density_shard(part, part[:, ids].contiguous(), ids, wp),
+                       K.candidate_density_sweep(part, ids, wp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_gumbel_shards_merge_to_gumbel_topc(cuda, world):
+    """Each shard's `gumbel_topc_shard` keys equal its plain version's, and
+    their `topc_merge` gives `gumbel_topc`'s candidates and flags over the
+    global width (100,096 columns), at several eligible counts."""
+    from vamb_torch.utils import threefry
+
+    n = 100_096
+    rng = np.random.default_rng(world)
+    d = torch.as_tensor(rng.uniform(0.0, 0.08, n).astype(np.float32), device=cuda)
+    tried = torch.as_tensor(rng.random(n) < 0.05, device=cuda)
+    key = threefry.split_host(threefry.PRNGKey(world))[1]
+    for p_kept in (0.9, 2e-4):
+        kept = torch.as_tensor(rng.random(n) < p_kept, device=cuda)
+        want = K.gumbel_topc(key, d, kept, tried, 4_321, 25)
+        keys = []
+        for r in range(world):
+            lo, hi = r * n // world, (r + 1) * n // world
+            k = K.gumbel_topc_shard(key, d[lo:hi], kept[lo:hi], tried[lo:hi], 4_321, 25, n, lo)
+            assert torch.equal(k.cpu(), K.gumbel_topc_shard_plain(
+                key, d[lo:hi].cpu(), kept[lo:hi].cpu(), tried[lo:hi].cpu(), 4_321, 25, lo))
+            keys.append(k)
+        cand, valid = K.topc_merge(torch.stack(keys), 25)
+        assert torch.equal(cand, want[0]) and torch.equal(valid, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["medoid", "spec", "density", "gumbel"])
+def test_shard_entry_points_are_one_launch(cuda, kernel):
+    "Each shard entry point is one device kernel a call, its index entry point's kernel."
+    from vamb_torch.utils import threefry
+
+    n = 50_048
+    mT, w, part, wp = _shard_case(cuda, n, seed=3)
+    q8 = part[:, :8].contiguous()
+    cand = torch.arange(25, device=cuda)
+    q25 = part[:, :25].contiguous()
+    q1 = q8[:, 0].contiguous()
+    kept = torch.ones(n, dtype=torch.bool, device=cuda)
+    tried = ~kept
+    d = K.medoid_sweep(part, 3, wp)[0]
+    key = threefry.PRNGKey(1)
+    fn, name = {
+        "medoid": (lambda: K.medoid_sweep_shard(part, q1, -1, wp), "medoid_sweep_kernel"),
+        "spec": (lambda: K.spec_sweep_shard(part, q8, [-1] * 8, wp), "spec_sweep_kernel"),
+        "density": (lambda: K.candidate_density_shard(part, q25, cand, wp),
+                    "candidate_density_kernel"),
+        "gumbel": (lambda: K.gumbel_topc_shard(key, d, kept, tried, 7, 25, 2 * n, n),
+                   "gumbel_topc_kernel"),
+    }[kernel]
+    assert len(_one_launch(cuda, fn, name)) == 3
+
+
+@pytest.mark.cuda
+def test_sharded_engine_card_equals_cpu(cuda):
+    """The row-sharded engine over a mesh of one rank on the card emits what
+    it emits on the CPU, which is the unsharded engine's emission, and its
+    wander steps went through the shard entry points."""
+    from vamb_torch.cluster import ClusterGenerator
+    from vamb_torch.parallel import make_mesh
+
+    mT_np, lengths = _clumpy(6_000, 32, seed=12)
+    m = np.ascontiguousarray(mT_np.T)
+    runs = []
+    for device, mesh in ((cuda, make_mesh(1, device=cuda)), ("cpu", make_mesh(1, device="cpu")),
+                         ("cpu", None)):
+        K.reset_launch_counts()
+        gen = ClusterGenerator(m.copy(), lengths, rng_seed=3, device=device, mesh=mesh)
+        runs.append([(c.medoid, c.kind_str, c.members.tolist()) for c in gen])
+        if device == cuda:
+            assert K.gumbel_topc_shard.launches > 0 and K.candidate_density_shard.launches > 0
+            assert K.gumbel_topc.launches == 0 and K.candidate_density_sweep.launches == 0
+    assert runs[0] == runs[1] == runs[2]
+
+
 @pytest.mark.cuda
 def test_engine_lanes_on_and_off_card_equals_cpu(cuda):
     """The engine at subset scope with attempt lanes on and off, on the card
@@ -686,3 +818,4 @@ def test_taxonomy_models_train_on_the_card_as_on_the_cpu(cuda, model):
     assert card_kernels >= 4
     for (name, a), (_, b) in zip(cpu.state_dict().items(), card.state_dict().items()):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4, atol=1e-6, err_msg=name)
+

@@ -1,0 +1,112 @@
+"""The port's multi-process CLI: `--dist/--coordinator/--nprocs/--procid`.
+
+* The fail-fast cases of `_maybe_init_distributed`, as `vamb_tpu`'s
+  (tests/test_distributed.py:150-189): a partial triple exits before any
+  work, and a run that asks for nothing is a no-op.
+* `bin default` through `vamb_torch.__main__.main` in two processes on the
+  CPU (gloo), `--coordinator 127.0.0.1:<free port> --nprocs 2 --procid r`,
+  on make_golden's synthetic dataset: only process 0's outputs remain
+  (`.proc1` is removed), and its clusters equal a single-process run's
+  (the 400 contigs pad to 512 columns at W = 1 and 2 alike, so both draw
+  over the same Gumbel width; the data-parallel latent differs by ulps,
+  which the 12-bit mask absorbs).
+* subcommands whose models do not train data-parallel yet refuse several
+  processes, naming ROADMAP item 10b.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from vamb_torch.__main__ import _maybe_init_distributed
+from vamb_torch.__main__ import main as torch_main
+
+from . import make_golden
+
+ROOT = Path(__file__).resolve().parent.parent
+JOIN_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _args(**kw):
+    base = dict(dist=False, nprocs=None, procid=None, coordinator=None)
+    return type("Args", (), {**base, **kw})()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(procid=2),
+    dict(coordinator="h0:9876"),
+    dict(nprocs=4, coordinator="h0:9876"),
+    dict(nprocs=2, procid=0),
+])
+def test_partial_multiprocess_flags_exit(kw):
+    with pytest.raises(SystemExit):
+        _maybe_init_distributed(_args(**kw), device="cpu")
+
+
+def test_no_multiprocess_flags_is_a_no_op():
+    from vamb_torch.parallel import process_info
+
+    _maybe_init_distributed(_args(), device="cpu")
+    assert process_info() == (0, 1)
+
+
+@pytest.mark.parametrize("command", [["bin", "avamb"], ["bin", "taxvamb"], ["taxometer"]])
+def test_models_without_data_parallelism_refuse_several_processes(command, tmp_path):
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        torch_main([*command, "--outdir", str(tmp_path / "o"), "--nprocs", "2", "--procid", "0",
+                    "--coordinator", "127.0.0.1:1"], device="cpu")
+
+
+def _argv(data: Path, out: Path) -> list:
+    return ["bin", "default", "--outdir", str(out), "--fasta", str(data / "contigs.fna"),
+            "--abundance_tsv", str(data / "abundance.tsv"), "-e", str(make_golden.EPOCHS),
+            "-q", "2", "--seed", str(make_golden.SEED), "-u", str(make_golden.MIN_SUCCESSES)]
+
+
+def _launch(argv: list) -> subprocess.Popen:
+    code = ("import sys; from vamb_torch.__main__ import main; "
+            "main(sys.argv[1:], device='cpu'); print('RANK_DONE', flush=True)")
+    env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
+    return subprocess.Popen([sys.executable, "-c", code, *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+
+
+def test_two_process_bin_default(tmp_path):
+    data = tmp_path / "data"
+    data.mkdir()
+    make_golden.write_synthetic_dataset(data)
+    coordinator = f"127.0.0.1:{free_port()}"
+    multi, single = tmp_path / "multi", tmp_path / "single"
+    procs = [_launch(_argv(data, multi) + ["--coordinator", coordinator, "--nprocs", "2",
+                                           "--procid", str(r)]) for r in range(2)]
+    procs.append(_launch(_argv(data, single)))
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=JOIN_TIMEOUT_S)
+            assert p.returncode == 0 and "RANK_DONE" in out, f"a process failed:\n{err[-3000:]}"
+    except BaseException:
+        for q in procs:
+            q.kill()
+            q.communicate()
+        raise
+    # process 0's outputs in place, process 1's scratch directory removed
+    for name in ("vae_clusters_unsplit.tsv", "vae_clusters_metadata.tsv", "latent.npz",
+                 "model.npz", "log.txt"):
+        assert (multi / name).is_file(), name
+    assert not (multi / ".proc1").exists()
+    log = (multi / "log.txt").read_text()
+    assert "Multi-process: process 0 of 2" in log
+    assert "Using a 2-process mesh" in log and "Parameters identical on 2 ranks" in log
+    assert ((multi / "vae_clusters_unsplit.tsv").read_text()
+            == (single / "vae_clusters_unsplit.tsv").read_text())

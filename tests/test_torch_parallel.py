@@ -1,0 +1,342 @@
+"""The port's multi-process runtime held against `vamb_tpu`'s mesh on the CPU.
+
+Ranks are separate processes on gloo (tests/_torch_dist_worker.py), joined
+through a file rendezvous under tmp_path so concurrent test workers never
+race for a port; each process group has a 60 s timeout, and a group that
+outlives its join timeout is killed and fails the test. `vamb_tpu` runs its
+mesh on the 8 virtual CPU devices of tests/conftest.py, as its own
+tests/test_parallel.py does. Held:
+
+* the mesh helpers at W = 2 and 4: row blocks, padding, replication from
+  rank 0, a rank-order sum the same on every rank, a gather of rows;
+* BatchNorm's global statistics: a training forward and backward over a
+  batch split across the ranks equals one process's on the whole batch
+  (rtol 1e-5: sums in another order);
+* data-parallel VAE training at W = 2 and 4 within `vamb_tpu`'s own
+  sharded tolerance of its mesh training after 3 epochs (rtol 5e-4, atol
+  5e-5, tests/test_parallel.py:68-91), with parameters bit-identical across
+  ranks;
+* the row-sharded engine emission-identical (medoid, kind and members of
+  every cluster, compactions included) to `vamb_tpu`'s mesh engine on
+  tests/test_parallel.py:55-66's data, a clumpy full-scope latent and a
+  compacting run, at W = 2 and 4, and bit-identical (sums and emission) to
+  the unsharded port at W = 1;
+* each shard entry point's plain version equal to the index plain version
+  on a slice of the matrix, and the Gumbel merge of the shards' keys equal
+  to `gumbel_topc_plain` over the global width;
+* no per-attempt collective payload grows between N = 2,048 and N = 8,192
+  (the members' gather is bounded by the largest cluster).
+"""
+
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from vamb_torch import kernels as K
+from vamb_torch.cluster import ClusterGenerator as TorchGenerator
+from vamb_torch.models import layers as t_layers
+from vamb_torch.parallel import make_mesh as t_make_mesh
+from vamb_torch.utils import threefry
+from vamb_torch.utils.checkpoint import flatten_tree
+
+from vamb_tpu.cluster import ClusterGenerator as JaxGenerator
+from vamb_tpu.models import VAE as JVAE
+from vamb_tpu.models import make_dataset as j_make_dataset
+from vamb_tpu.parallel import make_mesh as j_make_mesh
+
+from .test_parallel import make_raw
+from .test_parity_cluster import clumpy_latents
+
+ROOT = Path(__file__).resolve().parent.parent
+WORKER = Path(__file__).resolve().parent / "_torch_dist_worker.py"
+SCENARIOS = ("mesh", "bn", "train", "engine", "traffic")
+JOIN_TIMEOUT_S = 150
+KINDS = ("normal", "loner", "fallback")
+
+
+def make_inputs(world: int) -> dict:
+    rng = np.random.default_rng(11)
+    random300 = rng.standard_normal((300, 24)).astype(np.float32)
+    random300_len = rng.integers(2000, 9000, 300)
+    clumpy, clumpy_len = clumpy_latents(20, 60, 16, noise_frac=0.1, seed=3)
+    compact, compact_len = clumpy_latents(40, 50, 16, noise_frac=0.05, seed=8)
+    ab, tnf, lengths = make_raw(n=512, s=3, seed=4)
+    brng = np.random.default_rng(21)
+    t2048, l2048 = clumpy_latents(32, 64, 16, seed=31)
+    t8192, l8192 = clumpy_latents(128, 64, 16, seed=31)
+    return {
+        # float32 summands whose sum depends on the order: 1e8 swallows a 1
+        "order_terms": np.array([[1e8, 1.0], [1.0, -1e8], [-1e8, 1.0], [1.0, 3.0]][:world],
+                                np.float32),
+        "bn_x": brng.normal(2.0, 3.0, (32, 6)).astype(np.float32),
+        "bn_coef": brng.normal(size=(32, 6)).astype(np.float32),
+        "bn_scale": brng.uniform(0.5, 1.5, 6).astype(np.float32),
+        "bn_bias": brng.normal(size=6).astype(np.float32),
+        "train_ab": ab, "train_tnf": tnf, "train_len": lengths,
+        "random300_m": random300, "random300_len": random300_len, "random300_kw": {},
+        "clumpy_m": clumpy, "clumpy_len": clumpy_len,
+        "clumpy_kw": {"rng_seed": 7, "windowsize": 60},
+        "compact_m": compact, "compact_len": compact_len,
+        "compact_kw": {"rng_seed": 2, "windowsize": 60, "batch_clusters": 8,
+                       "compact_min_pad": 512},
+        "traffic2048_m": t2048, "traffic2048_len": l2048,
+        "traffic8192_m": t8192, "traffic8192_len": l8192,
+    }
+
+
+def launch(world: int, d: Path) -> list:
+    d.mkdir(parents=True, exist_ok=True)
+    np.savez(d / "inputs.npz", **make_inputs(world))
+    env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    return [subprocess.Popen([sys.executable, str(WORKER), str(d / "rendezvous"), str(world),
+                              str(r), str(d), *SCENARIOS],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             env=env, cwd=str(ROOT))
+            for r in range(world)]
+
+
+def join(procs: list) -> None:
+    "Wait for every rank; kill them all and fail if one fails or outlives its limit."
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=JOIN_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"a rank failed ({p.returncode}):\n{err[-3000:]}")
+    except BaseException:
+        for q in procs:
+            q.kill()
+            q.communicate()
+        raise
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both groups (W = 2 and 4) run at once; `vamb_tpu`'s references are
+    computed meanwhile. Returns {W: (dir, references)}."""
+    base = tmp_path_factory.mktemp("ranks")
+    groups = {w: launch(w, base / f"w{w}") for w in (2, 4)}
+    try:  # both meshes' references at once: jax compiles them on two threads
+        with ThreadPoolExecutor(len(groups)) as pool:
+            refs = dict(zip(groups, pool.map(
+                lambda w: jax_references(w, np.load(base / f"w{w}" / "inputs.npz",
+                                                    allow_pickle=True)), groups)))
+    finally:
+        for w, procs in groups.items():
+            join(procs)
+    return {w: (base / f"w{w}", refs[w]) for w in groups}
+
+
+def jax_references(world: int, inp) -> dict:
+    mesh = j_make_mesh(world)
+    ds = j_make_dataset(inp["train_ab"], inp["train_tnf"], inp["train_len"])
+    vae = JVAE(nsamples=3, nhiddens=[32, 32], nlatent=8, seed=2)
+    vae.trainmodel(ds, nepochs=3, batchsize=64, batchsteps=None, mesh=mesh)
+    refs = {"train": flatten_tree({"params": vae.params, "bn_state": vae.bn_state})}
+    for name in ("random300", "clumpy", "compact"):
+        gen = JaxGenerator(inp[f"{name}_m"].copy(), inp[f"{name}_len"], mesh=mesh,
+                           **inp[f"{name}_kw"].item())
+        refs[name] = [(int(c.medoid), c.kind_str, np.sort(np.asarray(c.members))) for c in gen]
+    return refs
+
+
+def results(d: Path, name: str, world: int) -> list:
+    return [np.load(d / f"{name}_r{r}.npz") for r in range(world)]
+
+
+def clusters_of(rows: np.ndarray) -> list:
+    return [(int(r[0]), KINDS[int(r[1])], r[2:][r[2:] >= 0]) for r in rows]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_helpers(runs, world):
+    d, _ = runs[world]
+    res = results(d, "mesh", world)
+    x = np.arange(64, dtype=np.float32).reshape(16, 4)
+    np.testing.assert_array_equal(np.concatenate([r["rows"] for r in res]), x)
+    padded = np.concatenate([r["padded"] for r in res])
+    assert len(padded) % world == 0
+    np.testing.assert_array_equal(padded[:10], np.arange(30, dtype=np.float32).reshape(10, 3))
+    assert not padded[10:].any()
+    lin0 = t_layers.Linear(np.random.default_rng(100), 5, 3)
+    terms = np.array([[1e8, 1.0], [1.0, -1e8], [-1e8, 1.0], [1.0, 3.0]][:world], np.float32)
+    expect = terms[0]
+    for t in terms[1:]:
+        expect = expect + t  # float32, rank order
+    for r, res_r in enumerate(res):
+        np.testing.assert_array_equal(res_r["lin_w"], lin0.w.detach().numpy())
+        np.testing.assert_array_equal(res_r["lin_b"], lin0.b.detach().numpy())
+        np.testing.assert_array_equal(res_r["rep_a"], np.ones(3, np.float32))
+        assert int(res_r["rep_b"]) == 0
+        np.testing.assert_array_equal(res_r["sum"], expect)
+        np.testing.assert_array_equal(
+            res_r["gathered"], np.concatenate([np.full((q + 1, 2), q) for q in range(world)]))
+        assert tuple(res_r["block"]) == (r * 10 // world, (r + 1) * 10 // world)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_batchnorm_global_statistics(runs, world):
+    d, _ = runs[world]
+    res = results(d, "bn", world)
+    inp = np.load(d / "inputs.npz", allow_pickle=True)
+    bn = t_layers.BatchNorm(6)
+    with torch.no_grad():
+        bn.scale.copy_(torch.as_tensor(inp["bn_scale"]))
+        bn.bias.copy_(torch.as_tensor(inp["bn_bias"]))
+    bn.train()
+    x = torch.tensor(inp["bn_x"], requires_grad=True)
+    out = bn(x)
+    (out * torch.as_tensor(inp["bn_coef"])).sum().backward()
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.concatenate([r["out"] for r in res]), out.detach().numpy(), **tol)
+    np.testing.assert_allclose(np.concatenate([r["x_grad"] for r in res]), x.grad.numpy(), **tol)
+    np.testing.assert_allclose(sum(r["scale_grad"] for r in res), bn.scale.grad.numpy(), **tol)
+    np.testing.assert_allclose(sum(r["bias_grad"] for r in res), bn.bias.grad.numpy(), **tol)
+    for r in res:  # the running statistics: the global batch's, on every rank
+        np.testing.assert_allclose(r["mean"], bn.mean.numpy(), **tol)
+        np.testing.assert_allclose(r["var"], bn.var.numpy(), **tol)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_dp_training_matches_vamb_tpu_mesh(runs, world):
+    d, refs = runs[world]
+    res = results(d, "train", world)
+    for r in res[1:]:  # replicas bit-identical on every rank
+        for k in refs["train"]:
+            np.testing.assert_array_equal(r[k], res[0][k], err_msg=k)
+    assert all(int(r["_checks"]) == 3 for r in res)  # checked after each epoch
+    for k, v in refs["train"].items():
+        np.testing.assert_allclose(res[0][k], np.asarray(v), rtol=5e-4, atol=5e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["random300", "clumpy", "compact"])
+def test_sharded_engine_matches_vamb_tpu_mesh(runs, world, name):
+    d, refs = runs[world]
+    res = results(d, "engine", world)
+    for r in res[1:]:
+        np.testing.assert_array_equal(r[name], res[0][name])
+    got, want = clusters_of(res[0][name]), refs[name]
+    assert len(got) == len(want)
+    for i, ((gm, gk, gmem), (wm, wk, wmem)) in enumerate(zip(got, want)):
+        assert (gm, gk) == (wm, wk), (i, gm, gk, wm, wk)
+        np.testing.assert_array_equal(gmem, wmem)
+    if name == "compact":  # the ladder in units of 128 x W
+        steps = [tuple(c[1:]) for c in res[0]["compact_compactions"]]
+        assert steps and all(new % (128 * world) == 0 for _, new in steps), steps
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_no_per_attempt_payload_grows_with_n(runs, world):
+    d, _ = runs[world]
+    r = results(d, "traffic", world)[0]
+    small = dict(zip(r["n2048_kinds"], r["n2048_max_bytes"]))
+    large = dict(zip(r["n8192_kinds"], r["n8192_max_bytes"]))
+    assert set(small) == set(large) >= {"query features", "sums", "wander keys",
+                                         "candidate densities", "members"}
+    for kind in small:
+        if kind == "members":  # the emitted members: bounded by the largest cluster
+            for n, tally in ((2048, small), (8192, large)):
+                assert tally[kind] <= 8 * world * int(r[f"n{n}_largest_cluster"])
+        else:
+            assert large[kind] <= small[kind], (kind, small[kind], large[kind])
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("clumpy", dict(rng_seed=7, windowsize=60)),
+    ("compact", dict(rng_seed=2, windowsize=60, batch_clusters=8, compact_min_pad=128)),
+])
+def test_sharded_engine_at_w1_is_the_unsharded_engine(name, kw):
+    inp = make_inputs(1)
+    m, lengths = inp[f"{name}_m"], inp[f"{name}_len"]
+    traced = []
+    for mesh in (None, t_make_mesh(1, device="cpu")):
+        gen = TorchGenerator(m.copy(), lengths, device="cpu", mesh=mesh, **kw)
+        gen.sums_trace = []
+        clusters = [(c.medoid, c.kind_str, c.members.tolist(), c.radius, c.observed_pvr) for c in gen]
+        traced.append((clusters, gen.sums_trace, gen.compactions))
+    assert traced[0] == traced[1]
+    assert traced[0][1]  # the attempts' sums were recorded
+    if name == "compact":
+        assert traced[0][2]
+
+
+def _slice_inputs(seed: int, n: int = 1024, f: int = 32, lo: int = 256, hi: int = 640):
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(f, n)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=0, keepdims=True) * np.sqrt(2)
+    m[:, 300:340] = m[:, 310:311] + 0.001 * rng.normal(size=(f, 40)).astype(np.float32)
+    w = rng.uniform(1000, 5000, n).astype(np.float32)
+    w[rng.random(n) < 0.2] = 0.0
+    return torch.as_tensor(m), torch.as_tensor(w), lo, hi
+
+
+def test_shard_entry_points_equal_slicing_the_index_entry_points():
+    """On a slice [lo, hi) of the matrix, each shard entry point given a
+    query's features (and its local column) equals the index entry point on
+    the slice bit for bit, and with the query outside the slice (-1) its
+    row is the whole matrix's row sliced."""
+    m, w, lo, hi = _slice_inputs(3)
+    part, wp = m[:, lo:hi].contiguous(), w[lo:hi].contiguous()
+    for got, want in ((K.medoid_sweep_shard(part, part[:, 60].contiguous(), 60, wp),
+                       K.medoid_sweep(part, 60, wp)),
+                      (K.spec_sweep_shard(part, part[:, [60, 3, 60]].contiguous(), [60, 3, 60], wp),
+                       K.spec_sweep(part, [60, 3, 60], wp))):
+        for g, e in zip(got, want):
+            assert torch.equal(g, e)
+    cand = torch.tensor([60, 55, 1, 70], dtype=torch.int64)
+    assert torch.equal(K.candidate_density_shard(part, part[:, cand].contiguous(), cand, wp),
+                       K.candidate_density_sweep(part, cand, wp))
+    # a query held by another rank: its row is the full row's slice
+    d, *_ = K.medoid_sweep_shard(part, m[:, 5].contiguous(), -1, wp)
+    assert torch.equal(d, K.row_sweep(m, 5)[lo:hi])
+    rows, *_ = K.spec_sweep_shard(part, m[:, [5, 700]].contiguous(), [-1, -1], wp)
+    assert torch.equal(rows[0], K.row_sweep(m, 5)[lo:hi])
+    assert torch.equal(rows[1], K.row_sweep(m, 700)[lo:hi])
+
+
+@pytest.mark.parametrize("world,c,mask", [(2, 25, "some"), (4, 25, "some"), (4, 32, "few")])
+def test_gumbel_merge_equals_topc_over_the_global_width(world, c, mask):
+    """Each shard's `gumbel_topc_shard_plain` keys over its slice of the
+    stream, merged by `topc_merge`, give `gumbel_topc_plain`'s candidates
+    and flags over the global width, the fill rule included where fewer
+    than C columns are eligible."""
+    n = 2048
+    rng = np.random.default_rng(world + c)
+    d = torch.as_tensor(rng.uniform(0.0, 0.08, n).astype(np.float32))
+    kept = torch.as_tensor(rng.random(n) < (0.9 if mask == "some" else 0.004))
+    tried = torch.as_tensor(rng.random(n) < 0.1)
+    medoid = 777
+    key = threefry.split_host(threefry.PRNGKey(world))[1]
+    want = K.gumbel_topc_plain(key, d, kept, tried, medoid, c)
+    keys = []
+    for r in range(world):
+        lo, hi = r * n // world, (r + 1) * n // world
+        keys.append(K.gumbel_topc_shard(key, d[lo:hi], kept[lo:hi], tried[lo:hi], medoid, c, n, lo))
+    cand, valid = K.topc_merge(torch.stack(keys), c)
+    assert torch.equal(cand, want[0]) and torch.equal(valid, want[1])
+    if mask == "few":
+        assert not valid.all()
+    scores = K.gumbel_scores_plain(key, d, kept, tried, medoid)
+    for r in range(world):  # a shard's scores are the global draw's slice
+        lo, hi = r * n // world, (r + 1) * n // world
+        part = K.gumbel_scores_plain(key, d[lo:hi], kept[lo:hi], tried[lo:hi], medoid, lo)
+        assert torch.equal(part, scores[lo:hi])
+
+
+def test_mesh_refuses_unported_scopes():
+    m, lengths = clumpy_latents(4, 30, 16, seed=1)
+    mesh = t_make_mesh(1, device="cpu")
+    for kw in (dict(wander_scope="subset"), dict(attempt_batch="on", wander_scope="subset"),
+               dict(distance_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="10b"):
+            TorchGenerator(m.copy(), lengths, device="cpu", mesh=mesh, **kw)
+    n = 1 << 18  # "auto" takes the subset wander from this padded width
+    with pytest.raises(NotImplementedError, match="10b"):
+        TorchGenerator(np.ones((n, 2), np.float32), np.ones(n), device="cpu", mesh=mesh)

@@ -120,8 +120,8 @@ def test_bin_default_end_to_end(data, tmp_path):
 
 def test_unported_subcommands_and_flags_fail_loudly(data, tmp_path):
     # every subcommand runs now: `bin avamb` and `avamb_ensemble` fail on
-    # their missing inputs, not as unported; `--dist`, the one open switch,
-    # still raises with its ROADMAP item
+    # their missing inputs, not as unported; `bin avamb --dist` raises with
+    # its ROADMAP item (10b: the AAE does not train data-parallel yet)
     with pytest.raises(ValueError, match="abundance"):
         torch_main(["bin", "avamb", "--outdir", str(tmp_path), "--fasta",
                     str(data / "contigs.fna")], device="cpu")

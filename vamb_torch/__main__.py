@@ -24,6 +24,13 @@ It runs on the CUDA card. `main(argv, device="cpu")` runs the same path on
 the CPU (the tests do). `--profile` writes a torch.profiler trace of the
 run under `<outdir>/profile`. The switches of paths not ported yet are
 accepted by the parser and fail with the ROADMAP item that will port them.
+
+Several processes, one a card (torch's idiom; `vamb_tpu` drives every
+device of a host from one process): launch the same command in each with
+`--coordinator host:port --nprocs N --procid i`, or under torchrun with
+`--dist`. The processes join a `torch.distributed` group (NCCL on cards,
+gloo on the CPU), `bin default` trains data-parallel and clusters on the
+row-sharded engine, and only process 0 writes into `--outdir`.
 """
 
 import argparse
@@ -103,10 +110,35 @@ def add_general_arguments(subparser):
         "--profile", action="store_true",
         help="Write a torch.profiler trace of the run under <outdir>/profile",
     )
-    for flag in ("--dist",):
-        general.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--coordinator", "--nprocs", "--procid"):
-        general.add_argument(flag, metavar="", default=None, help=argparse.SUPPRESS)
+    dist = subparser.add_argument_group(title="Multi-process (several cards or hosts)")
+    dist.add_argument(
+        "--dist",
+        help="Join torch.distributed from torchrun's environment (RANK, WORLD_SIZE, "
+        "MASTER_ADDR, MASTER_PORT, LOCAL_RANK); launch with torchrun [False]",
+        action="store_true",
+    )
+    dist.add_argument(
+        "--coordinator",
+        metavar="",
+        type=str,
+        default=None,
+        help="Coordinator address host:port (explicit multi-process launch; "
+        "requires --nprocs and --procid)",
+    )
+    dist.add_argument(
+        "--nprocs",
+        metavar="",
+        type=int,
+        default=None,
+        help="Total number of processes in the explicit multi-process launch",
+    )
+    dist.add_argument(
+        "--procid",
+        metavar="",
+        type=int,
+        default=None,
+        help="This process's id (0-based) in the explicit launch",
+    )
     return subparser
 
 
@@ -290,12 +322,43 @@ def add_ensemble_arguments(ensemble_parser):
     return ensemble_parser
 
 
-def _reject_unported_general(args) -> None:
-    if args.dist or args.coordinator or args.nprocs or args.procid:
-        raise NotImplementedError(
-            "multi-process runs are not ported yet (ROADMAP queue 1, item 10: "
-            "multi-device)"
-        )
+# subcommands whose models do not train data-parallel yet
+_NOT_DATA_PARALLEL = {("taxometer",), ("bin", "taxvamb"), ("bin", "avamb")}
+
+
+def _maybe_init_distributed(args, device="cuda") -> None:
+    """Join the run's process group before any work (vamb_tpu/__main__.py:
+    144-177): `--dist` from torchrun's environment, or the explicit triple
+    `--coordinator/--nprocs/--procid`. A partial triple exits at once: a
+    forgotten --nprocs would otherwise run N independent single-process
+    pipelines that clobber each other's outputs in the shared --outdir.
+    Every process then runs the same pipeline, `pipeline.default_mesh`
+    spans them, and `run()` gates output writing on process 0."""
+    nprocs = getattr(args, "nprocs", None)
+    auto = getattr(args, "dist", False)
+    procid = getattr(args, "procid", None)
+    coordinator = getattr(args, "coordinator", None)
+    if not auto and nprocs is None:
+        if procid is not None or coordinator is not None:
+            raise SystemExit(
+                "--procid/--coordinator require --nprocs (explicit "
+                "multi-process launch) or --dist (auto-detection)"
+            )
+        return
+    if nprocs is not None and procid is None:
+        raise SystemExit("--nprocs requires --procid (and usually --coordinator)")
+    if nprocs is not None and nprocs > 1 and coordinator is None:
+        raise SystemExit("--nprocs above 1 requires --coordinator")
+
+    from .parallel import distributed_init
+
+    distributed_init(
+        coordinator_address=coordinator,
+        num_processes=nprocs,
+        process_id=procid,
+        auto=auto and nprocs is None,
+        device=device,
+    )
 
 
 def add_taxonomy_arguments(subparser, taxonomy_only=False):
@@ -586,17 +649,30 @@ def _options_from_args(args, device):
 
 
 def run(runner, general) -> None:
-    "Create outdir, set up logging, run with timing (reference :702-715)."
+    """Create outdir, set up logging, run with timing (reference :702-715).
+
+    Multi-process runs are SPMD: every process runs the same pipeline (its
+    collectives need every rank), so their outputs would be copies. Only
+    process 0's land in the user's outdir; another process writes into
+    `<outdir>/.proc<i>`, which is removed on success."""
     from . import __version__
     from .log import logger, setup_logging
+    from .parallel import process_info
 
     begintime = time.time()
+    proc_id, nprocs = process_info()
+    scratch_outdir = None
+    if proc_id != 0:
+        scratch_outdir = general.outdir / f".proc{proc_id}"
+        general.outdir = scratch_outdir
     general.outdir.mkdir(parents=True, exist_ok=True)
     setup_logging(general.outdir)
     logger.info(f"Starting vamb_torch version {__version__}")
     logger.info("Random seed is " + str(general.seed))
     logger.info(f"Invoked with CLI args: '{' '.join(sys.argv)}'")
     logger.info(f"Device: {general.device}")
+    if nprocs > 1:
+        logger.info(f"Multi-process: process {proc_id} of {nprocs}")
     if general.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -613,6 +689,10 @@ def run(runner, general) -> None:
         runner()
     elapsed = round(time.time() - begintime, 2)
     logger.info(f"Completed vamb_torch in {elapsed} seconds.")
+    if scratch_outdir is not None:
+        import shutil
+
+        shutil.rmtree(scratch_outdir, ignore_errors=True)
 
 
 def main(argv=None, device="cuda") -> None:
@@ -772,8 +852,14 @@ quality source (--quality_report, --markers, or --hmm_path).""",
     from . import pipeline
     from .device import resolve_device
 
-    _reject_unported_general(args)
+    if command in _NOT_DATA_PARALLEL and (args.dist or (args.nprocs or 1) > 1):
+        raise NotImplementedError(
+            f"`{' '.join(command)}` does not run on several processes yet: its model's data "
+            "parallelism is not ported (ROADMAP queue 1, item 10b)"
+        )
     device = str(resolve_device(device))
+    _maybe_init_distributed(args, device)
+    device = pipeline.process_device(device)
     if command == ("recluster",):
         opt = _recluster_options_from_args(args, device)
         runner = pipeline.run_reclustering

@@ -82,6 +82,31 @@ one key split per attempt and one split + one uniform per wander step,
 from jax's threefry stream (utils/threefry.py) — so given a latent the port
 draws exactly the candidates `vamb_tpu` draws on the CPU.
 
+Row-sharded engine (`mesh=`, cluster.py:1771-1943 and :2210-2230 of
+`vamb_tpu`'s mesh engine, at full scope). Columns are padded to a multiple
+of 128 x W on a mesh of W ranks, as `vamb_tpu` pads them (`col_tile`), so
+the Gumbel draws span the width `vamb_tpu`'s mesh engine draws over, and
+the compaction ladder steps in those units. Rank r holds columns [r N_pad /
+W, (r + 1) N_pad / W) of the matrix, the weights and the kept mask on its
+card (`P(None, axis)`); the host keeps the whole kept mask and the seed
+ranks, which every rank updates alike from the emitted members, so the seed
+scan needs no collective. Every rank runs the same control flow, and an
+attempt moves only small payloads between ranks (`parallel.Mesh`'s
+collectives, tallied in its `traffic`): the query columns' features (from
+their owners), each rank's sums (the histogram, densities, close and near
+counts, added in rank order), the wander step's top C keys of each shard
+(merged into `jax.lax.top_k`'s order over the global width) and the emitted
+members. The kernels run as their shard entry points
+(`medoid_sweep_shard`, `spec_sweep_shard`, `candidate_density_shard`,
+`gumbel_topc_shard`; `row_stats` as it is). Compaction rebuilds each rank's
+block from the host's copy of the engine matrix, so it moves no matrix
+between ranks. At W = 1 the engine gives the unsharded engine's sums and
+emission bit for bit; at W > 1 each sum is the rank-order sum of the
+shards' sums, which differs from the one-device order in the last ulp (the
+class of "Distances are not XLA's"), and its emission is `vamb_tpu`'s mesh
+engine's. The subset wander, attempt lanes and bfloat16 distances under a
+mesh are not ported (NotImplementedError naming ROADMAP item 10b).
+
 bfloat16 distances (`distance_dtype="bfloat16"`, `vamb_tpu`'s opt-in
 reduced-precision mode, cluster.py:1836-1943): the engine order is taken
 from the float32 normalized matrix, which is then stored as bfloat16 (round
@@ -105,7 +130,8 @@ import torch
 
 from .device import resolve_device
 from .kernels import (
-    candidate_density_sweep, gather_ball, gumbel_topc, medoid_sweep, row_stats, row_sweep, spec_sweep,
+    candidate_density_shard, candidate_density_sweep, gather_ball, gumbel_topc, gumbel_topc_shard,
+    medoid_sweep, medoid_sweep_shard, row_stats, row_sweep, spec_sweep, spec_sweep_shard, topc_merge,
 )
 from .log import logger
 from .utils import threefry
@@ -357,6 +383,8 @@ class ClusterGenerator:
             exact attempt; "auto" runs them wherever the subset wander
             runs, "on" requires the subset scope (else ValueError)
         device: "cuda" (default) or "cpu"
+        mesh: a `parallel.Mesh` to row-shard the engine over (its device
+            is the engine's), or None
 
     Under each setting it emits what `vamb_tpu`'s generator emits with
     `compact_async=False` on the CPU. `distance_dtype` is "float32" or
@@ -371,7 +399,9 @@ class ClusterGenerator:
     climbed and admitted, the lanes deferred, and the passes cut by each
     of the acceptance scan's reasons: (a) a conflict with an admitted
     lane's members, (b) a pvr bump, (c) a lane that needs the full climb,
-    (d) the batch's capacity or no points left.
+    (d) the batch's capacity or no points left. A list in `sums_trace`
+    receives each attempt's decision inputs (seed, medoid, histogram bytes,
+    density, close count; a loner seed's near count), for comparisons.
     """
 
     def __init__(
@@ -392,6 +422,7 @@ class ClusterGenerator:
         wander_kernel: str = "auto",
         wander_scope: str = "auto",
         attempt_batch: str = "auto",
+        mesh=None,
     ):
         if matrix.dtype != np.float32:
             raise ValueError("Matrix must be of dtype float32")
@@ -412,11 +443,16 @@ class ClusterGenerator:
         if len(lengths) != len(matrix):
             raise ValueError("N sequences in lengths and matrix do not match")
         _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch)
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         bf16 = distance_dtype == "bfloat16"
         if wander_scope == "subset" and bf16:  # vamb_tpu/cluster.py:1880-1881
             raise ValueError("wander_scope='subset' requires float32 distances")
-        n_pad = _pad_to(len(matrix), _LANES)
+        # vamb_tpu pads a mesh's columns to 128 x W (col_tile, :1882-1888)
+        self._col_tile = _LANES * (1 if mesh is None else mesh.size)
+        n_pad = _pad_to(len(matrix), self._col_tile)
+        if mesh is not None:
+            _check_mesh_scope(bf16, wander_scope, attempt_batch, n_pad)
         # vamb_tpu/cluster.py:1901-1920: lanes ride the subset wander, which
         # "auto" takes at float32 only
         self._use_subset = wander_scope == "subset" or (
@@ -429,6 +465,11 @@ class ClusterGenerator:
             )
         self._attempt_batch = attempt_batch
 
+        if mesh is not None and mesh.size > 1:
+            # every rank clusters rank 0's latent: ranks that encoded it apart
+            # could differ by an ulp, and their engine orders with it
+            matrix, lengths = (mesh.broadcast(torch.as_tensor(np.asarray(a), device=self.device), 0,
+                                              "inputs").cpu().numpy() for a in (matrix, lengths))
         if not normalized:
             matrix = normalize(matrix, inplace=destroy)
 
@@ -442,10 +483,13 @@ class ClusterGenerator:
         kept = np.zeros(n_pad, bool)
         kept[:n] = True
         lengths_pad = np.pad(lengths.astype(np.float32)[order], (0, n_pad - n))
-        # the order above is the float32 matrix's; bf16 rounds after it (:1943)
-        self._set_columns(torch.as_tensor(padded_t, device=self.device).to(
-                              torch.bfloat16 if bf16 else torch.float32), ranks,
-                          torch.as_tensor(lengths_pad, device=self.device), kept)
+        if mesh is not None:
+            self._set_shard(padded_t, ranks, lengths_pad, kept)
+        else:
+            # the order above is the float32 matrix's; bf16 rounds after it (:1943)
+            self._set_columns(torch.as_tensor(padded_t, device=self.device).to(
+                                  torch.bfloat16 if bf16 else torch.float32), ranks,
+                              torch.as_tensor(lengths_pad, device=self.device), kept)
 
         self.n_points = n
         self.C = min(maxsteps, n_pad)
@@ -478,6 +522,7 @@ class ClusterGenerator:
              "admitted", "deferred", "cut_conflict", "cut_pvr", "cut_full", "cut_capacity"), 0)
         self._queue: deque = deque()  # clusters an iteration emitted, not yet returned
         self._removals = 0  # points removed so far: the cached sums' clock
+        self.sums_trace: Optional[list] = None
         self._clear_cache()
 
     def __repr__(self) -> str:
@@ -491,24 +536,36 @@ class ClusterGenerator:
 
     # -- the live columns: the compaction ladder and the wander scope ------
 
-    def _set_columns(self, matrixT, ranks, lengths, kept) -> None:
-        "Install the live (F_pad, N_pad) matrix and its per-column arrays."
+    def _set_columns(self, matrixT, ranks, lengths, kept, offset: int = 0) -> None:
+        """Install the live (F_pad, N_local) matrix and its per-column
+        arrays: the whole width's (N_local = N_pad), or a shard's from
+        global column `offset`."""
         self.matrixT = matrixT
         self.ranks = ranks  # host int64 seed ranks, travelling with columns
         self.lengths = lengths
-        self.kept = kept  # host mirror of kept_t
-        self._kept_t = torch.as_tensor(kept, device=self.device)
+        self.kept = kept  # host mirror of kept_t, the whole width
+        self.n_pad = len(kept)
+        self.offset, self.n_loc = offset, matrixT.shape[1]
+        self._kept_t = torch.as_tensor(kept[offset:offset + self.n_loc], device=self.device)
         self._unsynced: list = []  # removed columns not yet cleared in _kept_t
-        self.n_pad = matrixT.shape[1]
         self.iota = torch.arange(self.n_pad, device=self.device)
+
+    def _set_shard(self, padded_t: np.ndarray, ranks, lengths: np.ndarray, kept) -> None:
+        """Install this rank's block of the (F_pad, N_pad) host matrix and
+        its lengths, keeping both whole on the host for the compactions."""
+        self._host_t, self._host_lengths = padded_t, lengths
+        lo, hi = self._mesh.block(len(kept))
+        self._set_columns(torch.as_tensor(padded_t[:, lo:hi], device=self.device).contiguous(),
+                          ranks, torch.as_tensor(lengths[lo:hi], device=self.device), kept, lo)
 
     @property
     def kept_t(self) -> torch.Tensor:
         """The kept mask on the device, the removals since its last use
         applied in one launch (a burst's loners need not pay one each)."""
         if self._unsynced:
-            rows = np.concatenate(self._unsynced)
+            rows = np.concatenate(self._unsynced) - self.offset
             self._unsynced = []
+            rows = rows[(rows >= 0) & (rows < self.n_loc)]
             self._kept_t[torch.as_tensor(rows, device=self.device)] = False
         return self._kept_t
 
@@ -523,8 +580,8 @@ class ClusterGenerator:
     def _next_target(self) -> Optional[int]:
         "Next (halved) padded width on the ladder, or None (cluster.py:2110-2116)."
         t = self.n_pad // 2
-        t -= t % _LANES
-        return t if t >= max(self._compact_min_pad, _LANES) else None
+        t -= t % self._col_tile
+        return t if t >= max(self._compact_min_pad, self._col_tile) else None
 
     def _end_batch(self) -> None:
         """Close a batch of `batch_clusters` clusters: compact if the
@@ -532,7 +589,8 @@ class ClusterGenerator:
         (`vamb_tpu` decides one batch late, cluster.py:2183-2197)."""
         target = self._next_target()
         start = self._remaining_at_batch_start
-        if self._compact and target is not None and 0 < start and _pad_to(start, _LANES) <= target:
+        if (self._compact and target is not None and 0 < start
+                and _pad_to(start, self._col_tile) <= target):
             self._compact_to(target)
         self._remaining_at_batch_start = self.n_remaining
         self._in_batch = 0
@@ -550,11 +608,15 @@ class ClusterGenerator:
         ranks[:n2] = self.ranks[survivors]
         kept = np.zeros(target, bool)
         kept[:n2] = True
-        idx_t = torch.as_tensor(idx2old, device=self.device)
-        lengths = torch.where(torch.as_tensor(kept, device=self.device),
-                              self.lengths[idx_t], 0.0)
         old = self.n_pad
-        self._set_columns(self.matrixT[:, idx_t].contiguous(), ranks, lengths, kept)
+        if self._mesh is not None:  # each rank's new block, from the host's copy
+            self._set_shard(self._host_t[:, idx2old],
+                            ranks, np.where(kept, self._host_lengths[idx2old], 0.0), kept)
+        else:
+            idx_t = torch.as_tensor(idx2old, device=self.device)
+            lengths = torch.where(torch.as_tensor(kept, device=self.device),
+                                  self.lengths[idx_t], 0.0)
+            self._set_columns(self.matrixT[:, idx_t].contiguous(), ranks, lengths, kept)
         self._order = self._order[survivors]
         self._set_scope()
         self._clear_cache()  # _compact_arrays, cluster.py:1731-1737
@@ -606,7 +668,7 @@ class ClusterGenerator:
     def _refill(self) -> None:
         "Fill the cache from `order_pos`: the seeds' rows and sums in one `spec_sweep` (:1069-1076)."
         self._spec_cols = self._next_seeds()
-        self._spec_d, *stats = spec_sweep(self.matrixT, self._spec_cols, self._weights())
+        self._spec_d, *stats = self._spec(self._spec_cols, self._weights())
         self._stats, self._stats_at, self._near = tuple(stats), self._removals, None
         self._spec_next = 0
         self.lane_counts["refills"] += 1
@@ -617,7 +679,7 @@ class ClusterGenerator:
         while no point was removed since, else one `row_stats` of the S
         rows (the loner flags of cluster.py:1104-1112)."""
         if self._stats_at != self._removals:
-            self._stats = row_stats(self._spec_d, self._weights())
+            self._stats = self._row_stats(self._spec_d, self._weights())
             self._stats_at, self._near = self._removals, None
         if self._near is None:
             self._near = self._stats[3].tolist()
@@ -679,24 +741,28 @@ class ClusterGenerator:
         sweep)."""
         kept_t = self.kept_t
         while True:
-            key, cand, cand_valid, dens = self._step(
-                key, sweep[0], kept_t, tried, medoid, self.n_pad, self.matrixT, wk)
+            if self._mesh is None:
+                key, cand, cand_valid, dens = self._step(
+                    key, sweep[0], kept_t, tried, medoid, self.n_pad, self.matrixT, wk)
+            else:
+                key, cand, cand_valid, dens = self._shard_step(key, sweep[0], kept_t, tried,
+                                                               medoid, wk)
             better = cand_valid & (dens > density)
             # one host sync per step: which candidate (if any) won
             better_h = better.cpu().numpy()
             if not better_h.any():
                 return medoid, sweep
             j = int(np.argmax(better_h))
-            tried[cand[: j + 1]] = True
+            self._set_tried(tried, cand[: j + 1])
             medoid = int(cand[j])
-            sweep = medoid_sweep(self.matrixT, medoid, wk)
+            sweep = self._sweep(medoid, wk)
             density = dens[j]
 
     def _wander(self, seed: int, sweep, wk, key):
         """The full-scope wander (cluster.py:850-858) from the sweep of a
         seed with a kept neighbour within 0.05. Returns (medoid, its sweep)."""
-        tried = torch.zeros(self.n_pad, dtype=torch.bool, device=self.device)
-        tried[seed] = True
+        tried = torch.zeros(self.n_loc, dtype=torch.bool, device=self.device)
+        self._set_tried(tried, seed)
         return self._climb(seed, sweep, sweep[2], tried, key, wk)
 
     def _subset_phase1(self, seed: int, d0, density, wk, key):
@@ -817,13 +883,18 @@ class ClusterGenerator:
         hist, dens, n_close, near = self._slot_stats()
         self.key, sub = threefry.split_host(self.key)
         if near[slot] == 1:  # a loner: no wander, no threshold (ref :457, :550-562)
+            if self.sums_trace is not None:
+                self.sums_trace.append((seed, near[slot]))
             self._commit(self._record(seed, seed, "loner", None, None), np.array([seed]))
             self._burst(slot)
         else:
             wk = self._weights()  # kept is frozen per attempt
             sweep = (self._spec_d[slot], hist[slot], dens[slot], n_close[slot])
             wander = self._wander_subset if self.Q else self._wander
-            medoid, (d, hist_m, _, close_m) = wander(seed, sweep, wk, sub)
+            medoid, (d, hist_m, dens_m, close_m) = wander(seed, sweep, wk, sub)
+            if self.sums_trace is not None:
+                self.sums_trace.append((seed, medoid, hist_m.cpu().numpy().tobytes(),
+                                        float(dens_m), int(close_m)))
             thr_t, opvr_t, found_t = find_threshold(hist_m, float(self.pvr))
             # one host sync for the attempt's decision
             close_h, thr, opvr, found = torch.stack(
@@ -971,7 +1042,87 @@ class ClusterGenerator:
 
     def _members(self, d: torch.Tensor, radius: np.float32) -> np.ndarray:
         sel = (d <= float(radius)) & self.kept_t
-        return torch.nonzero(sel).squeeze(1).cpu().numpy()
+        ids = torch.nonzero(sel).squeeze(1)
+        if self._mesh is not None:  # every shard's, in rank order: ascending
+            ids = self._mesh.gather_rows(ids + self.offset, "members")
+        return ids.cpu().numpy()
+
+    # -- the numeric steps, on the whole width or on this rank's shard ------
+
+    def _local(self, cols: torch.Tensor) -> torch.Tensor:
+        "Global columns' local indices on this rank, -1 where another rank holds one."
+        loc = cols - self.offset
+        return torch.where((loc >= 0) & (loc < self.n_loc), loc, -1)
+
+    def _local_host(self, col: int) -> int:
+        "`_local` of one column given on the host."
+        return col - self.offset if 0 <= col - self.offset < self.n_loc else -1
+
+    def _set_tried(self, tried: torch.Tensor, cols) -> None:
+        "Mark global columns `cols` (an int or a tensor) tried in this rank's (N_local,) mask."
+        if self._mesh is None:
+            tried[cols] = True
+            return
+        loc = self._local(torch.as_tensor(cols, device=self.device).reshape(-1))
+        tried[loc[loc >= 0]] = True
+
+    def _features(self, cols: torch.Tensor) -> torch.Tensor:
+        """The (F_pad, k) features of global columns `cols` (device int64),
+        each from the rank that holds it: one gather of every rank's (F_pad,
+        k) with zeros where it holds none, then the owner's slice."""
+        loc = self._local(cols)
+        mine = torch.where(loc[None, :] >= 0, self.matrixT[:, loc.clamp_min(0)], 0.0)
+        parts = self._mesh.all_gather(mine, "query features")  # (W, F_pad, k)
+        owner = torch.div(cols, self.n_loc, rounding_mode="floor")
+        return parts[owner, :, torch.arange(len(cols), device=cols.device)].T.contiguous()
+
+    def _shard_sums(self, hist, dens, *counts):
+        """Every rank's (S, 60) histograms, (S,) densities and (S,) integer
+        counts in one gather (float64 holds them all exactly): the sums
+        added in rank order in float32, the counts exactly."""
+        packed = torch.cat([hist.double(), dens.double()[:, None],
+                            torch.stack(counts, 1).double()], 1)
+        parts = self._mesh.all_gather(packed, "sums")
+        total = parts[0, :, : _NBINS + 1].float()
+        for r in range(1, self._mesh.size):
+            total = total + parts[r, :, : _NBINS + 1].float()
+        cnt = parts[:, :, _NBINS + 1:].sum(0).to(torch.int32)
+        return (total[:, :_NBINS], total[:, _NBINS], *cnt.unbind(1))
+
+    def _sweep(self, col: int, wk):
+        "Column `col`'s (row, hist, density, n_close): `medoid_sweep`, or its shard entry point."
+        if self._mesh is None:
+            return medoid_sweep(self.matrixT, col, wk)
+        q = self._features(torch.tensor([col], device=self.device))[:, 0]
+        d, hist, dens, close = medoid_sweep_shard(self.matrixT, q, self._local_host(col), wk)
+        hist, dens, close = self._shard_sums(hist[None], dens[None], close[None])
+        return d, hist[0], dens[0], close[0]
+
+    def _spec(self, cols: list, wk):
+        "`spec_sweep` of global columns `cols`, or its shard entry point and the rank-order sums."
+        if self._mesh is None:
+            return spec_sweep(self.matrixT, cols, wk)
+        rows, *sums = spec_sweep_shard(self.matrixT,
+                                       self._features(torch.tensor(cols, device=self.device)),
+                                       [self._local_host(c) for c in cols], wk)
+        return (rows, *self._shard_sums(*sums))
+
+    def _row_stats(self, rows, wk):
+        "`row_stats` of the rows on this rank's columns, and the rank-order sums."
+        sums = row_stats(rows, wk)
+        return sums if self._mesh is None else self._shard_sums(*sums)
+
+    def _shard_step(self, key, d, kept, tried, medoid: int, wk):
+        """A full-climb wander step on the shards: each rank's top C keys
+        over its slice of the Gumbel stream (`gumbel_topc_shard`), merged
+        into the global candidates, their features from their owners and
+        each rank's densities of them (`candidate_density_shard`), added in
+        rank order. Returns (key, cand (global), cand_valid, dens)."""
+        key, k1 = threefry.split_host(key)
+        keys = gumbel_topc_shard(k1, d, kept, tried, medoid, self.C, self.n_pad, self.offset)
+        cand, cand_valid = topc_merge(self._mesh.all_gather(keys, "wander keys"), self.C)
+        dens = candidate_density_shard(self.matrixT, self._features(cand), self._local(cand), wk)
+        return key, cand, cand_valid, self._mesh.sum_ranks(dens, "candidate densities")
 
     def _record(self, medoid: int, seed: int, kind: str, radius, observed_pvr) -> Cluster:
         """A cluster's record with the window as it stands before the
@@ -997,6 +1148,20 @@ class ClusterGenerator:
         self.n_emitted_clusters += 1
         self._in_batch += 1
         self._queue.append(rec)
+
+
+def _check_mesh_scope(bf16: bool, wander_scope: str, attempt_batch: str, n_pad: int) -> None:
+    """Reject what the row-sharded engine does not run yet: the subset
+    wander (forced, or "auto" at a padded width of `_SUBSET_AUTO_MIN` or
+    more), attempt lanes and bfloat16 distances."""
+    todo = "under a mesh is not ported yet (ROADMAP queue 1, item 10b)"
+    if bf16:
+        raise NotImplementedError(f"distance_dtype='bfloat16' {todo}")
+    if wander_scope == "subset" or (wander_scope == "auto" and n_pad >= _SUBSET_AUTO_MIN):
+        raise NotImplementedError(f"the subset wander (wander_scope {wander_scope!r} at "
+                                  f"{n_pad} padded columns) {todo}")
+    if attempt_batch == "on":
+        raise NotImplementedError(f"attempt_batch='on' {todo}")
 
 
 def _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch):

@@ -4,6 +4,8 @@ from .cluster_kernels import (  # noqa: F401
     KERNELS,
     build,
     candidate_density_plain,
+    candidate_density_shard,
+    candidate_density_shard_plain,
     candidate_density_sweep,
     gather_ball,
     gather_ball_plain,
@@ -13,14 +15,21 @@ from .cluster_kernels import (  # noqa: F401
     gumbel_scores_plain,
     gumbel_topc,
     gumbel_topc_plain,
+    gumbel_topc_shard,
+    gumbel_topc_shard_plain,
     medoid_sweep,
     medoid_sweep_plain,
+    medoid_sweep_shard,
+    medoid_sweep_shard_plain,
     row_stats,
     row_stats_plain,
     row_sweep,
     row_sweep_plain,
     spec_sweep,
     spec_sweep_plain,
+    spec_sweep_shard,
+    spec_sweep_shard_plain,
+    topc_merge,
 )
 from .cluster_kernels import reset_launch_counts as _reset_cluster_counts
 from .hmm_kernels import build_hmm, hmm_forward, hmm_forward_plain  # noqa: F401

@@ -178,9 +178,18 @@ def _load():
                 fn.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
                 fn.restype = ci
             cu = ctypes.c_uint
-            lib.vt_gumbel_topc.argtypes = [cu, cu, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, ci,
-                                           vp]
+            lib.vt_gumbel_topc.argtypes = [cu, cu, ci, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp,
+                                           vp, ci, vp]
             lib.vt_gumbel_topc.restype = ci
+            lib.vt_medoid_sweep_shard.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, vp, vp, vp, vp,
+                                                  vp, vp]
+            lib.vt_spec_sweep_shard.argtypes = [vp, ci, ci, vp, *[ci] * _SPEC_SEEDS, ci, vp, vp, vp,
+                                                vp, vp, vp, vp, vp]
+            lib.vt_candidate_density_shard.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, ci, vp, vp,
+                                                       vp, vp]
+            for fn in (lib.vt_medoid_sweep_shard, lib.vt_spec_sweep_shard,
+                       lib.vt_candidate_density_shard):
+                fn.restype = ci
             for fn in (lib.vt_spec_sweep, lib.vt_spec_sweep_bf16):
                 fn.argtypes = [vp, ci, ci, *[ci] * _SPEC_SEEDS, ci, vp, vp, vp, vp, vp, vp, vp, vp]
                 fn.restype = ci
@@ -248,17 +257,23 @@ def _count(kernel, n_pad: int, matrixT=None) -> None:
 # ------------------------------------------------------------- row_sweep
 
 
-def row_sweep_plain(matrixT: torch.Tensor, idx: int) -> torch.Tensor:
-    """Plain version of `row_sweep`: the kernel's arithmetic in torch ops
-    (feature-ordered f32 multiply-then-add, so it equals the kernel bit for
-    bit)."""
-    col = matrixT[:, idx]
+def _row_plain(matrixT: torch.Tensor, col: torch.Tensor, idx: int) -> torch.Tensor:
+    """`0.5 - M^T col` with feature-ordered f32 multiply-then-add, and d[idx]
+    = 0 where idx >= 0 (a shard's query held by another rank has -1)."""
     acc = torch.zeros(matrixT.shape[1], dtype=torch.float32, device=matrixT.device)
     for f in range(matrixT.shape[0]):
         acc = acc + matrixT[f] * col[f]
     d = 0.5 - acc
-    d[idx] = 0.0
+    if idx >= 0:
+        d[idx] = 0.0
     return d
+
+
+def row_sweep_plain(matrixT: torch.Tensor, idx: int) -> torch.Tensor:
+    """Plain version of `row_sweep`: the kernel's arithmetic in torch ops
+    (feature-ordered f32 multiply-then-add, so it equals the kernel bit for
+    bit)."""
+    return _row_plain(matrixT, matrixT[:, idx], idx)
 
 
 def row_sweep(matrixT: torch.Tensor, idx: int) -> torch.Tensor:
@@ -304,11 +319,18 @@ def candidate_density_plain(
     the kernel's summation order, so it equals the kernel bit for bit. A
     bf16 matrix is widened first, as the kernel widens it."""
     matrixT = _widened(matrixT)
-    rows = matrixT[:, cand.long()]  # (F, C)
-    dot = torch.zeros(len(cand), matrixT.shape[1], dtype=torch.float32,
-                      device=matrixT.device)
+    return candidate_density_shard_plain(matrixT, matrixT[:, cand.long()], cand, wts)
+
+
+def candidate_density_shard_plain(
+    matrixT: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, wts: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of `candidate_density_shard`: the candidates' features
+    `q` (F, C), their local columns `cand` (-1 where another rank holds
+    one), then `candidate_density_plain`'s arithmetic and order."""
+    dot = torch.zeros(q.shape[1], matrixT.shape[1], dtype=torch.float32, device=matrixT.device)
     for f in range(matrixT.shape[0]):
-        dot = dot + rows[f][:, None] * matrixT[f][None, :]
+        dot = dot + q[f][:, None] * matrixT[f][None, :]
     D = 0.5 - dot
     iota = torch.arange(matrixT.shape[1], device=matrixT.device)
     D = torch.where(iota[None, :] == cand.long()[:, None], 0.0, D)
@@ -398,10 +420,17 @@ def candidate_density_sweep(
         raise ValueError("wts must be a float32 tensor of shape (N_pad,)")
     if matrixT.device.type == "cpu":
         return candidate_density_plain(matrixT, cand, wts)
+    return _density_launch(candidate_density_sweep, matrixT, cand, None, wts)
+
+
+def _density_launch(kernel, matrixT, cand, q, wts) -> torch.Tensor:
+    """One launch of the density kernel (`kernel`: its wrapper, whose count
+    it adds to): the candidates' features from the matrix by `cand` or,
+    given `q`, from q (the shard entry point, float32 only)."""
+    f_pad, n_pad = matrixT.shape
+    c = int(cand.shape[0])
     if matrixT.device.type != "cuda":
-        raise ValueError(
-            f"candidate_density_sweep runs on cuda or cpu, not {matrixT.device}"
-        )
+        raise ValueError(f"{kernel.__name__} runs on cuda or cpu, not {matrixT.device}")
     if _DENS_TILE * f_pad * 4 > 48 * 1024:
         raise ValueError(f"F_pad {f_pad} exceeds the kernel's shared-memory tile")
     if cand.device != matrixT.device or wts.device != matrixT.device:
@@ -416,12 +445,15 @@ def candidate_density_sweep(
     partials, ticket, sms = _density_workspace(dev, stream)
     groups = density_groups(c, density_col_blocks(n_pad)[1], sms)
     dens = torch.empty(c, dtype=torch.float32, device=dev)
-    err = _launcher(lib, "vt_candidate_density", matrixT)(
-        matrixT.data_ptr(), f_pad, n_pad, cand.data_ptr(), int(cand.dtype == torch.int64), c,
-        wts.data_ptr(), groups, partials.data_ptr(), ticket.data_ptr(), dens.data_ptr(), stream,
-    )
-    _raise_on(err, "candidate_density_sweep")
-    _count(candidate_density_sweep, n_pad, matrixT)
+    tail = (cand.data_ptr(), int(cand.dtype == torch.int64), c, wts.data_ptr(), groups,
+            partials.data_ptr(), ticket.data_ptr(), dens.data_ptr(), stream)
+    if q is None:
+        err = _launcher(lib, "vt_candidate_density", matrixT)(matrixT.data_ptr(), f_pad, n_pad,
+                                                               *tail)
+    else:
+        err = lib.vt_candidate_density_shard(matrixT.data_ptr(), f_pad, n_pad, q.data_ptr(), *tail)
+    _raise_on(err, kernel.__name__)
+    _count(kernel, n_pad, matrixT)
     return dens
 
 
@@ -429,6 +461,54 @@ candidate_density_sweep.launches = 0
 candidate_density_sweep.launches_by_width = {}  # N_pad -> launches
 candidate_density_sweep.launches_by_fpad = {}  # F_pad -> launches
 candidate_density_sweep.launches_by_dtype = {}  # the matrix's type -> launches
+
+
+def _check_query(q: torch.Tensor, shape: tuple, dev) -> None:
+    "A shard entry point's query features: a contiguous float32 tensor of `shape` on `dev`."
+    if q.shape != shape or q.dtype != torch.float32 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous float32 tensor of shape {shape}")
+    if q.device != dev:
+        raise ValueError(f"q must lie on {dev}, not {q.device}")
+
+
+def _check_shard_matrix(matrixT: torch.Tensor) -> None:
+    """A shard entry point's (F_pad, N_local) matrix: float32 (a mesh runs
+    float32 distances only) and contiguous."""
+    if matrixT.dim() != 2 or matrixT.dtype != torch.float32:
+        raise ValueError("matrixT must be a 2-D float32 tensor (F_pad, N_local)")
+    if not matrixT.is_contiguous():
+        raise ValueError("matrixT must be contiguous")
+
+
+def candidate_density_shard(
+    matrixT: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, wts: torch.Tensor
+) -> torch.Tensor:
+    """`candidate_density_sweep` on a shard of the matrix: the C <= 32
+    candidates' features come from q (F_pad, C) f32, and `cand` (C,) holds
+    each one's local column or -1 where another rank holds it (its distance
+    to itself is then not forced to 0 here). Returns the shard's (C,)
+    densities over its N_local columns, summed in the order of that width.
+    Given a candidate's column as its features and index, it equals
+    `candidate_density_sweep` bit for bit. Launches the density kernel for
+    CUDA tensors (counted in `candidate_density_shard.launches`), runs the
+    plain version for CPU tensors."""
+    _check_shard_matrix(matrixT)
+    f_pad, n_pad = matrixT.shape
+    c = int(cand.shape[0])
+    if not 1 <= c <= _MAX_CAND:
+        raise ValueError(f"need 1 to {_MAX_CAND} candidates, got {c}")
+    if wts.shape != (n_pad,) or wts.dtype != torch.float32:
+        raise ValueError("wts must be a float32 tensor of shape (N_local,)")
+    _check_query(q, (f_pad, c), matrixT.device)
+    if matrixT.device.type == "cpu":
+        return candidate_density_shard_plain(matrixT, q, cand, wts)
+    return _density_launch(candidate_density_shard, matrixT, cand, q, wts)
+
+
+candidate_density_shard.launches = 0
+candidate_density_shard.launches_by_width = {}  # N_local -> launches
+candidate_density_shard.launches_by_fpad = {}  # F_pad -> launches
+candidate_density_shard.launches_by_dtype = {}  # the matrix's type -> launches
 
 
 # --------------------------------------------------------- gather_blocks
@@ -585,13 +665,21 @@ def spec_sweep_plain(matrixT: torch.Tensor, cols, wts: torch.Tensor):
     (the same elementwise ops, batched) and `row_stats_plain`'s sums; a
     bf16 matrix widened first."""
     matrixT = _widened(matrixT)
-    cols = torch.as_tensor([int(c) for c in cols], dtype=torch.int64, device=matrixT.device)
-    feats = matrixT[:, cols]  # (F, S)
-    acc = torch.zeros((len(cols), matrixT.shape[1]), dtype=torch.float32, device=matrixT.device)
+    cols = [int(c) for c in cols]
+    return spec_sweep_shard_plain(matrixT, matrixT[:, cols], cols, wts)
+
+
+def spec_sweep_shard_plain(matrixT: torch.Tensor, q: torch.Tensor, cols, wts: torch.Tensor):
+    """Plain version of `spec_sweep_shard`: the rows of the query features
+    `q` (F, S) with `spec_sweep_plain`'s elementwise ops, rows[s, cols[s]]
+    = 0 where cols[s] >= 0, then `row_stats_plain`'s sums."""
+    acc = torch.zeros((q.shape[1], matrixT.shape[1]), dtype=torch.float32, device=matrixT.device)
     for f in range(matrixT.shape[0]):
-        acc = acc + matrixT[f][None, :] * feats[f][:, None]
+        acc = acc + matrixT[f][None, :] * q[f][:, None]
     rows = 0.5 - acc
-    rows[torch.arange(len(cols), device=matrixT.device), cols] = 0.0
+    own = [(s, c) for s, c in enumerate(cols) if c >= 0]
+    if own:
+        rows[[s for s, _ in own], [c for _, c in own]] = 0.0
     return (rows, *row_stats_plain(rows, wts))
 
 
@@ -601,7 +689,15 @@ def medoid_sweep_plain(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
     histogram's and the density's sums in the kernel's order
     (`row_stats_plain`), so it equals the kernel bit for bit; the close
     count. A bf16 matrix is widened first."""
-    d = row_sweep_plain(_widened(matrixT), idx)
+    matrixT = _widened(matrixT)
+    return medoid_sweep_shard_plain(matrixT, matrixT[:, idx], idx, wts)
+
+
+def medoid_sweep_shard_plain(matrixT: torch.Tensor, q: torch.Tensor, idx: int, wts: torch.Tensor):
+    """Plain version of `medoid_sweep_shard`: the row of the query features
+    q (F,) with `row_sweep_plain`'s arithmetic (d[idx] = 0 where idx >= 0),
+    then `row_stats_plain`'s sums; the close count."""
+    d = _row_plain(matrixT, q, idx)
     hist, dens, n_close, _ = row_stats_plain(d[None], wts)
     return d, hist[0], dens[0], n_close[0]
 
@@ -640,8 +736,16 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
         raise ValueError("wts must be a float32 tensor of shape (N_pad,)")
     if matrixT.device.type == "cpu":
         return medoid_sweep_plain(matrixT, idx, wts)
+    return _medoid_launch(medoid_sweep, matrixT, idx, None, wts)
+
+
+def _medoid_launch(kernel, matrixT, idx: int, q, wts):
+    """One launch of the medoid kernel (`kernel`: its wrapper, whose count
+    it adds to): the query's features from column `idx` or, given `q`, from
+    q (the shard entry point, float32 only)."""
+    f_pad, n_pad = matrixT.shape
     if matrixT.device.type != "cuda":
-        raise ValueError(f"medoid_sweep runs on cuda or cpu, not {matrixT.device}")
+        raise ValueError(f"{kernel.__name__} runs on cuda or cpu, not {matrixT.device}")
     if wts.device != matrixT.device:
         raise ValueError("matrixT and wts must be on one device")
     lib = _load()
@@ -652,13 +756,16 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
     d = torch.empty(n_pad, dtype=torch.float32, device=dev)
     sums = torch.empty(_NBINS + 1, dtype=torch.float32, device=dev)  # histogram, density
     n_close = torch.empty((), dtype=torch.int32, device=dev)
-    err = _launcher(lib, "vt_medoid_sweep", matrixT)(
-        matrixT.data_ptr(), f_pad, n_pad, idx, wts.data_ptr(), d.data_ptr(),
-        partials.data_ptr(), close_partials.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
-        sums.data_ptr() + 4 * _NBINS, n_close.data_ptr(), stream,
-    )
-    _raise_on(err, "medoid_sweep")
-    _count(medoid_sweep, n_pad, matrixT)
+    tail = (wts.data_ptr(), d.data_ptr(), partials.data_ptr(), close_partials.data_ptr(),
+            ticket.data_ptr(), sums.data_ptr(), sums.data_ptr() + 4 * _NBINS, n_close.data_ptr(),
+            stream)
+    if q is None:
+        err = _launcher(lib, "vt_medoid_sweep", matrixT)(matrixT.data_ptr(), f_pad, n_pad, idx,
+                                                          *tail)
+    else:
+        err = lib.vt_medoid_sweep_shard(matrixT.data_ptr(), f_pad, n_pad, q.data_ptr(), idx, *tail)
+    _raise_on(err, kernel.__name__)
+    _count(kernel, n_pad, matrixT)
     return d, sums[:_NBINS], sums[_NBINS], n_close
 
 
@@ -666,6 +773,34 @@ medoid_sweep.launches = 0
 medoid_sweep.launches_by_width = {}  # N_pad -> launches
 medoid_sweep.launches_by_fpad = {}  # F_pad -> launches
 medoid_sweep.launches_by_dtype = {}  # the matrix's type -> launches
+
+
+def medoid_sweep_shard(matrixT: torch.Tensor, q: torch.Tensor, idx: int, wts: torch.Tensor):
+    """`medoid_sweep` on a shard of the matrix: (F_pad, N_local) f32, the
+    query's features q (F_pad,) f32, its local column `idx` or -1 where
+    another rank holds it, (N_local,) weights -> (d (N_local,), hist (60,),
+    density, n_close) over the shard's columns, summed in the order of that
+    width. Given column idx's own features it equals `medoid_sweep` bit for
+    bit. Launches the medoid kernel for a CUDA tensor (counted in
+    `medoid_sweep_shard.launches`), runs the plain version for a CPU
+    tensor."""
+    _check_shard_matrix(matrixT)
+    f_pad, n_pad = matrixT.shape
+    idx = int(idx)
+    if not -1 <= idx < n_pad:
+        raise IndexError(f"idx {idx} outside [-1, {n_pad})")
+    if wts.shape != (n_pad,) or wts.dtype != torch.float32:
+        raise ValueError("wts must be a float32 tensor of shape (N_local,)")
+    _check_query(q, (f_pad,), matrixT.device)
+    if matrixT.device.type == "cpu":
+        return medoid_sweep_shard_plain(matrixT, q, idx, wts)
+    return _medoid_launch(medoid_sweep_shard, matrixT, idx, q, wts)
+
+
+medoid_sweep_shard.launches = 0
+medoid_sweep_shard.launches_by_width = {}  # N_local -> launches
+medoid_sweep_shard.launches_by_fpad = {}  # F_pad -> launches
+medoid_sweep_shard.launches_by_dtype = {}  # the matrix's type -> launches
 
 # ------------------------------------------------------ spec_sweep, row_stats
 
@@ -721,8 +856,16 @@ def spec_sweep(matrixT: torch.Tensor, cols, wts: torch.Tensor):
     _check_wts(wts, n_pad, matrixT.device)
     if matrixT.device.type == "cpu":
         return spec_sweep_plain(matrixT, cols, wts)
+    return _spec_launch(spec_sweep, matrixT, cols, None, wts)
+
+
+def _spec_launch(kernel, matrixT, cols: list, q, wts):
+    """One launch of `spec_sweep`'s kernel (`kernel`: its wrapper, whose
+    count it adds to): the S queries' features from columns `cols` or,
+    given `q`, from q (the shard entry point, float32 only)."""
+    f_pad, n_pad = matrixT.shape
     if matrixT.device.type != "cuda":
-        raise ValueError(f"spec_sweep runs on cuda or cpu, not {matrixT.device}")
+        raise ValueError(f"{kernel.__name__} runs on cuda or cpu, not {matrixT.device}")
     lib = _load()
     dev = matrixT.device
     s = len(cols)
@@ -731,13 +874,15 @@ def spec_sweep(matrixT: torch.Tensor, cols, wts: torch.Tensor):
     partials, count_partials, ticket = _batch_workspace(dev, stream)
     rows = torch.empty((s, n_pad), dtype=torch.float32, device=dev)
     sums, counts = _batch_outputs(s, dev)
-    err = _launcher(lib, "vt_spec_sweep", matrixT)(
-        matrixT.data_ptr(), f_pad, n_pad, *cols, *[0] * (_SPEC_SEEDS - s), s, wts.data_ptr(),
-        rows.data_ptr(), partials.data_ptr(), count_partials.data_ptr(), ticket.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), stream,
-    )
-    _raise_on(err, "spec_sweep")
-    _count(spec_sweep, n_pad, matrixT)
+    tail = (*cols, *[0] * (_SPEC_SEEDS - s), s, wts.data_ptr(), rows.data_ptr(),
+            partials.data_ptr(), count_partials.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
+            counts.data_ptr(), stream)
+    if q is None:
+        err = _launcher(lib, "vt_spec_sweep", matrixT)(matrixT.data_ptr(), f_pad, n_pad, *tail)
+    else:
+        err = lib.vt_spec_sweep_shard(matrixT.data_ptr(), f_pad, n_pad, q.data_ptr(), *tail)
+    _raise_on(err, kernel.__name__)
+    _count(kernel, n_pad, matrixT)
     return rows, sums[:, :_NBINS], sums[:, _NBINS], counts[:, 0], counts[:, 1]
 
 
@@ -745,6 +890,35 @@ spec_sweep.launches = 0
 spec_sweep.launches_by_width = {}  # N_pad -> launches
 spec_sweep.launches_by_fpad = {}  # F_pad -> launches
 spec_sweep.launches_by_dtype = {}  # the matrix's type -> launches
+
+
+def spec_sweep_shard(matrixT: torch.Tensor, q: torch.Tensor, cols, wts: torch.Tensor):
+    """`spec_sweep` on a shard of the matrix: (F_pad, N_local) f32, the S <=
+    8 queries' features q (F_pad, S) f32, each one's local column in `cols`
+    or -1 where another rank holds it, (N_local,) weights -> (rows (S,
+    N_local), hist (S, 60), density (S,), n_close (S,), n_near (S,)) over the
+    shard's columns, summed in the order of that width. Given the columns'
+    own features it equals `spec_sweep` bit for bit. Launches its kernel for
+    a CUDA tensor (counted in `spec_sweep_shard.launches`), runs the plain
+    version for a CPU tensor."""
+    _check_shard_matrix(matrixT)
+    f_pad, n_pad = matrixT.shape
+    cols = [int(c) for c in cols]
+    if not 1 <= len(cols) <= _SPEC_SEEDS:
+        raise ValueError(f"need 1 to {_SPEC_SEEDS} columns, got {len(cols)}")
+    if not all(-1 <= c < n_pad for c in cols):
+        raise IndexError(f"a column of {cols} lies outside [-1, {n_pad})")
+    _check_wts(wts, n_pad, matrixT.device)
+    _check_query(q, (f_pad, len(cols)), matrixT.device)
+    if matrixT.device.type == "cpu":
+        return spec_sweep_shard_plain(matrixT, q, cols, wts)
+    return _spec_launch(spec_sweep_shard, matrixT, cols, q, wts)
+
+
+spec_sweep_shard.launches = 0
+spec_sweep_shard.launches_by_width = {}  # N_local -> launches
+spec_sweep_shard.launches_by_fpad = {}  # F_pad -> launches
+spec_sweep_shard.launches_by_dtype = {}  # the matrix's type -> launches
 
 
 def row_stats(rows: torch.Tensor, wts: torch.Tensor):
@@ -788,26 +962,44 @@ row_stats.launches_by_dtype = {}  # reads no matrix: stays empty
 
 
 def gumbel_scores_plain(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
-                        medoid: int) -> torch.Tensor:
+                        medoid: int, offset: int = 0) -> torch.Tensor:
     """Plain version of `gumbel_scores`: `vamb_tpu`'s expression with jax's
-    threefry uniform and XLA's CPU log (`threefry.log_xla`), bit for bit."""
+    threefry uniform and XLA's CPU log (`threefry.log_xla`), bit for bit.
+    With `offset` the columns are a shard's, global columns offset.. of the
+    stream, and `medoid` is a global column."""
     n = d.shape[0]
-    u = threefry.uniform(key, n, d.device)
+    u = threefry.uniform(key, n, d.device, start=offset)
     g = -threefry.log_xla(-threefry.log_xla(u + 1e-20) + 1e-20)
     elig = (d <= _MEDOID_RADIUS) & kept & ~tried
-    elig[medoid] = False
+    if 0 <= medoid - offset < n:
+        elig[medoid - offset] = False
     return torch.where(elig, g, -torch.inf)
 
 
-def topc_keys(score: torch.Tensor) -> torch.Tensor:
+# the high word of -inf's key: a key above it is an eligible column's
+_NEG_INF_HIGH = -2139095041
+
+
+def topc_keys(score: torch.Tensor, offset: int = 0) -> torch.Tensor:
     """The kernel's selection key as one int64 a column: the score's bits in
     XLA's TopK integer order (-inf lowest, -0.0 below +0.0) above the
-    inverted index, so keys are unique and their descending order is
-    `jax.lax.top_k`'s: score descending, index ascending on equal scores."""
+    inverted index (the global index `offset + i` for a shard's column i),
+    so keys are unique and their descending order is `jax.lax.top_k`'s:
+    score descending, index ascending on equal scores."""
     s = score.view(torch.int32)
     s = torch.where(s < 0, s ^ 0x7FFFFFFF, s).to(torch.int64)
-    idx = torch.arange(score.shape[0], dtype=torch.int64, device=score.device)
+    idx = torch.arange(score.shape[0], dtype=torch.int64, device=score.device) + offset
     return s * (1 << 32) + (0xFFFFFFFF - idx)
+
+
+def topc_merge(keys: torch.Tensor, c: int):
+    """The C largest of the ranks' `gumbel_topc_shard` keys (any shape):
+    the global candidates in `jax.lax.top_k`'s order as int64 column ids,
+    and whether each is eligible. The keys are unique and totally ordered,
+    so the top C of the ranks' top C are the top C over the global width,
+    the lowest-index ineligible columns where fewer than C are eligible."""
+    top = torch.topk(keys.reshape(-1), c).values
+    return 0xFFFFFFFF - (top & 0xFFFFFFFF), (top >> 32) > _NEG_INF_HIGH
 
 
 def gumbel_topc_plain(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
@@ -852,18 +1044,20 @@ def _topc_workspace(dev: torch.device, stream: int):
     return ws
 
 
-def _gumbel_launch(k0: int, k1: int, d, kept, tried, medoid: int, c: int, score, cand, valid):
-    "One launch of the Gumbel kernel: the C candidates (C > 0) and/or the scores."
+def _gumbel_launch(k0: int, k1: int, d, kept, tried, medoid: int, c: int, score, cand, valid,
+                   offset: int = 0, keys=None, name: str = "gumbel_topc"):
+    """One launch of the Gumbel kernel: the C candidates (C > 0), their keys
+    and/or the scores; a shard's columns are global columns offset.."""
     lib = _load()
     dev = d.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     partials, ticket, sms = _topc_workspace(dev, stream)
     d, kept, tried = d.contiguous(), kept.contiguous(), tried.contiguous()
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    err = lib.vt_gumbel_topc(k0, k1, d.shape[0], d.data_ptr(), kept.data_ptr(), tried.data_ptr(),
-                             medoid, c, ptr(score), partials.data_ptr(), ticket.data_ptr(),
-                             ptr(cand), ptr(valid), sms, stream)
-    _raise_on(err, "gumbel_topc" if c else "gumbel_scores")
+    err = lib.vt_gumbel_topc(k0, k1, d.shape[0], offset, d.data_ptr(), kept.data_ptr(),
+                             tried.data_ptr(), medoid, c, ptr(score), partials.data_ptr(),
+                             ticket.data_ptr(), ptr(cand), ptr(valid), ptr(keys), sms, stream)
+    _raise_on(err, name if c else "gumbel_scores")
 
 
 def gumbel_topc(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor, medoid: int,
@@ -901,6 +1095,52 @@ gumbel_topc.launches_by_fpad = {}  # no matrix: stays empty
 gumbel_topc.launches_by_dtype = {}  # no matrix: stays empty
 
 
+def gumbel_topc_shard_plain(key, d, kept, tried, medoid: int, c: int, offset: int):
+    """Plain version of `gumbel_topc_shard`: the shard's scores over its
+    slice of the stream (`gumbel_scores_plain` with `offset`), then the C
+    largest of their global `topc_keys`, descending."""
+    score = gumbel_scores_plain(key, d, kept, tried, medoid, offset)
+    return torch.topk(topc_keys(score, offset), c).values
+
+
+def gumbel_topc_shard(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor, medoid: int,
+                      c: int, n_global: int, offset: int) -> torch.Tensor:
+    """A wander step's draw and selection on a shard: its n columns are the
+    global columns [offset, offset + n) of a step over `n_global` columns,
+    each drawing its own uniform of the threefry stream (the stream's
+    counter is the global index), and `medoid` is a global column. Returns
+    the shard's C largest selection keys (C,) int64, descending, in
+    `topc_keys`' order over global indices: `topc_merge` of every rank's
+    keys gives `gumbel_topc`'s candidates over the global width, bit for
+    bit. Launches the Gumbel kernel for CUDA tensors (one launch, counted
+    in `gumbel_topc_shard.launches`), runs the plain version for CPU
+    tensors."""
+    medoid, c, n, offset = int(medoid), int(c), d.shape[0], int(offset)
+    if not (0 <= offset and offset + n <= n_global):
+        raise ValueError(f"the shard [{offset}, {offset + n}) lies outside [0, {n_global})")
+    if not 0 <= medoid < n_global:
+        raise IndexError(f"medoid {medoid} outside [0, {n_global})")
+    _check_step(d, kept, tried, 0)
+    if not 1 <= c <= min(_MAX_CAND, n):
+        raise ValueError(f"C must lie in [1, {min(_MAX_CAND, n)}], not {c}")
+    k0, k1 = (int(w) & 0xFFFFFFFF for w in key)
+    if d.device.type == "cpu":
+        return gumbel_topc_shard_plain((k0, k1), d, kept, tried, medoid, c, offset)
+    cand = torch.empty(c, dtype=torch.int64, device=d.device)
+    valid = torch.empty(c, dtype=torch.bool, device=d.device)
+    keys = torch.empty(c, dtype=torch.int64, device=d.device)
+    _gumbel_launch(k0, k1, d, kept, tried, medoid, c, None, cand, valid, offset, keys,
+                   "gumbel_topc_shard")
+    _count(gumbel_topc_shard, n)
+    return keys
+
+
+gumbel_topc_shard.launches = 0
+gumbel_topc_shard.launches_by_width = {}  # N_local -> launches
+gumbel_topc_shard.launches_by_fpad = {}  # no matrix: stays empty
+gumbel_topc_shard.launches_by_dtype = {}  # no matrix: stays empty
+
+
 def gumbel_scores(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor,
                   medoid: int) -> torch.Tensor:
     """A wander step's candidate scores: for each of the n columns the
@@ -929,7 +1169,8 @@ gumbel_scores.launches_by_fpad = {}  # no matrix: stays empty
 gumbel_scores.launches_by_dtype = {}  # no matrix: stays empty
 
 KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep, gumbel_topc,
-           gumbel_scores, spec_sweep, row_stats)
+           gumbel_scores, spec_sweep, row_stats, medoid_sweep_shard, spec_sweep_shard,
+           candidate_density_shard, gumbel_topc_shard)
 
 
 def reset_launch_counts() -> None:

@@ -510,7 +510,7 @@ template <class T, bool kF32>
 __global__ void __launch_bounds__(kDensThreads)
 candidate_density_kernel(const T* __restrict__ m, int f_pad, int n_pad,
                          const void* __restrict__ cand, int cand64, int n_cand,
-                         const float* __restrict__ w,
+                         const float* __restrict__ q, const float* __restrict__ w,
                          float* __restrict__ partials,
                          unsigned int* __restrict__ ticket,
                          float* __restrict__ dens) {
@@ -552,7 +552,9 @@ candidate_density_kernel(const T* __restrict__ m, int f_pad, int n_pad,
   for (int i = threadIdx.x; i < nf * kDensTile; i += kDensThreads) {
     const int f = i / kDensTile;
     const int j = i - f * kDensTile;
-    s_cand[i] = j < ct ? widen(m[(size_t)f * n_pad + s_cid[j]]) : 0.0f;
+    s_cand[i] = j >= ct     ? 0.0f
+                : q != nullptr ? q[(size_t)f * n_cand + c0 + j]
+                               : widen(m[(size_t)f * n_pad + s_cid[j]]);
   }
   __syncthreads();
   switch (ct) {
@@ -826,7 +828,7 @@ __device__ __forceinline__ void sweep_issue(const T* __restrict__ m, int n_pad,
 template <class T, bool kF32>
 __global__ void __launch_bounds__(kSweepThreads)
 medoid_sweep_kernel(const T* __restrict__ m, int f_pad, int n_pad, int idx,
-                    const float* __restrict__ w, float* __restrict__ d_out,
+                    const float* __restrict__ q, const float* __restrict__ w, float* __restrict__ d_out,
                     float* __restrict__ partials, int* __restrict__ close_partials,
                     unsigned int* __restrict__ ticket, float* __restrict__ hist,
                     float* __restrict__ density, int* __restrict__ n_close) {
@@ -850,7 +852,9 @@ medoid_sweep_kernel(const T* __restrict__ m, int f_pad, int n_pad, int idx,
     for (int st = 0; st < kSweepChunks; ++st) sweep_issue(m, n_pad, stage, ntile, st);
   }
   const int nf = kF32 ? kEngineF : f_pad;
-  for (int f = threadIdx.x; f < nf; f += kSweepThreads) col[f] = widen(m[(size_t)f * n_pad + idx]);
+  for (int f = threadIdx.x; f < nf; f += kSweepThreads) {
+    col[f] = q != nullptr ? q[f] : widen(m[(size_t)f * n_pad + idx]);
+  }
 #pragma unroll 4
   for (int r = 0; r < kSweepRows; ++r) s_acc[r][threadIdx.x] = 0.0f;
   __syncthreads();
@@ -1262,7 +1266,8 @@ template <class T, bool kVec>
 __global__ void __launch_bounds__(kSpecThreads, 1)
 spec_sweep_kernel(const T* __restrict__ m, int f_pad, int n_pad, int c0, int c1, int c2,
                   int c3, int c4, int c5, int c6, int c7, int s_count,
-                  const float* __restrict__ w, float* __restrict__ rows,
+                  const float* __restrict__ q, const float* __restrict__ w,
+                  float* __restrict__ rows,
                   float* __restrict__ partials, int* __restrict__ count_partials,
                   unsigned int* __restrict__ tickets, float* __restrict__ sums,
                   int* __restrict__ counts) {
@@ -1385,7 +1390,9 @@ spec_sweep_kernel(const T* __restrict__ m, int f_pad, int n_pad, int c0, int c1,
     for (int k = threadIdx.x; k < nq * kSpecChunk * kSpecSeeds; k += kSpecThreads) {
       const int f = k / kSpecSeeds;
       const int s = k % kSpecSeeds;
-      feat[k] = f < f_pad && s < s_count ? widen(m[(size_t)f * n_pad + col_of(s)]) : 0.0f;
+      feat[k] = !(f < f_pad && s < s_count) ? 0.0f
+                : q != nullptr              ? q[(size_t)f * s_count + s]
+                                            : widen(m[(size_t)f * n_pad + col_of(s)]);
     }
   }
   __syncthreads();
@@ -1607,14 +1614,15 @@ __device__ __forceinline__ float log_xla(float x) {
 }
 
 // Column i's masked Gumbel score.
-__device__ __forceinline__ float gumbel_score(uint32_t k0, uint32_t k1, int i,
+// Local column i is global column offset + i: its counter and its index.
+__device__ __forceinline__ float gumbel_score(uint32_t k0, uint32_t k1, int i, int offset,
                                               const float* __restrict__ d,
                                               const unsigned char* __restrict__ kept,
                                               const unsigned char* __restrict__ tried, int medoid) {
-  const uint32_t word = threefry_xor(k0, k1, 0u, (uint32_t)i);
+  const uint32_t word = threefry_xor(k0, k1, 0u, (uint32_t)(offset + i));
   const float unit = fmaxf(__fsub_rn(__uint_as_float((word >> 9) | 0x3F800000u), 1.0f), 0.0f);
   const float g = -log_xla(__fadd_rn(-log_xla(__fadd_rn(unit, 1e-20f)), 1e-20f));
-  const bool elig = (d[i] <= kMedoidRadius) && kept[i] && !tried[i] && i != medoid;
+  const bool elig = (d[i] <= kMedoidRadius) && kept[i] && !tried[i] && offset + i != medoid;
   return elig ? g : -CUDART_INF_F;
 }
 
@@ -1678,11 +1686,11 @@ __device__ __forceinline__ TopKey cta_top(TopKey top, TopKey (*s_top)[32], int w
 }
 
 __global__ void __launch_bounds__(kTopcThreads) gumbel_topc_kernel(
-    uint32_t k0, uint32_t k1, int n, const float* __restrict__ d,
+    uint32_t k0, uint32_t k1, int n, int offset, const float* __restrict__ d,
     const unsigned char* __restrict__ kept, const unsigned char* __restrict__ tried, int medoid,
     int c, float* __restrict__ score, TopKey* __restrict__ partials,
     unsigned int* __restrict__ ticket, long long* __restrict__ cand,
-    unsigned char* __restrict__ valid) {
+    unsigned char* __restrict__ valid, TopKey* __restrict__ keys) {
   __shared__ TopKey s_top[kTopcWarps][32];
   __shared__ bool s_last;
   const int lane = threadIdx.x & 31;
@@ -1694,9 +1702,9 @@ __global__ void __launch_bounds__(kTopcThreads) gumbel_topc_kernel(
     const int i = base + lane;
     TopKey key = 0;
     if (i < n) {
-      const float s = gumbel_score(k0, k1, i, d, kept, tried, medoid);
+      const float s = gumbel_score(k0, k1, i, offset, d, kept, tried, medoid);
       if (score != nullptr) score[i] = s;
-      key = topc_key(s, i);
+      key = topc_key(s, offset + i);
     }
     if (c > 0 && __any_sync(kFullMask, key > kth)) {
       top = warp_top(top, warp_sort_ascending(key, lane), lane);
@@ -1735,6 +1743,9 @@ __global__ void __launch_bounds__(kTopcThreads) gumbel_topc_kernel(
   if (warp == 0 && lane < c) {
     cand[lane] = (long long)(0xFFFFFFFFu - (uint32_t)top);
     valid[lane] = (uint32_t)(top >> 32) > kNegInfOrder;
+    // the key with its sign bit flipped: as a signed 64-bit integer, the
+    // plain version's `topc_keys` (the order word there is XLA's, 2^31 below)
+    if (keys != nullptr) keys[lane] = top ^ 0x8000000000000000ull;
   }
   if (threadIdx.x == 0) *ticket = 0u;
 }
@@ -1743,7 +1754,7 @@ __global__ void __launch_bounds__(kTopcThreads) gumbel_topc_kernel(
 // element type (the C functions below name the type).
 template <class T>
 int density_launch(const T* m, int f_pad, int n_pad, const void* cand, int cand64, int c,
-                   const float* w, int groups, float* partials, unsigned int* ticket,
+                   const float* q, const float* w, int groups, float* partials, unsigned int* ticket,
                    float* dens, void* stream) {
   if (c < 1 || c > kMaxCand || groups < 1 || groups > c ||
       (c + groups - 1) / groups > kDensTile || n_pad < 1) {
@@ -1758,20 +1769,22 @@ int density_launch(const T* m, int f_pad, int n_pad, const void* cand, int cand6
                   "more than 48 KB of dynamic shared memory needs cudaFuncSetAttribute");
     candidate_density_kernel<T, true><<<grid, kDensThreads, density_smem<T>(),
                                         (cudaStream_t)stream>>>(
-        m, f_pad, n_pad, cand, cand64, c, w, partials, ticket, dens);
+        m, f_pad, n_pad, cand, cand64, c, q, w, partials, ticket, dens);
   } else {
     const size_t smem = (size_t)f_pad * kDensTile * sizeof(float);
     candidate_density_kernel<T, false><<<grid, kDensThreads, smem, (cudaStream_t)stream>>>(
-        m, f_pad, n_pad, cand, cand64, c, w, partials, ticket, dens);
+        m, f_pad, n_pad, cand, cand64, c, q, w, partials, ticket, dens);
   }
   return (int)cudaGetLastError();
 }
 
 template <class T>
-int medoid_sweep_launch(const T* m, int f_pad, int n_pad, int idx, const float* w, float* d,
-                        float* partials, int* close_partials, unsigned int* ticket, float* hist,
-                        float* density, int* n_close, void* stream) {
-  if (n_pad < 1 || idx < 0 || idx >= n_pad) return (int)cudaErrorInvalidValue;
+int medoid_sweep_launch(const T* m, int f_pad, int n_pad, int idx, const float* q, const float* w,
+                        float* d, float* partials, int* close_partials, unsigned int* ticket,
+                        float* hist, float* density, int* n_close, void* stream) {
+  if (n_pad < 1 || idx < (q != nullptr ? -1 : 0) || idx >= n_pad) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int blocks = sweep_col_blocks(n_pad);
   const bool f32 = f_pad == kEngineF && n_pad % kSweepVec == 0 &&
                    (uintptr_t)m % sizeof(SweepCols<T>) == 0 && (uintptr_t)w % 16 == 0 &&
@@ -1782,26 +1795,26 @@ int medoid_sweep_launch(const T* m, int f_pad, int n_pad, int idx, const float* 
     static_assert(smem + sizeof(float) * kSweepRows * (kSweepThreads + 1) + 64 <= 48 * 1024,
                   "more than 48 KB of shared memory needs cudaFuncSetAttribute");
     medoid_sweep_kernel<T, true><<<blocks, kSweepThreads, smem, (cudaStream_t)stream>>>(
-        m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist, density, n_close);
+        m, f_pad, n_pad, idx, q, w, d, partials, close_partials, ticket, hist, density, n_close);
   } else {
     medoid_sweep_kernel<T, false><<<blocks, kSweepThreads, f_pad * sizeof(float),
                                     (cudaStream_t)stream>>>(
-        m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist, density, n_close);
+        m, f_pad, n_pad, idx, q, w, d, partials, close_partials, ticket, hist, density, n_close);
   }
   return (int)cudaGetLastError();
 }
 
 template <class T>
 int spec_sweep_launch(const T* m, int f_pad, int n_pad, int c0, int c1, int c2, int c3, int c4,
-                      int c5, int c6, int c7, int s_count, const float* w, float* rows,
-                      float* partials, int* count_partials, unsigned int* tickets, float* sums,
-                      int* counts, void* stream) {
+                      int c5, int c6, int c7, int s_count, const float* q, const float* w,
+                      float* rows, float* partials, int* count_partials, unsigned int* tickets,
+                      float* sums, int* counts, void* stream) {
   const int cols[kSpecSeeds] = {c0, c1, c2, c3, c4, c5, c6, c7};
   if (n_pad < 1 || f_pad < 1 || s_count < 1 || s_count > kSpecSeeds) {
     return (int)cudaErrorInvalidValue;
   }
   for (int s = 0; s < s_count; ++s) {
-    if (cols[s] < 0 || cols[s] >= n_pad) return (int)cudaErrorInvalidValue;
+    if (cols[s] < (q != nullptr ? -1 : 0) || cols[s] >= n_pad) return (int)cudaErrorInvalidValue;
   }
   // the features, then the ring, which later holds the histograms and the
   // staged rows
@@ -1814,7 +1827,7 @@ int spec_sweep_launch(const T* m, int f_pad, int n_pad, int c0, int c1, int c2, 
   const cudaError_t e = allow_smem(kernel, smem, allowed[vec]);
   if (e != cudaSuccess) return (int)e;
   kernel<<<sweep_col_blocks(n_pad), kSpecThreads, smem, (cudaStream_t)stream>>>(
-      m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, w, rows, partials,
+      m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, q, w, rows, partials,
       count_partials, tickets, sums, counts);
   return (int)cudaGetLastError();
 }
@@ -1842,15 +1855,15 @@ int vt_candidate_density(const float* m, int f_pad, int n_pad, const void* cand,
                          int cand64, int c, const float* w, int groups,
                          float* partials, unsigned int* ticket, float* dens,
                          void* stream) {
-  return density_launch(m, f_pad, n_pad, cand, cand64, c, w, groups, partials, ticket, dens,
-                        stream);
+  return density_launch(m, f_pad, n_pad, cand, cand64, c, nullptr, w, groups, partials, ticket,
+                        dens, stream);
 }
 
 int vt_candidate_density_bf16(const bf16_t* m, int f_pad, int n_pad, const void* cand,
                               int cand64, int c, const float* w, int groups, float* partials,
                               unsigned int* ticket, float* dens, void* stream) {
-  return density_launch(m, f_pad, n_pad, cand, cand64, c, w, groups, partials, ticket, dens,
-                        stream);
+  return density_launch(m, f_pad, n_pad, cand, cand64, c, nullptr, w, groups, partials, ticket,
+                        dens, stream);
 }
 
 int vt_gather_blocks(const float* m, int f_pad, int n_pad, const int* bids, int kb,
@@ -1869,31 +1882,64 @@ int vt_gather_blocks(const float* m, int f_pad, int n_pad, const int* bids, int 
 int vt_medoid_sweep(const float* m, int f_pad, int n_pad, int idx, const float* w, float* d,
                     float* partials, int* close_partials, unsigned int* ticket, float* hist,
                     float* density, int* n_close, void* stream) {
-  return medoid_sweep_launch(m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist,
-                             density, n_close, stream);
+  return medoid_sweep_launch(m, f_pad, n_pad, idx, nullptr, w, d, partials, close_partials, ticket,
+                             hist, density, n_close, stream);
 }
 
 int vt_medoid_sweep_bf16(const bf16_t* m, int f_pad, int n_pad, int idx, const float* w,
                          float* d, float* partials, int* close_partials, unsigned int* ticket,
                          float* hist, float* density, int* n_close, void* stream) {
-  return medoid_sweep_launch(m, f_pad, n_pad, idx, w, d, partials, close_partials, ticket, hist,
-                             density, n_close, stream);
+  return medoid_sweep_launch(m, f_pad, n_pad, idx, nullptr, w, d, partials, close_partials, ticket,
+                             hist, density, n_close, stream);
 }
 
 int vt_spec_sweep(const float* m, int f_pad, int n_pad, int c0, int c1, int c2, int c3, int c4,
                   int c5, int c6, int c7, int s_count, const float* w, float* rows,
                   float* partials, int* count_partials, unsigned int* tickets, float* sums,
                   int* counts, void* stream) {
-  return spec_sweep_launch(m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, w, rows,
-                           partials, count_partials, tickets, sums, counts, stream);
+  return spec_sweep_launch(m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, nullptr, w,
+                           rows, partials, count_partials, tickets, sums, counts, stream);
 }
 
 int vt_spec_sweep_bf16(const bf16_t* m, int f_pad, int n_pad, int c0, int c1, int c2, int c3,
                        int c4, int c5, int c6, int c7, int s_count, const float* w, float* rows,
                        float* partials, int* count_partials, unsigned int* tickets, float* sums,
                        int* counts, void* stream) {
-  return spec_sweep_launch(m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, w, rows,
+  return spec_sweep_launch(m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, nullptr, w,
+                           rows, partials, count_partials, tickets, sums, counts, stream);
+}
+
+// The shard entry points (a row-sharded engine): the query features come
+// from q, a small float32 tensor, where the index entry points read the
+// query's column of the local matrix; `idx`, `cols[s]` and the candidate ids
+// are the query's local column, or -1 where another rank holds it (no d set
+// to 0 then). The staging source is all that changes: every sum keeps its
+// order, so a shard entry point given the column's features and its index
+// equals the index entry point bit for bit.
+int vt_medoid_sweep_shard(const float* m, int f_pad, int n_pad, const float* q, int idx,
+                          const float* w, float* d, float* partials, int* close_partials,
+                          unsigned int* ticket, float* hist, float* density, int* n_close,
+                          void* stream) {
+  if (q == nullptr) return (int)cudaErrorInvalidValue;
+  return medoid_sweep_launch(m, f_pad, n_pad, idx, q, w, d, partials, close_partials, ticket, hist,
+                             density, n_close, stream);
+}
+
+int vt_spec_sweep_shard(const float* m, int f_pad, int n_pad, const float* q, int c0, int c1,
+                        int c2, int c3, int c4, int c5, int c6, int c7, int s_count,
+                        const float* w, float* rows, float* partials, int* count_partials,
+                        unsigned int* tickets, float* sums, int* counts, void* stream) {
+  if (q == nullptr) return (int)cudaErrorInvalidValue;
+  return spec_sweep_launch(m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, q, w, rows,
                            partials, count_partials, tickets, sums, counts, stream);
+}
+
+int vt_candidate_density_shard(const float* m, int f_pad, int n_pad, const float* q,
+                               const void* cand, int cand64, int c, const float* w, int groups,
+                               float* partials, unsigned int* ticket, float* dens, void* stream) {
+  if (q == nullptr) return (int)cudaErrorInvalidValue;
+  return density_launch(m, f_pad, n_pad, cand, cand64, c, q, w, groups, partials, ticket, dens,
+                        stream);
 }
 
 int vt_row_stats(const float* rows, int n_pad, int s_count, const float* w, float* partials,
@@ -1914,11 +1960,12 @@ int vt_row_stats(const float* rows, int n_pad, int s_count, const float* w, floa
 
 int vt_spec_seeds() { return kSpecSeeds; }
 
-int vt_gumbel_topc(unsigned int k0, unsigned int k1, int n, const float* d,
+int vt_gumbel_topc(unsigned int k0, unsigned int k1, int n, int offset, const float* d,
                    const unsigned char* kept, const unsigned char* tried, int medoid, int c,
                    float* score, unsigned long long* partials, unsigned int* ticket,
-                   long long* cand, unsigned char* valid, int max_ctas, void* stream) {
-  if (n < 1 || c < 0 || c > kMaxCand || c > n || max_ctas < 1 ||
+                   long long* cand, unsigned char* valid, unsigned long long* keys, int max_ctas,
+                   void* stream) {
+  if (n < 1 || offset < 0 || c < 0 || c > kMaxCand || c > n || max_ctas < 1 ||
       (c == 0 && score == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1929,7 +1976,7 @@ int vt_gumbel_topc(unsigned int k0, unsigned int k1, int n, const float* d,
   const int most = max_ctas < kTopcMaxCtas ? max_ctas : kTopcMaxCtas;
   if (c > 0 && ctas > most) ctas = most;
   gumbel_topc_kernel<<<ctas, kTopcThreads, 0, (cudaStream_t)stream>>>(
-      k0, k1, n, d, kept, tried, medoid, c, score, partials, ticket, cand, valid);
+      k0, k1, n, offset, d, kept, tried, medoid, c, score, partials, ticket, cand, valid, keys);
   return (int)cudaGetLastError();
 }
 

@@ -23,13 +23,53 @@ the reference):
   constant rounded to bf16, as jax does with a Python float beside a bf16
   array. At float32 (no compute dtype) each is the float32 operation
   unchanged.
+* Data parallelism (layers.py:76-111 under `vamb_tpu`'s GSPMD, which runs
+  the VAE's program over the global batch): inside `global_batch(mesh)`
+  each rank holds its rows of one batch, and BatchNorm's training
+  statistics are the global batch's: each rank's sums of x and x*x (and
+  its row count) are added in rank order (`RankSum`, whose backward adds
+  the ranks' cotangents the same way) and divided by the global row count,
+  which also gives the running variance its unbiased factor.
 """
+
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..utils import threefry
+
+# the mesh whose ranks' rows form one batch, inside `global_batch`
+_global_batch = None
+
+
+@contextmanager
+def global_batch(mesh):
+    """Within the block, a training-mode BatchNorm takes its statistics over
+    the rows of every rank of `mesh` (None: this process's rows alone)."""
+    global _global_batch
+    prev, _global_batch = _global_batch, mesh
+    try:
+        yield
+    finally:
+        _global_batch = prev
+
+
+class RankSum(torch.autograd.Function):
+    """The rank-order sum of every rank's tensor (`Mesh.sum_ranks`). The
+    backward gives each rank the rank-order sum of every rank's cotangent:
+    each rank's loss reads the total, so the total loss's gradient with
+    respect to one rank's summand is the sum of them all."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, kind):
+        ctx.mesh, ctx.kind = mesh, kind
+        return mesh.sum_ranks(t, kind)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.sum_ranks(grad.contiguous(), ctx.kind + " cotangents"), None, None
 
 
 class Linear(nn.Module):
@@ -89,13 +129,20 @@ class BatchNorm(nn.Module):
         in_dtype = x.dtype
         x = x.float()
         old_mean, old_var = (self.mean, self.var) if base is None else base
-        mean = x.mean(dim=0)
-        mean2 = (x * x).mean(dim=0)
+        if _global_batch is None:
+            mean = x.mean(dim=0)
+            mean2 = (x * x).mean(dim=0)
+            n = x.shape[0]
+        else:  # the global batch's sums, its row count riding along
+            local = torch.cat([x.sum(0), (x * x).sum(0), x.new_full((1,), x.shape[0])])
+            total = RankSum.apply(local, _global_batch, "batchnorm sums")
+            f = x.shape[1]
+            n = total[2 * f].detach()  # a device scalar: no host sync
+            mean, mean2 = total[:f] / n, total[f: 2 * f] / n
         var = mean2 - mean * mean  # biased, used for normalization
         out = (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
-        n = x.shape[0]
         with torch.no_grad():
-            unbiased = var * (n / max(n - 1, 1))
+            unbiased = var * (n / (n - 1).clamp_min(1) if torch.is_tensor(n) else n / max(n - 1, 1))
             self.mean.copy_((1 - self.momentum) * old_mean + self.momentum * mean)
             self.var.copy_((1 - self.momentum) * old_var + self.momentum * unbiased)
         return out.to(in_dtype)

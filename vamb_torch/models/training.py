@@ -20,7 +20,9 @@ exactly (threefry, utils/threefry.py):
 * an epoch's metrics are the mean over its steps.
 
 `MetricsDrain` lets epochs run back to back: an epoch's metrics are copied
-to the host without a sync and logged `lag` epochs later.
+to the host without a sync and logged `lag` epochs later. `check_replicas`
+holds data-parallel training's replicated parameters to being bit-identical
+on every rank.
 """
 
 import time
@@ -128,6 +130,24 @@ class MetricsDrain:
     def flush(self) -> None:
         while self._pending:
             self._drain_one()
+
+
+def param_checksum(params) -> torch.Tensor:
+    """A device int64 checksum of the parameters' bits: each float32 word
+    times a weight by its position, summed (wrapping). Equal parameters give
+    equal checksums; a changed word changes it."""
+    words = torch.cat([p.detach().reshape(-1) for p in params]).view(torch.int32).to(torch.int64)
+    weight = torch.arange(words.numel(), device=words.device) % 65521 + 1
+    return (words * weight).sum()
+
+
+def check_replicas(params, mesh, log: Callable[[str], None]) -> None:
+    """Raise unless every rank of `mesh` holds the same parameters (their
+    `param_checksum`s, gathered), and log the checksum."""
+    sums = mesh.all_gather(param_checksum(params)[None], "checksums")[:, 0].tolist()
+    if len(set(sums)) != 1:
+        raise RuntimeError(f"data-parallel replicas diverged: parameter checksums {sums} by rank")
+    log(f"\t\tParameters identical on {mesh.size} ranks (checksum {sums[0]})")
 
 
 def segment_plan(nepochs, batchsteps_list, checkpoint_every=None):

@@ -30,6 +30,16 @@ Behavioral spec: `vamb_tpu/models/vae.py` (reference vamb/encode.py:149-610):
   updated), LeakyReLU and the byte dropout in bf16, BatchNorm's statistics
   and affine in float32 cast back to bf16, the `mu` head, the output head
   and the loss in float32; `encode` runs at float32 whatever the precision;
+* data parallelism (`trainmodel(mesh=)`, vae.py:307-331 and :485-560):
+  every rank draws the same global streams (permutation, dropout bank,
+  eps) and computes on its rows [r b / W, (r + 1) b / W) of each global
+  batch of b rows; BatchNorm takes the global batch's statistics
+  (`layers.global_batch`), a rank's loss is its rows' terms over the global
+  b, and the flat gradient is summed over the ranks in rank order before
+  D-Adaptation's update, so the replicated parameters stay bit-identical on
+  every rank (checked after each epoch). Batch doubling and logging are
+  unchanged; the epoch's metrics are summed over the ranks the same way.
+  `encode` stays unsharded on every rank, as in `vamb_tpu`;
 * `encode` returns `mu` with the 12 low mantissa bits masked (vae.py:684);
 * `save`/`load` use `vamb_tpu`'s `model.npz` flat-key format, precision
   included.
@@ -45,13 +55,21 @@ from torch import nn
 
 from ..device import resolve_device
 from ..optim import DAdaptAdam
+from ..parallel import replicate
 from ..utils import mask_lower_bits, threefry
 from ..utils.checkpoint import load_flat, params_from_jax, params_to_jax, save_flat
 from . import layers
 from .dataset import VAEDataset, batchsize_at_epoch, num_batches
-from .training import validate_batchsteps
+from .training import check_replicas, validate_batchsteps
 
 _ENCODE_CHUNK = 1 << 16  # rows per encode forward
+
+
+def _rows_of(bank: Optional[dict], lo: int, hi: int) -> Optional[dict]:
+    "A step's dropout bytes for rows [lo, hi) of its batch (None without dropout)."
+    if bank is None:
+        return None
+    return {k: [t[lo:hi] for t in v] for k, v in bank.items()}
 
 
 class VAE(nn.Module):
@@ -185,8 +203,12 @@ class VAE(nn.Module):
         depths_out = torch.softmax(rec[:, :S], dim=1)
         return depths_out, rec[:, S : S + T], rec[:, S + T :], mu
 
-    def calc_loss(self, depths_in, depths_out, tnf_in, tnf_out, ab_in, ab_out, mu, weights):
-        "The 4-term weighted loss of reference encode.py:316-357."
+    def calc_loss(self, depths_in, depths_out, tnf_in, tnf_out, ab_in, ab_out, mu, weights,
+                  batch_size: Optional[int] = None, weight_mean=None):
+        """The 4-term weighted loss of reference encode.py:316-357. Given
+        `batch_size` and the global batch's `weight_mean`, the rows are one
+        rank's share of a data-parallel batch: its terms over the global
+        batch size, whose sum over the ranks is the batch's loss."""
         ab_sse = torch.sum(torch.square(ab_out - ab_in), dim=1)
         ce = -torch.sum(torch.log(depths_out + 1e-9) * depths_in, dim=1)
         sse = torch.sum(torch.square(tnf_out - tnf_in), dim=1)
@@ -206,6 +228,9 @@ class VAE(nn.Module):
         w_ce = ce * ce_weight
         w_sse = sse * sse_weight
         w_kld = kld * kld_weight
+        if batch_size is not None:
+            return (torch.sum(w_ce + w_ab + w_sse + w_kld) / batch_size * weight_mean,
+                    *(torch.sum(w) / batch_size for w in (w_ab, w_ce, w_sse, w_kld)))
         # the reference multiplies the (B,) loss by the (B, 1) weights
         # column, which broadcasts to (B, B): its mean is mean(loss) *
         # mean(weights), not a weighted mean. Training depends on it.
@@ -256,8 +281,11 @@ class VAE(nn.Module):
         batchsteps: Optional[list[int]] = [25, 75, 150, 300],
         modelfile: Union[None, str, Path, IO[bytes]] = None,
         logger: Optional[Callable[[str], None]] = None,
+        mesh=None,
     ) -> None:
-        "Train in place. Mirrors reference trainmodel (encode.py:543-610)."
+        """Train in place. Mirrors reference trainmodel (encode.py:543-610).
+        With `mesh` (a `parallel.Mesh` whose device is this model's),
+        training is data-parallel over its ranks (see the module notes)."""
         if nepochs < 1:
             raise ValueError(f"Minimum 1 epoch, not {nepochs}")
         if dataset.n_obs < 2:
@@ -294,28 +322,40 @@ class VAE(nn.Module):
         # ONE packed buffer [depths | tnf | abundance | weights] on the card:
         # an epoch is one row gather, a step one slice
         packed = torch.as_tensor(np.concatenate(dataset, axis=1), device=dev)
-        optimizer = DAdaptAdam(self.parameters_flat_order())
+        if mesh is not None:
+            replicate(self, mesh)  # rank 0's weights on every rank, as vamb_tpu's replicate
+        params = self.parameters_flat_order()
+        optimizer = DAdaptAdam(
+            params, grad_reduce=None if mesh is None else lambda g: mesh.sum_ranks(g, "gradients"))
         self.train()
         for epoch in range(nepochs):
             bs = min(batchsize_at_epoch(batchsize, batchsteps_list, epoch), n)
             nb = num_batches(n, bs)
+            lo, hi = (0, bs) if mesh is None else mesh.block(bs)  # this rank's rows of a batch
             wall = time.time()
             self.rng, perm, bank, eps = self.epoch_draws(self.rng, n, bs, nb)
             shuf = packed[perm[: nb * bs]].reshape(nb, bs, -1)
             comps = torch.zeros(5, device=dev)
-            for i in range(nb):
-                batch = shuf[i]
-                d_out, t_out, a_out, mu = self._forward(
-                    batch[:, : S + T + 1], eps=eps[i], dropout_bank=self.step_bank(bank, i)
-                )
-                loss, w_ab, w_ce, w_sse, w_kld = self.calc_loss(
-                    batch[:, :S], d_out, batch[:, S : S + T], t_out,
-                    batch[:, S + T : S + T + 1], a_out, mu, batch[:, S + T + 1 :],
-                )
-                optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                optimizer.step()
-                comps += torch.stack([loss, w_ab, w_ce, w_sse, w_kld]).detach()
+            with layers.global_batch(mesh):
+                for i in range(nb):
+                    batch = shuf[i]
+                    rows = batch[lo:hi]
+                    d_out, t_out, a_out, mu = self._forward(
+                        rows[:, : S + T + 1], eps=eps[i][lo:hi],
+                        dropout_bank=_rows_of(self.step_bank(bank, i), lo, hi),
+                    )
+                    share = {} if mesh is None else {
+                        "batch_size": bs, "weight_mean": torch.mean(batch[:, S + T + 1])}
+                    loss, w_ab, w_ce, w_sse, w_kld = self.calc_loss(
+                        rows[:, :S], d_out, rows[:, S : S + T], t_out,
+                        rows[:, S + T : S + T + 1], a_out, mu, rows[:, S + T + 1 :], **share,
+                    )
+                    optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                    optimizer.step()
+                    comps += torch.stack([loss, w_ab, w_ce, w_sse, w_kld]).detach()
+            if mesh is not None:
+                comps = mesh.sum_ranks(comps, "metrics")
             c = (comps / nb).cpu().numpy()  # one host sync per epoch
             log(
                 "\t\tEpoch: {:>3}  Loss: {:.5e}  CE: {:.5e}  AB: {:.5e}  "
@@ -324,6 +364,8 @@ class VAE(nn.Module):
                     time.time() - wall,
                 )
             )
+            if mesh is not None:
+                check_replicas(params, mesh, log)
         self.eval()
         if modelfile is not None:
             self.save(modelfile)

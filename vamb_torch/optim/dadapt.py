@@ -15,10 +15,13 @@ update rule, with its flat state:
 
 There is no bias correction. d and the numerator are global scalars over
 all parameters, and m, v, s are single flat vectors over the parameters in
-the order given, so the global sums are one reduction each.
+the order given, so the global sums are one reduction each. In
+data-parallel training `grad_reduce` sums the flat gradient over the ranks
+(in rank order) before the update, so every rank updates its replica of
+the parameters alike.
 """
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -40,8 +43,10 @@ class DAdaptAdam:
         weight_decay: float = 0.0,
         d0: float = 1e-6,
         growth_rate: Optional[float] = None,
+        grad_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ):
         self.params = list(params)
+        self.grad_reduce = grad_reduce
         self.lr, self.eps, self.weight_decay = lr, eps, weight_decay
         self.betas, self.growth_rate = betas, growth_rate
         total = sum(p.numel() for p in self.params)
@@ -65,6 +70,8 @@ class DAdaptAdam:
         b1, b2 = self.betas
         sqrt_b2 = b2**0.5
         g = torch.cat([p.grad.reshape(-1) for p in self.params])
+        if self.grad_reduce is not None:
+            g = self.grad_reduce(g)
         dlr = self.d * lr
 
         # the numerator increment uses the previous s and v

@@ -30,9 +30,27 @@ from .abundance import Abundance
 from .composition import Composition
 from .log import logger
 from .models import VAE, make_dataset
+from .parallel import make_mesh, process_info
 from .utils import BinSplitter, Reader, write_bins, write_npz
 
 MINIMUM_SEQS = 100
+
+
+def process_device(device: str) -> str:
+    """This process's device: in a multi-process run on cards, its own card
+    (`cuda:<local rank>`), else `device` as it is."""
+    return str(make_mesh(device=device).device) if process_info()[1] > 1 else device
+
+
+def default_mesh(device: str):
+    """The mesh over every process of a multi-process run, or None for a
+    lone process (vamb_tpu/pipeline.py:29-44, whose mesh spans the host's
+    devices; here one process a card)."""
+    if process_info()[1] <= 1:
+        return None
+    mesh = make_mesh(device=device)
+    logger.info(f"\tUsing a {mesh.size}-process mesh for device compute ({mesh})")
+    return mesh
 
 
 # ------------------------------------------------------------------ options
@@ -276,17 +294,20 @@ def trainvae(
         precision=vae_options.precision,
     )
     logger.info(f"\tCreated VAE on {vae.device}")
+    primary = process_info()[0] == 0  # only process 0 saves the model and latent
     vae.trainmodel(
         dataset,
         nepochs=vae_options.nepochs,
         batchsize=vae_options.batchsize,
         batchsteps=vae_options.batchsteps,
-        modelfile=general.outdir.joinpath("model.npz"),
+        modelfile=general.outdir.joinpath("model.npz") if primary else None,
         logger=logger.info,
+        mesh=default_mesh(general.device),
     )
     logger.info("\tEncoding to latent representation")
-    latent = vae.encode(dataset)
-    write_npz(general.outdir.joinpath("latent.npz"), latent)
+    latent = vae.encode(dataset)  # unsharded on every rank, as in vamb_tpu
+    if primary:
+        write_npz(general.outdir.joinpath("latent.npz"), latent)
 
     elapsed = round(time.time() - begintime, 2)
     logger.info(f"\tTrained VAE and encoded in {elapsed} seconds.")
@@ -330,6 +351,7 @@ def cluster_and_write_files(
         distance_dtype=cluster_options.distance_dtype,
         wander_kernel=cluster_options.wander_kernel,
         wander_scope=cluster_options.wander_scope,
+        mesh=default_mesh(device),
     )
     clusters = itertools.islice(generator, cluster_options.max_clusters)
 

@@ -100,17 +100,20 @@ def fold_in(k, data: int) -> torch.Tensor:
     return torch.tensor(threefry2x32(k1, k2, 0, int(data) & _MASK), dtype=torch.int64)
 
 
-def _counters(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    "The (hi, lo) halves of the 64-bit iota 0..n-1."
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+def _counters(n: int, device, start: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    "The (hi, lo) halves of the 64-bit iota start..start+n-1."
+    lo = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return lo >> 32, lo & _MASK
 
 
-def bits_batched(keys, n: int, device=None) -> torch.Tensor:
+def bits_batched(keys, n: int, device=None, start: int = 0) -> torch.Tensor:
     """`bits(keys[s], (n,))` for every key of a (S, 2) list or tensor, in
-    one hash of (S, n) counters: an (S, n) int64 tensor of uint32 words."""
+    one hash of (S, n) counters: an (S, n) int64 tensor of uint32 words.
+    With `start`, words start.. of a longer draw: each word hashes its own
+    counter (jax's partitionable threefry), so a slice of a draw is the
+    draw of its counters."""
     kt = torch.as_tensor(keys, dtype=torch.int64).reshape(-1, 2).to(device)
-    hi, lo = _counters(n, device)
+    hi, lo = _counters(n, device, start)
     b1, b2 = threefry2x32(kt[:, :1], kt[:, 1:], hi, lo)
     return b1 ^ b2
 
@@ -133,15 +136,17 @@ def _unit_floats(words: torch.Tensor) -> torch.Tensor:
     return ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform_batched(keys, n: int, device=None) -> torch.Tensor:
+def uniform_batched(keys, n: int, device=None, start: int = 0) -> torch.Tensor:
     """`jax.random.uniform(keys[s], (n,))` float32 for every key of a (S, 2)
-    list or tensor, in one draw: an (S, n) tensor."""
-    return torch.clamp_min(_unit_floats(bits_batched(keys, n, device)), 0.0)
+    list or tensor, in one draw: an (S, n) tensor (with `start`, elements
+    start.. of a longer draw)."""
+    return torch.clamp_min(_unit_floats(bits_batched(keys, n, device, start)), 0.0)
 
 
-def uniform(k, n: int, device=None) -> torch.Tensor:
-    "jax.random.uniform(key, (n,)) as float32 on `device`."
-    return uniform_batched([_words(k)], n, device)[0]
+def uniform(k, n: int, device=None, start: int = 0) -> torch.Tensor:
+    """jax.random.uniform(key, (n,)) as float32 on `device` (with `start`,
+    elements start.. of a longer draw)."""
+    return uniform_batched([_words(k)], n, device, start)[0]
 
 
 def bernoulli(k, p: float, shape, device=None) -> torch.Tensor:
