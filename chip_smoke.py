@@ -169,24 +169,41 @@ of `vamb_tpu`. Phases, each of which fails the run:
    the shards of 100,096 columns over 1, 2 and 4 ranks, bit for bit their
    plain versions on the card and the index entry points on the shard, the
    Gumbel shards merged bit for bit `gumbel_topc` over the whole width,
-   then timed; (a) a world of one on NCCL: phase 4's dataset trained for 2
-   epochs at batch 512 with `mesh=` (the replicas checked after each
+   then timed; `gather_ball_shard` on the 128-aligned shards of 100,096
+   and 300,032 columns (KB 64) over 1, 2 and 4 ranks, bit for bit its plain
+   version and `gather_ball` of the whole matrix for the shard's blocks,
+   and the bf16 variants of the three shard sweeps on bf16 shards of
+   100,096 columns, bit for bit their plain versions and the bf16 index
+   entry points on the shard, then timed (the gather beside
+   `index_select`); (a) a world of one on NCCL: phase 4's dataset trained
+   for 2 epochs at batch 512 with `mesh=` (the replicas checked after each
    epoch), and 200
    clusters of its latent from the unsharded engine and from the
    row-sharded one, the counters set to 0 just before the sharded run and
    read just after (every shard entry point and `row_stats` launched, the
    index entry points of those kernels not; emission and every attempt's
    sums bit for bit the unsharded engine's), its NCCL collectives tallied
-   by kind, calls and bytes an attempt; (b) two processes sharing the card
+   by kind, calls and bytes an attempt; then the same pair, 200 clusters
+   each, at the forced subset scope with attempt lanes on and off
+   (`gather_ball_shard` launched, `gather_ball`, `medoid_sweep` and
+   `spec_sweep` not; the "ball" collectives logged an attempt) and at
+   bfloat16 distances (the bf16 shard variants alone), each bit for bit
+   the unsharded engine, counters included; (b) two processes sharing the card
    over gloo (`--dist-rank`; gloo moves each collective through host
    memory): `bin default`'s library path at W = 2 on (a)'s composition
    and abundance (2 epochs at batch 512, 200 clusters), the parameters'
    checksums equal across ranks after every epoch, then the same W = 2
    engine on the CPU over the same group, its first 20 clusters identical
    to the card's; the W = 2
-   clusters' agreement with (a)'s W = 1 clusters on sampled pairs. A rank
-   that fails or outlives its 420 s fails the phase; its children are
-   killed.
+   clusters' agreement with (a)'s W = 1 clusters on sampled pairs; (c) two
+   processes sharing the card over gloo (`--dist-engine-rank`) clustering
+   phase 5's 300,032-wide latent (in `--dist` mode, where phase 5 does not
+   run, the 300,000-point latent of `--engine-ab`) at the engine's default
+   flags, so "auto" takes the subset wander and attempt lanes, 200
+   clusters: the two ranks' clusters identical, the subset wander, lanes
+   and `gather_ball_shard` run, and each rank's first 20 identical to the
+   same W = 2 engine's on the CPU. A rank that fails or outlives its 420 s
+   fails the phase; its children are killed.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
@@ -2649,7 +2666,13 @@ SHARD_KERNELS = ("medoid_sweep_shard", "spec_sweep_shard", "candidate_density_sh
 # the index entry point whose kernel each shard entry point launches
 SHARD_OF = {"medoid_sweep_shard": "medoid_sweep", "spec_sweep_shard": "spec_sweep",
             "candidate_density_shard": "candidate_density_sweep",
-            "gumbel_topc_shard": "gumbel_topc"}
+            "gumbel_topc_shard": "gumbel_topc", "gather_ball_shard": "gather_blocks"}
+# the shard entry points with a bf16 variant (a bfloat16 engine's shards)
+BF16_SHARD_KERNELS = ("medoid_sweep_shard", "spec_sweep_shard", "candidate_density_shard")
+# 12(a)'s engine runs beside its full-scope one, each sharded and unsharded
+DIST_VARIANTS = {"subset, lanes on": {"wander_scope": "subset", "attempt_batch": "on"},
+                 "subset, lanes off": {"wander_scope": "subset", "attempt_batch": "off"},
+                 "bfloat16": {"distance_dtype": "bfloat16"}}
 
 
 def check_and_time_shards(dev) -> tuple[dict, dict]:
@@ -2721,6 +2744,7 @@ def check_and_time_shards(dev) -> tuple[dict, dict]:
              f"gumbel_topc over the whole width once merged (W {world})")
     log(f"phase 12 shard entry points: bit for bit their plain versions and the index entry "
         f"points on the shards at W {DIST_SHARD_WORLDS} ({n} columns): " + json.dumps(errs))
+    errs.update(check_ball_and_bf16_shards(dev, mT, w))
 
     # times at W = 1's shard, with the bounds of `time_kernels`
     idx, f = 37, F_PAD
@@ -2759,17 +2783,161 @@ def check_and_time_shards(dev) -> tuple[dict, dict]:
             lambda: torch.topk(K.gumbel_scores(gkey, gd, gkept, gtried, gmedoid), MAXSTEPS),
             bound(GUMBEL_READ_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n)),
     }
+    # gather_ball_shard: a W = 1 shard of the 300k path's 300,032 columns,
+    # 64 blocks with their side vectors, beside `index_select` of the
+    # matrix's blocks alone; its bound is the gather's (the blocks read and
+    # written, the ids, and per slot w, kept and d0 read and its id, flag,
+    # weight and d0 written)
+    mTg, wg, keptg, d0g = ball_inputs(BIG_PAD, dev, seed=6)
+    bids = torch.as_tensor(np.sort(np.random.default_rng(6).choice(BIG_PAD // 128, BALL_KB, replace=False))
+                           .astype(np.int32), device=dev)
+    q_cols = BALL_KB * 128
+    fns["gather_ball_shard"] = (
+        lambda: K.gather_ball_shard(mTg, bids, BALL_KB, wg, keptg, d0g, 0),
+        lambda: K.gather_ball_shard_plain(mTg, bids, BALL_KB, wg, keptg, d0g, 0),
+        lambda: mTg.view(f, BIG_PAD // 128, 128).index_select(1, bids),
+        bound((2 * f * q_cols + BALL_KB) * 4 + q_cols * 22, 0))
+    # the bf16 variants at W = 1's shard: the f32 kernels' bounds with the
+    # matrix at 2 bytes an element (`time_bf16`'s)
+    mTb = mT.to(torch.bfloat16)
+    wide = mTb.float()
+    qb, featsb, qcb = (wide[:, idx].contiguous(), wide[:, spec_cols].contiguous(),
+                       wide[:, cand].contiguous())
+    db = K.medoid_sweep(mTb, idx, w)[0]
+    near_b = int(((db <= 0.05) & kept).sum())
+    in_hist_b = int(((db >= 0) & (db <= 0.3) & kept).sum())
+    rows_b = K.spec_sweep(mTb, spec_cols, w)[0]
+    in_hist_sb = int(((rows_b >= 0) & (rows_b <= 0.3) & kept).sum())
+    near_sb = int(((rows_b <= 0.05) & kept).sum())
+    n_within_b = int((((0.5 - qcb.T @ wide) <= 0.05) & kept[None, :]).sum())
+    lib_b, lib_b_what = spec_library(mTb[:, spec_cols].T.contiguous(), mTb)
+    fns_b = {
+        "medoid_sweep_shard": (
+            lambda: K.medoid_sweep_shard(mTb, qb, idx, w), lambda: K.medoid_sweep_shard_plain(mTb, qb, idx, w),
+            None, bound(f * n * 2 + (2 * n + 62 + f) * 4, 2 * f * n + n + 2 * in_hist_b + 3 * near_b)),
+        "spec_sweep_shard": (
+            lambda: K.spec_sweep_shard(mTb, featsb, spec_cols, w),
+            lambda: K.spec_sweep_shard_plain(mTb, featsb, spec_cols, w), lib_b,
+            bound(f * n * 2 + (n + SPEC_SEEDS * n + f * SPEC_SEEDS) * 4 + SPEC_SEEDS * 63 * 4,
+                  SPEC_SEEDS * (2 * f * n + n) + 2 * in_hist_sb + 3 * near_sb)),
+        "candidate_density_shard": (
+            lambda: K.candidate_density_shard(mTb, qcb, cand, w),
+            lambda: K.candidate_density_shard_plain(mTb, qcb, cand, w), None,
+            bound(f * n_kept * 2 + (n + (2 + f) * MAXSTEPS) * 4,
+                  (2 * f + 1) * MAXSTEPS * n_kept + 3 * n_within_b)),
+    }
     times = {}
-    for name, (kern, plain, lib, bnd) in fns.items():
-        r = {"bound": bnd, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-             "library_ms": None if lib is None else time_ms(lib)}
-        times[name] = r
-        libs = (LIBRARY_NOTES.get(SHARD_OF[name], "none") if lib is None
-                else f"{r['library_ms']:.5f} ms")
-        log(f"{name} at F_pad {f}, N_local {n}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-            f"library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share "
-            f"{bnd[0] / r['ms']:.3f}, L2 cold")
+    for dtype, table in (("float32", fns), ("bfloat16", fns_b)):
+        for name, (kern, plain, lib, bnd) in table.items():
+            r = {"bound": bnd, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                 "library_ms": None if lib is None else time_ms(lib),
+                 "n_pad": BIG_PAD if name == "gather_ball_shard" else n}
+            if dtype == "bfloat16" and lib is not None:
+                r["library_what"] = lib_b_what
+            times[(name, dtype)] = r
+            libs = (LIBRARY_NOTES.get(SHARD_OF[name], "none") if lib is None
+                    else f"{r['library_ms']:.5f} ms")
+            log(f"{name} ({dtype}) at F_pad {f}, N_local {r['n_pad']}: kernel {r['ms']:.5f} ms, plain "
+                f"{r['plain_ms']:.5f} ms, library {libs}, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), "
+                f"roofline share {bnd[0] / r['ms']:.3f}, L2 cold")
     return errs, times
+
+
+def check_ball_and_bf16_shards(dev, mT: torch.Tensor, w: torch.Tensor) -> dict:
+    """Phase 12's checks of `gather_ball_shard` and the bf16 shard
+    variants. The gather: on the first and last 128-aligned shard of the
+    100k path's 100,096 columns and of the 300k path's 300,032 (KB 64) over
+    W = 1, 2 and 4 ranks, 64 of the shard's blocks with all slots valid and
+    with 24 padding slots, bit for bit its plain version on the card and
+    `gather_ball` of the whole matrix for the shard's blocks (each slot's
+    column global). The bf16 variants: on the first and last shard of the
+    100,096 columns of `mT` rounded to bf16 over W = 1, 2 and 4, queries on
+    the shard (the widened column) and held by another rank (-1), bit for
+    bit their plain versions and, given a shard column's widened features
+    and index, the bf16 index entry points on the shard; one launch a call,
+    tallied as "bfloat16". Returns {"gather_ball_shard": err,
+    "<name> bf16": err}."""
+    from vamb_torch import kernels as K
+
+    errs = {"gather_ball_shard": 0.0, **{f"{k} bf16": 0.0 for k in BF16_SHARD_KERNELS}}
+
+    def held(name, got, want, what):
+        for a, b in zip(got, want):
+            check(a.dtype == b.dtype and torch.equal(a, b), f"phase 12: {name} differs from {what}")
+            if a.is_floating_point():
+                errs[name] = max(errs[name], float((a.double() - b.double()).abs().max()))
+
+    for n in (PATH_WIDTHS[1], BIG_PAD):
+        mTg, wg, keptg, d0g = ball_inputs(n, dev, seed=n + 2)
+        blocks = n // 128
+        for world in DIST_SHARD_WORLDS:
+            for r in sorted({0, world - 1}):
+                b_lo, b_hi = r * blocks // world, (r + 1) * blocks // world
+                lo, hi = b_lo * 128, b_hi * 128
+                part = mTg[:, lo:hi].contiguous()
+                side = [v[lo:hi].contiguous() for v in (wg, keptg, d0g)]
+                rng = np.random.default_rng(n + world + r)
+                picked = np.sort(rng.choice(b_hi - b_lo, BALL_KB, replace=False)).astype(np.int32)
+                part_ids = picked.copy()
+                part_ids[BALL_KB * 5 // 8:] = 0  # 24 padding slots, which gather block 0
+                for ids, nb in ((picked, BALL_KB), (part_ids, BALL_KB * 5 // 8)):
+                    bids = torch.as_tensor(ids, device=dev)
+                    got = K.gather_ball_shard(part, bids, nb, *side, lo)
+                    where = f"(N {n}, W {world}, rank {r}, nb {nb})"
+                    held("gather_ball_shard", got, K.gather_ball_shard_plain(part, bids, nb, *side, lo),
+                         f"its plain version {where}")
+                    held("gather_ball_shard", got, K.gather_ball(mTg, bids + b_lo, nb, wg, keptg, d0g),
+                         f"gather_ball of the whole matrix {where}")
+    n = PATH_WIDTHS[1]
+    mTb = mT.to(torch.bfloat16)
+
+    def one_bf16_launch(kernel, fn):
+        before = kernel.launches_by_dtype.get("bfloat16", 0)
+        out = fn()
+        check(kernel.launches_by_dtype.get("bfloat16", 0) == before + 1,
+              f"phase 12: {kernel.__name__} bf16: not one launch tallied as bfloat16 a call")
+        return out
+
+    for world in DIST_SHARD_WORLDS:
+        for r in sorted({0, world - 1}):
+            lo, hi = r * n // world, (r + 1) * n // world
+            part, wp = mTb[:, lo:hi].contiguous(), w[lo:hi].contiguous()
+            wide = part.float()
+            m_loc = hi - lo
+            own, other = 37, (hi + 5) % n
+            q_own, q_other = wide[:, own].contiguous(), mTb[:, other].float().contiguous()
+            where = f"(bf16, W {world}, rank {r})"
+            for q, idx in ((q_own, own), (q_other, -1)):
+                got = one_bf16_launch(K.medoid_sweep_shard, lambda: K.medoid_sweep_shard(part, q, idx, wp))
+                held("medoid_sweep_shard bf16", got, K.medoid_sweep_shard_plain(part, q, idx, wp),
+                     f"its plain version {where}")
+            held("medoid_sweep_shard bf16", K.medoid_sweep_shard(part, q_own, own, wp),
+                 K.medoid_sweep(part, own, wp), f"medoid_sweep on the shard {where}")
+            cols = [own, -1, 5, m_loc - 1, -1, 200, own, 9]
+            feats = torch.stack([wide[:, c] if c >= 0 else mTb[:, (other + s) % n].float()
+                                 for s, c in enumerate(cols)], 1).contiguous()
+            got = one_bf16_launch(K.spec_sweep_shard, lambda: K.spec_sweep_shard(part, feats, cols, wp))
+            held("spec_sweep_shard bf16", got, K.spec_sweep_shard_plain(part, feats, cols, wp),
+                 f"its plain version {where}")
+            mine = [own, 5, m_loc - 1, 200, 9, own, 1, 2]
+            held("spec_sweep_shard bf16", K.spec_sweep_shard(part, wide[:, mine].contiguous(), mine, wp),
+                 K.spec_sweep(part, mine, wp), f"spec_sweep on the shard {where}")
+            cand = torch.tensor([own, -1, 5, m_loc - 1, -1] * 5, device=dev)
+            q = torch.stack([wide[:, c] if c >= 0 else mTb[:, (other + j) % n].float()
+                             for j, c in enumerate(cand.tolist())], 1).contiguous()
+            got = one_bf16_launch(K.candidate_density_shard,
+                                  lambda: K.candidate_density_shard(part, q, cand, wp))
+            held("candidate_density_shard bf16", (got,), (K.candidate_density_shard_plain(part, q, cand, wp),),
+                 f"its plain version {where}")
+            ids = torch.tensor([own, 5, m_loc - 1, 200] * 6 + [9], device=dev)
+            held("candidate_density_shard bf16",
+                 (K.candidate_density_shard(part, wide[:, ids].contiguous(), ids, wp),),
+                 (K.candidate_density_sweep(part, ids, wp),), f"the bf16 density kernel on the shard {where}")
+    torch.cuda.synchronize()
+    log(f"phase 12: gather_ball_shard on the 128-aligned shards of {PATH_WIDTHS[1]} and {BIG_PAD} columns "
+        f"(KB {BALL_KB}) and the bf16 shard variants on the shards of {n}, W {DIST_SHARD_WORLDS}: bit for "
+        "bit their plain versions and the index entry points: " + json.dumps(errs))
+    return errs
 
 
 def engine_run(gen, n_clusters: int) -> list:
@@ -2848,6 +3016,8 @@ def run_dist_one(dev, tmp: Path) -> dict:
         sharded_s = time.time() - t
         launches = {k.__name__: k.launches for k in K.KERNELS}
         traffic = mesh.traffic
+        variants = {label: engine_pair(dev, mesh, latent, lengths, label, kw)
+                    for label, kw in DIST_VARIANTS.items()}
     finally:
         dist.destroy_process_group()
     log(f"phase 12(a): trained 2 epochs with mesh= and encoded in {train_s:.2f} s; "
@@ -2869,8 +3039,77 @@ def run_dist_one(dev, tmp: Path) -> dict:
         "by kind: " + json.dumps(per_attempt))
     return {"launches": launches, "train_encode_s": train_s, "unsharded_engine_s": plain_s,
             "sharded_engine_s": sharded_s, "clusters": len(sharded), "attempts": attempts,
-            "identical": True, "collectives": per_attempt,
+            "identical": True, "collectives": per_attempt, "variants": variants,
             "_labels": labels_of(sharded, N_CONTIGS)}
+
+
+def engine_pair(dev, mesh, latent: np.ndarray, lengths: np.ndarray, label: str, kw: dict) -> dict:
+    """One of 12(a)'s engine runs beside its full-scope one: `DIST_CLUSTERS`
+    clusters of the latent from the unsharded engine and then from the
+    row-sharded one (a world of one) with generator arguments `kw`, the
+    launch counters and the collective tally set to 0 just before the
+    sharded run and read just after. Gates: emission, every attempt's sums
+    and the subset and lane counters bit for bit the unsharded engine's; at
+    the subset scope `gather_ball_shard` launched and `gather_ball`,
+    `medoid_sweep` and `spec_sweep` not, the subset wander (and, lanes on,
+    attempt lanes) ran; at bfloat16 the bf16 variants of the three shard
+    sweeps launched, their float32 ones and the index entry points not, and
+    neither the gather nor `row_sweep`. Logged: the collectives by kind,
+    calls and bytes an attempt (the seeds taken)."""
+    from vamb_torch import kernels as K
+    from vamb_torch.cluster import ClusterGenerator
+
+    t = time.time()
+    plain_gen = ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device=dev, **kw)
+    plain_gen.sums_trace = []
+    plain = engine_run(plain_gen, DIST_CLUSTERS)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t
+    K.reset_launch_counts()
+    mesh.reset_traffic()
+    t = time.time()
+    gen = ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, mesh=mesh, **kw)
+    gen.sums_trace = []
+    sharded = engine_run(gen, DIST_CLUSTERS)
+    torch.cuda.synchronize()
+    sharded_s = time.time() - t
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    by_dtype = {k.__name__: dict(k.launches_by_dtype) for k in K.KERNELS if k.launches_by_dtype}
+    traffic = mesh.traffic
+    what = f"phase 12(a), {label}"
+    check(sharded == plain, f"{what}: the sharded engine's emission differs from the unsharded one's")
+    check(gen.sums_trace == plain_gen.sums_trace and len(gen.sums_trace) > 0,
+          f"{what}: the sharded engine's sums differ from the unsharded one's")
+    check(gen.subset_counts == plain_gen.subset_counts and gen.lane_counts == plain_gen.lane_counts,
+          f"{what}: the sharded engine's subset or lane counters differ from the unsharded one's")
+    if "distance_dtype" in kw:
+        for name in BF16_SHARD_KERNELS:
+            check(by_dtype.get(name, {}).get("bfloat16", 0) > 0
+                  and by_dtype.get(name, {}).get("float32", 0) == 0,
+                  f"{what}: {name} did not launch its bf16 variant alone: {by_dtype.get(name)}")
+        for name in ("medoid_sweep", "spec_sweep", "candidate_density_sweep", "gather_ball_shard",
+                     "gather_blocks", "row_sweep"):
+            check(launches[name] == 0, f"{what}: the sharded engine launched {name}")
+    else:
+        check(launches["gather_ball_shard"] > 0, f"{what}: the sharded engine never launched "
+              "gather_ball_shard")
+        for name in ("gather_blocks", "medoid_sweep", "spec_sweep"):
+            check(launches[name] == 0, f"{what}: the sharded engine launched {name}")
+        check(gen.subset_counts["attempts"] > 0, f"{what}: no subset wander ran")
+        if kw.get("attempt_batch") == "on":
+            check(gen.lane_counts["lanes"] > 0, f"{what}: no attempt lane ran")
+    attempts = len(gen.sums_trace)
+    per_attempt = {k: {"calls_per_attempt": v["calls"] / attempts,
+                       "bytes_per_attempt": v["bytes"] / attempts, "max_bytes": v["max_bytes"]}
+                   for k, v in traffic.items()}
+    log(f"{what}: {DIST_CLUSTERS} clusters bit for bit the unsharded engine's (unsharded "
+        f"{plain_s:.2f} s, sharded {sharded_s:.2f} s; subset {json.dumps(gen.subset_counts)}; lanes "
+        f"{gen.lane_counts['lanes']} climbed, {gen.lane_counts['admitted']} admitted); launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}, by type {json.dumps(by_dtype)}; "
+        f"NCCL collectives over {attempts} attempts by kind: " + json.dumps(per_attempt))
+    return {"launches": launches, "launches_by_dtype": by_dtype, "unsharded_engine_s": plain_s,
+            "sharded_engine_s": sharded_s, "attempts": attempts, "subset_counts": gen.subset_counts,
+            "lane_counts": gen.lane_counts, "identical": True, "collectives": per_attempt}
 
 
 def run_dist_two(tmp: Path, labels_one: np.ndarray) -> dict:
@@ -2919,6 +3158,103 @@ def run_dist_two(tmp: Path, labels_one: np.ndarray) -> dict:
     result = {"wall_s": wall, "ranks": ranks, "w2_vs_w1": agree}
     log("phase 12(b): " + json.dumps(result))
     return result
+
+
+def run_dist_engine_two(tmp: Path, latent: np.ndarray, lengths: np.ndarray, source: str) -> dict:
+    """Phase 12(c): two processes sharing the card over gloo
+    (`dist_engine_rank`), each clustering the 300,032-column latent (phase
+    5's, or `ab_latent()` where phase 5 did not run) at the engine's default
+    flags, so "auto" takes the subset wander and attempt lanes,
+    DIST_CLUSTERS clusters; then the same W = 2 engine on the CPU over the
+    same group. A rank that fails or outlives DIST_RANK_TIMEOUT_S fails the
+    phase; the children are killed whatever happens. Gates: the two ranks'
+    clusters identical, each rank's first DIST_CPU_CLUSTERS identical to the
+    CPU's, the subset wander, attempt lanes and `gather_ball_shard` run on
+    the card. Logged: the collectives an attempt by kind."""
+    out = tmp / "c"
+    out.mkdir()
+    inputs = tmp / "latent_300k.npz"
+    np.savez(inputs, latent=latent, lengths=lengths)
+    cmd = lambda r: [sys.executable, str(Path(__file__).resolve()), "--dist-engine-rank",  # noqa: E731
+                     str(tmp / "rendezvous_c"), str(r), str(inputs), str(out)]
+    t = time.time()
+    procs = [subprocess.Popen(cmd(r), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=str(ROOT)) for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=max(1.0, t + DIST_RANK_TIMEOUT_S - time.time()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"check failed: phase 12(c): rank {r} outlived "
+                                     f"{DIST_RANK_TIMEOUT_S} s") from None
+            check(p.returncode == 0, f"phase 12(c): rank {r} failed ({p.returncode}):\n{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.time() - t
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    check(len(ranks[0]["clusters"]) == DIST_CLUSTERS and ranks[0]["clusters"] == ranks[1]["clusters"],
+          "phase 12(c): the two ranks' clusters differ")
+    for r in ranks:
+        check(r["card_vs_cpu_identical"] == DIST_CPU_CLUSTERS,
+              f"phase 12(c): rank {r['rank']}: the W = 2 clusters on the card differ from the CPU's "
+              f"after {r['card_vs_cpu_identical']}")
+        check(r["subset_ball"] > 0 and r["subset_counts"]["attempts"] > 0 and r["lane_counts"]["lanes"] > 0,
+              f"phase 12(c): rank {r['rank']} did not take the subset wander and lanes at the default flags")
+        check(r["launches"].get("gather_ball_shard", 0) > 0,
+              f"phase 12(c): rank {r['rank']} never launched gather_ball_shard")
+        r.pop("clusters")
+    result = {"wall_s": wall, "latent": source, "ranks": ranks}
+    log("phase 12(c): " + json.dumps(result))
+    return result
+
+
+def dist_engine_rank(rendezvous: str, rank: int, inputs: Path, out: Path) -> int:
+    """One rank of phase 12(c): join a gloo group of 2 on the card, cluster
+    the latent in `inputs` on the row-sharded engine at its default flags
+    (DIST_CLUSTERS clusters, the launch counters and the collective tally
+    set to 0 just before and read just after), then the same W = 2 engine
+    on the CPU over the same group (DIST_CPU_CLUSTERS clusters). Writes
+    `out/rank<r>.json`."""
+    import torch.distributed as dist
+    from vamb_torch import kernels as K
+    from vamb_torch.cluster import ClusterGenerator
+    from vamb_torch.parallel import distributed_init, make_mesh
+
+    torch.set_num_threads(4)
+    distributed_init(f"file://{rendezvous}", 2, rank, device="cuda", backend="gloo",
+                     timeout_s=DIST_RANK_TIMEOUT_S)
+    data = np.load(inputs)
+    latent, lengths = data["latent"], data["lengths"]
+    mesh = make_mesh(2, device="cuda")
+    K.reset_launch_counts()
+    t = time.time()
+    gen = ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, mesh=mesh)
+    mesh.reset_traffic()  # the attempts' traffic, not the construction's broadcast of the latent
+    gen.sums_trace = []
+    card = engine_run(gen, DIST_CLUSTERS)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = {k.__name__: k.launches for k in K.KERNELS if k.launches}
+    attempts = len(gen.sums_trace)
+    per_attempt = {k: {"calls_per_attempt": v["calls"] / attempts,
+                       "bytes_per_attempt": v["bytes"] / attempts, "max_bytes": v["max_bytes"]}
+                   for k, v in mesh.traffic.items()}
+    t = time.time()
+    cpu_gen = ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device="cpu",
+                               mesh=make_mesh(2, device="cpu"))
+    cpu = engine_run(cpu_gen, DIST_CPU_CLUSTERS)
+    cpu_s = time.time() - t
+    same = next((i for i, (a, b) in enumerate(zip(card, cpu)) if a != b), min(len(card), len(cpu)))
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "engine_s": wall, "cpu_engine_s": cpu_s, "subset_ball": gen.Q,
+        "subset_counts": gen.subset_counts, "lane_counts": gen.lane_counts, "attempts": attempts,
+        "launches": launches, "collectives": per_attempt, "card_vs_cpu_identical": same,
+        "clusters": card}))
+    dist.destroy_process_group()
+    return 0
 
 
 def dist_rank(rendezvous: str, rank: int, inputs: Path, out: Path) -> int:
@@ -2978,35 +3314,59 @@ def dist_rank(rendezvous: str, rank: int, inputs: Path, out: Path) -> int:
     return 0
 
 
-def shard_rows_json(errs: dict, times: dict, run_one: dict) -> list:
+def shard_rows_json(errs: dict, times: dict, run_one: dict, run_c: dict) -> list:
     """The kernels JSON line's rows of the shard entry points: phase 12's
     checks and times at the whole width of a world of one, and 12(a)'s
-    launches."""
+    launches (the full-scope run's; `gather_ball_shard`'s from the two
+    subset runs, the bf16 variants' from the bfloat16 run), with 12(c)'s
+    rank 0's launches beside them."""
     rows = []
-    for name in SHARD_KERNELS:
-        r = times[name]
+    variants = run_one["variants"]
+    c_launches = run_c["ranks"][0]["launches"]
+    for (name, dtype), r in times.items():
         base = SHARD_OF[name]
+        if dtype == "bfloat16":
+            launches = variants["bfloat16"]["launches_by_dtype"].get(name, {}).get("bfloat16", 0)
+            path = "phase 12(a), bfloat16 (the row-sharded engine, a world of one on NCCL)"
+            err = errs[f"{name} bf16"]
+        elif name == "gather_ball_shard":
+            launches = sum(variants[v]["launches"][name] for v in ("subset, lanes on", "subset, lanes off"))
+            path = "phase 12(a), subset lanes on and off (the row-sharded engine, a world of one on NCCL)"
+            err = errs[name]
+        else:
+            launches, err = run_one["launches"][name], errs[name]
+            path = "phase 12(a) (the row-sharded engine, a world of one on NCCL)"
+        lib_key = "library_note" if r["library_ms"] is None else "library_what"
+        lib_text = (LIBRARY_NOTES.get(base, "none") if r["library_ms"] is None
+                    else r.get("library_what", "index_select of the matrix's blocks alone"
+                               if name == "gather_ball_shard" else None))
         rows.append({
             "name": name, "route": "cuda", "source": CLUSTER_SOURCE, "replaces": REPLACES[base],
-            "launches": run_one["launches"][name], "max_abs_err": errs[name],
+            "launches": launches, "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            **({"library_note": LIBRARY_NOTES.get(base, "none")} if r["library_ms"] is None else {}),
+            **({lib_key: lib_text} if lib_text is not None else {}),
             **({"replaces_kind": REPLACES_KIND[base]} if base in REPLACES_KIND else {}),
-            "entry_point_of": base, "f_pad": F_PAD, "n_pad": PATH_WIDTHS[1], "dtype": "float32",
-            "path": "phase 12(a) (the row-sharded engine, a world of one on NCCL)",
+            "entry_point_of": base, "f_pad": F_PAD, "n_pad": r["n_pad"], "dtype": dtype,
+            "path": path, "launches_12c_rank0": c_launches.get(name, 0) if dtype == "float32" else 0,
         })
     return rows
 
 
-def run_dist(dev) -> tuple[list, dict]:
-    """Phase 12: the shard entry points' checks and times, 12(a) and 12(b).
+def run_dist(dev, big=None) -> tuple[list, dict]:
+    """Phase 12: the shard entry points' checks and times, 12(a), 12(b) and
+    12(c) (on `big`, phase 5's (latent, lengths), else `ab_latent()`).
     Returns (the kernels JSON rows, the phase's results)."""
     errs, times = check_and_time_shards(dev)
     with tempfile.TemporaryDirectory() as tmp:
         one = run_dist_one(dev, Path(tmp))
         two = run_dist_two(Path(tmp), one.pop("_labels"))
-    return shard_rows_json(errs, times, one), {"world_of_one": one, "two_processes": two}
+        latent, lengths = big if big is not None else ab_latent()
+        source = ("phase 5's latent" if big is not None
+                  else "ab_latent(): 300,000 points in 3,000 clumps (phase 5 did not run)")
+        three = run_dist_engine_two(Path(tmp), latent, lengths, source)
+    return (shard_rows_json(errs, times, one, three),
+            {"world_of_one": one, "two_processes": two, "two_processes_engine": three})
 
 
 def count_attempts(gen) -> list:
@@ -3818,7 +4178,7 @@ def main(mode: str = "full") -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_bf16 = run_bf16_path(dev, Path(tmp), run_100k)
     phase_done("11 (the bf16 path)")
-    shard_rows, phase12 = run_dist(dev)
+    shard_rows, phase12 = run_dist(dev, (run_300k["_latent"], run_300k["_lengths"]))
     phase_done("12 (several processes)")
 
     kernels = (kernel_rows(timed, errs, run_100k, run_300k, run_tax, run_avamb)
@@ -3862,6 +4222,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--dist-rank"]:  # one rank of phase 12(b)
         sys.exit(dist_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5])))
+    if sys.argv[1:2] == ["--dist-engine-rank"]:  # one rank of phase 12(c)
+        sys.exit(dist_engine_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5])))
     modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy",
              "--avamb": "avamb", "--lanes": "lanes", "--bf16": "bf16", "--dist": "dist"}
     sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

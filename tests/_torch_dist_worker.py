@@ -16,8 +16,11 @@ Scenarios:
           batch split across the ranks;
   train   3 epochs of data-parallel VAE training;
   engine  the row-sharded engine on the parent's latents;
+  subset  the row-sharded engine at the subset scope (attempt lanes auto
+          and off, a compacting run) and at bfloat16 distances, with its
+          subset and lane counters;
   traffic the engine's collective tally over its first clusters at two
-          widths.
+          widths, at full scope and at the subset scope.
 """
 
 import itertools
@@ -30,6 +33,7 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from vamb_torch import cluster  # noqa: E402
 from vamb_torch.cluster import ClusterGenerator  # noqa: E402
 from vamb_torch.models import VAE, make_dataset  # noqa: E402
 from vamb_torch.models import layers  # noqa: E402
@@ -39,6 +43,9 @@ from vamb_torch.parallel import (  # noqa: E402
 from vamb_torch.utils.checkpoint import params_to_jax  # noqa: E402
 
 TRAFFIC_CLUSTERS = 40  # clusters the traffic scenario takes at each width
+# the subset scenario's runs, each a latent `<name>_m`, `<name>_len` and
+# `<name>_kw` of the inputs
+SUBSET_RUNS = ("sub_clumpy", "sub_uniform", "sub_off", "sub_compact", "sub_fallback", "bf16")
 
 
 def scenario_mesh(mesh, inp) -> dict:
@@ -106,16 +113,45 @@ def scenario_engine(mesh, inp) -> dict:
     return out
 
 
-def scenario_traffic(mesh, inp) -> dict:
+def scenario_subset(mesh, inp) -> dict:
+    "Each run with its ball size `<name>_q`, where the inputs give one."
     out = {}
-    for n in (2048, 8192):
-        gen = ClusterGenerator(inp[f"traffic{n}_m"].copy(), inp[f"traffic{n}_len"], device="cpu",
-                               mesh=mesh, rng_seed=5, windowsize=60)
-        mesh.reset_traffic()  # the attempts' traffic, not the construction's broadcast of the latent
-        sizes = [len(c.members) for c in itertools.islice(gen, TRAFFIC_CLUSTERS)]
-        out[f"n{n}_kinds"] = np.array(sorted(mesh.traffic))
-        out[f"n{n}_max_bytes"] = np.array([mesh.traffic[k]["max_bytes"] for k in sorted(mesh.traffic)])
-        out[f"n{n}_largest_cluster"] = np.array(max(sizes))
+    for name in SUBSET_RUNS:
+        kw = dict(inp[f"{name}_kw"].item())
+        cluster._SUBSET_Q = int(inp[f"{name}_q"]) if f"{name}_q" in inp.files else 1 << 13
+        gen = ClusterGenerator(inp[f"{name}_m"].copy(), inp[f"{name}_len"], device="cpu",
+                               mesh=mesh, **kw)
+        cluster._SUBSET_Q = 1 << 13
+        out[name] = emission(gen)
+        out[f"{name}_compactions"] = np.array(gen.compactions, np.int64).reshape(-1, 3)
+        out[f"{name}_subset_counts"] = np.array(list(gen.subset_counts.values()))
+        out[f"{name}_lane_counts"] = np.array(list(gen.lane_counts.values()))
+        out[f"{name}_lanes"] = np.array(gen.lane_counts["lanes"])
+    return out
+
+
+def scenario_traffic(mesh, inp) -> dict:
+    """The collective tally over the first clusters at N 2,048 and 8,192: at
+    full scope, and at the subset scope with a ball of `traffic_q` columns
+    (both widths at least 4 Q)."""
+    out = {}
+    q = int(inp["traffic_q"])
+    for scope in ("full", "subset"):
+        for n in (2048, 8192):
+            cluster._SUBSET_Q = q if scope == "subset" else 1 << 13
+            gen = ClusterGenerator(inp[f"traffic{n}_m"].copy(), inp[f"traffic{n}_len"],
+                                   device="cpu", mesh=mesh, rng_seed=5, windowsize=60,
+                                   wander_scope=scope)
+            mesh.reset_traffic()  # the attempts' traffic, not the construction's broadcast
+            sizes = [len(c.members) for c in itertools.islice(gen, TRAFFIC_CLUSTERS)]
+            tag = f"{scope}{n}"
+            out[f"{tag}_kinds"] = np.array(sorted(mesh.traffic))
+            out[f"{tag}_max_bytes"] = np.array([mesh.traffic[k]["max_bytes"]
+                                                for k in sorted(mesh.traffic)])
+            out[f"{tag}_largest_cluster"] = np.array(max(sizes))
+            out[f"{tag}_subset_attempts"] = np.array(gen.subset_counts["attempts"])
+            out[f"{tag}_f_pad"] = np.array(gen.matrixT.shape[0])
+    cluster._SUBSET_Q = 1 << 13
     return out
 
 

@@ -335,6 +335,53 @@ def test_shard_sweeps_match_plain_and_the_index_entry_points(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [w for w in _SHARD_WIDTHS if w % 128 == 0])
+def test_ball_gather_and_bf16_shards_match_plain_and_the_index_entry_points(cuda, n):
+    """`gather_ball_shard` on the 128-aligned shard equals its plain version
+    and `gather_ball` of the whole matrix for the shard's blocks (columns
+    global); the bf16 shard variants of the three sweeps equal their plain
+    versions and, given a bf16 shard column's widened features and its
+    index, the bf16 index entry points on the shard, bit for bit."""
+    mT, w, part, wp = _shard_case(cuda, n, seed=n + 1)
+    kept = w > 0
+    d0 = K.row_sweep(mT, 300)
+    nblk = n // 128
+    local = torch.tensor([1, 5, nblk - 1, 0, 0, 0], dtype=torch.int32, device=cuda)
+    got = K.gather_ball_shard(part, local, 3, wp, kept[256:256 + n].contiguous(),
+                              d0[256:256 + n].contiguous(), 256)
+    args = (local, 3, wp, kept[256:256 + n].contiguous(), d0[256:256 + n].contiguous(), 256)
+    for a, b, c in zip(got, K.gather_ball_shard_plain(part, *args),
+                       K.gather_ball(mT, local + 2, 3, w, kept, d0)):
+        assert a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, c)
+    bf = part.to(torch.bfloat16).contiguous()
+    q = bf.float()
+    own, other = 37, mT[:, 100].to(torch.bfloat16).float().contiguous()
+    for qq, idx in ((q[:, own].contiguous(), own), (other, -1)):
+        for a, b in zip(K.medoid_sweep_shard(bf, qq, idx, wp),
+                        K.medoid_sweep_shard_plain(bf, qq, idx, wp)):
+            assert a.dtype == b.dtype and torch.equal(a, b), idx
+    for a, b in zip(K.medoid_sweep_shard(bf, q[:, own].contiguous(), own, wp),
+                    K.medoid_sweep(bf, own, wp)):
+        assert torch.equal(a, b)
+    cols = [own, -1, 5, n - 1]
+    feats = torch.stack([q[:, c] if c >= 0 else other for c in cols], 1).contiguous()
+    for a, b in zip(K.spec_sweep_shard(bf, feats, cols, wp),
+                    K.spec_sweep_shard_plain(bf, feats, cols, wp)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    mine = [own, 5, n - 1, 200]
+    for a, b in zip(K.spec_sweep_shard(bf, q[:, mine].contiguous(), mine, wp),
+                    K.spec_sweep(bf, mine, wp)):
+        assert torch.equal(a, b)
+    cand = torch.tensor([own, -1, 5, n - 1, -1] * 5, dtype=torch.int64, device=cuda)
+    qc = torch.stack([q[:, c] if c >= 0 else other for c in cand.tolist()], 1).contiguous()
+    assert torch.equal(K.candidate_density_shard(bf, qc, cand, wp),
+                       K.candidate_density_shard_plain(bf, qc, cand, wp))
+    ids = torch.tensor([own, 5, n - 1, 200], device=cuda)
+    assert torch.equal(K.candidate_density_shard(bf, q[:, ids].contiguous(), ids, wp),
+                       K.candidate_density_sweep(bf, ids, wp))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_gumbel_shards_merge_to_gumbel_topc(cuda, world):
     """Each shard's `gumbel_topc_shard` keys equal its plain version's, and
@@ -362,7 +409,8 @@ def test_gumbel_shards_merge_to_gumbel_topc(cuda, world):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["medoid", "spec", "density", "gumbel"])
+@pytest.mark.parametrize("kernel", ["medoid", "spec", "density", "gumbel", "ball", "medoid_bf16",
+                                    "spec_bf16", "density_bf16"])
 def test_shard_entry_points_are_one_launch(cuda, kernel):
     "Each shard entry point is one device kernel a call, its index entry point's kernel."
     from vamb_torch.utils import threefry
@@ -377,6 +425,8 @@ def test_shard_entry_points_are_one_launch(cuda, kernel):
     tried = ~kept
     d = K.medoid_sweep(part, 3, wp)[0]
     key = threefry.PRNGKey(1)
+    bf = part.to(torch.bfloat16).contiguous()
+    bids = torch.arange(64, dtype=torch.int32, device=cuda)
     fn, name = {
         "medoid": (lambda: K.medoid_sweep_shard(part, q1, -1, wp), "medoid_sweep_kernel"),
         "spec": (lambda: K.spec_sweep_shard(part, q8, [-1] * 8, wp), "spec_sweep_kernel"),
@@ -384,6 +434,12 @@ def test_shard_entry_points_are_one_launch(cuda, kernel):
                     "candidate_density_kernel"),
         "gumbel": (lambda: K.gumbel_topc_shard(key, d, kept, tried, 7, 25, 2 * n, n),
                    "gumbel_topc_kernel"),
+        "ball": (lambda: K.gather_ball_shard(part, bids, 50, wp, kept, d, n),
+                 "gather_blocks_kernel"),
+        "medoid_bf16": (lambda: K.medoid_sweep_shard(bf, q1, -1, wp), "medoid_sweep_kernel"),
+        "spec_bf16": (lambda: K.spec_sweep_shard(bf, q8, [-1] * 8, wp), "spec_sweep_kernel"),
+        "density_bf16": (lambda: K.candidate_density_shard(bf, q25, cand, wp),
+                         "candidate_density_kernel"),
     }[kernel]
     assert len(_one_launch(cuda, fn, name)) == 3
 
@@ -407,6 +463,39 @@ def test_sharded_engine_card_equals_cpu(cuda):
         if device == cuda:
             assert K.gumbel_topc_shard.launches > 0 and K.candidate_density_shard.launches > 0
             assert K.gumbel_topc.launches == 0 and K.candidate_density_sweep.launches == 0
+    assert runs[0] == runs[1] == runs[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(wander_scope="subset", attempt_batch="on"),
+                                dict(wander_scope="subset", attempt_batch="off"),
+                                dict(distance_dtype="bfloat16")])
+def test_sharded_subset_and_bf16_engine_card_equals_cpu(cuda, kw):
+    """The row-sharded engine of one rank on the card at the subset scope
+    (lanes on and off) and at bfloat16 distances emits what it emits on the
+    CPU and what the unsharded engine emits; the ball came from
+    `gather_ball_shard` (never `gather_ball`), the bf16 run's sweeps from
+    the bf16 shard variants."""
+    from vamb_torch.cluster import ClusterGenerator
+    from vamb_torch.parallel import make_mesh
+
+    mT_np, lengths = _clumpy(6_000, 32, seed=12)
+    m = np.ascontiguousarray(mT_np.T)
+    runs = []
+    for device, mesh in ((cuda, make_mesh(1, device=cuda)), ("cpu", make_mesh(1, device="cpu")),
+                         ("cpu", None)):
+        K.reset_launch_counts()
+        gen = ClusterGenerator(m.copy(), lengths, rng_seed=3, device=device, mesh=mesh, **kw)
+        runs.append([(c.medoid, c.kind_str, c.members.tolist()) for c in gen])
+        if device == cuda:
+            assert K.medoid_sweep.launches == 0 and K.spec_sweep.launches == 0
+            assert K.gather_blocks.launches == 0
+            if "distance_dtype" in kw:
+                assert K.spec_sweep_shard.launches_by_dtype.get("bfloat16", 0) > 0
+                assert K.candidate_density_shard.launches_by_dtype.get("bfloat16", 0) > 0
+                assert K.gather_ball_shard.launches == 0
+            else:
+                assert K.gather_ball_shard.launches > 0
     assert runs[0] == runs[1] == runs[2]
 
 

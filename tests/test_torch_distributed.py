@@ -9,12 +9,15 @@
   (`.proc1` is removed), and its clusters equal a single-process run's
   (the 400 contigs pad to 512 columns at W = 1 and 2 alike, so both draw
   over the same Gumbel width; the data-parallel latent differs by ulps,
-  which the 12-bit mask absorbs).
+  which the 12-bit mask absorbs); the same with the engine's switches
+  under several processes, `--wander_scope subset` (the subset wander and
+  attempt lanes on the row-sharded engine) and `--distance_dtype bfloat16`.
 * subcommands whose models do not train data-parallel yet refuse several
   processes, naming ROADMAP item 10b.
 """
 
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -82,15 +85,17 @@ def _launch(argv: list) -> subprocess.Popen:
                             stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
 
 
-def test_two_process_bin_default(tmp_path):
+def _two_and_one(tmp_path, flags: list) -> tuple:
+    """`bin default` with `flags` in two processes and in one, all at once.
+    Returns the two runs' output directories (multi, single)."""
     data = tmp_path / "data"
     data.mkdir()
     make_golden.write_synthetic_dataset(data)
     coordinator = f"127.0.0.1:{free_port()}"
     multi, single = tmp_path / "multi", tmp_path / "single"
-    procs = [_launch(_argv(data, multi) + ["--coordinator", coordinator, "--nprocs", "2",
-                                           "--procid", str(r)]) for r in range(2)]
-    procs.append(_launch(_argv(data, single)))
+    procs = [_launch(_argv(data, multi) + flags + ["--coordinator", coordinator, "--nprocs", "2",
+                                                   "--procid", str(r)]) for r in range(2)]
+    procs.append(_launch(_argv(data, single) + flags))
     try:
         for p in procs:
             out, err = p.communicate(timeout=JOIN_TIMEOUT_S)
@@ -100,6 +105,11 @@ def test_two_process_bin_default(tmp_path):
             q.kill()
             q.communicate()
         raise
+    return multi, single
+
+
+def test_two_process_bin_default(tmp_path):
+    multi, single = _two_and_one(tmp_path, [])
     # process 0's outputs in place, process 1's scratch directory removed
     for name in ("vae_clusters_unsplit.tsv", "vae_clusters_metadata.tsv", "latent.npz",
                  "model.npz", "log.txt"):
@@ -108,5 +118,24 @@ def test_two_process_bin_default(tmp_path):
     log = (multi / "log.txt").read_text()
     assert "Multi-process: process 0 of 2" in log
     assert "Using a 2-process mesh" in log and "Parameters identical on 2 ranks" in log
+    assert ((multi / "vae_clusters_unsplit.tsv").read_text()
+            == (single / "vae_clusters_unsplit.tsv").read_text())
+
+
+@pytest.mark.parametrize("flags,engine", [
+    (["--wander_scope", "subset"], "subset wander"),
+    (["--distance_dtype", "bfloat16"], "bfloat16"),
+])
+def test_two_process_bin_default_engine_switches(tmp_path, flags, engine):
+    """The engine's switches under two processes: the row-sharded engine
+    takes them (the subset wander with its attempt lanes, or bfloat16
+    distances) and emits the clusters of a single-process run."""
+    multi, single = _two_and_one(tmp_path, flags)
+    assert not (multi / ".proc1").exists()
+    log = (multi / "log.txt").read_text()
+    assert "Using a 2-process mesh" in log
+    if engine == "subset wander":
+        attempts = re.search(r'subset wander \{"attempts": (\d+)', log)
+        assert attempts and int(attempts.group(1)) > 0, log[-2000:]
     assert ((multi / "vae_clusters_unsplit.tsv").read_text()
             == (single / "vae_clusters_unsplit.tsv").read_text())

@@ -21,16 +21,27 @@ tests/test_parallel.py does. Held:
   tests/test_parallel.py:55-66's data, a clumpy full-scope latent and a
   compacting run, at W = 2 and 4, and bit-identical (sums and emission) to
   the unsharded port at W = 1;
+* the same at the subset scope and at bfloat16 distances: on
+  tests/test_parallel.py:185-205's three subset-wander regimes (attempt
+  lanes auto and off), a forced-subset run that compacts, a 1,024-column
+  ball that overflows and drifts (`_SUBSET_Q` set on both packages for
+  that run), and a bfloat16 run; every rank's emission and its subset and
+  lane counters equal rank 0's; at W = 1 bit for bit the unsharded port,
+  counters included;
 * each shard entry point's plain version equal to the index plain version
-  on a slice of the matrix, and the Gumbel merge of the shards' keys equal
-  to `gumbel_topc_plain` over the global width;
-* no per-attempt collective payload grows between N = 2,048 and N = 8,192
-  (the members' gather is bounded by the largest cluster).
+  on a slice of the matrix (the bf16 ones on a bf16 slice, and the ball's
+  gather on a 128-aligned slice), and the Gumbel merge of the shards' keys
+  equal to `gumbel_topc_plain` over the global width;
+* no per-attempt collective payload grows between N = 2,048 and N = 8,192,
+  at full scope and at the subset scope (a 512-column ball, so both widths
+  are at least 4 Q): the ball's gather stays within W x Q x (F_pad + 3)
+  floats and the members' gathers are bounded by the largest cluster.
 """
 
 import os
 import subprocess
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -45,6 +56,8 @@ from vamb_torch.parallel import make_mesh as t_make_mesh
 from vamb_torch.utils import threefry
 from vamb_torch.utils.checkpoint import flatten_tree
 
+from vamb_torch import cluster as t_cluster
+from vamb_tpu import cluster as j_cluster
 from vamb_tpu.cluster import ClusterGenerator as JaxGenerator
 from vamb_tpu.models import VAE as JVAE
 from vamb_tpu.models import make_dataset as j_make_dataset
@@ -52,12 +65,16 @@ from vamb_tpu.parallel import make_mesh as j_make_mesh
 
 from .test_parallel import make_raw
 from .test_parity_cluster import clumpy_latents
+from .test_torch_cluster import _wide_clumps
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "_torch_dist_worker.py"
-SCENARIOS = ("mesh", "bn", "train", "engine", "traffic")
+SCENARIOS = ("mesh", "bn", "train", "engine", "subset", "traffic")
 JOIN_TIMEOUT_S = 150
 KINDS = ("normal", "loner", "fallback")
+SUBSET_RUNS = ("sub_clumpy", "sub_uniform", "sub_off", "sub_compact", "sub_fallback", "bf16")
+FALLBACK_Q = 1 << 10  # sub_fallback's ball: overflows on some attempts
+TRAFFIC_Q = 512  # the subset traffic runs' ball: N 2,048 and 8,192 are 4 Q and 16 Q
 
 
 def make_inputs(world: int) -> dict:
@@ -70,6 +87,14 @@ def make_inputs(world: int) -> dict:
     brng = np.random.default_rng(21)
     t2048, l2048 = clumpy_latents(32, 64, 16, seed=31)
     t8192, l8192 = clumpy_latents(128, 64, 16, seed=31)
+    # tests/test_parallel.py:185-205's three subset-wander regimes
+    urng = np.random.default_rng(5)
+    uniform = urng.standard_normal((2048, 16)).astype(np.float32)
+    uniform_len = urng.integers(2000, 50_000, 2048)
+    sub_clumpy, sub_clumpy_len = clumpy_latents(40, 100, 16, noise_frac=0.1, seed=3)
+    sub_off, sub_off_len = clumpy_latents(20, 80, 16, noise_frac=0.15, seed=9)
+    # tests/test_torch_cluster.py's overflow-and-drift regime
+    wide, wide_len = _wide_clumps(40, 60, 32, scale=0.06, noise_frac=0.2, seed=4)
     return {
         # float32 summands whose sum depends on the order: 1e8 swallows a 1
         "order_terms": np.array([[1e8, 1.0], [1.0, -1e8], [-1e8, 1.0], [1.0, 3.0]][:world],
@@ -85,8 +110,23 @@ def make_inputs(world: int) -> dict:
         "compact_m": compact, "compact_len": compact_len,
         "compact_kw": {"rng_seed": 2, "windowsize": 60, "batch_clusters": 8,
                        "compact_min_pad": 512},
+        "sub_clumpy_m": sub_clumpy, "sub_clumpy_len": sub_clumpy_len,
+        "sub_clumpy_kw": {"rng_seed": 7, "windowsize": 60, "wander_scope": "subset"},
+        "sub_uniform_m": uniform, "sub_uniform_len": uniform_len,
+        "sub_uniform_kw": {"rng_seed": 2, "windowsize": 40, "wander_scope": "subset"},
+        "sub_off_m": sub_off, "sub_off_len": sub_off_len,
+        "sub_off_kw": {"rng_seed": 1, "windowsize": 60, "wander_scope": "subset",
+                       "attempt_batch": "off"},
+        "sub_compact_m": compact, "sub_compact_len": compact_len,
+        "sub_compact_kw": {"rng_seed": 2, "windowsize": 60, "batch_clusters": 8,
+                           "compact_min_pad": 512, "wander_scope": "subset"},
+        "sub_fallback_m": wide, "sub_fallback_len": wide_len, "sub_fallback_q": FALLBACK_Q,
+        "sub_fallback_kw": {"rng_seed": 13, "windowsize": 120, "wander_scope": "subset"},
+        "bf16_m": clumpy, "bf16_len": clumpy_len,
+        "bf16_kw": {"rng_seed": 7, "windowsize": 60, "distance_dtype": "bfloat16"},
         "traffic2048_m": t2048, "traffic2048_len": l2048,
         "traffic8192_m": t8192, "traffic8192_len": l8192,
+        "traffic_q": TRAFFIC_Q,
     }
 
 
@@ -133,15 +173,30 @@ def runs(tmp_path_factory):
     return {w: (base / f"w{w}", refs[w]) for w in groups}
 
 
+_CONSTRUCT = threading.Lock()  # the two worlds' threads construct one generator at a time
+
+
+def jax_generator(inp, name: str, mesh):
+    """`vamb_tpu`'s mesh engine on run `name` of the inputs, constructed
+    (where `vamb_tpu` reads `_SUBSET_Q`) with the run's ball size, if any."""
+    with _CONSTRUCT:
+        default = j_cluster._SUBSET_Q
+        j_cluster._SUBSET_Q = int(inp[f"{name}_q"]) if f"{name}_q" in inp.files else default
+        try:
+            return JaxGenerator(inp[f"{name}_m"].copy(), inp[f"{name}_len"], mesh=mesh,
+                                **inp[f"{name}_kw"].item())
+        finally:
+            j_cluster._SUBSET_Q = default
+
+
 def jax_references(world: int, inp) -> dict:
     mesh = j_make_mesh(world)
     ds = j_make_dataset(inp["train_ab"], inp["train_tnf"], inp["train_len"])
     vae = JVAE(nsamples=3, nhiddens=[32, 32], nlatent=8, seed=2)
     vae.trainmodel(ds, nepochs=3, batchsize=64, batchsteps=None, mesh=mesh)
     refs = {"train": flatten_tree({"params": vae.params, "bn_state": vae.bn_state})}
-    for name in ("random300", "clumpy", "compact"):
-        gen = JaxGenerator(inp[f"{name}_m"].copy(), inp[f"{name}_len"], mesh=mesh,
-                           **inp[f"{name}_kw"].item())
+    for name in ("random300", "clumpy", "compact", *SUBSET_RUNS):
+        gen = jax_generator(inp, name, mesh)
         refs[name] = [(int(c.medoid), c.kind_str, np.sort(np.asarray(c.members))) for c in gen]
     return refs
 
@@ -215,6 +270,15 @@ def test_dp_training_matches_vamb_tpu_mesh(runs, world):
         np.testing.assert_allclose(res[0][k], np.asarray(v), rtol=5e-4, atol=5e-5, err_msg=k)
 
 
+def assert_same_emission(rows: np.ndarray, want: list) -> None:
+    "A rank's emission (`_torch_dist_worker.emission`) equals `vamb_tpu`'s clusters."
+    got = clusters_of(rows)
+    assert len(got) == len(want)
+    for i, ((gm, gk, gmem), (wm, wk, wmem)) in enumerate(zip(got, want)):
+        assert (gm, gk) == (wm, wk), (i, gm, gk, wm, wk)
+        np.testing.assert_array_equal(gmem, wmem)
+
+
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("name", ["random300", "clumpy", "compact"])
 def test_sharded_engine_matches_vamb_tpu_mesh(runs, world, name):
@@ -222,13 +286,35 @@ def test_sharded_engine_matches_vamb_tpu_mesh(runs, world, name):
     res = results(d, "engine", world)
     for r in res[1:]:
         np.testing.assert_array_equal(r[name], res[0][name])
-    got, want = clusters_of(res[0][name]), refs[name]
-    assert len(got) == len(want)
-    for i, ((gm, gk, gmem), (wm, wk, wmem)) in enumerate(zip(got, want)):
-        assert (gm, gk) == (wm, wk), (i, gm, gk, wm, wk)
-        np.testing.assert_array_equal(gmem, wmem)
+    assert_same_emission(res[0][name], refs[name])
     if name == "compact":  # the ladder in units of 128 x W
         steps = [tuple(c[1:]) for c in res[0]["compact_compactions"]]
+        assert steps and all(new % (128 * world) == 0 for _, new in steps), steps
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", SUBSET_RUNS)
+def test_sharded_subset_and_bf16_engine_matches_vamb_tpu_mesh(runs, world, name):
+    """The subset wander, attempt lanes and bfloat16 distances under a mesh:
+    each cluster's medoid, kind and members `vamb_tpu`'s mesh engine's, and
+    every rank's emission, compactions and counters rank 0's."""
+    d, refs = runs[world]
+    res = results(d, "subset", world)
+    for r in res[1:]:
+        for key in (name, f"{name}_compactions", f"{name}_subset_counts", f"{name}_lane_counts"):
+            np.testing.assert_array_equal(r[key], res[0][key], err_msg=key)
+    assert_same_emission(res[0][name], refs[name])
+    attempts, overflow, drift = res[0][f"{name}_subset_counts"]
+    lanes = int(res[0][f"{name}_lanes"])
+    # bfloat16 distances keep to full sweeps, and the uniform latent's seeds
+    # are all loners, emitted in bursts with no wander
+    wanders = name not in ("bf16", "sub_uniform")
+    assert (attempts > 0) == wanders
+    assert (lanes > 0) == (wanders and name != "sub_off")
+    if name == "sub_fallback":
+        assert overflow > 0 and drift > 0
+    if name == "sub_compact":
+        steps = [tuple(c[1:]) for c in res[0]["sub_compact_compactions"]]
         assert steps and all(new % (128 * world) == 0 for _, new in steps), steps
 
 
@@ -236,35 +322,62 @@ def test_sharded_engine_matches_vamb_tpu_mesh(runs, world, name):
 def test_no_per_attempt_payload_grows_with_n(runs, world):
     d, _ = runs[world]
     r = results(d, "traffic", world)[0]
-    small = dict(zip(r["n2048_kinds"], r["n2048_max_bytes"]))
-    large = dict(zip(r["n8192_kinds"], r["n8192_max_bytes"]))
-    assert set(small) == set(large) >= {"query features", "sums", "wander keys",
-                                         "candidate densities", "members"}
-    for kind in small:
-        if kind == "members":  # the emitted members: bounded by the largest cluster
-            for n, tally in ((2048, small), (8192, large)):
-                assert tally[kind] <= 8 * world * int(r[f"n{n}_largest_cluster"])
-        else:
-            assert large[kind] <= small[kind], (kind, small[kind], large[kind])
+    kinds = {"query features", "sums", "wander keys", "candidate densities", "members"}
+    for scope in ("full", "subset"):
+        small = dict(zip(r[f"{scope}2048_kinds"], r[f"{scope}2048_max_bytes"]))
+        large = dict(zip(r[f"{scope}8192_kinds"], r[f"{scope}8192_max_bytes"]))
+        if scope == "subset":
+            kinds |= {"ball counts", "ball", "lane decisions", "lane members"}
+            assert all(int(r[f"subset{n}_subset_attempts"]) > 0 for n in (2048, 8192))
+        assert set(small) == set(large) >= kinds, (scope, sorted(small), sorted(large))
+        for n, tally in ((2048, small), (8192, large)):
+            largest = int(r[f"{scope}{n}_largest_cluster"])
+            # the emitted members: bounded by the largest cluster (a lane
+            # pass emits at most 7 lanes)
+            assert tally["members"] <= 8 * world * largest
+            if scope == "subset":
+                assert tally["lane members"] <= 8 * world * 7 * largest
+                f_pad = int(r[f"subset{n}_f_pad"])
+                assert tally["ball"] <= world * TRAFFIC_Q * (f_pad + 3) * 4, tally["ball"]
+        for kind in small.keys() - {"members", "lane members"}:
+            assert large[kind] <= small[kind], (scope, kind, small[kind], large[kind])
 
 
 @pytest.mark.parametrize("name,kw", [
     ("clumpy", dict(rng_seed=7, windowsize=60)),
     ("compact", dict(rng_seed=2, windowsize=60, batch_clusters=8, compact_min_pad=128)),
+    ("clumpy", dict(rng_seed=7, windowsize=60, wander_scope="subset", attempt_batch="on")),
+    ("clumpy", dict(rng_seed=7, windowsize=60, wander_scope="subset", attempt_batch="off")),
+    ("compact", dict(rng_seed=2, windowsize=60, batch_clusters=8, compact_min_pad=128,
+                     wander_scope="subset")),
+    ("sub_fallback", dict(rng_seed=13, windowsize=120, wander_scope="subset")),
+    ("clumpy", dict(rng_seed=7, windowsize=60, distance_dtype="bfloat16")),
 ])
-def test_sharded_engine_at_w1_is_the_unsharded_engine(name, kw):
+def test_sharded_engine_at_w1_is_the_unsharded_engine(name, kw, monkeypatch):
+    """A world of one: emission, every attempt's sums, the compactions and
+    the subset and lane counters bit for bit the unsharded engine's, at
+    full scope, at the subset scope (lanes on and off, compacting, a ball
+    that overflows and drifts) and at bfloat16 distances."""
     inp = make_inputs(1)
     m, lengths = inp[f"{name}_m"], inp[f"{name}_len"]
+    if name == "sub_fallback":
+        monkeypatch.setattr(t_cluster, "_SUBSET_Q", FALLBACK_Q)
     traced = []
     for mesh in (None, t_make_mesh(1, device="cpu")):
         gen = TorchGenerator(m.copy(), lengths, device="cpu", mesh=mesh, **kw)
         gen.sums_trace = []
         clusters = [(c.medoid, c.kind_str, c.members.tolist(), c.radius, c.observed_pvr) for c in gen]
-        traced.append((clusters, gen.sums_trace, gen.compactions))
+        traced.append((clusters, gen.sums_trace, gen.compactions, gen.subset_counts,
+                       gen.lane_counts))
     assert traced[0] == traced[1]
     assert traced[0][1]  # the attempts' sums were recorded
     if name == "compact":
         assert traced[0][2]
+    subset = kw.get("wander_scope") == "subset"
+    assert (traced[0][3]["attempts"] > 0) == subset
+    assert (traced[0][4]["lanes"] > 0) == (subset and kw.get("attempt_batch") != "off")
+    if name == "sub_fallback":
+        assert traced[0][3]["overflow"] > 0 and traced[0][3]["drift"] > 0
 
 
 def _slice_inputs(seed: int, n: int = 1024, f: int = 32, lo: int = 256, hi: int = 640):
@@ -280,19 +393,34 @@ def _slice_inputs(seed: int, n: int = 1024, f: int = 32, lo: int = 256, hi: int 
 def test_shard_entry_points_equal_slicing_the_index_entry_points():
     """On a slice [lo, hi) of the matrix, each shard entry point given a
     query's features (and its local column) equals the index entry point on
-    the slice bit for bit, and with the query outside the slice (-1) its
-    row is the whole matrix's row sliced."""
+    the slice bit for bit, on a float32 and on a bfloat16 slice (the query
+    the bf16 columns widened), and with the query outside the slice (-1)
+    its row is the whole matrix's row sliced. The ball's gather on a
+    128-aligned slice equals `gather_ball` of the whole matrix for that
+    slice's blocks, each slot's column global."""
     m, w, lo, hi = _slice_inputs(3)
-    part, wp = m[:, lo:hi].contiguous(), w[lo:hi].contiguous()
-    for got, want in ((K.medoid_sweep_shard(part, part[:, 60].contiguous(), 60, wp),
-                       K.medoid_sweep(part, 60, wp)),
-                      (K.spec_sweep_shard(part, part[:, [60, 3, 60]].contiguous(), [60, 3, 60], wp),
-                       K.spec_sweep(part, [60, 3, 60], wp))):
-        for g, e in zip(got, want):
-            assert torch.equal(g, e)
-    cand = torch.tensor([60, 55, 1, 70], dtype=torch.int64)
-    assert torch.equal(K.candidate_density_shard(part, part[:, cand].contiguous(), cand, wp),
-                       K.candidate_density_sweep(part, cand, wp))
+    wp = w[lo:hi].contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        part = m[:, lo:hi].to(dtype).contiguous()
+        q = part.float()
+        three = [60, 3, 60]
+        for got, want in ((K.medoid_sweep_shard(part, q[:, 60].contiguous(), 60, wp),
+                           K.medoid_sweep(part, 60, wp)),
+                          (K.spec_sweep_shard(part, q[:, three].contiguous(), three, wp),
+                           K.spec_sweep(part, three, wp))):
+            for g, e in zip(got, want):
+                assert torch.equal(g, e), dtype
+        cand = torch.tensor([60, 55, 1, 70], dtype=torch.int64)
+        assert torch.equal(K.candidate_density_shard(part, q[:, cand].contiguous(), cand, wp),
+                           K.candidate_density_sweep(part, cand, wp)), dtype
+    part = m[:, lo:hi].contiguous()
+    kept = w > 0
+    d0 = K.row_sweep(m, 310)
+    local = torch.tensor([2, 0, 1, 0], dtype=torch.int32)  # slots past nb = 3 masked
+    first = lo // 128
+    for got, want in zip(K.gather_ball_shard(part, local, 3, wp, kept[lo:hi], d0[lo:hi], lo),
+                         K.gather_ball(m, local + first, 3, w, kept, d0)):
+        assert torch.equal(got, want)
     # a query held by another rank: its row is the full row's slice
     d, *_ = K.medoid_sweep_shard(part, m[:, 5].contiguous(), -1, wp)
     assert torch.equal(d, K.row_sweep(m, 5)[lo:hi])
@@ -328,15 +456,3 @@ def test_gumbel_merge_equals_topc_over_the_global_width(world, c, mask):
         lo, hi = r * n // world, (r + 1) * n // world
         part = K.gumbel_scores_plain(key, d[lo:hi], kept[lo:hi], tried[lo:hi], medoid, lo)
         assert torch.equal(part, scores[lo:hi])
-
-
-def test_mesh_refuses_unported_scopes():
-    m, lengths = clumpy_latents(4, 30, 16, seed=1)
-    mesh = t_make_mesh(1, device="cpu")
-    for kw in (dict(wander_scope="subset"), dict(attempt_batch="on", wander_scope="subset"),
-               dict(distance_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="10b"):
-            TorchGenerator(m.copy(), lengths, device="cpu", mesh=mesh, **kw)
-    n = 1 << 18  # "auto" takes the subset wander from this padded width
-    with pytest.raises(NotImplementedError, match="10b"):
-        TorchGenerator(np.ones((n, 2), np.float32), np.ones(n), device="cpu", mesh=mesh)

@@ -83,7 +83,7 @@ from jax's threefry stream (utils/threefry.py) — so given a latent the port
 draws exactly the candidates `vamb_tpu` draws on the CPU.
 
 Row-sharded engine (`mesh=`, cluster.py:1771-1943 and :2210-2230 of
-`vamb_tpu`'s mesh engine, at full scope). Columns are padded to a multiple
+`vamb_tpu`'s mesh engine, every scope and precision). Columns are padded to a multiple
 of 128 x W on a mesh of W ranks, as `vamb_tpu` pads them (`col_tile`), so
 the Gumbel draws span the width `vamb_tpu`'s mesh engine draws over, and
 the compaction ladder steps in those units. Rank r holds columns [r N_pad /
@@ -98,14 +98,26 @@ counts, added in rank order), the wander step's top C keys of each shard
 (merged into `jax.lax.top_k`'s order over the global width) and the emitted
 members. The kernels run as their shard entry points
 (`medoid_sweep_shard`, `spec_sweep_shard`, `candidate_density_shard`,
-`gumbel_topc_shard`; `row_stats` as it is). Compaction rebuilds each rank's
-block from the host's copy of the engine matrix, so it moves no matrix
-between ranks. At W = 1 the engine gives the unsharded engine's sums and
-emission bit for bit; at W > 1 each sum is the rank-order sum of the
-shards' sums, which differs from the one-device order in the last ulp (the
-class of "Distances are not XLA's"), and its emission is `vamb_tpu`'s mesh
-engine's. The subset wander, attempt lanes and bfloat16 distances under a
-mesh are not ported (NotImplementedError naming ROADMAP item 10b).
+`gumbel_topc_shard`, `gather_ball_shard`; `row_stats` as it is).
+Compaction rebuilds each rank's block from the host's copy of the engine
+matrix, so it moves no matrix between ranks. The subset wander's ball
+(`vamb_tpu` replicates it with one-hot block matmuls, cluster.py:607-643):
+a rank's shard is whole 128-column blocks, so its flagged blocks take a
+contiguous run of the ball's slots after those of the ranks before it; one
+small integer gather gives every rank the flagged blocks' count and ids and
+the seed's slot, one gather of each rank's blocks with their per-slot
+vectors (`gather_ball_shard`, kind "ball", W x Q x (F_pad + 3) floats)
+assembles the ball, the gathered slots bit for bit `gather_ball`'s, and
+the climb inside it runs replicated on every rank with no collective.
+Attempt lanes take their rows from the shards, add their members' and
+conflicts' counts over the ranks exactly (integers) in the gather that
+carries their decisions, and gather the emitted lanes' members in rank
+order. A bfloat16 engine keeps bf16 shards; a query's features are its
+owner's columns widened to float32 (exact). At W = 1 the engine gives the
+unsharded engine's sums and emission bit for bit; at W > 1 each sum is the
+rank-order sum of the shards' sums, which differs from the one-device
+order in the last ulp (the class of "Distances are not XLA's"), and its
+emission is `vamb_tpu`'s mesh engine's.
 
 bfloat16 distances (`distance_dtype="bfloat16"`, `vamb_tpu`'s opt-in
 reduced-precision mode, cluster.py:1836-1943): the engine order is taken
@@ -130,8 +142,9 @@ import torch
 
 from .device import resolve_device
 from .kernels import (
-    candidate_density_shard, candidate_density_sweep, gather_ball, gumbel_topc, gumbel_topc_shard,
-    medoid_sweep, medoid_sweep_shard, row_stats, row_sweep, spec_sweep, spec_sweep_shard, topc_merge,
+    candidate_density_shard, candidate_density_sweep, gather_ball, gather_ball_shard, gumbel_topc,
+    gumbel_topc_shard, medoid_sweep, medoid_sweep_shard, row_stats, row_sweep, spec_sweep,
+    spec_sweep_shard, topc_merge,
 )
 from .log import logger
 from .utils import threefry
@@ -448,11 +461,10 @@ class ClusterGenerator:
         bf16 = distance_dtype == "bfloat16"
         if wander_scope == "subset" and bf16:  # vamb_tpu/cluster.py:1880-1881
             raise ValueError("wander_scope='subset' requires float32 distances")
+        self._dtype = torch.bfloat16 if bf16 else torch.float32
         # vamb_tpu pads a mesh's columns to 128 x W (col_tile, :1882-1888)
         self._col_tile = _LANES * (1 if mesh is None else mesh.size)
         n_pad = _pad_to(len(matrix), self._col_tile)
-        if mesh is not None:
-            _check_mesh_scope(bf16, wander_scope, attempt_batch, n_pad)
         # vamb_tpu/cluster.py:1901-1920: lanes ride the subset wander, which
         # "auto" takes at float32 only
         self._use_subset = wander_scope == "subset" or (
@@ -487,8 +499,7 @@ class ClusterGenerator:
             self._set_shard(padded_t, ranks, lengths_pad, kept)
         else:
             # the order above is the float32 matrix's; bf16 rounds after it (:1943)
-            self._set_columns(torch.as_tensor(padded_t, device=self.device).to(
-                                  torch.bfloat16 if bf16 else torch.float32), ranks,
+            self._set_columns(torch.as_tensor(padded_t, device=self.device).to(self._dtype), ranks,
                               torch.as_tensor(lengths_pad, device=self.device), kept)
 
         self.n_points = n
@@ -548,15 +559,17 @@ class ClusterGenerator:
         self.offset, self.n_loc = offset, matrixT.shape[1]
         self._kept_t = torch.as_tensor(kept[offset:offset + self.n_loc], device=self.device)
         self._unsynced: list = []  # removed columns not yet cleared in _kept_t
-        self.iota = torch.arange(self.n_pad, device=self.device)
+        self.iota = torch.arange(self.n_loc, device=self.device) + offset  # the global columns
 
     def _set_shard(self, padded_t: np.ndarray, ranks, lengths: np.ndarray, kept) -> None:
-        """Install this rank's block of the (F_pad, N_pad) host matrix and
-        its lengths, keeping both whole on the host for the compactions."""
+        """Install this rank's block of the (F_pad, N_pad) float32 host
+        matrix (in the engine's type) and its lengths, keeping both whole on
+        the host for the compactions."""
         self._host_t, self._host_lengths = padded_t, lengths
         lo, hi = self._mesh.block(len(kept))
-        self._set_columns(torch.as_tensor(padded_t[:, lo:hi], device=self.device).contiguous(),
-                          ranks, torch.as_tensor(lengths[lo:hi], device=self.device), kept, lo)
+        block = torch.as_tensor(padded_t[:, lo:hi], device=self.device).to(self._dtype)
+        self._set_columns(block.contiguous(), ranks,
+                          torch.as_tensor(lengths[lo:hi], device=self.device), kept, lo)
 
     @property
     def kept_t(self) -> torch.Tensor:
@@ -769,35 +782,25 @@ class ClusterGenerator:
         """Phase 1 of the subset wander (subset_phase1, cluster.py:555-748;
         oracle_cluster.py:473-561) from a seed with a kept neighbour within
         0.05: the first KB = Q/128 blocks (ascending) holding a kept column
-        within 0.15 of the seed, gathered with their per-slot vectors by
-        `gather_ball`, and the climb inside them, each step's draw a Q-wide
-        uniform and its densities a `candidate_density_sweep` over the
-        ball. `density` is the seed's sweep's: every column within 0.05 of
-        the seed lies in a flagged block. Returns (medoid, status, density,
-        key, block_any, ball): status "done", or "overflow" (more than KB
-        blocks flagged; the medoid is the seed) or "drift" (the medoid moved
-        past `_SUBSET_ABORT` from the seed), where the climb must go on over
-        all columns; `block_any` the flagged blocks (a lane's conflict
-        region); `ball` (cols, tried_s, nb) of the gathered slots, None on
-        overflow."""
-        B = _SUBSET_BLOCK
-        Q, nblk = self.Q, self.n_pad // B
-        kb = Q // B
+        within 0.15 of the seed, gathered with their per-slot vectors
+        (`_ball`), and the climb inside them, each step's draw a Q-wide
+        uniform and its densities a `candidate_density_sweep` over the ball,
+        replicated on every rank under a mesh. `density` is the seed's
+        sweep's: every column within 0.05 of the seed lies in a flagged
+        block. Returns (medoid, status, density, key, block_any, ball):
+        status "done", or "overflow" (more than KB blocks flagged; the
+        medoid is the seed) or "drift" (the medoid moved past
+        `_SUBSET_ABORT` from the seed), where the climb must go on over all
+        columns; `block_any` the flagged blocks of this rank's columns (a
+        lane's conflict region); `ball` (cols, tried_s, nb) of the gathered
+        slots, None on overflow."""
+        B, Q = _SUBSET_BLOCK, self.Q
         kept_t, dev = self.kept_t, self.device
-        block_any = (kept_t & (d0 <= _SUBSET_RADIUS)).view(nblk, B).any(dim=1)
-        # one host sync: flagged blocks, and flagged blocks before the
-        # seed's (its slot in the ball)
-        nb, before = torch.stack([block_any.sum(), block_any[: seed // B].sum()]).tolist()
-        if nb > kb:
+        block_any = (kept_t & (d0 <= _SUBSET_RADIUS)).view(-1, B).any(dim=1)
+        ball = self._ball(seed, block_any, Q // B, wk, kept_t, d0)
+        if ball is None:
             return seed, "overflow", density, key, block_any, None
-        # the flagged block ids, ascending, built on the card with no host
-        # sync: block b goes to slot (flagged blocks up to b) - 1; unflagged
-        # blocks land in a spare slot kb that is cut off, and the ball's
-        # padding slots gather block 0, masked by the gather
-        dest = torch.where(block_any, torch.cumsum(block_any, 0) - 1, kb)
-        bids = torch.zeros(kb + 1, dtype=torch.int32, device=dev)
-        bids.scatter_(0, dest, torch.arange(nblk, dtype=torch.int32, device=dev))
-        xsT, cols, kept_s, wk_s, d0_s = gather_ball(self.matrixT, bids[:kb], nb, wk, kept_t, d0)
+        xsT, cols, kept_s, wk_s, d0_s, nb, before = ball
         slot = before * B + seed % B
         tried_s = torch.zeros(Q, dtype=torch.bool, device=dev)
         tried_s[slot] = True
@@ -823,6 +826,70 @@ class ClusterGenerator:
                 break
         return medoid, status, density, key, block_any, (cols, tried_s, nb)
 
+    @staticmethod
+    def _flagged_ids(block_any: torch.Tensor, kb: int) -> torch.Tensor:
+        """The first kb flagged blocks' ids, ascending, then zeros (the
+        ball's padding slots gather block 0, masked by the gather), built on
+        the device with no host sync: block b goes to slot (flagged blocks
+        up to b) - 1; other blocks land in a spare slot kb that is cut off."""
+        dev = block_any.device
+        upto = torch.cumsum(block_any, 0)
+        dest = torch.where(block_any & (upto <= kb), upto - 1, kb)
+        bids = torch.zeros(kb + 1, dtype=torch.int32, device=dev)
+        bids.scatter_(0, dest, torch.arange(len(block_any), dtype=torch.int32, device=dev))
+        return bids[:kb]
+
+    def _ball(self, seed: int, block_any, kb: int, wk, kept_t, d0):
+        """The seed's ball from the flagged blocks `block_any` of this rank's
+        columns: (xsT (F_pad, Q), cols, kept, w, d0 of its slots, nb, the
+        flagged blocks before the seed's), or None where more than kb blocks
+        are flagged. One host sync for the counts; under a mesh
+        `_ball_shards`."""
+        if self._mesh is not None:
+            return self._ball_shards(seed, block_any, kb, wk, kept_t, d0)
+        B = _SUBSET_BLOCK
+        nb, before = torch.stack([block_any.sum(), block_any[: seed // B].sum()]).tolist()
+        if nb > kb:
+            return None
+        bids = self._flagged_ids(block_any, kb)
+        return (*gather_ball(self.matrixT, bids, nb, wk, kept_t, d0), nb, before)
+
+    def _ball_shards(self, seed: int, block_any, kb: int, wk, kept_t, d0):
+        """`_ball` under a mesh. A rank's columns are whole blocks, so its
+        flagged blocks fill the ball's slots after those of the ranks before
+        it. One integer gather (kind "ball counts") brings every rank's
+        flagged count, its flagged blocks before the seed's and the global
+        ids of its first kb flagged blocks: the overflow and the seed's slot
+        are decided alike on every rank. Then each rank's blocks with their
+        per-slot vectors (`gather_ball_shard`, padded to kb blocks) in one
+        gather (kind "ball", W x (F_pad + 3) x Q floats), laid out in rank
+        order: the gathered slots are `gather_ball`'s bit for bit, and the
+        padding slots hold zero features (no decision reads them), weight
+        0, not kept, d0 inf."""
+        B, Q, mesh = _SUBSET_BLOCK, kb * _SUBSET_BLOCK, self._mesh
+        first = self.offset // B  # this rank's first global block
+        bids = self._flagged_ids(block_any, kb)
+        before_mine = block_any[: max(0, seed // B - first)].sum()
+        mine = torch.cat([torch.stack([block_any.sum(), before_mine]), bids.long() + first])
+        counts = mesh.all_gather(mine, "ball counts").cpu()  # (W, 2 + kb), one host sync
+        nbs = counts[:, 0].tolist()
+        nb, before = sum(nbs), int(counts[:, 1].sum())
+        if nb > kb:
+            return None
+        xs, _, kept_p, w_p, d0_p = gather_ball_shard(self.matrixT, bids, nbs[mesh.rank], wk, kept_t,
+                                                      d0, self.offset)
+        f = xs.shape[0]
+        packed = torch.cat([xs, w_p[None], kept_p.float()[None], d0_p[None]])
+        parts = mesh.all_gather(packed, "ball")  # (W, F_pad + 3, Q)
+        take = torch.cat([r * Q + torch.arange(n * B) for r, n in enumerate(nbs)]).to(self.device)
+        ball = torch.zeros((f + 3, Q), dtype=torch.float32, device=self.device)
+        ball[f + 2] = torch.inf
+        ball[:, : nb * B] = parts.permute(1, 0, 2).reshape(f + 3, -1)[:, take]
+        gids = torch.zeros(kb, dtype=torch.int64)
+        gids[:nb] = torch.cat([counts[r, 2: 2 + n] for r, n in enumerate(nbs)])
+        cols = (gids[:, None] * B + torch.arange(B)).reshape(-1).to(torch.int32).to(self.device)
+        return ball[:f].contiguous(), cols, ball[f + 1] > 0.5, ball[f], ball[f + 2], nb, before
+
     def _wander_subset(self, seed: int, sweep, wk, key):
         """The two-phase subset wander (cluster.py:555-748, 860-935):
         phase 1 and, if the ball overflowed or the medoid drifted, the full
@@ -832,16 +899,18 @@ class ClusterGenerator:
         medoid, status, density, key, _, ball = self._subset_phase1(seed, sweep[0], sweep[2], wk,
                                                                     key)
         if status == "done":
-            return medoid, sweep if medoid == seed else medoid_sweep(self.matrixT, medoid, wk)
+            return medoid, sweep if medoid == seed else self._sweep(medoid, wk)
         self.subset_counts[status] += 1
-        tried = torch.zeros(self.n_pad, dtype=torch.bool, device=self.device)
+        tried = torch.zeros(self.n_loc, dtype=torch.bool, device=self.device)
         if ball is None:
-            tried[seed] = True
-        else:
+            self._set_tried(tried, seed)
+        else:  # the ball's tried slots, on this rank's own columns
             cols, tried_s, nb = ball
-            tried[cols[: nb * _SUBSET_BLOCK]] = tried_s[: nb * _SUBSET_BLOCK]
+            loc = self._local(cols[: nb * _SUBSET_BLOCK].long())
+            mine = loc >= 0
+            tried[loc[mine]] = tried_s[: nb * _SUBSET_BLOCK][mine]
         if medoid != seed:
-            sweep = medoid_sweep(self.matrixT, medoid, wk)
+            sweep = self._sweep(medoid, wk)
         return self._climb(medoid, sweep, density, tried, key, wk)
 
     def _decide(self, n_close, found, thr):
@@ -949,7 +1018,8 @@ class ClusterGenerator:
         runs them; a loner seed climbs not), then all lanes' final rows and
         sums from one `spec_sweep`, their thresholds from one batched scan
         and their decisions, members' counts and conflicts in one host
-        sync. The sequential acceptance scan admits lanes while (a) no
+        sync (under a mesh one gather, the counts each rank's partial added
+        exactly). The sequential acceptance scan admits lanes while (a) no
         admitted lane removed a point of this lane's region (its row within
         0.3, and its gathered blocks), (b) no admitted lane bumped the pvr,
         (c) the lane finished inside the ball, (d) the batch has room and
@@ -986,23 +1056,30 @@ class ClusterGenerator:
         cut = "full" if n < len(alive) else None
         emitted, admitted = [], 0
         if n:
-            rows, hist, _, n_close, _ = spec_sweep(self.matrixT, medoids, wk)
+            rows, hist, _, n_close, _ = self._spec(medoids, wk)
             thr, opvr, found = find_threshold(hist, float(self.pvr))
             radius = torch.where(found, thr, _DEFAULT_RADIUS if self.pvr > np.float32(0.55) else -1.0)
             med_t = torch.as_tensor(medoids, device=dev)
             sel = torch.where((n_close == 1)[:, None], self.iota[None, :] == med_t[:, None],
                               rows <= radius[:, None]) & self.kept_t
-            no_ball = torch.zeros(self.n_pad // _SUBSET_BLOCK, dtype=torch.bool, device=dev)
+            no_ball = torch.zeros(self.n_loc // _SUBSET_BLOCK, dtype=torch.bool, device=dev)
             ball = torch.stack([no_ball if b is None else b for b in blocks])
             region = (rows <= _XMAX) | ball.repeat_interleave(_SUBSET_BLOCK, dim=1)
-            # hits[k, r]: lane k's members meet lane r's region (one small product)
-            hits = (sel.to(torch.float32) @ region.to(torch.float32).T) > 0
-            # one host sync for all lanes' decisions (float64 holds them exactly)
+            # hits[k, r]: how many of lane k's members lie in lane r's region
+            # (one small product; integers, exact in float32 below 2^24)
+            hits = sel.to(torch.float32) @ region.to(torch.float32).T
+            # one host sync for all lanes' decisions, then the members' and
+            # the hits' counts (float64 holds them exactly); under a mesh the
+            # counts are each rank's, added over the ranks in the same gather
             host = torch.cat([
-                torch.stack([n_close.double(), thr.double(), opvr.double(), found.double(),
-                             sel.sum(1).double()]).flatten(),
-                hits.double().flatten(),
-            ]).cpu().numpy()
+                torch.stack([n_close.double(), thr.double(), opvr.double(),
+                             found.double()]).flatten(),
+                sel.sum(1).double(), hits.double().flatten(),
+            ])
+            if self._mesh is not None:
+                parts = self._mesh.all_gather(host, "lane decisions")
+                host = torch.cat([parts[0, : 4 * n], parts[:, 4 * n:].sum(0)])
+            host = host.cpu().numpy()
             close_h, thr_h, opvr_h, found_h, size_h = host[: 5 * n].reshape(5, n)
             hits_h = host[5 * n:].reshape(n, n) > 0
             in_batch, n_left = self._in_batch, self.n_remaining
@@ -1030,11 +1107,17 @@ class ClusterGenerator:
         counts["deferred"] += len(alive) - admitted
         if cut is not None:
             counts["cut_" + cut] += 1
-        # the emitted lanes' members in one sync, then their removal in order
+        # the emitted lanes' members in one sync (under a mesh one gather of
+        # every rank's, in rank order: ascending), then their removal in order
         wide = [r for rec, r in emitted if rec.radius is not None]
         members = {}
         if wide:
-            nz = torch.nonzero(sel[wide]).cpu().numpy()
+            nz = torch.nonzero(sel[wide])
+            if self._mesh is not None:  # (lane, global column) as one int64 each
+                coded = self._mesh.gather_rows(nz[:, 0] * self.n_pad + nz[:, 1] + self.offset,
+                                               "lane members")
+                nz = torch.stack([coded // self.n_pad, coded % self.n_pad], 1)
+            nz = nz.cpu().numpy()
             for i, r in enumerate(wide):
                 members[r] = nz[nz[:, 0] == i, 1]
         for rec, r in emitted:
@@ -1067,11 +1150,12 @@ class ClusterGenerator:
         tried[loc[loc >= 0]] = True
 
     def _features(self, cols: torch.Tensor) -> torch.Tensor:
-        """The (F_pad, k) features of global columns `cols` (device int64),
-        each from the rank that holds it: one gather of every rank's (F_pad,
-        k) with zeros where it holds none, then the owner's slice."""
+        """The (F_pad, k) float32 features of global columns `cols` (device
+        int64), each from the rank that holds it (a bf16 shard's widened,
+        exactly): one gather of every rank's (F_pad, k) with zeros where it
+        holds none, then the owner's slice."""
         loc = self._local(cols)
-        mine = torch.where(loc[None, :] >= 0, self.matrixT[:, loc.clamp_min(0)], 0.0)
+        mine = torch.where(loc[None, :] >= 0, self.matrixT[:, loc.clamp_min(0)].float(), 0.0)
         parts = self._mesh.all_gather(mine, "query features")  # (W, F_pad, k)
         owner = torch.div(cols, self.n_loc, rounding_mode="floor")
         return parts[owner, :, torch.arange(len(cols), device=cols.device)].T.contiguous()
@@ -1148,20 +1232,6 @@ class ClusterGenerator:
         self.n_emitted_clusters += 1
         self._in_batch += 1
         self._queue.append(rec)
-
-
-def _check_mesh_scope(bf16: bool, wander_scope: str, attempt_batch: str, n_pad: int) -> None:
-    """Reject what the row-sharded engine does not run yet: the subset
-    wander (forced, or "auto" at a padded width of `_SUBSET_AUTO_MIN` or
-    more), attempt lanes and bfloat16 distances."""
-    todo = "under a mesh is not ported yet (ROADMAP queue 1, item 10b)"
-    if bf16:
-        raise NotImplementedError(f"distance_dtype='bfloat16' {todo}")
-    if wander_scope == "subset" or (wander_scope == "auto" and n_pad >= _SUBSET_AUTO_MIN):
-        raise NotImplementedError(f"the subset wander (wander_scope {wander_scope!r} at "
-                                  f"{n_pad} padded columns) {todo}")
-    if attempt_batch == "on":
-        raise NotImplementedError(f"attempt_batch='on' {todo}")
 
 
 def _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch):

@@ -9,6 +9,8 @@ from .cluster_kernels import (  # noqa: F401
     candidate_density_sweep,
     gather_ball,
     gather_ball_plain,
+    gather_ball_shard,
+    gather_ball_shard_plain,
     gather_blocks,
     gather_blocks_plain,
     gumbel_scores,

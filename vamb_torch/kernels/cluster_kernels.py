@@ -25,7 +25,8 @@ what its design does about it):
   block id, in a CTA per (block, 8 feature rows). Its sibling
   `gather_ball(matrixT, bids, nb, w, kept, d0)` runs the same kernel and
   launch, which also gathers each slot's column id, weight, kept flag and
-  seed distance, masked past nb blocks;
+  seed distance, masked past nb blocks; `gather_ball_shard` runs it on a
+  shard of the matrix by local block id, each slot's column id global;
 * `medoid_sweep(matrixT, idx, wts)` replaces `medoid_sweep` there: one
   medoid's distance row with its 60-bin histogram, density and close count
   in one pass and one launch, the attempt's whole payload. A thread keeps
@@ -67,14 +68,15 @@ the variant of its type: the same kernel templated on the element type,
 which widens each bf16 value exactly to float as it arrives and then runs
 the float kernel's arithmetic in its order, so it equals the float kernel
 on `matrixT.float()` bit for bit and reads half the bytes. Their plain
-versions widen a bf16 matrix and reuse the float arithmetic. `row_sweep`
-and the gather run only inside the subset wander, which a bf16 engine
-never takes, and raise on a bf16 matrix.
+versions widen a bf16 matrix and reuse the float arithmetic. Their shard
+entry points take a bf16 shard too, with float32 queries (the owner's
+columns widened). `row_sweep` and the gathers run only inside the subset
+wander, which a bf16 engine never takes, and raise on a bf16 matrix.
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
 PyTorch version beside it only for a CPU tensor. It counts its launches in
 `<wrapper>.launches`, by N_pad in `<wrapper>.launches_by_width` and, for the
-five that read the latent matrix, by F_pad in `<wrapper>.launches_by_fpad`
+wrappers that read the latent matrix, by F_pad in `<wrapper>.launches_by_fpad`
 and by the matrix's type ("float32" or "bfloat16") in
 `<wrapper>.launches_by_dtype` (the Gumbel kernels and `row_stats` see no
 matrix: theirs stay empty). The source is compiled by `nvcc` at first use
@@ -174,6 +176,9 @@ def _load():
             lib.vt_gather_blocks.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp, vp, vp, vp, vp, vp,
                                              vp, vp]
             lib.vt_gather_blocks.restype = ci
+            lib.vt_gather_ball_shard.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp, vp, vp, vp, vp, vp,
+                                                 vp, ci, vp]
+            lib.vt_gather_ball_shard.restype = ci
             for fn in (lib.vt_medoid_sweep, lib.vt_medoid_sweep_bf16):
                 fn.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
                 fn.restype = ci
@@ -181,15 +186,16 @@ def _load():
             lib.vt_gumbel_topc.argtypes = [cu, cu, ci, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp,
                                            vp, ci, vp]
             lib.vt_gumbel_topc.restype = ci
-            lib.vt_medoid_sweep_shard.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, vp, vp, vp, vp,
-                                                  vp, vp]
-            lib.vt_spec_sweep_shard.argtypes = [vp, ci, ci, vp, *[ci] * _SPEC_SEEDS, ci, vp, vp, vp,
-                                                vp, vp, vp, vp, vp]
-            lib.vt_candidate_density_shard.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, ci, vp, vp,
-                                                       vp, vp]
-            for fn in (lib.vt_medoid_sweep_shard, lib.vt_spec_sweep_shard,
-                       lib.vt_candidate_density_shard):
-                fn.restype = ci
+            for suffix in ("", "_bf16"):  # the shard entry points, of either matrix type
+                medoid, spec, dens = (
+                    getattr(lib, f"vt_{name}_shard{suffix}")
+                    for name in ("medoid_sweep", "spec_sweep", "candidate_density"))
+                medoid.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+                spec.argtypes = [vp, ci, ci, vp, *[ci] * _SPEC_SEEDS, ci, vp, vp, vp, vp, vp, vp,
+                                 vp, vp]
+                dens.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp, ci, vp, vp, vp, vp]
+                for fn in (medoid, spec, dens):
+                    fn.restype = ci
             for fn in (lib.vt_spec_sweep, lib.vt_spec_sweep_bf16):
                 fn.argtypes = [vp, ci, ci, *[ci] * _SPEC_SEEDS, ci, vp, vp, vp, vp, vp, vp, vp, vp]
                 fn.restype = ci
@@ -327,7 +333,9 @@ def candidate_density_shard_plain(
 ) -> torch.Tensor:
     """Plain version of `candidate_density_shard`: the candidates' features
     `q` (F, C), their local columns `cand` (-1 where another rank holds
-    one), then `candidate_density_plain`'s arithmetic and order."""
+    one), then `candidate_density_plain`'s arithmetic and order; a bf16
+    shard widened first."""
+    matrixT = _widened(matrixT)
     dot = torch.zeros(q.shape[1], matrixT.shape[1], dtype=torch.float32, device=matrixT.device)
     for f in range(matrixT.shape[0]):
         dot = dot + q[f][:, None] * matrixT[f][None, :]
@@ -426,7 +434,7 @@ def candidate_density_sweep(
 def _density_launch(kernel, matrixT, cand, q, wts) -> torch.Tensor:
     """One launch of the density kernel (`kernel`: its wrapper, whose count
     it adds to): the candidates' features from the matrix by `cand` or,
-    given `q`, from q (the shard entry point, float32 only)."""
+    given `q`, from q (the shard entry point)."""
     f_pad, n_pad = matrixT.shape
     c = int(cand.shape[0])
     if matrixT.device.type != "cuda":
@@ -451,7 +459,8 @@ def _density_launch(kernel, matrixT, cand, q, wts) -> torch.Tensor:
         err = _launcher(lib, "vt_candidate_density", matrixT)(matrixT.data_ptr(), f_pad, n_pad,
                                                                *tail)
     else:
-        err = lib.vt_candidate_density_shard(matrixT.data_ptr(), f_pad, n_pad, q.data_ptr(), *tail)
+        err = _launcher(lib, "vt_candidate_density_shard", matrixT)(matrixT.data_ptr(), f_pad,
+                                                                     n_pad, q.data_ptr(), *tail)
     _raise_on(err, kernel.__name__)
     _count(kernel, n_pad, matrixT)
     return dens
@@ -472,10 +481,10 @@ def _check_query(q: torch.Tensor, shape: tuple, dev) -> None:
 
 
 def _check_shard_matrix(matrixT: torch.Tensor) -> None:
-    """A shard entry point's (F_pad, N_local) matrix: float32 (a mesh runs
-    float32 distances only) and contiguous."""
-    if matrixT.dim() != 2 or matrixT.dtype != torch.float32:
-        raise ValueError("matrixT must be a 2-D float32 tensor (F_pad, N_local)")
+    """A shard entry point's (F_pad, N_local) matrix: float32 or bfloat16
+    (a bf16 engine's shard), contiguous."""
+    if matrixT.dim() != 2 or matrixT.dtype not in _MATRIX_DTYPES:
+        raise ValueError("matrixT must be a 2-D float32 or bfloat16 tensor (F_pad, N_local)")
     if not matrixT.is_contiguous():
         raise ValueError("matrixT must be contiguous")
 
@@ -483,8 +492,8 @@ def _check_shard_matrix(matrixT: torch.Tensor) -> None:
 def candidate_density_shard(
     matrixT: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, wts: torch.Tensor
 ) -> torch.Tensor:
-    """`candidate_density_sweep` on a shard of the matrix: the C <= 32
-    candidates' features come from q (F_pad, C) f32, and `cand` (C,) holds
+    """`candidate_density_sweep` on a shard of the matrix (f32 or bf16):
+    the C <= 32 candidates' features come from q (F_pad, C) f32, and `cand` (C,) holds
     each one's local column or -1 where another rank holds it (its distance
     to itself is then not forced to 0 here). Returns the shard's (C,)
     densities over its N_local columns, summed in the order of that width.
@@ -533,6 +542,13 @@ def gather_ball_plain(matrixT, bids, nb: int, w, kept, d0):
             torch.where(valid, blocks(w), 0.0), torch.where(valid, blocks(d0), torch.inf))
 
 
+def gather_ball_shard_plain(matrixT, bids, nb: int, w, kept, d0, offset: int):
+    """Plain version of `gather_ball_shard`: `gather_ball_plain` on the
+    shard, each slot's column id moved to the global columns."""
+    xs, cols, kept_s, w_s, d0_s = gather_ball_plain(matrixT, bids, nb, w, kept, d0)
+    return xs, cols + offset, kept_s, w_s, d0_s
+
+
 def _check_gather(matrixT: torch.Tensor, bids: torch.Tensor) -> None:
     _check_matrix(matrixT)
     if matrixT.shape[1] % _BLOCK:
@@ -543,10 +559,11 @@ def _check_gather(matrixT: torch.Tensor, bids: torch.Tensor) -> None:
         raise ValueError(f"gather_blocks runs on cuda or cpu, not {matrixT.device}")
 
 
-def _gather_launch(matrixT, bids, side=None):
+def _gather_launch(matrixT, bids, side=None, kernel=None, offset: int = 0):
     """One launch of the gather kernel: the (F_pad, KB * 128) ball and, given
-    `side` = (nb, w, kept, d0), the slots' ids, flags, weights and seed
-    distances."""
+    `side` = (nb, w, kept, d0), the slots' ids (plus `offset`), flags,
+    weights and seed distances. Counted in `kernel`'s tallies (default
+    `gather_blocks`)."""
     if bids.device != matrixT.device:
         raise ValueError("matrixT and bids must be on one device")
     if matrixT.data_ptr() % 16:
@@ -572,10 +589,15 @@ def _gather_launch(matrixT, bids, side=None):
                 torch.empty(q, dtype=torch.float32, device=dev))
         ptrs = [int(nb), w.data_ptr(), kept.data_ptr(), d0.data_ptr(), *(o.data_ptr() for o in outs)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vt_gather_blocks(matrixT.data_ptr(), f_pad, n_pad, bids32.data_ptr(), kb,
-                               out.data_ptr(), *ptrs, stream)
-    _raise_on(err, "gather_blocks")
-    _count(gather_blocks, n_pad, matrixT)
+    kernel = kernel or gather_blocks
+    if kernel is gather_ball_shard:
+        err = lib.vt_gather_ball_shard(matrixT.data_ptr(), f_pad, n_pad, bids32.data_ptr(), kb,
+                                       out.data_ptr(), *ptrs, int(offset), stream)
+    else:
+        err = lib.vt_gather_blocks(matrixT.data_ptr(), f_pad, n_pad, bids32.data_ptr(), kb,
+                                   out.data_ptr(), *ptrs, stream)
+    _raise_on(err, kernel.__name__)
+    _count(kernel, n_pad, matrixT)
     return (out, *outs)
 
 
@@ -609,6 +631,31 @@ gather_blocks.launches = 0
 gather_blocks.launches_by_width = {}  # N_pad -> launches
 gather_blocks.launches_by_fpad = {}  # F_pad -> launches
 gather_blocks.launches_by_dtype = {}  # the matrix's type -> launches
+
+
+def gather_ball_shard(matrixT, bids, nb: int, w, kept, d0, offset: int):
+    """`gather_ball` on a shard of the matrix: (F_pad, N_local) f32 whose
+    columns are the global columns offset.., (KB,) local block ids, the
+    shard's (N_local,) w, kept and d0 -> (xsT (F_pad, KB * 128), cols int32
+    (each slot's global column), kept, w, d0), slots past the first `nb`
+    blocks masked as `gather_ball` masks them. A rank's part of the subset
+    wander's ball under a mesh: the same kernel and launch as `gather_ball`,
+    which adds `offset` to each slot's column id. Given `offset` 0 it equals
+    `gather_ball` bit for bit. Launches the gather kernel for CUDA tensors
+    (counted in `gather_ball_shard.launches`), runs the plain version for
+    CPU tensors."""
+    _check_gather(matrixT, bids)
+    if offset < 0:
+        raise ValueError(f"offset must be >= 0, not {offset}")
+    if matrixT.device.type == "cpu":
+        return gather_ball_shard_plain(matrixT, bids, nb, w, kept, d0, offset)
+    return _gather_launch(matrixT, bids, (nb, w, kept, d0), gather_ball_shard, offset)
+
+
+gather_ball_shard.launches = 0
+gather_ball_shard.launches_by_width = {}  # N_local -> launches
+gather_ball_shard.launches_by_fpad = {}  # F_pad -> launches
+gather_ball_shard.launches_by_dtype = {}  # the matrix's type -> launches
 
 
 # ---------------------------------------------------------- medoid_sweep
@@ -672,7 +719,9 @@ def spec_sweep_plain(matrixT: torch.Tensor, cols, wts: torch.Tensor):
 def spec_sweep_shard_plain(matrixT: torch.Tensor, q: torch.Tensor, cols, wts: torch.Tensor):
     """Plain version of `spec_sweep_shard`: the rows of the query features
     `q` (F, S) with `spec_sweep_plain`'s elementwise ops, rows[s, cols[s]]
-    = 0 where cols[s] >= 0, then `row_stats_plain`'s sums."""
+    = 0 where cols[s] >= 0, then `row_stats_plain`'s sums; a bf16 shard
+    widened first."""
+    matrixT = _widened(matrixT)
     acc = torch.zeros((q.shape[1], matrixT.shape[1]), dtype=torch.float32, device=matrixT.device)
     for f in range(matrixT.shape[0]):
         acc = acc + matrixT[f][None, :] * q[f][:, None]
@@ -696,8 +745,9 @@ def medoid_sweep_plain(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
 def medoid_sweep_shard_plain(matrixT: torch.Tensor, q: torch.Tensor, idx: int, wts: torch.Tensor):
     """Plain version of `medoid_sweep_shard`: the row of the query features
     q (F,) with `row_sweep_plain`'s arithmetic (d[idx] = 0 where idx >= 0),
-    then `row_stats_plain`'s sums; the close count."""
-    d = _row_plain(matrixT, q, idx)
+    then `row_stats_plain`'s sums; the close count. A bf16 shard is
+    widened first."""
+    d = _row_plain(_widened(matrixT), q, idx)
     hist, dens, n_close, _ = row_stats_plain(d[None], wts)
     return d, hist[0], dens[0], n_close[0]
 
@@ -742,7 +792,7 @@ def medoid_sweep(matrixT: torch.Tensor, idx: int, wts: torch.Tensor):
 def _medoid_launch(kernel, matrixT, idx: int, q, wts):
     """One launch of the medoid kernel (`kernel`: its wrapper, whose count
     it adds to): the query's features from column `idx` or, given `q`, from
-    q (the shard entry point, float32 only)."""
+    q (the shard entry point)."""
     f_pad, n_pad = matrixT.shape
     if matrixT.device.type != "cuda":
         raise ValueError(f"{kernel.__name__} runs on cuda or cpu, not {matrixT.device}")
@@ -763,7 +813,8 @@ def _medoid_launch(kernel, matrixT, idx: int, q, wts):
         err = _launcher(lib, "vt_medoid_sweep", matrixT)(matrixT.data_ptr(), f_pad, n_pad, idx,
                                                           *tail)
     else:
-        err = lib.vt_medoid_sweep_shard(matrixT.data_ptr(), f_pad, n_pad, q.data_ptr(), idx, *tail)
+        err = _launcher(lib, "vt_medoid_sweep_shard", matrixT)(matrixT.data_ptr(), f_pad, n_pad,
+                                                                q.data_ptr(), idx, *tail)
     _raise_on(err, kernel.__name__)
     _count(kernel, n_pad, matrixT)
     return d, sums[:_NBINS], sums[_NBINS], n_close
@@ -776,7 +827,7 @@ medoid_sweep.launches_by_dtype = {}  # the matrix's type -> launches
 
 
 def medoid_sweep_shard(matrixT: torch.Tensor, q: torch.Tensor, idx: int, wts: torch.Tensor):
-    """`medoid_sweep` on a shard of the matrix: (F_pad, N_local) f32, the
+    """`medoid_sweep` on a shard of the matrix: (F_pad, N_local) f32 or bf16, the
     query's features q (F_pad,) f32, its local column `idx` or -1 where
     another rank holds it, (N_local,) weights -> (d (N_local,), hist (60,),
     density, n_close) over the shard's columns, summed in the order of that
@@ -862,7 +913,7 @@ def spec_sweep(matrixT: torch.Tensor, cols, wts: torch.Tensor):
 def _spec_launch(kernel, matrixT, cols: list, q, wts):
     """One launch of `spec_sweep`'s kernel (`kernel`: its wrapper, whose
     count it adds to): the S queries' features from columns `cols` or,
-    given `q`, from q (the shard entry point, float32 only)."""
+    given `q`, from q (the shard entry point)."""
     f_pad, n_pad = matrixT.shape
     if matrixT.device.type != "cuda":
         raise ValueError(f"{kernel.__name__} runs on cuda or cpu, not {matrixT.device}")
@@ -880,7 +931,8 @@ def _spec_launch(kernel, matrixT, cols: list, q, wts):
     if q is None:
         err = _launcher(lib, "vt_spec_sweep", matrixT)(matrixT.data_ptr(), f_pad, n_pad, *tail)
     else:
-        err = lib.vt_spec_sweep_shard(matrixT.data_ptr(), f_pad, n_pad, q.data_ptr(), *tail)
+        err = _launcher(lib, "vt_spec_sweep_shard", matrixT)(matrixT.data_ptr(), f_pad, n_pad,
+                                                              q.data_ptr(), *tail)
     _raise_on(err, kernel.__name__)
     _count(kernel, n_pad, matrixT)
     return rows, sums[:, :_NBINS], sums[:, _NBINS], counts[:, 0], counts[:, 1]
@@ -893,7 +945,7 @@ spec_sweep.launches_by_dtype = {}  # the matrix's type -> launches
 
 
 def spec_sweep_shard(matrixT: torch.Tensor, q: torch.Tensor, cols, wts: torch.Tensor):
-    """`spec_sweep` on a shard of the matrix: (F_pad, N_local) f32, the S <=
+    """`spec_sweep` on a shard of the matrix: (F_pad, N_local) f32 or bf16, the S <=
     8 queries' features q (F_pad, S) f32, each one's local column in `cols`
     or -1 where another rank holds it, (N_local,) weights -> (rows (S,
     N_local), hist (S, 60), density (S,), n_close (S,), n_near (S,)) over the
@@ -1170,7 +1222,7 @@ gumbel_scores.launches_by_dtype = {}  # no matrix: stays empty
 
 KERNELS = (row_sweep, candidate_density_sweep, gather_blocks, medoid_sweep, gumbel_topc,
            gumbel_scores, spec_sweep, row_stats, medoid_sweep_shard, spec_sweep_shard,
-           candidate_density_shard, gumbel_topc_shard)
+           candidate_density_shard, gumbel_topc_shard, gather_ball_shard)
 
 
 def reset_launch_counts() -> None:

@@ -639,7 +639,9 @@ candidate_density_kernel(const T* __restrict__ m, int f_pad, int n_pad,
 // by the same ids the per-column vectors the wander takes next (vamb_tpu/
 // cluster.py:604-606, 654-656): each slot's column id, and the weight, kept
 // flag and seed distance of its column, masked past the first nb blocks
-// (weight 0, not kept, distance inf).
+// (weight 0, not kept, distance inf). On a shard of the matrix (a row-sharded
+// engine) the ids are the shard's own blocks and `col_offset` its first
+// global column, so each slot's column id comes out global.
 //
 // Bound on the H100: bytes (F_pad * KB * 128 * 4 read and written once, 2 MB
 // at F_pad 32, KB 64: 0.63 us), far below the ~5 us a launch takes to start
@@ -655,7 +657,7 @@ gather_blocks_kernel(const float4* __restrict__ m, int f_pad, int n_pad4,
                      int nb, const float* __restrict__ w,
                      const unsigned char* __restrict__ kept, const float* __restrict__ d0,
                      int* __restrict__ cols, unsigned char* __restrict__ kept_out,
-                     float* __restrict__ w_out, float* __restrict__ d0_out) {
+                     float* __restrict__ w_out, float* __restrict__ d0_out, int col_offset) {
   constexpr int kRow4 = kBlockCols / 4;  // float4s in a block's feature row
   constexpr int kRowsPerPass = kGatherThreads / kRow4;
   const int k = blockIdx.x;
@@ -677,7 +679,7 @@ gather_blocks_kernel(const float4* __restrict__ m, int f_pad, int n_pad4,
     const int slot = k * kBlockCols + threadIdx.x;
     const int col = bid * kBlockCols + threadIdx.x;
     const bool valid = k < nb;
-    cols[slot] = col;
+    cols[slot] = col_offset + col;
     kept_out[slot] = valid && kept[col];
     w_out[slot] = valid ? w[col] : 0.0f;
     d0_out[slot] = valid ? d0[col] : __int_as_float(0x7f800000);
@@ -1832,6 +1834,19 @@ int spec_sweep_launch(const T* m, int f_pad, int n_pad, int c0, int c1, int c2, 
   return (int)cudaGetLastError();
 }
 
+int gather_launch(const float* m, int f_pad, int n_pad, const int* bids, int kb, float* out,
+                  int nb, const float* w, const unsigned char* kept, const float* d0, int* cols,
+                  unsigned char* kept_out, float* w_out, float* d0_out, int col_offset,
+                  void* stream) {
+  if (kb < 1 || n_pad % kBlockCols) return (int)cudaErrorInvalidValue;
+  const int rows = (kGatherThreads / (kBlockCols / 4)) * kGatherCopies;
+  const dim3 grid(kb, (f_pad + rows - 1) / rows);
+  gather_blocks_kernel<<<grid, kGatherThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)m, f_pad, n_pad / 4, bids, (float4*)out, kb * (kBlockCols / 4), nb, w, kept,
+      d0, cols, kept_out, w_out, d0_out, col_offset);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1870,13 +1885,19 @@ int vt_gather_blocks(const float* m, int f_pad, int n_pad, const int* bids, int 
                      float* out, int nb, const float* w,
                      const unsigned char* kept, const float* d0, int* cols,
                      unsigned char* kept_out, float* w_out, float* d0_out, void* stream) {
-  if (kb < 1 || n_pad % kBlockCols) return (int)cudaErrorInvalidValue;
-  const int rows = (kGatherThreads / (kBlockCols / 4)) * kGatherCopies;
-  const dim3 grid(kb, (f_pad + rows - 1) / rows);
-  gather_blocks_kernel<<<grid, kGatherThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)m, f_pad, n_pad / 4, bids, (float4*)out, kb * (kBlockCols / 4), nb, w, kept,
-      d0, cols, kept_out, w_out, d0_out);
-  return (int)cudaGetLastError();
+  return gather_launch(m, f_pad, n_pad, bids, kb, out, nb, w, kept, d0, cols, kept_out, w_out,
+                       d0_out, 0, stream);
+}
+
+// The ball's part on a shard: the shard's blocks by local id, each slot's
+// column id global (col_offset, the shard's first global column, added).
+int vt_gather_ball_shard(const float* m, int f_pad, int n_pad, const int* bids, int kb,
+                         float* out, int nb, const float* w, const unsigned char* kept,
+                         const float* d0, int* cols, unsigned char* kept_out, float* w_out,
+                         float* d0_out, int col_offset, void* stream) {
+  if (cols == nullptr || col_offset < 0) return (int)cudaErrorInvalidValue;
+  return gather_launch(m, f_pad, n_pad, bids, kb, out, nb, w, kept, d0, cols, kept_out, w_out,
+                       d0_out, col_offset, stream);
 }
 
 int vt_medoid_sweep(const float* m, int f_pad, int n_pad, int idx, const float* w, float* d,
@@ -1915,11 +1936,22 @@ int vt_spec_sweep_bf16(const bf16_t* m, int f_pad, int n_pad, int c0, int c1, in
 // are the query's local column, or -1 where another rank holds it (no d set
 // to 0 then). The staging source is all that changes: every sum keeps its
 // order, so a shard entry point given the column's features and its index
-// equals the index entry point bit for bit.
+// equals the index entry point bit for bit. The `_bf16` variants read a
+// bfloat16 shard; their queries stay float32 (the owner's columns widened,
+// which is exact), as the index entry points widen the query's column.
 int vt_medoid_sweep_shard(const float* m, int f_pad, int n_pad, const float* q, int idx,
                           const float* w, float* d, float* partials, int* close_partials,
                           unsigned int* ticket, float* hist, float* density, int* n_close,
                           void* stream) {
+  if (q == nullptr) return (int)cudaErrorInvalidValue;
+  return medoid_sweep_launch(m, f_pad, n_pad, idx, q, w, d, partials, close_partials, ticket, hist,
+                             density, n_close, stream);
+}
+
+int vt_medoid_sweep_shard_bf16(const bf16_t* m, int f_pad, int n_pad, const float* q, int idx,
+                               const float* w, float* d, float* partials, int* close_partials,
+                               unsigned int* ticket, float* hist, float* density, int* n_close,
+                               void* stream) {
   if (q == nullptr) return (int)cudaErrorInvalidValue;
   return medoid_sweep_launch(m, f_pad, n_pad, idx, q, w, d, partials, close_partials, ticket, hist,
                              density, n_close, stream);
@@ -1934,9 +1966,27 @@ int vt_spec_sweep_shard(const float* m, int f_pad, int n_pad, const float* q, in
                            partials, count_partials, tickets, sums, counts, stream);
 }
 
+int vt_spec_sweep_shard_bf16(const bf16_t* m, int f_pad, int n_pad, const float* q, int c0,
+                             int c1, int c2, int c3, int c4, int c5, int c6, int c7, int s_count,
+                             const float* w, float* rows, float* partials, int* count_partials,
+                             unsigned int* tickets, float* sums, int* counts, void* stream) {
+  if (q == nullptr) return (int)cudaErrorInvalidValue;
+  return spec_sweep_launch(m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, q, w, rows,
+                           partials, count_partials, tickets, sums, counts, stream);
+}
+
 int vt_candidate_density_shard(const float* m, int f_pad, int n_pad, const float* q,
                                const void* cand, int cand64, int c, const float* w, int groups,
                                float* partials, unsigned int* ticket, float* dens, void* stream) {
+  if (q == nullptr) return (int)cudaErrorInvalidValue;
+  return density_launch(m, f_pad, n_pad, cand, cand64, c, q, w, groups, partials, ticket, dens,
+                        stream);
+}
+
+int vt_candidate_density_shard_bf16(const bf16_t* m, int f_pad, int n_pad, const float* q,
+                                    const void* cand, int cand64, int c, const float* w,
+                                    int groups, float* partials, unsigned int* ticket, float* dens,
+                                    void* stream) {
   if (q == nullptr) return (int)cudaErrorInvalidValue;
   return density_launch(m, f_pad, n_pad, cand, cand64, c, q, w, groups, partials, ticket, dens,
                         stream);
