@@ -177,13 +177,13 @@ of `vamb_tpu`. Phases, each of which fails the run:
    entry points on the shard, then timed (the gather beside
    `index_select`); (a) a world of one on NCCL: phase 4's dataset trained
    for 2 epochs at batch 512 with `mesh=` (the replicas checked after each
-   epoch), and 200
+   epoch), and 120
    clusters of its latent from the unsharded engine and from the
    row-sharded one, the counters set to 0 just before the sharded run and
    read just after (every shard entry point and `row_stats` launched, the
    index entry points of those kernels not; emission and every attempt's
    sums bit for bit the unsharded engine's), its NCCL collectives tallied
-   by kind, calls and bytes an attempt; then the same pair, 200 clusters
+   by kind, calls and bytes an attempt; then the same pair, 120 clusters
    each, at the forced subset scope with attempt lanes on and off
    (`gather_ball_shard` launched, `gather_ball`, `medoid_sweep` and
    `spec_sweep` not; the "ball" collectives logged an attempt) and at
@@ -191,7 +191,7 @@ of `vamb_tpu`. Phases, each of which fails the run:
    the unsharded engine, counters included; (b) two processes sharing the card
    over gloo (`--dist-rank`; gloo moves each collective through host
    memory): `bin default`'s library path at W = 2 on (a)'s composition
-   and abundance (2 epochs at batch 512, 200 clusters), the parameters'
+   and abundance (2 epochs at batch 512, 120 clusters), the parameters'
    checksums equal across ranks after every epoch, then the same W = 2
    engine on the CPU over the same group, its first 20 clusters identical
    to the card's; the W = 2
@@ -199,11 +199,35 @@ of `vamb_tpu`. Phases, each of which fails the run:
    processes sharing the card over gloo (`--dist-engine-rank`) clustering
    phase 5's 300,032-wide latent (in `--dist` mode, where phase 5 does not
    run, the 300,000-point latent of `--engine-ab`) at the engine's default
-   flags, so "auto" takes the subset wander and attempt lanes, 200
+   flags, so "auto" takes the subset wander and attempt lanes, 120
    clusters: the two ranks' clusters identical, the subset wander, lanes
    and `gather_ball_shard` run, and each rank's first 20 identical to the
    same W = 2 engine's on the CPU. A rank that fails or outlives its 420 s
-   fails the phase; its children are killed.
+   fails the phase; its children are killed. The same kernel checks and
+   times at F_pad 288 (the AAE's 283-wide z latent, the kernels' generic
+   width): the three shard sweeps, their bf16 variants and
+   `gather_ball_shard` (KB 64) on the shards of 100,096 columns over 1, 2
+   and 4 ranks. (d) a world of one on NCCL on 20,000 contigs of phase 4's
+   recipe with phase 8's annotation: Taxometer (4 x 512, batch 1,024, 2
+   epochs), VAEVAE (512-512-32, batch 256, 1 epoch) and the AAE (547 / 283
+   / 700, batch 256, 1 epoch) each trained without a mesh and with
+   `mesh=`, the replicas checked every epoch and the parameters held to the
+   unmeshed training's (Taxometer and the AAE bit for bit, VAEVAE's epoch
+   metrics within rtol 1e-3 and its weights within steps x lr); ms a step both ways and the collectives a
+   step by kind logged; then the meshed AAE's z latent (degenerate after
+   one epoch: a few clusters) clustered by the unsharded and the
+   row-sharded engine, and 120 clusters of a 283-wide latent of 200 clumps
+   (`wide_latent`) likewise at full scope, forced subset and bfloat16, each
+   bit for bit (emission and sums), the shard entry points launched at
+   F_pad 288 alone and, at full scope, the index entry points not at all; (e) two processes sharing the card over gloo
+   (`--dist-main-rank`), each joining the group and then calling `main`
+   for `taxometer`, `bin taxvamb` on rank 0's refined TSV and `bin avamb`
+   at (d)'s widths on (d)'s data (batch 1,024, one epoch each, 50 clusters
+   a `bin`): each rank's
+   parameter checksums equal every epoch, rank 0's artifacts and TSVs read
+   back, `.proc1` removed, and the first 20 z clusters of the W = 2 engine
+   on the CPU equal to the card's (all of them: the z latent holds a few),
+   as the first 20 of `wide_latent`'s.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
@@ -213,7 +237,7 @@ phase 7's for `hmm_forward`; each row also holds every timed width under
 matrix kernels at the z latent's width, with phase 9's launches; the rows
 with `dtype` "bfloat16" are the bf16 variants, one a timed width, with
 phase 11's launches; the rows with `entry_point_of` are the shard entry
-points, with phase 12(a)'s launches), the
+points, with phase 12(a)'s launches, and at `f_pad` 288 12(d)'s), the
 card's `nvidia-smi` name and power limit, and
 `{"ok": true, "device": ...}`.
 
@@ -241,7 +265,7 @@ profile, no card-vs-CPU run) and phase 11.
 
     python3 chip_smoke.py --dist
 
-runs phase 1 and phase 12 (about 2 minutes).
+runs phase 1 and phase 12 (about 5 minutes).
 
     python3 chip_smoke.py --lanes
 
@@ -1520,9 +1544,9 @@ RC_MERGED_PAIRS = 20
 RC_EPOCHS = 10  # two epochs are 117 optimizer steps at 20,000 contigs: too few to cluster
 RC_CLUSTERS = 600  # bin default's -c, a cap on the clustering's time
 # the padded lengths phase 7's sample of gene batches may sum to: the plain
-# Forward takes some 0.5 ms a residue step and profile on the card, so 2,048
-# steps x 40 profiles are some 40 s
-RC_SAMPLE_PADS = 2048
+# Forward takes some 0.5 ms a residue step and profile on the card, so 1,024
+# steps x 40 profiles are some 20 s (cut from 2,048 for time)
+RC_SAMPLE_PADS = 1024
 READ_LEN = 150
 
 
@@ -2134,9 +2158,10 @@ AAE_PROBE_ROWS = 4096  # contigs on which the card's encode is held to the CPU's
 AAE_ENCODE_TOL = 1e-5
 AAE_PROFILE_STEPS = 25
 # wander steps after which the card-vs-CPU engine comparison may end (at the
-# end of a cluster): phase 4's 50 clusters hold ~200; 150 (from 250 up to
-# PR 12) keeps the full run, phase 12 included, well inside its time limit
-AAE_AGREEMENT_STEPS = 150
+# end of a cluster): phase 4's 50 clusters hold ~200; 100 (cut from 250,
+# then 150) keeps the full run, phase 12 included, inside its time limit
+# on a slow host
+AAE_AGREEMENT_STEPS = 100
 # the ensemble's quality gates: the cut's bins are far from near-complete
 # (the AAE's z latent after 2 epochs holds a few giant clusters), so every
 # bin enters, and dereplication and ripping resolve the z and y bins' overlaps
@@ -2654,7 +2679,7 @@ PROFILE_CLUSTERS = 40
 
 # ------------------------------------------- phase 12: several processes
 
-DIST_CLUSTERS = 200  # clusters each of phase 12's engine runs takes: a cap on their time
+DIST_CLUSTERS = 120  # clusters each of phase 12's engine runs takes: a cap on their time
 DIST_CPU_CLUSTERS = 20  # clusters of 12(b)'s run on the card held to the same run on the CPU
 # phase 12's training batch (doubled after epoch 1, as phase 4's -q 1): twice
 # phase 4's, half the steps, each of which gathers the gradient over gloo in 12(b)
@@ -2675,9 +2700,11 @@ DIST_VARIANTS = {"subset, lanes on": {"wander_scope": "subset", "attempt_batch":
                  "bfloat16": {"distance_dtype": "bfloat16"}}
 
 
-def check_and_time_shards(dev) -> tuple[dict, dict]:
-    """Phase 12's kernel checks and times of the four shard entry points.
-    Checks: on the first and last shard of the 100k path's 100,096 columns
+def check_and_time_shards(dev, f_pad: int = F_PAD) -> tuple[dict, dict]:
+    """Phase 12's kernel checks and times of the four shard entry points at
+    F_pad `f_pad` (at the AAE's 288, the three that read the matrix: the
+    Gumbel kernel reads none). Checks: on the first and last shard of the
+    100k path's 100,096 columns
     over W = 1, 2 and 4 ranks, each with queries on the shard and held by
     another rank (-1), against its plain version on the card and, given a
     shard column's own features and index, against the index entry point
@@ -2689,9 +2716,10 @@ def check_and_time_shards(dev) -> tuple[dict, dict]:
     from vamb_torch import kernels as K
 
     n = PATH_WIDTHS[1]
-    mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=9), device=dev)
+    mT = torch.as_tensor(clumpy_matrixT(n, f_pad, seed=9), device=dev)
     w = torch.as_tensor(weights(n, seed=9, zero_half=True), device=dev)
-    errs = dict.fromkeys(SHARD_KERNELS, 0.0)
+    gumbel = f_pad == F_PAD
+    errs = dict.fromkeys(SHARD_KERNELS if gumbel else SHARD_KERNELS[:3], 0.0)
 
     def held(name, got, want, what):
         for a, b in zip(got, want):
@@ -2704,18 +2732,19 @@ def check_and_time_shards(dev) -> tuple[dict, dict]:
         keys = []
         for r in range(world):
             lo, hi = r * n // world, (r + 1) * n // world
-            k = K.gumbel_topc_shard(gkey, gd[lo:hi], gkept[lo:hi], gtried[lo:hi], gmedoid,
-                                    MAXSTEPS, n, lo)
-            held("gumbel_topc_shard", (k,), (K.gumbel_topc_shard_plain(
-                gkey, gd[lo:hi], gkept[lo:hi], gtried[lo:hi], gmedoid, MAXSTEPS, lo),),
-                f"its plain version (W {world}, rank {r})")
-            keys.append(k)
+            if gumbel:
+                k = K.gumbel_topc_shard(gkey, gd[lo:hi], gkept[lo:hi], gtried[lo:hi], gmedoid,
+                                        MAXSTEPS, n, lo)
+                held("gumbel_topc_shard", (k,), (K.gumbel_topc_shard_plain(
+                    gkey, gd[lo:hi], gkept[lo:hi], gtried[lo:hi], gmedoid, MAXSTEPS, lo),),
+                    f"its plain version (W {world}, rank {r})")
+                keys.append(k)
             if r not in (0, world - 1):
                 continue
             part, wp = mT[:, lo:hi].contiguous(), w[lo:hi].contiguous()
             own, other = 37, (hi + 5) % n  # a shard column, and one on the next shard
             q_own, q_other = part[:, own].contiguous(), mT[:, other].contiguous()
-            where = f"(W {world}, rank {r})"
+            where = f"(F_pad {f_pad}, W {world}, rank {r})"
             for q, idx in ((q_own, own), (q_other, -1)):
                 held("medoid_sweep_shard", K.medoid_sweep_shard(part, q, idx, wp),
                      K.medoid_sweep_shard_plain(part, q, idx, wp), f"its plain version {where}")
@@ -2739,15 +2768,17 @@ def check_and_time_shards(dev) -> tuple[dict, dict]:
             held("candidate_density_shard",
                  (K.candidate_density_shard(part, part[:, ids].contiguous(), ids, wp),),
                  (K.candidate_density_sweep(part, ids, wp),), f"the density kernel on the shard {where}")
-        merged = K.topc_merge(torch.stack(keys), MAXSTEPS)
-        held("gumbel_topc_shard", merged, K.gumbel_topc(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS),
-             f"gumbel_topc over the whole width once merged (W {world})")
-    log(f"phase 12 shard entry points: bit for bit their plain versions and the index entry "
-        f"points on the shards at W {DIST_SHARD_WORLDS} ({n} columns): " + json.dumps(errs))
-    errs.update(check_ball_and_bf16_shards(dev, mT, w))
+        if gumbel:
+            merged = K.topc_merge(torch.stack(keys), MAXSTEPS)
+            held("gumbel_topc_shard", merged,
+                 K.gumbel_topc(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS),
+                 f"gumbel_topc over the whole width once merged (W {world})")
+    log(f"phase 12 shard entry points at F_pad {f_pad}: bit for bit their plain versions and the "
+        f"index entry points on the shards at W {DIST_SHARD_WORLDS} ({n} columns): " + json.dumps(errs))
+    errs.update(check_ball_and_bf16_shards(dev, mT, w, f_pad))
 
     # times at W = 1's shard, with the bounds of `time_kernels`
-    idx, f = 37, F_PAD
+    idx, f = 37, f_pad
     kept = w > 0
     n_kept = int(kept.sum())
     q = mT[:, idx].contiguous()
@@ -2777,25 +2808,28 @@ def check_and_time_shards(dev) -> tuple[dict, dict]:
             lambda: K.candidate_density_shard_plain(mT, qc, cand, w), None,
             bound((f * n_kept + n + (2 + f) * MAXSTEPS) * 4,
                   (2 * f + 1) * MAXSTEPS * n_kept + 3 * n_within)),
-        "gumbel_topc_shard": (
+    }
+    if gumbel:
+        fns["gumbel_topc_shard"] = (
             lambda: K.gumbel_topc_shard(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS, n, 0),
             lambda: K.gumbel_topc_shard_plain(gkey, gd, gkept, gtried, gmedoid, MAXSTEPS, 0),
             lambda: torch.topk(K.gumbel_scores(gkey, gd, gkept, gtried, gmedoid), MAXSTEPS),
-            bound(GUMBEL_READ_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n)),
-    }
-    # gather_ball_shard: a W = 1 shard of the 300k path's 300,032 columns,
-    # 64 blocks with their side vectors, beside `index_select` of the
+            bound(GUMBEL_READ_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n))
+    # gather_ball_shard: a W = 1 shard of the 300k path's 300,032 columns
+    # (at F_pad 288, of the 100k path's 100,096: the widths it is checked
+    # at), 64 blocks with their side vectors, beside `index_select` of the
     # matrix's blocks alone; its bound is the gather's (the blocks read and
     # written, the ids, and per slot w, kept and d0 read and its id, flag,
     # weight and d0 written)
-    mTg, wg, keptg, d0g = ball_inputs(BIG_PAD, dev, seed=6)
-    bids = torch.as_tensor(np.sort(np.random.default_rng(6).choice(BIG_PAD // 128, BALL_KB, replace=False))
+    gather_n = BIG_PAD if gumbel else n
+    mTg, wg, keptg, d0g = ball_inputs(gather_n, dev, seed=6, f=f)
+    bids = torch.as_tensor(np.sort(np.random.default_rng(6).choice(gather_n // 128, BALL_KB, replace=False))
                            .astype(np.int32), device=dev)
     q_cols = BALL_KB * 128
     fns["gather_ball_shard"] = (
         lambda: K.gather_ball_shard(mTg, bids, BALL_KB, wg, keptg, d0g, 0),
         lambda: K.gather_ball_shard_plain(mTg, bids, BALL_KB, wg, keptg, d0g, 0),
-        lambda: mTg.view(f, BIG_PAD // 128, 128).index_select(1, bids),
+        lambda: mTg.view(f, gather_n // 128, 128).index_select(1, bids),
         bound((2 * f * q_cols + BALL_KB) * 4 + q_cols * 22, 0))
     # the bf16 variants at W = 1's shard: the f32 kernels' bounds with the
     # matrix at 2 bytes an element (`time_bf16`'s)
@@ -2831,7 +2865,7 @@ def check_and_time_shards(dev) -> tuple[dict, dict]:
         for name, (kern, plain, lib, bnd) in table.items():
             r = {"bound": bnd, "ms": time_ms(kern), "plain_ms": time_ms(plain),
                  "library_ms": None if lib is None else time_ms(lib),
-                 "n_pad": BIG_PAD if name == "gather_ball_shard" else n}
+                 "n_pad": gather_n if name == "gather_ball_shard" else n}
             if dtype == "bfloat16" and lib is not None:
                 r["library_what"] = lib_b_what
             times[(name, dtype)] = r
@@ -2843,10 +2877,11 @@ def check_and_time_shards(dev) -> tuple[dict, dict]:
     return errs, times
 
 
-def check_ball_and_bf16_shards(dev, mT: torch.Tensor, w: torch.Tensor) -> dict:
+def check_ball_and_bf16_shards(dev, mT: torch.Tensor, w: torch.Tensor, f_pad: int = F_PAD) -> dict:
     """Phase 12's checks of `gather_ball_shard` and the bf16 shard
-    variants. The gather: on the first and last 128-aligned shard of the
-    100k path's 100,096 columns and of the 300k path's 300,032 (KB 64) over
+    variants at F_pad `f_pad` (`mT`'s). The gather: on the first and last
+    128-aligned shard of the 100k path's 100,096 columns and (at F_pad 32)
+    of the 300k path's 300,032 (KB 64, the engine's at either width) over
     W = 1, 2 and 4 ranks, 64 of the shard's blocks with all slots valid and
     with 24 padding slots, bit for bit its plain version on the card and
     `gather_ball` of the whole matrix for the shard's blocks (each slot's
@@ -2867,8 +2902,8 @@ def check_ball_and_bf16_shards(dev, mT: torch.Tensor, w: torch.Tensor) -> dict:
             if a.is_floating_point():
                 errs[name] = max(errs[name], float((a.double() - b.double()).abs().max()))
 
-    for n in (PATH_WIDTHS[1], BIG_PAD):
-        mTg, wg, keptg, d0g = ball_inputs(n, dev, seed=n + 2)
+    for n in (PATH_WIDTHS[1], BIG_PAD) if f_pad == F_PAD else (PATH_WIDTHS[1],):
+        mTg, wg, keptg, d0g = ball_inputs(n, dev, seed=n + 2, f=f_pad)
         blocks = n // 128
         for world in DIST_SHARD_WORLDS:
             for r in sorted({0, world - 1}):
@@ -2883,7 +2918,7 @@ def check_ball_and_bf16_shards(dev, mT: torch.Tensor, w: torch.Tensor) -> dict:
                 for ids, nb in ((picked, BALL_KB), (part_ids, BALL_KB * 5 // 8)):
                     bids = torch.as_tensor(ids, device=dev)
                     got = K.gather_ball_shard(part, bids, nb, *side, lo)
-                    where = f"(N {n}, W {world}, rank {r}, nb {nb})"
+                    where = f"(F_pad {f_pad}, N {n}, W {world}, rank {r}, nb {nb})"
                     held("gather_ball_shard", got, K.gather_ball_shard_plain(part, bids, nb, *side, lo),
                          f"its plain version {where}")
                     held("gather_ball_shard", got, K.gather_ball(mTg, bids + b_lo, nb, wg, keptg, d0g),
@@ -2906,7 +2941,7 @@ def check_ball_and_bf16_shards(dev, mT: torch.Tensor, w: torch.Tensor) -> dict:
             m_loc = hi - lo
             own, other = 37, (hi + 5) % n
             q_own, q_other = wide[:, own].contiguous(), mTb[:, other].float().contiguous()
-            where = f"(bf16, W {world}, rank {r})"
+            where = f"(bf16, F_pad {f_pad}, W {world}, rank {r})"
             for q, idx in ((q_own, own), (q_other, -1)):
                 got = one_bf16_launch(K.medoid_sweep_shard, lambda: K.medoid_sweep_shard(part, q, idx, wp))
                 held("medoid_sweep_shard bf16", got, K.medoid_sweep_shard_plain(part, q, idx, wp),
@@ -2934,9 +2969,10 @@ def check_ball_and_bf16_shards(dev, mT: torch.Tensor, w: torch.Tensor) -> dict:
                  (K.candidate_density_shard(part, wide[:, ids].contiguous(), ids, wp),),
                  (K.candidate_density_sweep(part, ids, wp),), f"the bf16 density kernel on the shard {where}")
     torch.cuda.synchronize()
-    log(f"phase 12: gather_ball_shard on the 128-aligned shards of {PATH_WIDTHS[1]} and {BIG_PAD} columns "
-        f"(KB {BALL_KB}) and the bf16 shard variants on the shards of {n}, W {DIST_SHARD_WORLDS}: bit for "
-        "bit their plain versions and the index entry points: " + json.dumps(errs))
+    log(f"phase 12 at F_pad {f_pad}: gather_ball_shard on the 128-aligned shards of {PATH_WIDTHS[1]}"
+        f"{'' if f_pad != F_PAD else f' and {BIG_PAD}'} columns (KB {BALL_KB}) and the bf16 shard "
+        f"variants on the shards of {n}, W {DIST_SHARD_WORLDS}: bit for bit their plain versions and the "
+        "index entry points: " + json.dumps(errs))
     return errs
 
 
@@ -3043,19 +3079,24 @@ def run_dist_one(dev, tmp: Path) -> dict:
             "_labels": labels_of(sharded, N_CONTIGS)}
 
 
-def engine_pair(dev, mesh, latent: np.ndarray, lengths: np.ndarray, label: str, kw: dict) -> dict:
-    """One of 12(a)'s engine runs beside its full-scope one: `DIST_CLUSTERS`
+def engine_pair(dev, mesh, latent: np.ndarray, lengths: np.ndarray, label: str, kw: dict,
+                phase: str = "12(a)") -> dict:
+    """One of 12(a)'s (or 12(d)'s) engine runs: `DIST_CLUSTERS`
     clusters of the latent from the unsharded engine and then from the
     row-sharded one (a world of one) with generator arguments `kw`, the
     launch counters and the collective tally set to 0 just before the
     sharded run and read just after. Gates: emission, every attempt's sums
     and the subset and lane counters bit for bit the unsharded engine's; at
+    full scope every shard entry point launched and the index entry points
+    of the same kernels not (`row_stats` runs only where a seed may be a
+    loner: its launches are the data's); at
     the subset scope `gather_ball_shard` launched and `gather_ball`,
     `medoid_sweep` and `spec_sweep` not, the subset wander (and, lanes on,
     attempt lanes) ran; at bfloat16 the bf16 variants of the three shard
     sweeps launched, their float32 ones and the index entry points not, and
     neither the gather nor `row_sweep`. Logged: the collectives by kind,
-    calls and bytes an attempt (the seeds taken)."""
+    calls and bytes an attempt (the seeds taken). The result holds the
+    launches by kernel, by type and by F_pad."""
     from vamb_torch import kernels as K
     from vamb_torch.cluster import ClusterGenerator
 
@@ -3075,8 +3116,9 @@ def engine_pair(dev, mesh, latent: np.ndarray, lengths: np.ndarray, label: str, 
     sharded_s = time.time() - t
     launches = {k.__name__: k.launches for k in K.KERNELS}
     by_dtype = {k.__name__: dict(k.launches_by_dtype) for k in K.KERNELS if k.launches_by_dtype}
+    by_fpad = {k.__name__: dict(k.launches_by_fpad) for k in K.KERNELS if k.launches_by_fpad}
     traffic = mesh.traffic
-    what = f"phase 12(a), {label}"
+    what = f"phase {phase}, {label}"
     check(sharded == plain, f"{what}: the sharded engine's emission differs from the unsharded one's")
     check(gen.sums_trace == plain_gen.sums_trace and len(gen.sums_trace) > 0,
           f"{what}: the sharded engine's sums differ from the unsharded one's")
@@ -3089,6 +3131,11 @@ def engine_pair(dev, mesh, latent: np.ndarray, lengths: np.ndarray, label: str, 
                   f"{what}: {name} did not launch its bf16 variant alone: {by_dtype.get(name)}")
         for name in ("medoid_sweep", "spec_sweep", "candidate_density_sweep", "gather_ball_shard",
                      "gather_blocks", "row_sweep"):
+            check(launches[name] == 0, f"{what}: the sharded engine launched {name}")
+    elif kw.get("wander_scope") != "subset":
+        for name in SHARD_KERNELS:
+            check(launches[name] > 0, f"{what}: the sharded engine never launched {name}")
+        for name in set(SHARD_OF.values()):
             check(launches[name] == 0, f"{what}: the sharded engine launched {name}")
     else:
         check(launches["gather_ball_shard"] > 0, f"{what}: the sharded engine never launched "
@@ -3107,9 +3154,10 @@ def engine_pair(dev, mesh, latent: np.ndarray, lengths: np.ndarray, label: str, 
         f"{gen.lane_counts['lanes']} climbed, {gen.lane_counts['admitted']} admitted); launches "
         f"{json.dumps({k: v for k, v in launches.items() if v})}, by type {json.dumps(by_dtype)}; "
         f"NCCL collectives over {attempts} attempts by kind: " + json.dumps(per_attempt))
-    return {"launches": launches, "launches_by_dtype": by_dtype, "unsharded_engine_s": plain_s,
-            "sharded_engine_s": sharded_s, "attempts": attempts, "subset_counts": gen.subset_counts,
-            "lane_counts": gen.lane_counts, "identical": True, "collectives": per_attempt}
+    return {"launches": launches, "launches_by_dtype": by_dtype, "launches_by_fpad": by_fpad,
+            "unsharded_engine_s": plain_s, "sharded_engine_s": sharded_s, "attempts": attempts,
+            "subset_counts": gen.subset_counts, "lane_counts": gen.lane_counts, "identical": True,
+            "collectives": per_attempt}
 
 
 def run_dist_two(tmp: Path, labels_one: np.ndarray) -> dict:
@@ -3314,6 +3362,348 @@ def dist_rank(rendezvous: str, rank: int, inputs: Path, out: Path) -> int:
     return 0
 
 
+# phase 12(d) and 12(e): the models' data-parallel training at published widths
+
+DIST_MODEL_CONTIGS, DIST_MODEL_GENOMES = 20_000, 200  # phase 4's recipe cut to 20,000 contigs
+AAE_WIDTHS = (547, 283, 700)  # the AAE's published hidden, z and y widths (`bin avamb`'s defaults)
+# each model's published widths, batch and epochs in 12(d) and 12(e): Taxometer
+# 4 x 512 (pipeline.predict_taxonomy's), VAEVAE 512-512-32, the AAE 547 / 283 / 700
+DIST_MODEL_RUNS = {"taxometer": dict(nepochs=2, batchsize=1024, batchsteps=[]),
+                   "vaevae": dict(nepochs=1, batchsize=256, batchsteps=[]),
+                   "aae": dict(nepochs=1, batchsize=256, batchsteps=[])}
+# 12(e)'s three commands through `main` at W = 2 over gloo, every collective
+# through host memory: the published widths, one epoch each at batch 1,024
+# (4 x fewer steps than (d)'s VAEVAE and AAE), 50 clusters a `bin`
+DIST_E_EPOCHS, DIST_E_BATCH, DIST_E_CLUSTERS = 1, 1024, 50
+# 12(d)'s engine runs at F_pad 288, each sharded and unsharded: the trained
+# AAE's z latent at full scope (after one epoch on this synthetic data it
+# is degenerate, a few clusters hold every contig, as phase 9's after two),
+# and a 283-wide latent of 200 clumps of 100 points (`wide_latent`) at full
+# scope, at the forced subset scope and at bfloat16 distances
+DIST_Z_VARIANTS = {"full scope": {}, "subset": {"wander_scope": "subset"},
+                   "bfloat16": {"distance_dtype": "bfloat16"}}
+
+
+def wide_latent(n_clumps: int, per: int, dim: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(n_clumps x per, dim) float32 points in tight clumps (noise 0.01 a
+    feature around unit centres) and their lengths: a latent as wide as the
+    AAE's z with the structure a trained one would have."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clumps, dim))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x = np.repeat(centers, per, axis=0) + rng.normal(scale=0.01, size=(n_clumps * per, dim))
+    return x.astype(np.float32), rng.integers(2000, 50_000, n_clumps * per).astype(np.float32)
+# 12(d)'s tolerance of `trainmodel(mesh=)` at W = 1 against `trainmodel()` on
+# the card: Taxometer and the AAE bit for bit (`layers.batch_mean` is the
+# sum over the count, and at these power-of-two batches torch's mean on the
+# card, the sum times 1 / count, rounds alike). VAEVAE's joint loss adds its
+# batch-mean terms once where the unsharded loss adds them to every row: it
+# may round an ulp apart a step, which Adam turns into a step of up to ~lr
+# for each weight whose gradient is rounding noise (on the CPU the two
+# trainings part so). So VAEVAE is held to its epoch metrics within
+# VAEVAE_W1_RTOL and each weight within steps x lr (Adam's step, 1e-3).
+VAEVAE_W1_RTOL = 1e-3
+ADAM_LR = 1e-3
+
+
+def metrics_of(lines: list) -> np.ndarray:
+    "The metrics of each `Epoch:` log line of a model's training, in order."
+    return np.array([[float(f.split()[0]) for f in line.split("Batchsize")[0].split(":")[2:]]
+                     for line in lines if "Epoch:" in line])
+
+
+def build_dist_model(name: str, nodes: list, parents: list, device):
+    "The model `name` at its published widths (DIST_MODEL_RUNS)."
+    from vamb_torch.models.aae import AAE
+    from vamb_torch.models.taxometer import Taxometer
+    from vamb_torch.models.vaevae import VAEVAE
+
+    if name == "taxometer":
+        return Taxometer(N_SAMPLES, len(nodes), nodes, parents, nhiddens=[512] * 4,
+                         hier_loss="flat_softmax", seed=SEED, device=device)
+    if name == "vaevae":
+        return VAEVAE(N_SAMPLES, len(nodes), nodes, parents, nhiddens=[512, 512], nlatent=32,
+                      hier_loss="flat_softmax", seed=SEED, device=device)
+    return AAE(N_SAMPLES, *AAE_WIDTHS, seed=SEED, device=device)
+
+
+def run_dist_models_one(dev, tmp: Path) -> dict:
+    """Phase 12(d): a world of one on NCCL, on the card. 20,000 contigs of
+    phase 4's recipe with `write_taxonomy`'s annotation; each of Taxometer,
+    VAEVAE and the AAE at its published widths (DIST_MODEL_RUNS) trained
+    without a mesh and then with `mesh=` from the same seed. Gates: the
+    replicas checked after every epoch of the mesh training, its
+    parameters and BatchNorm statistics within the stated tolerance of the
+    unmeshed training's (Taxometer and the AAE bit for bit, VAEVAE's
+    metrics within VAEVAE_W1_RTOL and its weights within steps x lr), then
+    the meshed AAE's z latent (283 wide, F_pad 288) clustered by the
+    unsharded and the row-sharded engine, at most DIST_CLUSTERS clusters
+    (`engine_pair`), and `wide_latent`'s 283-wide clumps likewise at full
+    scope, at the forced subset scope and at bfloat16 distances, each bit
+    for bit (emission and sums), the shard entry points launched at F_pad
+    288 alone, and at full scope the index entry points not at all. Logged: ms a step with and without
+    the mesh, and the collectives a step by kind (calls, bytes)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from vamb_torch import pipeline
+    from vamb_torch.models import make_dataset
+    from vamb_torch.parallel import make_mesh
+    from vamb_torch.taxonomy import Taxonomy
+    from vamb_torch.utils import BinSplitter
+    from vamb_torch.utils.checkpoint import params_to_jax
+
+    data = tmp / "data_d"
+    data.mkdir()
+    t = time.time()
+    genome = write_dataset(data, DIST_MODEL_CONTIGS, DIST_MODEL_GENOMES, N_SAMPLES, SEED)
+    write_taxonomy(data / "taxonomy.tsv", genome, SEED)
+    log(f"phase 12(d): wrote {DIST_MODEL_CONTIGS} contigs of phase 4's recipe and their taxonomy in "
+        f"{time.time() - t:.1f} s")
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'rendezvous_d'}", world_size=1,
+                            rank=0, timeout=timedelta(seconds=DIST_RANK_TIMEOUT_S))
+    try:
+        mesh = make_mesh(1, device="cuda")
+        general = pipeline.GeneralOptions(tmp / "d", seed=SEED, device=str(mesh.device))
+        general.outdir.mkdir()
+        comp, ab = pipeline.load_composition_and_abundance(
+            general, pipeline.CompositionOptions(fasta=data / "contigs.fna"),
+            pipeline.AbundanceOptions(abundance_tsv=data / "abundance.tsv"), BinSplitter(None))
+        ds = make_dataset(ab.matrix, comp.matrix, comp.metadata.lengths)
+        taxonomy = Taxonomy.from_file(data / "taxonomy.tsv", comp.metadata, False)
+        nodes, _, parents, targets = pipeline.targets_from_taxonomy(taxonomy.contig_taxonomies)
+        models, trained = {}, {}
+        for name, kw in DIST_MODEL_RUNS.items():
+            args = (ds,) if name == "aae" else (ds, targets)
+            steps = kw["nepochs"] * (DIST_MODEL_CONTIGS // kw["batchsize"])
+            runs = {}
+            for label, m in (("no mesh", None), ("mesh", mesh)):
+                model = build_dist_model(name, nodes, parents, mesh.device)
+                lines = []
+                mesh.reset_traffic()
+                torch.cuda.synchronize()
+                t = time.time()
+                model.trainmodel(*args, logger=lines.append, mesh=m, **kw)
+                torch.cuda.synchronize()
+                runs[label] = {"ms_a_step": (time.time() - t) * 1e3 / steps,
+                               "flat": params_to_jax(model.state_dict()), "lines": lines}
+                if m is not None:  # the kinds of a step, and those of the run or an epoch
+                    once = ("replicate", "metrics", "checksums")
+                    runs[label]["collectives_a_step"] = {
+                        k: {"calls": v["calls"] / steps, "bytes": v["bytes"] / steps}
+                        for k, v in mesh.traffic.items() if k not in once}
+                    runs[label]["collectives_a_run"] = {
+                        k: {"calls": v["calls"], "bytes": v["bytes"]}
+                        for k, v in mesh.traffic.items() if k in once}
+                    trained[name] = model
+            checks = sum("Parameters identical on 1 ranks" in ln for ln in runs["mesh"]["lines"])
+            check(checks == kw["nepochs"], f"phase 12(d): {name}'s replicas were checked {checks} "
+                  f"times in {kw['nepochs']} epochs")
+            a, b = runs["no mesh"]["flat"], runs["mesh"]["flat"]
+            diff = {k: float(np.abs(b[k] - a[k]).max()) for k in a}
+            rel = {k: float(np.linalg.norm((b[k] - a[k]).ravel()) / max(np.linalg.norm(a[k].ravel()), 1e-30))
+                   for k in a}
+            check(all(np.isfinite(v).all() for v in b.values()), f"phase 12(d): {name} trained to a "
+                  "non-finite value")
+            if name == "vaevae":
+                ma, mb = (metrics_of(runs[k]["lines"]) for k in ("no mesh", "mesh"))
+                check(ma.shape == mb.shape and np.allclose(mb, ma, rtol=VAEVAE_W1_RTOL, atol=0),
+                      f"phase 12(d): VAEVAE's epoch metrics with a mesh {mb} are not those without {ma}")
+                check(max(diff.values()) <= steps * ADAM_LR, f"phase 12(d): VAEVAE's mesh training is "
+                      f"{max(diff.values())} from its training without one")
+            else:
+                check(max(diff.values()) == 0.0, f"phase 12(d): {name}'s mesh training differs from its "
+                      f"training without one by {max(diff.values())}")
+            models[name] = {
+                "steps": steps, "ms_a_step_no_mesh": runs["no mesh"]["ms_a_step"],
+                "ms_a_step_mesh": runs["mesh"]["ms_a_step"],
+                "collectives_a_step": runs["mesh"]["collectives_a_step"],
+                "collectives_a_run": runs["mesh"]["collectives_a_run"],
+                "metrics_no_mesh": metrics_of(runs["no mesh"]["lines"]).tolist(),
+                "metrics_mesh": metrics_of(runs["mesh"]["lines"]).tolist(),
+                "max_abs_diff": max(diff.values()), "max_relative_norm": max(rel.values()),
+                "checksums_checked": checks}
+            log(f"phase 12(d): {name} at its published widths, {kw}: {json.dumps(models[name])}")
+        clusters_y, latent = trained["aae"].get_latents(list(comp.metadata.identifiers), ds)
+        check(latent.shape == (DIST_MODEL_CONTIGS, AAE_WIDTHS[1]) and np.isfinite(latent).all(),
+              "phase 12(d): the AAE's z latent is not (N, 283) finite")
+        z_run = engine_pair(dev, mesh, latent, comp.metadata.lengths, "the AAE's z latent, full scope",
+                            {}, phase="12(d)")
+        wide, wide_len = wide_latent(DIST_MODEL_CONTIGS // 100, 100, AAE_WIDTHS[1], SEED)
+        variants = {label: engine_pair(dev, mesh, wide, wide_len, f"a 283-wide latent, {label}", kw,
+                                       phase="12(d)")
+                    for label, kw in DIST_Z_VARIANTS.items()}
+    finally:
+        dist.destroy_process_group()
+    for label, v in (("the z latent", z_run), *variants.items()):
+        for name, by in v["launches_by_fpad"].items():
+            if name.endswith("_shard"):
+                check(set(by) == {AAE_F_PAD}, f"phase 12(d), {label}: {name} launched at F_pad {by}")
+    for label, v in (("the z latent", z_run), ("full scope", variants["full scope"])):
+        check(all(set(v["launches_by_fpad"].get(k, {})) == {AAE_F_PAD} for k in SHARD_KERNELS[:3]),
+              f"phase 12(d), {label}: the shard sweeps not launched at F_pad {AAE_F_PAD} alone")
+    return {"contigs": DIST_MODEL_CONTIGS, "models": models, "z_latent_clusters": z_run,
+            "y_clusters": len(clusters_y), "wide_latent_engine": variants}
+
+
+def run_dist_models_two(tmp: Path) -> dict:
+    """Phase 12(e): two processes sharing the card over gloo
+    (`dist_main_rank`), each through `main` at W = 2 on 12(d)'s data:
+    `taxometer`, then `bin taxvamb` on its refined TSV, then `bin avamb`.
+    A rank that fails or outlives DIST_RANK_TIMEOUT_S fails the phase; the
+    children are killed whatever happens. Gates: each rank's parameter
+    checksums equal, epoch for epoch, in each command; process 0's
+    artifacts and TSVs read back, each `.proc1` removed; each rank's first
+    DIST_CPU_CLUSTERS clusters of the AAE's z latent from the W = 2 engine
+    on the CPU equal to the card's (all of them where the degenerate latent
+    holds fewer), and the same for `wide_latent`'s 283-wide clumps."""
+    from vamb_torch.models.aae import AAE
+    from vamb_torch.models.taxometer import Taxometer
+    from vamb_torch.models.vaevae import VAEVAE
+    from vamb_torch.utils import read_npz
+
+    out = tmp / "e"
+    out.mkdir()
+    cmd = lambda r: [sys.executable, str(Path(__file__).resolve()), "--dist-main-rank",  # noqa: E731
+                     str(tmp / "rendezvous_e"), str(r), str(tmp / "data_d"), str(out)]
+    t = time.time()
+    procs = [subprocess.Popen(cmd(r), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=str(ROOT)) for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=max(1.0, t + DIST_RANK_TIMEOUT_S - time.time()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"check failed: phase 12(e): rank {r} outlived "
+                                     f"{DIST_RANK_TIMEOUT_S} s") from None
+            check(p.returncode == 0, f"phase 12(e): rank {r} failed ({p.returncode}):\n{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.time() - t
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    for cmd_name in ("taxometer", "taxvamb", "avamb"):
+        sums = [r["checksums"][cmd_name] for r in ranks]
+        check(len(sums[0]) == DIST_E_EPOCHS and sums[0] == sums[1],
+              f"phase 12(e): {cmd_name}: the ranks' parameter checksums differ: {sums}")
+    for r in ranks:
+        n_card, n_cpu = r["z_clusters"]
+        check(n_card == n_cpu == min(DIST_CPU_CLUSTERS, n_card) > 0
+              and r["card_vs_cpu_identical"] == n_card,
+              f"phase 12(e): rank {r['rank']}: the W = 2 z clusters on the card ({n_card}) differ from the "
+              f"CPU's ({n_cpu}) after {r['card_vs_cpu_identical']}")
+        check(r["wide_card_vs_cpu_identical"] == DIST_CPU_CLUSTERS,
+              f"phase 12(e): rank {r['rank']}: the W = 2 clusters of `wide_latent` on the card differ from "
+              f"the CPU's after {r['wide_card_vs_cpu_identical']}")
+        check(all(set(by) == {str(AAE_F_PAD)} for k, by in r["launches_by_fpad"]["avamb"].items()
+                  if k.endswith("_shard")) and r["launches"]["avamb"].get("medoid_sweep_shard", 0) > 0,
+              f"phase 12(e): rank {r['rank']}: bin avamb's shard sweeps not at F_pad {AAE_F_PAD} alone: "
+              f"{r['launches_by_fpad']['avamb']}")
+    # process 0's artifacts, read back with the port's own loaders
+    for sub in ("tm", "tv", "av"):
+        check(not (out / sub / ".proc1").exists(), f"phase 12(e): {sub}/.proc1 was not removed")
+    Taxometer.load(out / "tm" / "predictor_model.npz", device="cpu")
+    VAEVAE.load(out / "tv" / "vaevae_model.npz", device="cpu")
+    AAE.load(out / "av" / "aae_model.npz", device="cpu")
+    rows = read_tsv(out / "tm" / "results_taxometer.tsv")
+    check(len(rows) == DIST_MODEL_CONTIGS + 1, "phase 12(e): results_taxometer.tsv rows")
+    for name, width in (("tv/vaevae_latent.npz", 32), ("av/aae_z_latent.npz", AAE_WIDTHS[1])):
+        latent = read_npz(out / name)
+        check(latent.shape == (DIST_MODEL_CONTIGS, width) and np.isfinite(latent).all(),
+              f"phase 12(e): {name} is not (N, {width}) finite")
+    for name in ("tv/vaevae_clusters_unsplit.tsv", "av/aae_z_clusters_unsplit.tsv",
+                 "av/aae_y_clusters_unsplit.tsv"):
+        members = [m for _, m in read_tsv(out / name)[1:]]
+        check(len(members) == len(set(members)) > 0, f"phase 12(e): {name} lists a contig twice")
+    result = {"wall_s": wall, "ranks": ranks}
+    log("phase 12(e): " + json.dumps(result))
+    return result
+
+
+def dist_main_rank(rendezvous: str, rank: int, data: Path, out: Path) -> int:
+    """One rank of phase 12(e): join a gloo group of 2 on the card, then run
+    `main` (which finds the group joined) three times into `out`:
+    `taxometer`, `bin taxvamb` on rank 0's refined TSV and `bin avamb`, at
+    the published widths, DIST_E_EPOCHS epochs at batch DIST_E_BATCH,
+    DIST_E_CLUSTERS clusters a `bin`, with a barrier after each; each run's parameter checksums (this
+    rank's own, recorded as `check_replicas` takes them) and launches.
+    Then rank 0's z latent clustered by the W = 2 engine on the CPU over
+    the same group, its first DIST_CPU_CLUSTERS clusters held to rank 0's
+    `aae_z_clusters_unsplit.tsv`, and `wide_latent`'s first
+    DIST_CPU_CLUSTERS clusters from the W = 2 engine on the card and on the
+    CPU. Writes `out/rank<r>.json`."""
+    import torch.distributed as dist
+    from vamb_torch import kernels as K
+    from vamb_torch.__main__ import main
+    from vamb_torch.cluster import ClusterGenerator
+    from vamb_torch.composition import Composition
+    from vamb_torch.models import training
+    from vamb_torch.parallel import distributed_init, make_mesh
+    from vamb_torch.utils import read_npz
+
+    torch.set_num_threads(4)
+    distributed_init(f"file://{rendezvous}", 2, rank, device="cuda", backend="gloo",
+                     timeout_s=DIST_RANK_TIMEOUT_S)
+    sums = []
+    checksum = training.param_checksum
+
+    def recording(params):
+        c = checksum(params)
+        sums.append(int(c))
+        return c
+
+    training.param_checksum = recording
+    common = ["--fasta", str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),
+              "--seed", str(SEED)]
+    e, b, c = str(DIST_E_EPOCHS), str(DIST_E_BATCH), str(DIST_E_CLUSTERS)
+    runs = {
+        "taxometer": ["taxometer", "--outdir", str(out / "tm"), *common, "--taxonomy",
+                      str(data / "taxonomy.tsv"), "-pe", e, "-pt", b],
+        "taxvamb": ["bin", "taxvamb", "--outdir", str(out / "tv"), *common, "--taxonomy",
+                    str(out / "tm" / "results_taxometer.tsv"), "-e", e, "-t", b, "-q", "-c", c],
+        "avamb": ["bin", "avamb", "--outdir", str(out / "av"), *common, "--e_aae", e, "--t_aae", b,
+                  "--q_aae", "-c", c],
+    }
+    result = {"rank": rank, "wall_s": {}, "checksums": {}, "launches": {}, "launches_by_fpad": {}}
+    for name, argv in runs.items():
+        sums.clear()
+        K.reset_launch_counts()
+        t = time.time()
+        main(argv, device="cuda")
+        torch.cuda.synchronize()
+        result["wall_s"][name] = time.time() - t
+        result["checksums"][name] = list(sums)
+        result["launches"][name] = {k.__name__: k.launches for k in K.KERNELS if k.launches}
+        result["launches_by_fpad"][name] = {k.__name__: {str(f): c for f, c in k.launches_by_fpad.items()}
+                                            for k in K.KERNELS if k.launches_by_fpad}  # keys as JSON has them
+        dist.barrier()  # rank 0's outputs are written before the next command reads them
+    latent = read_npz(out / "av" / "aae_z_latent.npz")
+    lengths = Composition.load(out / "av" / "composition.npz").metadata.lengths
+    t = time.time()
+    gen = ClusterGenerator(latent, lengths, rng_seed=SEED, device="cpu", mesh=make_mesh(2, device="cpu"))
+    cpu = [sorted(int(i) for i in c.members) for c in itertools.islice(gen, DIST_CPU_CLUSTERS)]
+    result["cpu_engine_s"] = time.time() - t
+    card = {}
+    for name, contig in read_tsv(out / "av" / "aae_z_clusters_unsplit.tsv")[1:]:
+        card.setdefault(name, []).append(int(contig.split("C")[1]))
+    card = [sorted(m) for m in card.values()][:DIST_CPU_CLUSTERS]
+    result["z_clusters"] = [len(card), len(cpu)]  # after one epoch the z latent holds a few
+    result["card_vs_cpu_identical"] = next(
+        (i for i, (a, b) in enumerate(zip(card, cpu)) if a != b), min(len(card), len(cpu)))
+    # the W = 2 engine at F_pad 288 on a latent with structure: card and CPU
+    wide, wide_len = wide_latent(DIST_MODEL_CONTIGS // 100, 100, AAE_WIDTHS[1], SEED)
+    runs = [[sorted(int(i) for i in c.members) for c in itertools.islice(
+        ClusterGenerator(wide.copy(), wide_len, rng_seed=SEED, device=d, mesh=make_mesh(2, device=d)),
+        DIST_CPU_CLUSTERS)] for d in ("cuda", "cpu")]
+    result["wide_card_vs_cpu_identical"] = next(
+        (i for i, (a, b) in enumerate(zip(*runs)) if a != b), min(map(len, runs)))
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+    return 0
+
+
 def shard_rows_json(errs: dict, times: dict, run_one: dict, run_c: dict) -> list:
     """The kernels JSON line's rows of the shard entry points: phase 12's
     checks and times at the whole width of a world of one, and 12(a)'s
@@ -3353,20 +3743,71 @@ def shard_rows_json(errs: dict, times: dict, run_one: dict, run_c: dict) -> list
     return rows
 
 
+def shard_rows_json_aae(errs: dict, times: dict, run_d: dict, run_e: dict) -> list:
+    """The kernels JSON line's rows of the shard entry points at F_pad 288:
+    phase 12's checks and times at the whole width of a world of one, and
+    12(d)'s launches on its 283-wide latent at F_pad 288 (the three sweeps'
+    from its full-scope run, `gather_ball_shard`'s from its subset run, the
+    bf16 variants' from its bfloat16 run), with 12(e)'s rank 0's `bin
+    avamb` launches beside them."""
+    rows = []
+    z = run_d["wide_latent_engine"]
+    e_launches = run_e["ranks"][0]["launches_by_fpad"]["avamb"]
+    for (name, dtype), r in times.items():
+        base = SHARD_OF[name]
+        if dtype == "bfloat16":
+            launches = z["bfloat16"]["launches_by_dtype"].get(name, {}).get("bfloat16", 0)
+            path, err = "phase 12(d), bfloat16 (a 283-wide latent, a world of one on NCCL)", errs[f"{name} bf16"]
+        else:
+            run = "subset" if name == "gather_ball_shard" else "full scope"
+            launches = z[run]["launches_by_fpad"].get(name, {}).get(AAE_F_PAD, 0)
+            path, err = f"phase 12(d), {run} (a 283-wide latent, a world of one on NCCL)", errs[name]
+        lib_key = "library_note" if r["library_ms"] is None else "library_what"
+        lib_text = (LIBRARY_NOTES.get(base, "none") if r["library_ms"] is None
+                    else r.get("library_what", "index_select of the matrix's blocks alone"
+                               if name == "gather_ball_shard" else None))
+        rows.append({
+            "name": name, "route": "cuda", "source": CLUSTER_SOURCE, "replaces": REPLACES[base],
+            "launches": launches, "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({lib_key: lib_text} if lib_text is not None else {}),
+            **({"replaces_kind": REPLACES_KIND[base]} if base in REPLACES_KIND else {}),
+            "entry_point_of": base, "f_pad": AAE_F_PAD, "n_pad": r["n_pad"], "dtype": dtype,
+            "path": path,
+            "launches_12e_rank0": e_launches.get(name, {}).get(str(AAE_F_PAD), 0) if dtype == "float32" else 0,
+        })
+    return rows
+
+
 def run_dist(dev, big=None) -> tuple[list, dict]:
-    """Phase 12: the shard entry points' checks and times, 12(a), 12(b) and
-    12(c) (on `big`, phase 5's (latent, lengths), else `ab_latent()`).
-    Returns (the kernels JSON rows, the phase's results)."""
+    """Phase 12: the shard entry points' checks and times at F_pad 32 and
+    288, 12(a), 12(b), 12(c) (on `big`, phase 5's (latent, lengths), else
+    `ab_latent()`), 12(d) and 12(e). Returns (the kernels JSON rows, the
+    phase's results)."""
+    t = time.time()
     errs, times = check_and_time_shards(dev)
+    errs_aae, times_aae = check_and_time_shards(dev, AAE_F_PAD)
+    walls = {"kernels_s": time.time() - t}
     with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
         one = run_dist_one(dev, Path(tmp))
         two = run_dist_two(Path(tmp), one.pop("_labels"))
         latent, lengths = big if big is not None else ab_latent()
         source = ("phase 5's latent" if big is not None
                   else "ab_latent(): 300,000 points in 3,000 clumps (phase 5 did not run)")
         three = run_dist_engine_two(Path(tmp), latent, lengths, source)
-    return (shard_rows_json(errs, times, one, three),
-            {"world_of_one": one, "two_processes": two, "two_processes_engine": three})
+        walls["a_to_c_s"] = time.time() - t
+        t = time.time()
+        four = run_dist_models_one(dev, Path(tmp))
+        walls["d_s"] = time.time() - t
+        t = time.time()
+        five = run_dist_models_two(Path(tmp))
+        walls["e_s"] = time.time() - t
+    log("phase 12 times: " + json.dumps(walls))
+    return (shard_rows_json(errs, times, one, three) + shard_rows_json_aae(errs_aae, times_aae, four, five),
+            {"world_of_one": one, "two_processes": two, "two_processes_engine": three,
+             "models_world_of_one": four, "models_two_processes": five, "times": walls})
 
 
 def count_attempts(gen) -> list:
@@ -4222,6 +4663,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--dist-rank"]:  # one rank of phase 12(b)
         sys.exit(dist_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5])))
+    if sys.argv[1:2] == ["--dist-main-rank"]:  # one rank of phase 12(e)
+        sys.exit(dist_main_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5])))
     if sys.argv[1:2] == ["--dist-engine-rank"]:  # one rank of phase 12(c)
         sys.exit(dist_engine_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5])))
     modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy",

@@ -20,7 +20,12 @@ Scenarios:
           and off, a compacting run) and at bfloat16 distances, with its
           subset and lane counters;
   traffic the engine's collective tally over its first clusters at two
-          widths, at full scope and at the subset scope.
+          widths, at full scope and at the subset scope;
+  models  2 epochs of data-parallel Taxometer, VAEVAE and AAE training
+          (`train_models`), each model's parameters, BatchNorm statistics,
+          epoch metrics and replica checks;
+  grads   each model's first summed gradient (each of the AAE's three
+          phases') over an uneven split of a 90-row batch.
 """
 
 import itertools
@@ -37,6 +42,9 @@ from vamb_torch import cluster  # noqa: E402
 from vamb_torch.cluster import ClusterGenerator  # noqa: E402
 from vamb_torch.models import VAE, make_dataset  # noqa: E402
 from vamb_torch.models import layers  # noqa: E402
+from vamb_torch.models.aae import AAE  # noqa: E402
+from vamb_torch.models.taxometer import Taxometer  # noqa: E402
+from vamb_torch.models.vaevae import VAEVAE  # noqa: E402
 from vamb_torch.parallel import (  # noqa: E402
     distributed_init, make_mesh, replicate, shard_rows, shard_rows_padded,
 )
@@ -45,7 +53,9 @@ from vamb_torch.utils.checkpoint import params_to_jax  # noqa: E402
 TRAFFIC_CLUSTERS = 40  # clusters the traffic scenario takes at each width
 # the subset scenario's runs, each a latent `<name>_m`, `<name>_len` and
 # `<name>_kw` of the inputs
-SUBSET_RUNS = ("sub_clumpy", "sub_uniform", "sub_off", "sub_compact", "sub_fallback", "bf16")
+SUBSET_RUNS = ("sub_clumpy", "sub_uniform", "sub_off", "sub_compact", "sub_fallback", "bf16",
+               "sub_wide283")
+ENGINE_RUNS = ("random300", "clumpy", "compact", "wide283")  # the engine scenario's runs
 
 
 def scenario_mesh(mesh, inp) -> dict:
@@ -94,6 +104,88 @@ def scenario_train(mesh, inp) -> dict:
     return {**{k: v for k, v in flat.items()}, "_checks": np.array(len(checks))}
 
 
+MODELS = ("taxometer", "vaevae", "aae")
+GRAD_BATCH = 90  # the grads scenario's batch: blocks of 45 at W = 2, 22 and 23 at W = 4
+# each model's gradient sums, in the order of a step
+GRAD_KINDS = {"taxometer": ("gradients",), "vaevae": ("gradients",),
+              "aae": ("gradients e+d", "gradients disc_z", "gradients disc_y")}
+
+
+def build_model(name: str, inp, device="cpu"):
+    """The narrow model `name` on the inputs' taxonomy graph: Taxometer 16-16
+    (flat_softmax), VAEVAE 16-16-8 (flat_softmax), the AAE at 16 / 8 / 8."""
+    nodes = [str(x) for x in inp["models_nodes"]]
+    parents = [int(x) for x in inp["models_parents"]]
+    s = inp["models_ab"].shape[1]
+    if name == "taxometer":
+        return Taxometer(s, len(nodes), nodes, parents, nhiddens=[16, 16],
+                         hier_loss="flat_softmax", seed=3, device=device)
+    if name == "vaevae":
+        return VAEVAE(s, len(nodes), nodes, parents, nhiddens=[16, 16], nlatent=8,
+                      hier_loss="flat_softmax", seed=3, device=device)
+    return AAE(s, nhiddens=16, nlatent_z=8, nlatent_y=8, seed=3, device=device)
+
+
+def train_model(name: str, inp, mesh=None, nepochs: int = 2, batchsize: int = 64,
+                batchsteps=(1,)) -> tuple:
+    "`build_model`'s model trained on the inputs' data; returns (model, log lines)."
+    ds = make_dataset(inp["models_ab"], inp["models_tnf"], inp["models_len"])
+    model = build_model(name, inp)
+    lines = []
+    kw = dict(nepochs=nepochs, batchsize=batchsize, batchsteps=list(batchsteps),
+              logger=lines.append, mesh=mesh)
+    if name == "aae":
+        model.trainmodel(ds, **kw)
+    else:
+        model.trainmodel(ds, inp["models_targets"], **kw)
+    return model, lines
+
+
+def epoch_metrics(lines: list) -> np.ndarray:
+    "The metrics of each `Epoch:` log line (either package's format), in order."
+    rows = []
+    for line in lines:
+        if "Epoch:" not in line:
+            continue
+        fields = line.split("Batchsize")[0].split(":")[2:]
+        rows.append([float(f.split()[0]) for f in fields])
+    return np.array(rows)
+
+
+def scenario_models(mesh, inp) -> dict:
+    out = {}
+    for name in MODELS:
+        model, lines = train_model(name, inp, mesh)
+        for k, v in params_to_jax(model.state_dict()).items():
+            out[f"{name}:{k}"] = v
+        out[f"{name}_metrics"] = epoch_metrics(lines)
+        out[f"{name}_checks"] = np.array(sum("Parameters identical" in ln for ln in lines))
+    out["traffic_kinds"] = np.array(sorted(mesh.traffic))
+    return out
+
+
+def scenario_grads(mesh, inp) -> dict:
+    """Each model's first sum of each gradient kind, one epoch at GRAD_BATCH."""
+    seen = {}
+    summed = mesh.sum_ranks
+
+    def recording(t, kind):
+        total = summed(t, kind)
+        if kind.startswith("gradients") and kind not in seen:
+            seen[kind] = total.clone()
+        return total
+
+    mesh.sum_ranks = recording
+    out = {}
+    for name in MODELS:
+        seen.clear()
+        train_model(name, inp, mesh, nepochs=1, batchsize=GRAD_BATCH, batchsteps=())
+        for kind in GRAD_KINDS[name]:
+            out[f"{name}:{kind}"] = seen[kind].numpy()
+    mesh.sum_ranks = summed
+    return out
+
+
 def emission(gen) -> np.ndarray:
     "Each cluster as (medoid, kind, then its sorted members), -1 padded into rows."
     rows = [[c.medoid, ("normal", "loner", "fallback").index(c.kind_str), *np.sort(c.members)]
@@ -104,7 +196,7 @@ def emission(gen) -> np.ndarray:
 
 def scenario_engine(mesh, inp) -> dict:
     out = {}
-    for name in ("random300", "clumpy", "compact"):
+    for name in ENGINE_RUNS:
         kw = dict(inp[f"{name}_kw"].item())
         gen = ClusterGenerator(inp[f"{name}_m"].copy(), inp[f"{name}_len"], device="cpu",
                                mesh=mesh, **kw)

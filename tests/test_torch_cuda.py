@@ -285,9 +285,9 @@ def test_spec_sweep_and_row_stats_are_one_launch(cuda):
 _SHARD_WIDTHS = [100_096, 50_048, 25_024, 25_003]
 
 
-def _shard_case(cuda, n, seed):
-    "A (32, n + 512) clumpy matrix and weights on the card; the shard is [256, 256 + n)."
-    mT_np, lengths = _clumpy(n + 512, 32, seed=seed)
+def _shard_case(cuda, n, seed, f=32):
+    "An (f, n + 512) clumpy matrix and weights on the card; the shard is [256, 256 + n)."
+    mT_np, lengths = _clumpy(n + 512, f, seed=seed)
     lengths[np.random.default_rng(seed).random(n + 512) < 0.2] = 0.0
     mT = torch.as_tensor(mT_np, device=cuda)
     w = torch.as_tensor(lengths, device=cuda)
@@ -302,7 +302,19 @@ def test_shard_sweeps_match_plain_and_the_index_entry_points(cuda, n):
     held elsewhere (-1); given a shard column's own features and index
     they equal the index entry points on the shard bit for bit, and a
     query held elsewhere gets the full matrix's row, sliced."""
-    mT, w, part, wp = _shard_case(cuda, n, seed=n)
+    _check_shard_sweeps(cuda, n, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _SHARD_WIDTHS)
+def test_shard_sweeps_at_the_aae_width(cuda, n):
+    """The same at F_pad 288 (`bin avamb --dist`'s 283-wide z latent, the
+    kernels' generic width)."""
+    _check_shard_sweeps(cuda, n, 288)
+
+
+def _check_shard_sweeps(cuda, n, f):
+    mT, w, part, wp = _shard_case(cuda, n, seed=n, f=f)
     full_row = lambda c: K.row_sweep(mT, c)[256:256 + n]  # noqa: E731
     own, other = 37, 100  # shard column 37; full column 100, before the shard: held elsewhere
     q_own = part[:, own].contiguous()
@@ -342,7 +354,18 @@ def test_ball_gather_and_bf16_shards_match_plain_and_the_index_entry_points(cuda
     global); the bf16 shard variants of the three sweeps equal their plain
     versions and, given a bf16 shard column's widened features and its
     index, the bf16 index entry points on the shard, bit for bit."""
-    mT, w, part, wp = _shard_case(cuda, n, seed=n + 1)
+    _check_ball_and_bf16_shards(cuda, n, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [w for w in _SHARD_WIDTHS if w % 128 == 0])
+def test_ball_gather_and_bf16_shards_at_the_aae_width(cuda, n):
+    "The same at F_pad 288."
+    _check_ball_and_bf16_shards(cuda, n, 288)
+
+
+def _check_ball_and_bf16_shards(cuda, n, f):
+    mT, w, part, wp = _shard_case(cuda, n, seed=n + 1, f=f)
     kept = w > 0
     d0 = K.row_sweep(mT, 300)
     nblk = n // 128

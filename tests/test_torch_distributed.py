@@ -12,8 +12,13 @@
   which the 12-bit mask absorbs); the same with the engine's switches
   under several processes, `--wander_scope subset` (the subset wander and
   attempt lanes on the row-sharded engine) and `--distance_dtype bfloat16`.
-* subcommands whose models do not train data-parallel yet refuse several
-  processes, naming ROADMAP item 10b.
+* `taxometer`, `bin taxvamb` (Taxometer first, on an unrefined taxonomy)
+  and `bin avamb` in two processes through `main`, each model trained
+  data-parallel: the run completes, process 0's artifacts and TSVs read
+  back (the model files load, the latents are finite, every contig lies in
+  exactly one cluster of each clusters file), the parameter checksums
+  that process 0 logged after every epoch are process 1's, and `.proc1`
+  is removed.
 """
 
 import os
@@ -23,10 +28,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from vamb_torch.__main__ import _maybe_init_distributed
-from vamb_torch.__main__ import main as torch_main
+from vamb_torch.models.aae import AAE
+from vamb_torch.models.taxometer import Taxometer
+from vamb_torch.models.vaevae import VAEVAE
 
 from . import make_golden
 
@@ -63,13 +71,6 @@ def test_no_multiprocess_flags_is_a_no_op():
     assert process_info() == (0, 1)
 
 
-@pytest.mark.parametrize("command", [["bin", "avamb"], ["bin", "taxvamb"], ["taxometer"]])
-def test_models_without_data_parallelism_refuse_several_processes(command, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        torch_main([*command, "--outdir", str(tmp_path / "o"), "--nprocs", "2", "--procid", "0",
-                    "--coordinator", "127.0.0.1:1"], device="cpu")
-
-
 def _argv(data: Path, out: Path) -> list:
     return ["bin", "default", "--outdir", str(out), "--fasta", str(data / "contigs.fna"),
             "--abundance_tsv", str(data / "abundance.tsv"), "-e", str(make_golden.EPOCHS),
@@ -85,6 +86,30 @@ def _launch(argv: list) -> subprocess.Popen:
                             stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
 
 
+def _join(procs: list) -> list:
+    """Wait for every process; kill them all and fail if one fails or
+    outlives its limit. Returns each one's standard error."""
+    errs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=JOIN_TIMEOUT_S)
+            assert p.returncode == 0 and "RANK_DONE" in out, f"a process failed:\n{err[-3000:]}"
+            errs.append(err)
+    except BaseException:
+        for q in procs:
+            q.kill()
+            q.communicate()
+        raise
+    return errs
+
+
+def _two_ranks(argv: list) -> list:
+    "`argv` in two processes on a free port; returns their standard error."
+    coordinator = f"127.0.0.1:{free_port()}"
+    return _join([_launch(argv + ["--coordinator", coordinator, "--nprocs", "2", "--procid", str(r)])
+                  for r in range(2)])
+
+
 def _two_and_one(tmp_path, flags: list) -> tuple:
     """`bin default` with `flags` in two processes and in one, all at once.
     Returns the two runs' output directories (multi, single)."""
@@ -96,15 +121,7 @@ def _two_and_one(tmp_path, flags: list) -> tuple:
     procs = [_launch(_argv(data, multi) + flags + ["--coordinator", coordinator, "--nprocs", "2",
                                                    "--procid", str(r)]) for r in range(2)]
     procs.append(_launch(_argv(data, single) + flags))
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=JOIN_TIMEOUT_S)
-            assert p.returncode == 0 and "RANK_DONE" in out, f"a process failed:\n{err[-3000:]}"
-    except BaseException:
-        for q in procs:
-            q.kill()
-            q.communicate()
-        raise
+    _join(procs)
     return multi, single
 
 
@@ -139,3 +156,60 @@ def test_two_process_bin_default_engine_switches(tmp_path, flags, engine):
         assert attempts and int(attempts.group(1)) > 0, log[-2000:]
     assert ((multi / "vae_clusters_unsplit.tsv").read_text()
             == (single / "vae_clusters_unsplit.tsv").read_text())
+
+
+# the models' epochs in the two-process runs: Taxometer 3, VAEVAE and the AAE 2
+PRED_EPOCHS, EPOCHS = 3, 2
+MODEL_RUNS = {
+    "taxometer": (["taxometer", "--taxonomy", "{tax}", "-pe", str(PRED_EPOCHS), "-pt", "128"],
+                  {"predictor_model.npz": Taxometer}, (), PRED_EPOCHS),
+    "taxvamb": (["bin", "taxvamb", "--taxonomy", "{tax}", "-pe", str(PRED_EPOCHS), "-pt", "128",
+                 "-e", str(EPOCHS), "-t", "64", "-q", "1", "-n", "64", "64", "-l", "16"],
+                {"predictor_model.npz": Taxometer, "vaevae_model.npz": VAEVAE},
+                ("vaevae_clusters_unsplit.tsv",), PRED_EPOCHS + EPOCHS),
+    "avamb": (["bin", "avamb", "--e_aae", str(EPOCHS), "--t_aae", "64", "--q_aae", "1",
+               "--n_aae", "48", "--z_aae", "8", "--y_aae", "10"],
+              {"aae_model.npz": AAE}, ("aae_z_clusters_unsplit.tsv", "aae_y_clusters_unsplit.tsv"),
+              EPOCHS),
+}
+
+
+def _checksums(text: str) -> list:
+    return re.findall(r"Parameters identical on 2 ranks \(checksum (-?\d+)\)", text)
+
+
+@pytest.mark.parametrize("run", list(MODEL_RUNS))
+def test_two_process_model_subcommands(tmp_path, run):
+    """`taxometer`, `bin taxvamb` (Taxometer first) and `bin avamb` in two
+    processes, each model trained data-parallel: process 0's artifacts and
+    TSVs read back, every contig in exactly one cluster of each clusters
+    file, the checksums of every epoch the same on both processes, and
+    `.proc1` removed."""
+    data = tmp_path / "data"
+    data.mkdir()
+    make_golden.write_synthetic_dataset(data)
+    make_golden.write_synthetic_taxonomy(data)
+    argv, models, tsvs, epochs = MODEL_RUNS[run]
+    out = tmp_path / "out"
+    argv = [a.replace("{tax}", str(data / "taxonomy.tsv")) for a in argv]
+    errs = _two_ranks([*argv, "--outdir", str(out), "--fasta", str(data / "contigs.fna"),
+                       "--abundance_tsv", str(data / "abundance.tsv"), "--seed", "5"])
+    assert not (out / ".proc1").exists()
+    log = (out / "log.txt").read_text()
+    assert "Multi-process: process 0 of 2" in log and "Using a 2-process mesh" in log
+    sums = _checksums(log)
+    assert len(sums) == epochs and sums == _checksums(errs[1]), (sums, _checksums(errs[1]))
+    for name, cls in models.items():
+        cls.load(out / name, device="cpu")
+    expected = sorted(f"S{1 + i % 3}C{i}" for i in range(make_golden.N_CONTIGS))
+    for name in tsvs:
+        rows = [line.split("\t") for line in (out / name).read_text().splitlines()[1:]]
+        assert sorted(r[1] for r in rows) == expected, name  # a full partition
+    if run != "avamb":
+        lines = (out / "results_taxometer.tsv").read_text().splitlines()
+        assert len(lines) == make_golden.N_CONTIGS + 1
+    latents = {"taxvamb": ("vaevae_latent.npz", 16), "avamb": ("aae_z_latent.npz", 8)}
+    if run in latents:
+        name, width = latents[run]
+        latent = np.load(out / name)["arr_0"]
+        assert latent.shape == (make_golden.N_CONTIGS, width) and np.isfinite(latent).all()

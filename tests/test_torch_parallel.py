@@ -21,6 +21,8 @@ tests/test_parallel.py does. Held:
   tests/test_parallel.py:55-66's data, a clumpy full-scope latent and a
   compacting run, at W = 2 and 4, and bit-identical (sums and emission) to
   the unsharded port at W = 1;
+* the same on a 283-wide latent (the AAE's z, F_pad 288) of 2,200 points,
+  at full scope and at the forced subset scope with a 1,024-column ball;
 * the same at the subset scope and at bfloat16 distances: on
   tests/test_parallel.py:185-205's three subset-wander regimes (attempt
   lanes auto and off), a forced-subset run that compacts, a 1,024-column
@@ -28,8 +30,21 @@ tests/test_parallel.py does. Held:
   that run), and a bfloat16 run; every rank's emission and its subset and
   lane counters equal rank 0's; at W = 1 bit for bit the unsharded port,
   counters included;
+* data-parallel Taxometer (16-16, flat_softmax), VAEVAE (16-16-8,
+  flat_softmax) and AAE (16 / 8 / 8) training, 2 epochs on 300 contigs at
+  batch 64 then 128, at W = 2 and 4: parameters, BatchNorm statistics and
+  epoch metrics within `vamb_tpu`'s own sharded tolerance of its mesh
+  training (rtol 5e-4, atol 5e-5; the AAE's dense biases that feed a
+  BatchNorm and its running means within 6 steps x lr, see
+  `test_dp_models_match_vamb_tpu_mesh`), parameters bit-identical across
+  ranks and checked after each epoch; each model's first summed gradient
+  (each of the AAE's three phases') over an uneven split of a 90-row batch
+  within rtol 1e-5 of one process's gradient on the whole batch; at W = 1,
+  `trainmodel(mesh=)` bit for bit `trainmodel()` for Taxometer and the AAE
+  (VAEVAE within a stated tolerance: its joint loss adds its batch-mean
+  terms once, not to every row);
 * each shard entry point's plain version equal to the index plain version
-  on a slice of the matrix (the bf16 ones on a bf16 slice, and the ball's
+  on a slice of the matrix, at F_pad 32 and 288 (the bf16 ones on a bf16 slice, and the ball's
   gather on a 128-aligned slice), and the Gumbel merge of the shards' keys
   equal to `gumbel_topc_plain` over the global width;
 * no per-attempt collective payload grows between N = 2,048 and N = 8,192,
@@ -51,30 +66,59 @@ import torch
 
 from vamb_torch import kernels as K
 from vamb_torch.cluster import ClusterGenerator as TorchGenerator
+from vamb_torch.models import hier as t_hier
 from vamb_torch.models import layers as t_layers
+from vamb_torch.optim import Adam as TAdam
+from vamb_torch.optim import DAdaptAdam as TDAdaptAdam
 from vamb_torch.parallel import make_mesh as t_make_mesh
+from vamb_torch.taxonomy import ContigTaxonomy
 from vamb_torch.utils import threefry
-from vamb_torch.utils.checkpoint import flatten_tree
+from vamb_torch.utils.checkpoint import flatten_tree, params_to_jax
 
 from vamb_torch import cluster as t_cluster
 from vamb_tpu import cluster as j_cluster
 from vamb_tpu.cluster import ClusterGenerator as JaxGenerator
 from vamb_tpu.models import VAE as JVAE
 from vamb_tpu.models import make_dataset as j_make_dataset
+from vamb_tpu.models.aae import AAE as JAAE
+from vamb_tpu.models.taxometer import Taxometer as JTaxometer
+from vamb_tpu.models.vaevae import VAEVAE as JVAEVAE
 from vamb_tpu.parallel import make_mesh as j_make_mesh
 
+from ._torch_dist_worker import (
+    ENGINE_RUNS, GRAD_BATCH, GRAD_KINDS, MODELS, epoch_metrics, train_model,
+)
 from .test_parallel import make_raw
 from .test_parity_cluster import clumpy_latents
 from .test_torch_cluster import _wide_clumps
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "_torch_dist_worker.py"
-SCENARIOS = ("mesh", "bn", "train", "engine", "subset", "traffic")
+SCENARIOS = ("mesh", "bn", "train", "models", "grads", "engine", "subset", "traffic")
 JOIN_TIMEOUT_S = 150
 KINDS = ("normal", "loner", "fallback")
-SUBSET_RUNS = ("sub_clumpy", "sub_uniform", "sub_off", "sub_compact", "sub_fallback", "bf16")
+SUBSET_RUNS = ("sub_clumpy", "sub_uniform", "sub_off", "sub_compact", "sub_fallback", "bf16",
+               "sub_wide283")
 FALLBACK_Q = 1 << 10  # sub_fallback's ball: overflows on some attempts
 TRAFFIC_Q = 512  # the subset traffic runs' ball: N 2,048 and 8,192 are 4 Q and 16 Q
+
+
+def model_inputs(n: int = 300, seed: int = 6) -> dict:
+    """The models' data: a dataset's raw inputs and a taxonomy cut at random
+    depths (some contigs unlabelled), as its graph and each contig's node."""
+    ab, tnf, lengths = make_raw(n=n, s=3, seed=seed)
+    rng = np.random.default_rng(seed)
+    lineages = []
+    for _ in range(n):
+        g = int(rng.integers(0, 16))
+        full = ["D", f"P{g // 8}", f"C{g // 4}", f"G{g // 2}", f"s{g}"]
+        cut = int(rng.integers(0, len(full) + 1))
+        lineages.append(ContigTaxonomy(full[:cut]) if cut else None)
+    nodes, ind, parents = t_hier.make_graph(lineages)
+    targets = np.array([0 if t is None else ind[t.ranks[-1]] for t in lineages])
+    return {"models_ab": ab, "models_tnf": tnf, "models_len": lengths,
+            "models_nodes": np.array(nodes), "models_parents": np.array(parents),
+            "models_targets": targets}
 
 
 def make_inputs(world: int) -> dict:
@@ -95,7 +139,14 @@ def make_inputs(world: int) -> dict:
     sub_off, sub_off_len = clumpy_latents(20, 80, 16, noise_frac=0.15, seed=9)
     # tests/test_torch_cluster.py's overflow-and-drift regime
     wide, wide_len = _wide_clumps(40, 60, 32, scale=0.06, noise_frac=0.2, seed=4)
+    # the AAE's z latent width: 283 features, F_pad 288
+    z283, z283_len = _wide_clumps(40, 50, 283, scale=0.01, noise_frac=0.1, seed=12)
     return {
+        **model_inputs(),
+        "wide283_m": z283, "wide283_len": z283_len,
+        "wide283_kw": {"rng_seed": 3, "windowsize": 60},
+        "sub_wide283_m": z283, "sub_wide283_len": z283_len, "sub_wide283_q": FALLBACK_Q,
+        "sub_wide283_kw": {"rng_seed": 3, "windowsize": 60, "wander_scope": "subset"},
         # float32 summands whose sum depends on the order: 1e8 swallows a 1
         "order_terms": np.array([[1e8, 1.0], [1.0, -1e8], [-1e8, 1.0], [1.0, 3.0]][:world],
                                 np.float32),
@@ -195,10 +246,37 @@ def jax_references(world: int, inp) -> dict:
     vae = JVAE(nsamples=3, nhiddens=[32, 32], nlatent=8, seed=2)
     vae.trainmodel(ds, nepochs=3, batchsize=64, batchsteps=None, mesh=mesh)
     refs = {"train": flatten_tree({"params": vae.params, "bn_state": vae.bn_state})}
-    for name in ("random300", "clumpy", "compact", *SUBSET_RUNS):
+    refs["models"] = jax_models(inp, mesh)
+    for name in (*ENGINE_RUNS, *SUBSET_RUNS):
         gen = jax_generator(inp, name, mesh)
         refs[name] = [(int(c.medoid), c.kind_str, np.sort(np.asarray(c.members))) for c in gen]
     return refs
+
+
+def jax_models(inp, mesh) -> dict:
+    """`vamb_tpu`'s mesh training of `train_model`'s three models: {model:
+    (flat parameters and BatchNorm statistics, epoch metrics)}."""
+    nodes = [str(x) for x in inp["models_nodes"]]
+    parents = [int(x) for x in inp["models_parents"]]
+    ds = j_make_dataset(inp["models_ab"], inp["models_tnf"], inp["models_len"])
+    kw = dict(nepochs=2, batchsize=64, batchsteps=[1], mesh=mesh)
+    out = {}
+    for name in MODELS:
+        lines = []
+        if name == "taxometer":
+            model = JTaxometer(3, len(nodes), nodes, parents, nhiddens=[16, 16],
+                               hier_loss="flat_softmax", seed=3)
+            model.trainmodel(ds, inp["models_targets"], logger=lines.append, **kw)
+        elif name == "vaevae":
+            model = JVAEVAE(3, len(nodes), nodes, parents, nhiddens=[16, 16], nlatent=8,
+                            hier_loss="flat_softmax", seed=3)
+            model.trainmodel(ds, inp["models_targets"], logger=lines.append, **kw)
+        else:
+            model = JAAE(3, nhiddens=16, nlatent_z=8, nlatent_y=8, seed=3)
+            model.trainmodel(ds, logger=lines.append, **kw)
+        flat = flatten_tree({"params": model.params, "bn_state": model.bn_state})
+        out[name] = ({k: np.asarray(v) for k, v in flat.items()}, epoch_metrics(lines))
+    return out
 
 
 def results(d: Path, name: str, world: int) -> list:
@@ -270,6 +348,110 @@ def test_dp_training_matches_vamb_tpu_mesh(runs, world):
         np.testing.assert_allclose(res[0][k], np.asarray(v), rtol=5e-4, atol=5e-5, err_msg=k)
 
 
+# the AAE's steps in `train_model`'s 2 epochs on 300 rows: 4 at batch 64, 2 at 128
+AAE_STEPS, AAE_LR = 6, 1e-3
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("model", MODELS)
+def test_dp_models_match_vamb_tpu_mesh(runs, world, model):
+    """Data-parallel training of each model within `vamb_tpu`'s sharded
+    tolerance of its mesh training (rtol 5e-4, atol 5e-5), parameters and
+    BatchNorm statistics and the epoch metrics (the logs' 6-8 digits), the
+    batch doubled after epoch 1; replicas bit-identical on every rank and
+    checked after each epoch. Apart: the AAE's dense biases that feed a
+    BatchNorm, and the running means that follow them. Such a bias has a
+    gradient of zero but for rounding, which Adam scales to a step of ~lr
+    all the same (tests/test_torch_aae.py), so they are held within the
+    run's steps x lr."""
+    d, refs = runs[world]
+    res = results(d, "models", world)
+    want, want_metrics = refs["models"][model]
+    keys = [k for k in res[0].files if k.startswith(f"{model}:")]
+    assert {k.split(":", 1)[1] for k in keys} == set(want)
+    for r in res[1:]:
+        for k in keys:
+            np.testing.assert_array_equal(r[k], res[0][k], err_msg=k)
+    assert all(int(r[f"{model}_checks"]) == 2 for r in res)
+    np.testing.assert_allclose(res[0][f"{model}_metrics"], want_metrics, rtol=5e-4, atol=5e-5)
+    assert res[0][f"{model}_metrics"].shape[0] == 2
+    for k in keys:
+        name = k.split(":", 1)[1]
+        pre_bn = model == "aae" and name.endswith(("/dense/b", "/mean"))
+        np.testing.assert_allclose(res[0][k], want[name], rtol=5e-4,
+                                   atol=AAE_STEPS * AAE_LR if pre_bn else 5e-5, err_msg=k)
+    kinds = set(res[0]["traffic_kinds"])
+    assert {"gradients", "gradients e+d", "gradients disc_z", "gradients disc_y", "metrics",
+            "checksums", "batchnorm sums", "batchnorm sums cotangents", "replicate"} <= kinds
+
+
+def one_process_gradients(model: str, inp, monkeypatch) -> list:
+    """The port's first gradient of each of `model`'s optimizers on one
+    process, on the whole first batch of the grads scenario's epoch: each
+    optimizer's flat gradient at its first step, in the step's order."""
+    first = {}
+    for cls in (TAdam, TDAdaptAdam):
+        def step(self, _orig=cls.step):
+            if id(self) not in first:
+                first[id(self)] = torch.cat([
+                    (torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+                    for p in self.params]).clone()
+            return _orig(self)
+        monkeypatch.setattr(cls, "step", step)
+    train_model(model, inp, None, nepochs=1, batchsize=GRAD_BATCH, batchsteps=())
+    return list(first.values())
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("model", MODELS)
+def test_dp_summed_gradient_is_one_process_gradient(runs, world, model, monkeypatch):
+    """A step's gradient summed over the ranks, each on its block of a
+    90-row batch (uneven at W = 4), equals one process's gradient on the
+    whole batch within rtol 1e-5 (sums in another order; atol 1e-6 of the
+    largest entry, for entries that a sum over rows cancels to near zero,
+    whose rounding is that of their terms): Taxometer's and VAEVAE's, and
+    each of the AAE's three
+    phases', whose inputs the phase before updated. Every rank sums alike."""
+    d, _ = runs[world]
+    res = results(d, "grads", world)
+    inp = np.load(d / "inputs.npz", allow_pickle=True)
+    want = one_process_gradients(model, inp, monkeypatch)
+    assert len(want) == len(GRAD_KINDS[model])
+    for kind, w in zip(GRAD_KINDS[model], want):
+        got = res[0][f"{model}:{kind}"]
+        for r in res[1:]:
+            np.testing.assert_array_equal(r[f"{model}:{kind}"], got, err_msg=kind)
+        w = w.numpy()
+        np.testing.assert_allclose(got, w, rtol=1e-5, atol=1e-6 * np.abs(w).max(), err_msg=kind)
+
+
+# VAEVAE at W = 1: the joint loss's batch-mean terms added once (mean(rows) +
+# terms) where the unsharded loss adds them to every row (mean(rows + terms)):
+# an ulp apart a step, which Adam's step carries into the weights
+VAEVAE_W1 = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_dp_models_at_w1_are_the_unsharded_training(model):
+    """`trainmodel(mesh=)` over a world of one equals `trainmodel()`: bit
+    for bit for Taxometer and the AAE (the sharded means are the unsharded
+    ones: `layers.batch_mean` is sum over count, as torch's CPU mean is),
+    and VAEVAE within VAEVAE_W1, its epoch metrics within rtol 1e-5."""
+    inp = model_inputs()
+    (plain, plain_lines), (meshed, mesh_lines) = (
+        train_model(model, inp, mesh) for mesh in (None, t_make_mesh(1, device="cpu")))
+    a, b = params_to_jax(plain.state_dict()), params_to_jax(meshed.state_dict())
+    assert sum("Parameters identical on 1 ranks" in ln for ln in mesh_lines) == 2
+    if model == "vaevae":
+        np.testing.assert_allclose(epoch_metrics(mesh_lines), epoch_metrics(plain_lines), rtol=1e-5)
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], err_msg=k, **VAEVAE_W1)
+        return
+    assert epoch_metrics(mesh_lines).tolist() == epoch_metrics(plain_lines).tolist()
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+
+
 def assert_same_emission(rows: np.ndarray, want: list) -> None:
     "A rank's emission (`_torch_dist_worker.emission`) equals `vamb_tpu`'s clusters."
     got = clusters_of(rows)
@@ -280,7 +462,7 @@ def assert_same_emission(rows: np.ndarray, want: list) -> None:
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("name", ["random300", "clumpy", "compact"])
+@pytest.mark.parametrize("name", ENGINE_RUNS)
 def test_sharded_engine_matches_vamb_tpu_mesh(runs, world, name):
     d, refs = runs[world]
     res = results(d, "engine", world)
@@ -390,15 +572,17 @@ def _slice_inputs(seed: int, n: int = 1024, f: int = 32, lo: int = 256, hi: int 
     return torch.as_tensor(m), torch.as_tensor(w), lo, hi
 
 
-def test_shard_entry_points_equal_slicing_the_index_entry_points():
-    """On a slice [lo, hi) of the matrix, each shard entry point given a
+@pytest.mark.parametrize("f_pad", [32, 288])
+def test_shard_entry_points_equal_slicing_the_index_entry_points(f_pad):
+    """At the VAE's F_pad 32 and the AAE's 288 (its 283-wide z latent, the
+    kernels' generic width), on a slice [lo, hi) of the matrix, each shard entry point given a
     query's features (and its local column) equals the index entry point on
     the slice bit for bit, on a float32 and on a bfloat16 slice (the query
     the bf16 columns widened), and with the query outside the slice (-1)
     its row is the whole matrix's row sliced. The ball's gather on a
     128-aligned slice equals `gather_ball` of the whole matrix for that
     slice's blocks, each slot's column global."""
-    m, w, lo, hi = _slice_inputs(3)
+    m, w, lo, hi = _slice_inputs(3, f=f_pad)
     wp = w[lo:hi].contiguous()
     for dtype in (torch.float32, torch.bfloat16):
         part = m[:, lo:hi].to(dtype).contiguous()

@@ -120,18 +120,20 @@ def test_bin_default_end_to_end(data, tmp_path):
 
 def test_unported_subcommands_and_flags_fail_loudly(data, tmp_path):
     # every subcommand runs now: `bin avamb` and `avamb_ensemble` fail on
-    # their missing inputs, not as unported; `bin avamb --dist` raises with
-    # its ROADMAP item (10b: the AAE does not train data-parallel yet)
+    # their missing inputs, not as unported; `bin avamb --dist` outside
+    # torchrun's environment fails as `bin default --dist` does, when the
+    # process group finds no RANK to join with
     with pytest.raises(ValueError, match="abundance"):
         torch_main(["bin", "avamb", "--outdir", str(tmp_path), "--fasta",
                     str(data / "contigs.fna")], device="cpu")
     with pytest.raises(ValueError, match="--clusters"):
         torch_main(["avamb_ensemble", "--outdir", str(tmp_path / "e"), "--fasta",
                     str(data / "contigs.fna")], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        torch_main(["bin", "avamb", "--outdir", str(tmp_path / "o3"), "--fasta",
-                    str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),
-                    "--dist"], device="cpu")
+    for model in ("avamb", "default"):
+        with pytest.raises(ValueError, match="RANK"):
+            torch_main(["bin", model, "--outdir", str(tmp_path / f"o3{model}"), "--fasta",
+                        str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),
+                        "--dist"], device="cpu")
     # bf16 training and bfloat16 distances are ported: the run completes
     torch_main(["bin", "default", "--outdir", str(tmp_path / "o2"), "--fasta",
                 str(data / "contigs.fna"), "--abundance_tsv", str(data / "abundance.tsv"),

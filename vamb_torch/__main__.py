@@ -29,8 +29,9 @@ Several processes, one a card (torch's idiom; `vamb_tpu` drives every
 device of a host from one process): launch the same command in each with
 `--coordinator host:port --nprocs N --procid i`, or under torchrun with
 `--dist`. The processes join a `torch.distributed` group (NCCL on cards,
-gloo on the CPU), `bin default` trains data-parallel and clusters on the
-row-sharded engine, and only process 0 writes into `--outdir`.
+gloo on the CPU); `bin default`, `bin taxvamb`, `bin avamb` and
+`taxometer` train their models data-parallel, the `bin` models cluster on
+the row-sharded engine, and only process 0 writes into `--outdir`.
 """
 
 import argparse
@@ -320,10 +321,6 @@ def add_ensemble_arguments(ensemble_parser):
     ens.add_argument("--min_bin_size", metavar="", type=int, default=200_000,
                      help="Min bin size in bp to enter dereplication [200000]")
     return ensemble_parser
-
-
-# subcommands whose models do not train data-parallel yet
-_NOT_DATA_PARALLEL = {("taxometer",), ("bin", "taxvamb"), ("bin", "avamb")}
 
 
 def _maybe_init_distributed(args, device="cuda") -> None:
@@ -852,11 +849,6 @@ quality source (--quality_report, --markers, or --hmm_path).""",
     from . import pipeline
     from .device import resolve_device
 
-    if command in _NOT_DATA_PARALLEL and (args.dist or (args.nprocs or 1) > 1):
-        raise NotImplementedError(
-            f"`{' '.join(command)}` does not run on several processes yet: its model's data "
-            "parallelism is not ported (ROADMAP queue 1, item 10b)"
-        )
     device = str(resolve_device(device))
     _maybe_init_distributed(args, device)
     device = pipeline.process_device(device)

@@ -3,7 +3,8 @@
 Port of `vamb_tpu/models/aae.py` (reference vamb/aamb_encode.py). A
 continuous z latent (default 283 wide) and a categorical y latent (default
 700) over [depths ‖ TNF]; two discriminators; each step runs three phases
-with four Adams at 1e-3 (`optim.Adam`, optax's rule):
+with Adam at 1e-3 (`optim.Adam`, optax's rule) for the encoder, the
+decoder and each discriminator:
 
 1. generator: encode, sample z = mu + eps * exp(logvar / 2), decode; the
    loss (1 - sl) * reconstruction + sl * slr * adv_z + sl * (1 - slr) *
@@ -23,6 +24,17 @@ discriminators Linear(h) -> LeakyReLU -> Linear(h/2) -> LeakyReLU ->
 Linear(1) -> Sigmoid. Weights are drawn from `np.random.default_rng(seed)`
 in `vamb_tpu`'s order (encoder and decoder blocks, then mu, logvar, y, the
 decoder's output and the discriminators), so a seed gives the same weights.
+
+Data parallelism (`trainmodel(mesh=)`, `vamb_tpu`'s GSPMD over the
+global batch): every rank draws the whole batch's streams and computes on
+its rows of each (`train_epochs`'s notes); the losses are means over rows
+(`layers.batch_mean`), so a rank's are its share of the global batch's.
+Each of the three phases sums its flat gradient over the ranks in rank
+order before its update: the encoder's and the decoder's in one gather
+("gradients e+d", their Adams one rule over both, Adam being
+elementwise), then each discriminator's ("gradients disc_z",
+"gradients disc_y"), since each phase reads the weights that the one
+before updated.
 
 Random streams follow `vamb_tpu`'s key chain: an epoch splits its key in
 two (`models/training.train_epochs`), step i takes `key, k_eps, k_prior_z,
@@ -63,7 +75,7 @@ def _bce(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     finite loss and a zero gradient (`torch.nn.BCELoss` clamps its logs at
     -100 instead, another value)."""
     p = torch.clamp(pred, _F32_TINY, _P_MAX)
-    return torch.mean(-(target * torch.log(p) + (1 - target) * torch.log1p(-p)))
+    return layers.batch_mean(-(target * torch.log(p) + (1 - target) * torch.log1p(-p)))
 
 
 class AAE(nn.Module):
@@ -153,12 +165,12 @@ class AAE(nn.Module):
     def calc_loss(self, depths_in, depths_out, tnf_in, tnf_out):
         "(reconstruction loss, CE, SSE) (reference :176-188)."
         if self.nsamples > 1:
-            ce = torch.mean(-torch.sum(torch.log(depths_out + 1e-9) * depths_in, dim=1))
+            ce = layers.batch_mean(-torch.sum(torch.log(depths_out + 1e-9) * depths_in, dim=1))
             ce_weight = (1 - self.alpha) / np.log(self.nsamples)
         else:
-            ce = torch.mean(torch.sum(torch.square(depths_out - depths_in), dim=1))
+            ce = layers.batch_mean(torch.sum(torch.square(depths_out - depths_in), dim=1))
             ce_weight = 1 - self.alpha
-        sse = torch.mean(torch.sum(torch.square(tnf_out - tnf_in), dim=1))
+        sse = layers.batch_mean(torch.sum(torch.square(tnf_out - tnf_in), dim=1))
         sse_weight = self.alpha / (self.ntnf * 2)
         return ce * ce_weight + sse * sse_weight, ce, sse
 
@@ -196,8 +208,11 @@ class AAE(nn.Module):
         temperature: float = 0.1596,
         modelfile: Union[None, str, Path, IO[bytes]] = None,
         logger: Optional[Callable[[str], None]] = None,
+        mesh=None,
     ) -> None:
-        "Train in place on the dataset's depths and TNF."
+        """Train in place on the dataset's depths and TNF; with `mesh` (a
+        `parallel.Mesh` whose device is this model's), data-parallel over
+        its ranks."""
         if nepochs < 1:
             raise ValueError(f"Minimum 1 epoch, not {nepochs}")
         batchsteps_list = validate_batchsteps(nepochs, batchsteps)
@@ -219,9 +234,16 @@ class AAE(nn.Module):
         enc_params = [p for m in (self.enc, self.mu, self.logvar, self.y) for p in m.parameters()]
         dec_params = [p for m in (self.dec, self.dec_out) for p in m.parameters()]
         gen_params = enc_params + dec_params
-        opt_e, opt_d = Adam(enc_params, lr=1e-3, eps=1e-8), Adam(dec_params, lr=1e-3, eps=1e-8)
-        opt_dz = Adam(self.disc_z.parameters(), lr=1e-3, eps=1e-8)
-        opt_dy = Adam(self.disc_y.parameters(), lr=1e-3, eps=1e-8)
+
+        def reduce(kind):
+            return None if mesh is None else lambda g: mesh.sum_ranks(g, kind)
+
+        # the encoder's and the decoder's Adams as one rule over both
+        opt_g = Adam(gen_params, lr=1e-3, eps=1e-8, grad_reduce=reduce("gradients e+d"))
+        opt_dz = Adam(self.disc_z.parameters(), lr=1e-3, eps=1e-8,
+                      grad_reduce=reduce("gradients disc_z"))
+        opt_dy = Adam(self.disc_y.parameters(), lr=1e-3, eps=1e-8,
+                      grad_reduce=reduce("gradients disc_y"))
         enc_bns = [block.bn for block in self.enc]
         sl, slr, m = self.sl, self.slr, _BN_MOMENTUM
 
@@ -239,11 +261,9 @@ class AAE(nn.Module):
             adv_z = _bce(self.discriminate(self.disc_z, z), ones)
             adv_y = _bce(self.discriminate(self.disc_y, y), ones)
             ed_loss = (1 - sl) * rec_loss + (sl * slr) * adv_z + (sl * (1 - slr)) * adv_y
-            opt_e.zero_grad()
-            opt_d.zero_grad()
+            opt_g.zero_grad()
             ed_loss.backward(inputs=gen_params)
-            opt_e.step()
-            opt_d.step()
+            opt_g.step()
 
             # discriminator z, on a fresh encode with the updated weights
             s1 = torch._foreach_mul([t for bn in enc_bns for t in (bn.mean, bn.var)], 1.0)
@@ -285,6 +305,7 @@ class AAE(nn.Module):
         self.rng = train_epochs(
             step, data, self.rng, dataset.n_obs, nepochs, batchsize, batchsteps_list, emit,
             step_keys=4, step_draws=lambda keys, bs: self._step_draws(keys, bs, temperature),
+            mesh=mesh, model=self, log=log,
         )
         self.eval()
         if modelfile is not None:

@@ -11,7 +11,9 @@ and `make_graph` of vamb/taxvamb_encode.py:29-61):
   constant masks live on the `device` given at construction: each is a
   product with a 0/1 ancestor mask (`torch.matmul` in f32; the device
   module turns TF32 off) or a masked logsumexp. Labels are (B, n_nodes)
-  one-hot rows (or distributions), as in `vamb_tpu`.
+  one-hot rows (or distributions), as in `vamb_tpu`. Each loss is a mean
+  over the batch's rows (`layers.batch_mean`), so in data-parallel training
+  a rank's loss is its share of the global batch's.
 """
 
 from typing import Callable, Optional, Sequence
@@ -21,6 +23,7 @@ import torch
 
 from ..taxonomy import ContigTaxonomy
 from ..utils import threefry
+from . import layers
 
 
 class Hierarchy:
@@ -307,7 +310,7 @@ class HierSoftmaxCrossEntropy:
     def __call__(self, scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         q = self.sum_label_descendants(labels.float())
         log_cond_p = self.cond(scores)
-        return torch.mean(torch.sum(q * -log_cond_p, dim=-1))
+        return layers.batch_mean(torch.sum(q * -log_cond_p, dim=-1))
 
 
 class FlatSoftmaxNLL:
@@ -325,7 +328,7 @@ class FlatSoftmaxNLL:
         logp_leaf = torch.log_softmax(scores, dim=-1)
         mask = self.leaf_masks[label_idx]
         logp_label = torch.logsumexp(torch.where(mask, logp_leaf, -torch.inf), dim=-1)
-        return torch.mean(-logp_label)
+        return layers.batch_mean(-logp_label)
 
 
 class MarginLoss:
@@ -371,7 +374,7 @@ class MarginLoss:
             loss = torch.relu(
                 torch.amax(scores - label_score[:, None] + self.tau * label_margin, dim=-1)
             )
-        return torch.mean(loss)
+        return layers.batch_mean(loss)
 
 
 # --------------------------------------------------------- prediction pickers
@@ -732,4 +735,4 @@ class RandomCutLoss:
         on_target = cut & targets
         pos = torch.sum(torch.where(on_target, scores, 0.0), dim=-1)
         lse = torch.logsumexp(torch.where(cut, scores, -torch.inf), dim=-1)
-        return torch.mean(lse - pos)
+        return layers.batch_mean(lse - pos)

@@ -29,7 +29,10 @@ the reference):
   statistics are the global batch's: each rank's sums of x and x*x (and
   its row count) are added in rank order (`RankSum`, whose backward adds
   the ranks' cotangents the same way) and divided by the global row count,
-  which also gives the running variance its unbiased factor.
+  which also gives the running variance its unbiased factor. The losses'
+  means over rows (`batch_mean`) become the sum over the rank's rows over
+  the global batch's row count, so the ranks' losses add up to the
+  global batch's loss.
 """
 
 from contextlib import contextmanager
@@ -40,20 +43,42 @@ from torch import nn
 
 from ..utils import threefry
 
-# the mesh whose ranks' rows form one batch, inside `global_batch`
+# the mesh whose ranks' rows form one batch, and that batch's row count,
+# inside `global_batch`
 _global_batch = None
+_global_rows = None
 
 
 @contextmanager
-def global_batch(mesh):
+def global_batch(mesh, rows=None):
     """Within the block, a training-mode BatchNorm takes its statistics over
-    the rows of every rank of `mesh` (None: this process's rows alone)."""
-    global _global_batch
-    prev, _global_batch = _global_batch, mesh
+    the rows of every rank of `mesh` (None: this process's rows alone), and
+    given the global batch's row count `rows`, `batch_mean` is a rank's
+    share of the global batch's mean."""
+    global _global_batch, _global_rows
+    prev = _global_batch, _global_rows
+    _global_batch, _global_rows = mesh, (None if mesh is None else rows)
     try:
         yield
     finally:
-        _global_batch = prev
+        _global_batch, _global_rows = prev
+
+
+def batch_rows():
+    "The global batch's row count inside `global_batch(mesh, rows)`, else None."
+    return _global_rows
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of `x`, whose rows are a batch's, over all its elements:
+    `torch.mean(x)` itself outside `global_batch(mesh, rows)`; inside, the
+    sum of this rank's elements over the global batch's element count (rows
+    times the elements a row), so the ranks' values add up to the global
+    batch's mean."""
+    if _global_rows is None:
+        return torch.mean(x)
+    per_row = int(np.prod(x.shape[1:], dtype=np.int64))
+    return torch.sum(x) / (_global_rows * per_row)
 
 
 class RankSum(torch.autograd.Function):

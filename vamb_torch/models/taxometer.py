@@ -13,7 +13,9 @@ producing per-node logits, trained with one of three hierarchical losses
 Weights are drawn from `np.random.default_rng(seed)` in `vamb_tpu`'s order.
 Training runs `models/training.train_epochs` on `vamb_tpu`'s key chain with
 the per-epoch dropout bank (`layers.dropout_bank`, rotated per step), so
-both packages train on the same batches and masks. The labels are the
+both packages train on the same batches and masks; with `mesh=` training
+is data-parallel over its ranks (`train_epochs`'s notes), on D-Adaptation
+with the flat gradient summed in rank order. The labels are the
 one-hot of each contig's node over `max(n_tree_nodes, 105)` classes, cut to
 the tree's `n_tree_nodes` columns. `predict` computes node probabilities on
 the device in chunks of 65,536 rows and picks each row's prediction with
@@ -160,8 +162,11 @@ class Taxometer(nn.Module):
         batchsteps: Optional[list[int]] = [25, 75, 150, 300],
         modelfile: Union[None, str, Path, IO[bytes]] = None,
         logger: Optional[Callable[[str], None]] = None,
+        mesh=None,
     ) -> None:
-        "Train in place on (dataset, integer node targets)."
+        """Train in place on (dataset, integer node targets); with `mesh` (a
+        `parallel.Mesh` whose device is this model's), data-parallel over
+        its ranks."""
         if nepochs < 1:
             raise ValueError(f"Minimum 1 epoch, not {nepochs}")
         batchsteps_list = validate_batchsteps(nepochs, batchsteps)
@@ -182,7 +187,9 @@ class Taxometer(nn.Module):
         log(f"\t    N labels: {self.nlabels}")
 
         dev = self.device
-        optimizer = DAdaptAdam(self.parameters_flat_order())
+        optimizer = DAdaptAdam(
+            self.parameters_flat_order(),
+            grad_reduce=None if mesh is None else lambda g: mesh.sum_ranks(g, "gradients"))
         n_label_classes = max(self.n_tree_nodes, 105)
 
         def step(batch, _key, bank, i):
@@ -206,6 +213,7 @@ class Taxometer(nn.Module):
         self.rng = train_epochs(
             step, (x, y), self.rng, dataset.n_obs, nepochs, batchsize,
             batchsteps_list, emit, epoch_extra=self._draw_dropout_bank,
+            mesh=mesh, model=self, log=log,
         )
         self.eval()
         if modelfile is not None:

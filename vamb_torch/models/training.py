@@ -23,6 +23,17 @@ exactly (threefry, utils/threefry.py):
 to the host without a sync and logged `lag` epochs later. `check_replicas`
 holds data-parallel training's replicated parameters to being bit-identical
 on every rank.
+
+Data parallelism (`train_epochs(mesh=)`, `vamb_tpu`'s `make_scan_epoch_fn(
+mesh=)`, which shards each gathered batch row-wise under GSPMD): every
+rank draws the same global streams and holds the whole dataset; rank r
+computes on its rows `mesh.block(bs)` of each global batch, and of the
+epoch hook's and the step draws' batch-sized tensors (`rows_of`), inside
+`layers.global_batch(mesh, bs)`, so BatchNorm takes the global batch's
+statistics and the loss's means are the rank's share of the global
+batch's. The step's optimizer sums the flat gradient over the ranks. The
+model is replicated from rank 0 first, the epoch's metrics are summed over
+the ranks in rank order, and the replicas are checked after every epoch.
 """
 
 import time
@@ -32,8 +43,22 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel import replicate
 from ..utils import threefry
+from . import layers
 from .dataset import batchsize_at_epoch, num_batches
+
+
+def rows_of(tree, lo: int, hi: int):
+    """Rows [lo, hi) of every tensor in `tree` (a tensor, or a tuple, list
+    or dict of them, nested; anything else is kept as it is)."""
+    if torch.is_tensor(tree):
+        return tree[lo:hi]
+    if isinstance(tree, dict):
+        return {k: rows_of(v, lo, hi) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(rows_of(v, lo, hi) for v in tree)
+    return tree
 
 
 def train_epochs(
@@ -48,6 +73,9 @@ def train_epochs(
     epoch_extra: Optional[Callable] = None,
     step_keys: int = 1,
     step_draws: Optional[Callable] = None,
+    mesh=None,
+    model=None,
+    log: Optional[Callable[[str], None]] = None,
 ):
     """Run `nepochs` epochs of `step` over `data` (row-aligned tensors on
     one device) from the key chain `rng`; returns the chain's next key.
@@ -60,12 +88,23 @@ def train_epochs(
     batchsize)`, the epoch's step keys turn into the steps' random draws in
     one call, and step i gets the result's item i in place of its key.
     `emit(epoch, values, batchsize, seconds)` logs an epoch's mean metrics
-    (through `MetricsDrain`)."""
+    (through `MetricsDrain`).
+
+    With `mesh`, training is data-parallel over its ranks (see the module
+    notes): `model` (the module `step` trains) is replicated from rank 0,
+    and its parameters and buffers are held bit-identical on every rank
+    after each epoch (`check_replicas`, which logs to `log`); `step` gets
+    this rank's rows of the batch, the hook's result and its draws, and
+    must sum its gradient over the ranks."""
     drain = MetricsDrain(emit)
     device = data[0].device
+    if mesh is not None:
+        replicate(model, mesh)
+        replicas = [*model.parameters(), *model.buffers()]
     for epoch0, seg_len in segment_plan(nepochs, batchsteps_list):
         bs = min(batchsize_at_epoch(batchsize, batchsteps_list, epoch0), n_obs)
         nb = num_batches(n_obs, bs)
+        lo, hi = (0, bs) if mesh is None else mesh.block(bs)  # this rank's rows of a batch
         for epoch in range(epoch0, epoch0 + seg_len):
             rng, key = threefry.split_host(rng)
             if epoch_extra is None:
@@ -73,20 +112,26 @@ def train_epochs(
                 extra = None
             else:
                 perm_key, scan_key, extra_key = threefry.split_host(key, 3)
-                extra = epoch_extra(extra_key, bs)
+                extra = rows_of(epoch_extra(extra_key, bs), lo, hi)
             idx = threefry.permutation(perm_key, n_obs, device)[: nb * bs]
             shuf = tuple(a[idx] for a in data)
             keys = []
             for _ in range(nb):
                 scan_key, *subs = threefry.split_host(scan_key, step_keys + 1)
                 keys.append(subs[0] if step_keys == 1 else tuple(subs))
-            per_step = keys if step_draws is None else step_draws(keys, bs)
+            per_step = keys if step_draws is None else [
+                rows_of(d, lo, hi) for d in step_draws(keys, bs)]
             total = None
-            for i in range(nb):
-                batch = tuple(a[i * bs : (i + 1) * bs] for a in shuf)
-                metrics = step(batch, per_step[i], extra, i)
-                total = metrics if total is None else total + metrics
+            with layers.global_batch(mesh, bs):
+                for i in range(nb):
+                    batch = tuple(a[i * bs + lo : i * bs + hi] for a in shuf)
+                    metrics = step(batch, per_step[i], extra, i)
+                    total = metrics if total is None else total + metrics
+            if mesh is not None:
+                total = mesh.sum_ranks(total, "metrics")
             drain.push(epoch, total / nb, bs)
+            if mesh is not None:
+                check_replicas(replicas, mesh, log or (lambda _m: None))
     drain.flush()
     return torch.tensor(rng)
 

@@ -35,7 +35,7 @@ Behavioral spec: `vamb_tpu/models/vae.py` (reference vamb/encode.py:149-610):
   eps) and computes on its rows [r b / W, (r + 1) b / W) of each global
   batch of b rows; BatchNorm takes the global batch's statistics
   (`layers.global_batch`), a rank's loss is its rows' terms over the global
-  b, and the flat gradient is summed over the ranks in rank order before
+  b (`layers.batch_mean`), and the flat gradient is summed over the ranks in rank order before
   D-Adaptation's update, so the replicated parameters stay bit-identical on
   every rank (checked after each epoch). Batch doubling and logging are
   unchanged; the epoch's metrics are summed over the ranks the same way.
@@ -60,16 +60,9 @@ from ..utils import mask_lower_bits, threefry
 from ..utils.checkpoint import load_flat, params_from_jax, params_to_jax, save_flat
 from . import layers
 from .dataset import VAEDataset, batchsize_at_epoch, num_batches
-from .training import check_replicas, validate_batchsteps
+from .training import check_replicas, rows_of, validate_batchsteps
 
 _ENCODE_CHUNK = 1 << 16  # rows per encode forward
-
-
-def _rows_of(bank: Optional[dict], lo: int, hi: int) -> Optional[dict]:
-    "A step's dropout bytes for rows [lo, hi) of its batch (None without dropout)."
-    if bank is None:
-        return None
-    return {k: [t[lo:hi] for t in v] for k, v in bank.items()}
 
 
 class VAE(nn.Module):
@@ -203,12 +196,12 @@ class VAE(nn.Module):
         depths_out = torch.softmax(rec[:, :S], dim=1)
         return depths_out, rec[:, S : S + T], rec[:, S + T :], mu
 
-    def calc_loss(self, depths_in, depths_out, tnf_in, tnf_out, ab_in, ab_out, mu, weights,
-                  batch_size: Optional[int] = None, weight_mean=None):
-        """The 4-term weighted loss of reference encode.py:316-357. Given
-        `batch_size` and the global batch's `weight_mean`, the rows are one
-        rank's share of a data-parallel batch: its terms over the global
-        batch size, whose sum over the ranks is the batch's loss."""
+    def calc_loss(self, depths_in, depths_out, tnf_in, tnf_out, ab_in, ab_out, mu, weights):
+        """The 4-term weighted loss of reference encode.py:316-357. Its means
+        over rows are `layers.batch_mean`s: inside `layers.global_batch(mesh,
+        b)` the rows are one rank's share of a data-parallel batch, their
+        terms over the global batch size, whose sum over the ranks is the
+        batch's loss, and `weights` is the whole global batch's column."""
         ab_sse = torch.sum(torch.square(ab_out - ab_in), dim=1)
         ce = -torch.sum(torch.log(depths_out + 1e-9) * depths_in, dim=1)
         sse = torch.sum(torch.square(tnf_out - tnf_in), dim=1)
@@ -228,14 +221,11 @@ class VAE(nn.Module):
         w_ce = ce * ce_weight
         w_sse = sse * sse_weight
         w_kld = kld * kld_weight
-        if batch_size is not None:
-            return (torch.sum(w_ce + w_ab + w_sse + w_kld) / batch_size * weight_mean,
-                    *(torch.sum(w) / batch_size for w in (w_ab, w_ce, w_sse, w_kld)))
         # the reference multiplies the (B,) loss by the (B, 1) weights
         # column, which broadcasts to (B, B): its mean is mean(loss) *
         # mean(weights), not a weighted mean. Training depends on it.
-        loss = torch.mean(w_ce + w_ab + w_sse + w_kld) * torch.mean(weights[:, 0])
-        return loss, w_ab.mean(), w_ce.mean(), w_sse.mean(), w_kld.mean()
+        loss = layers.batch_mean(w_ce + w_ab + w_sse + w_kld) * torch.mean(weights[:, 0])
+        return loss, *(layers.batch_mean(w) for w in (w_ab, w_ce, w_sse, w_kld))
 
     # ------------------------------------------------------------ training
 
@@ -336,19 +326,17 @@ class VAE(nn.Module):
             self.rng, perm, bank, eps = self.epoch_draws(self.rng, n, bs, nb)
             shuf = packed[perm[: nb * bs]].reshape(nb, bs, -1)
             comps = torch.zeros(5, device=dev)
-            with layers.global_batch(mesh):
+            with layers.global_batch(mesh, bs):
                 for i in range(nb):
                     batch = shuf[i]
                     rows = batch[lo:hi]
                     d_out, t_out, a_out, mu = self._forward(
                         rows[:, : S + T + 1], eps=eps[i][lo:hi],
-                        dropout_bank=_rows_of(self.step_bank(bank, i), lo, hi),
+                        dropout_bank=rows_of(self.step_bank(bank, i), lo, hi),
                     )
-                    share = {} if mesh is None else {
-                        "batch_size": bs, "weight_mean": torch.mean(batch[:, S + T + 1])}
-                    loss, w_ab, w_ce, w_sse, w_kld = self.calc_loss(
+                    loss, w_ab, w_ce, w_sse, w_kld = self.calc_loss(  # the global batch's weights
                         rows[:, :S], d_out, rows[:, S : S + T], t_out,
-                        rows[:, S + T : S + T + 1], a_out, mu, rows[:, S + T + 1 :], **share,
+                        rows[:, S + T : S + T + 1], a_out, mu, batch[:, S + T + 1 :],
                     )
                     optimizer.zero_grad(set_to_none=True)
                     loss.backward()

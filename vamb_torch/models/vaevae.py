@@ -27,6 +27,19 @@ reversed). `vamb_tpu` declares `eddededde` (vaevae.py:310), so asymmetric
 `-n` widths make its bank's slices mismatch the layers and it raises;
 with symmetric widths the two orders slice the same bytes.
 
+Data parallelism (`trainmodel(mesh=)`, `vamb_tpu`'s GSPMD over the global
+batches): every rank draws the same permutations, bank and eps and
+computes on its rows [r b / W, (r + 1) b / W) of both batches, inside
+`layers.global_batch(mesh, b)`: BatchNorm takes the global batches'
+statistics, and each loss's mean over rows is the rank's share of the
+global batch's (`layers.batch_mean`). The weights' mean, which multiplies
+the feature losses, is taken from the whole global batch, so each loss
+stays linear in the rows' terms; the joint loss adds its batch-mean terms
+(the label loss and the two `kld_gauss`) once, as partials of their own,
+not to every row. Adam sums the flat gradient over the ranks in rank
+order, the epoch's metrics are summed likewise, and the replicas are
+checked after every epoch.
+
 A layer called twice in a step keeps the running BatchNorm statistics of
 its last call, each made from the step's starting statistics, as
 `vamb_tpu` threads them. `encode_joint` returns the joint mu with the 12
@@ -42,11 +55,12 @@ from torch import nn
 
 from ..device import resolve_device
 from ..optim import Adam
+from ..parallel import replicate
 from ..utils import mask_lower_bits, threefry
 from ..utils.checkpoint import load_flat, params_from_jax, params_to_jax, save_flat
 from . import hier, layers
 from .dataset import VAEDataset, batchsize_at_epoch, encode_chunk_rows, num_batches
-from .training import MetricsDrain, segment_plan, validate_batchsteps
+from .training import MetricsDrain, check_replicas, rows_of, segment_plan, validate_batchsteps
 
 _ENCODE_CHUNK = 1 << 16
 # encoder (e) or decoder (d) for each stack call of a step, in call order
@@ -65,7 +79,7 @@ def kld_gauss(p_mu, p_logstd, q_mu, q_logstd):
         + (torch.exp(p_logstd) ** 2 + (p_mu - q_mu) ** 2) / (2 * torch.exp(q_logstd) ** 2)
         - 0.5
     )
-    return torch.mean(loss)
+    return layers.batch_mean(loss)
 
 
 class _SubVAE(nn.Module):
@@ -189,7 +203,7 @@ class VAEVAE(nn.Module):
             return self._label_loss(logits, onehot[:, : self.n_tree_nodes])
         idx = torch.argmax(onehot, dim=1)
         logp = torch.log_softmax(logits, dim=-1)
-        return torch.mean(-torch.gather(logp, -1, idx[:, None]))
+        return layers.batch_mean(-torch.gather(logp, -1, idx[:, None]))
 
     def _split_features(self, rec):
         S, T = self.nsamples, self.ntnf
@@ -216,16 +230,16 @@ class VAEVAE(nn.Module):
         ce_w, ab_w, sse_w, kld_w = self._weights()
         # (B,) loss x (B, 1) weights broadcasts to (B, B) in the reference
         # (semisupervised_encode.py:558): its mean is mean(loss) * mean(weights)
-        loss = torch.mean(ce * ce_w + ab_sse * ab_w + sse * sse_w + kld * kld_w) * torch.mean(
+        loss = layers.batch_mean(ce * ce_w + ab_sse * ab_w + sse * sse_w + kld * kld_w) * torch.mean(
             weights[:, 0]
         )
-        return loss, torch.mean(ce), torch.mean(sse), torch.mean(kld)
+        return loss, layers.batch_mean(ce), layers.batch_mean(sse), layers.batch_mean(kld)
 
     def calc_loss_labels(self, logits, onehot, mu):
         """Labels-only sub-VAE loss (semisupervised_encode.py:248-257): the
         label loss plus the mu-only KLD."""
         ce_lab = self._label_ce(logits, onehot)
-        kld_lab = 0.5 * torch.mean(torch.sum(torch.square(mu), dim=1))
+        kld_lab = 0.5 * layers.batch_mean(torch.sum(torch.square(mu), dim=1))
         kld_w = 1 / (self.nlatent * self.beta)
         return ce_lab + kld_lab * kld_w, ce_lab, kld_lab
 
@@ -244,9 +258,14 @@ class VAEVAE(nn.Module):
         zeros = torch.zeros_like(mu_sup)
         kld_vamb_j = kld_gauss(mu_sup, zeros, mu_vamb_unsup, zeros)
         kld_lab_j = kld_gauss(mu_sup, zeros, mu_labels_unsup, zeros)
-        rec_j = ce_j * ce_w + ab_sse_j * ab_w + sse_j * sse_w + ce_labels_j
-        loss = torch.mean(rec_j + (kld_vamb_j + kld_lab_j) * kld_w) * torch.mean(weights[:, 0])
-        return loss, torch.mean(ce_j), torch.mean(sse_j), ce_labels_j, kld_vamb_j, kld_lab_j
+        if layers.batch_rows() is None:
+            rec_j = ce_j * ce_w + ab_sse_j * ab_w + sse_j * sse_w + ce_labels_j
+            loss = torch.mean(rec_j + (kld_vamb_j + kld_lab_j) * kld_w) * torch.mean(weights[:, 0])
+        else:  # a rank's share: the batch-mean terms once, as partials of their own
+            rec_j = layers.batch_mean(ce_j * ce_w + ab_sse_j * ab_w + sse_j * sse_w)
+            loss = (rec_j + ce_labels_j + (kld_vamb_j + kld_lab_j) * kld_w) * torch.mean(weights[:, 0])
+        return (loss, layers.batch_mean(ce_j), layers.batch_mean(sse_j), ce_labels_j, kld_vamb_j,
+                kld_lab_j)
 
     # ------------------------------------------------------------- training
 
@@ -349,8 +368,11 @@ class VAEVAE(nn.Module):
         batchsteps: Optional[list[int]] = [25, 75, 150, 300],
         modelfile: Union[None, str, Path, IO[bytes]] = None,
         logger: Optional[Callable[[str], None]] = None,
+        mesh=None,
     ) -> None:
-        "Train in place on (dataset, integer node targets)."
+        """Train in place on (dataset, integer node targets); with `mesh` (a
+        `parallel.Mesh` whose device is this model's), data-parallel over
+        its ranks (see the module notes)."""
         if nepochs < 1:
             raise ValueError(f"Minimum 1 epoch, not {nepochs}")
         if dataset.n_obs < 2:
@@ -378,11 +400,18 @@ class VAEVAE(nn.Module):
         S, T, N_l = self.nsamples, self.ntnf, self.n_input_labels
         packed = torch.as_tensor(np.concatenate(dataset, axis=1), device=dev)
         labels = torch.as_tensor(np.asarray(targets, dtype=np.int64), device=dev)
-        optimizer = Adam(self.parameters(), lr=1e-3, eps=1e-8)
+        if mesh is not None:
+            replicate(self, mesh)  # rank 0's weights on every rank, as vamb_tpu's replicate
+        params = list(self.parameters())
+        optimizer = Adam(params, lr=1e-3, eps=1e-8,
+                         grad_reduce=None if mesh is None else lambda g: mesh.sum_ranks(g, "gradients"))
 
-        def gather(rows, onehot):
-            return (rows[:, :S], rows[:, S : S + T], rows[:, S + T : S + T + 1],
-                    rows[:, S + T + 1 :], onehot)
+        def gather(rows, onehot, lo, hi):
+            """This rank's rows [lo, hi) of a global batch, with the whole
+            batch's weights column: the losses read only its mean."""
+            part = rows[lo:hi]
+            return (part[:, :S], part[:, S : S + T], part[:, S + T : S + T + 1],
+                    rows[:, S + T + 1 :], onehot[lo:hi])
 
         def emit(epoch, m, bs, seconds):
             log(
@@ -396,24 +425,31 @@ class VAEVAE(nn.Module):
         for epoch0, seg_len in segment_plan(nepochs, batchsteps_list):
             bs = min(batchsize_at_epoch(batchsize, batchsteps_list, epoch0), n)
             nb = num_batches(n, bs)
+            lo, hi = (0, bs) if mesh is None else mesh.block(bs)  # this rank's rows of a batch
             for epoch in range(epoch0, epoch0 + seg_len):
                 self.rng, perm_sup, perm_uns, bank, eps = self.epoch_draws(self.rng, n, bs, nb)
+                bank = rows_of(bank, lo, hi)
                 shuf = {}
                 for name, perm in (("sup", perm_sup), ("uns", perm_uns)):
                     onehot = nn.functional.one_hot(labels[perm], N_l).float()
                     shuf[name] = (packed[perm].reshape(nb, bs, -1), onehot.reshape(nb, bs, N_l))
                 total = None
-                for i in range(nb):
-                    sup = gather(shuf["sup"][0][i], shuf["sup"][1][i])
-                    uns = gather(shuf["uns"][0][i], shuf["uns"][1][i])
-                    loss, metrics = self.step_losses(
-                        sup, uns, eps[i], layers.step_bank(bank, i), self._bn_base()
-                    )
-                    optimizer.zero_grad()
-                    loss.backward()
-                    optimizer.step()
-                    total = metrics if total is None else total + metrics
+                with layers.global_batch(mesh, bs):
+                    for i in range(nb):
+                        sup = gather(shuf["sup"][0][i], shuf["sup"][1][i], lo, hi)
+                        uns = gather(shuf["uns"][0][i], shuf["uns"][1][i], lo, hi)
+                        loss, metrics = self.step_losses(
+                            sup, uns, eps[i][:, lo:hi], layers.step_bank(bank, i), self._bn_base()
+                        )
+                        optimizer.zero_grad()
+                        loss.backward()
+                        optimizer.step()
+                        total = metrics if total is None else total + metrics
+                if mesh is not None:
+                    total = mesh.sum_ranks(total, "metrics")
                 drain.push(epoch, total / nb, bs)
+                if mesh is not None:
+                    check_replicas([*params, *self.buffers()], mesh, log)
         drain.flush()
         self.eval()
         if modelfile is not None:

@@ -12,7 +12,13 @@ rounds its bias corrections differently):
     m_hat  = m' / (1 - b1**count')          (float32)
     v_hat  = v' / (1 - b2**count')
     p'     = p + (-lr) * (m_hat / (sqrt(v_hat) + eps))
+
+In data-parallel training `grad_reduce` sums the flat gradient over the
+ranks (in rank order) before the update, as `DAdaptAdam`'s does, so every
+rank updates its replica of the parameters alike.
 """
+
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -21,8 +27,10 @@ import torch
 class Adam:
     "The update rule above over a list of parameters (`zero_grad`, `step`)."
 
-    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8):
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 grad_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         self.params = list(params)
+        self.grad_reduce = grad_reduce
         self.lr, self.betas, self.eps = lr, betas, eps
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
@@ -43,6 +51,10 @@ class Adam:
         # a parameter outside the loss's graph (VAEVAE's joint decoder) has
         # no gradient: optax sees zeros there
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        if self.grad_reduce is not None:  # one flat gradient, summed over the ranks
+            flat = self.grad_reduce(torch.cat([g.reshape(-1) for g in grads]))
+            grads = [g.view_as(p) for g, p in zip(flat.split([p.numel() for p in self.params]),
+                                                   self.params)]
         torch._foreach_mul_(self.m, b1)
         torch._foreach_add_(self.m, torch._foreach_mul(grads, 1 - b1))
         torch._foreach_mul_(self.v, b2)

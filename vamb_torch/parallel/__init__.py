@@ -4,11 +4,13 @@ Counterpart of `vamb_tpu/parallel`, which runs SPMD programs over a
 `jax.sharding.Mesh`. The scale axis of the problem is N contigs (rows of
 the feature and latent matrices), so the strategy is the same:
 
-* **Data-parallel VAE training**: every rank draws the same global batches
-  from the shared threefry streams and computes on its own rows of each,
-  parameters replicated. The flat gradient and BatchNorm's batch sums are
-  combined across ranks, so BatchNorm's statistics are the global batch's
-  and the parameters stay bit-identical on every rank.
+* **Data-parallel training** of every model (the VAE, Taxometer, VAEVAE
+  and the AAE): every rank draws the same global batches from the shared
+  threefry streams and computes on its own rows of each, parameters
+  replicated. The flat gradient (each of the AAE's three phases' its own)
+  and BatchNorm's batch sums are combined across ranks, the losses' means
+  are over the global batch, so BatchNorm's statistics are the global
+  batch's and the parameters stay bit-identical on every rank.
 * **Row-sharded clustering**: rank r holds a contiguous block of the
   latent matrix's columns; each medoid's distances are computed on the
   shard, and only small payloads cross ranks (the query's features, the

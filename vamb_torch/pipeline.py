@@ -600,7 +600,10 @@ def predict_taxonomy(
     device="cuda",
 ):
     """Train Taxometer on `device` and write results_taxometer.tsv
-    (reference __main__.py:1542-1642). Returns the PredictedTaxonomy."""
+    (reference __main__.py:1542-1642). Returns the PredictedTaxonomy. In a
+    multi-process run the training is data-parallel over the processes'
+    mesh, the prediction runs on every process, and only process 0 writes
+    the model and the TSV."""
     from .models.taxometer import Taxometer
     from .taxonomy import PredictedTaxonomy, Taxonomy
 
@@ -626,14 +629,16 @@ def predict_taxonomy(
     logger.info("\tCreated dataloader")
     logger.info("Starting training the taxonomy predictor")
     logger.info(f"Using threshold {options.softmax_threshold}")
+    primary = process_info()[0] == 0
     model.trainmodel(
         dataset,
         targets,
         nepochs=options.nepochs,
         batchsize=options.batchsize,
         batchsteps=options.batchsteps,
-        modelfile=out_dir.joinpath("predictor_model.npz"),
+        modelfile=out_dir.joinpath("predictor_model.npz") if primary else None,
         logger=logger.info,
+        mesh=default_mesh(device),
     )
     logger.info(f"\tTrained the taxonomy predictor in {round(time.time() - begintime, 2)} seconds.")
 
@@ -641,8 +646,9 @@ def predict_taxonomy(
     predict_begin = time.time()
     predictions = _predicted_lineages(model, dataset, nodes, options.softmax_threshold)
     taxonomy = PredictedTaxonomy(predictions, comp_metadata, False)
-    with open(out_dir.joinpath("results_taxometer.tsv"), "w") as file:
-        taxonomy.write_as_tsv(file, comp_metadata)
+    if primary:
+        with open(out_dir.joinpath("results_taxometer.tsv"), "w") as file:
+            taxonomy.write_as_tsv(file, comp_metadata)
     logger.info(f"\tPredicted the taxonomy in {round(time.time() - predict_begin, 2)} seconds.")
     logger.info(
         f"Completed taxonomy predictions in {round(time.time() - begintime, 2)} seconds."
@@ -750,20 +756,23 @@ def run_vaevae(opt: BinTaxVambOptions) -> None:
         device=opt.general.device,
     )
     dataset = make_dataset(abundance_matrix, tnfs, lengths)
+    primary = process_info()[0] == 0  # only process 0 saves the model and latent
     vae.trainmodel(
         dataset,
         targets,
         nepochs=opt.vae.nepochs,
         batchsize=opt.vae.batchsize,
         batchsteps=opt.vae.batchsteps,
-        modelfile=opt.general.outdir.joinpath("vaevae_model.npz"),
+        modelfile=opt.general.outdir.joinpath("vaevae_model.npz") if primary else None,
         logger=logger.info,
+        mesh=default_mesh(opt.general.device),
     )
     logger.info(f"\tTrained VAEVAE in {round(time.time() - begintime, 2)} seconds.")
     encode_begin = time.time()
-    latent = vae.encode_joint(dataset, targets)
+    latent = vae.encode_joint(dataset, targets)  # unsharded on every rank, as in vamb_tpu
     logger.info(f"{latent.shape} embedding shape")
-    write_npz(opt.general.outdir.joinpath("vaevae_latent.npz"), latent)
+    if primary:
+        write_npz(opt.general.outdir.joinpath("vaevae_latent.npz"), latent)
     logger.info(f"\tEncoded the joint latent in {round(time.time() - encode_begin, 2)} seconds.")
     del vae, dataset
 
@@ -887,19 +896,23 @@ def run_bin_aae(opt: BinAvambOptions) -> None:
         device=opt.general.device,
     )
     logger.info(f"\tCreated AAE on {aae.device}")
+    primary = process_info()[0] == 0  # only process 0 saves the model and latent
     aae.trainmodel(
         dataset,
         nepochs=opt.aae.nepochs,
         batchsize=opt.aae.batchsize,
         batchsteps=opt.aae.batchsteps,
         temperature=opt.aae.temp,
-        modelfile=opt.general.outdir.joinpath("aae_model.npz"),
+        modelfile=opt.general.outdir.joinpath("aae_model.npz") if primary else None,
         logger=logger.info,
+        mesh=default_mesh(opt.general.device),
     )
     logger.info("\tEncoding to latent representation")
     encode_begin = time.time()
+    # unsharded on every rank, as in vamb_tpu
     clusters_y_dict, latent_z = aae.get_latents(list(comp_metadata.identifiers), dataset)
-    write_npz(opt.general.outdir.joinpath("aae_z_latent.npz"), latent_z)
+    if primary:
+        write_npz(opt.general.outdir.joinpath("aae_z_latent.npz"), latent_z)
     logger.info(f"\tEncoded the z latent and the y clusters in {round(time.time() - encode_begin, 2)} seconds.")
     elapsed = round(time.time() - begintime, 2)
     logger.info(f"\tTrained AAE and encoded in {elapsed} seconds.")
