@@ -79,8 +79,8 @@ of `vamb_tpu`. Phases, each of which fails the run:
    sweeps, with attempt lanes on by "auto". Counters as in phase 4; all
    seven clustering kernels but `gumbel_scores` must be > 0, and the
    engine must have run lane passes.
-6. profile: on each main path's own data, 40 clusters of the engine and
-   50 training steps under torch.profiler: time per cluster and per step,
+6. profile: on each main path's own data, 20 clusters of the engine and
+   20 training steps under torch.profiler: time per cluster and per step,
    device kernels per attempt and per wander step, the device's busy share
    and the ops that take the most device time. A clustering window that
    calls `aten::topk` fails the run: the selection is `gumbel_topc`'s.
@@ -116,7 +116,7 @@ of `vamb_tpu`. Phases, each of which fails the run:
    probability lies within 1e-5 of the threshold (counted). Logged, not
    gated: the taxvamb clusters' pairwise precision beside phase 4's, the
    refined genus's accuracy on the unlabelled contigs, the stage times,
-   and training steps of Taxometer (100) and VAEVAE (25) under
+   and training steps of Taxometer (40) and VAEVAE (10) under
    torch.profiler (ms and device kernels a step, busy share, top ops).
 9. the Avamb path at 100,000 contigs, through the CLI entry points on the
    card: phase 4's dataset; `bin avamb` at the published widths (547 /
@@ -129,15 +129,15 @@ of `vamb_tpu`. Phases, each of which fails the run:
    the CPU's, its
    y clusters equal but where the top two y probabilities lie within 1e-5
    (counted); 50 clusters of the z latent (fewer where it holds fewer, or
-   where 150 wander steps are reached first) on the card and on the CPU as
+   where 50 wander steps are reached first) on the card and on the CPU as
    in phase 4 (scores and candidates different in no step, all
    identical); `avamb_ensemble` over the z and y bins with a CheckM2-style
    report from the planted genomes, every bin admitted (the cut's bins are
    not near-complete): its bins disjoint, each a subset of its input bin.
    Logged: stage times, the bins' pairwise precision, the bins the
-   ensemble kept, and 25 AAE training steps under torch.profiler.
-10. batched attempts: (a) a loner-tail latent of 20,000 points (140 wide
-   clumps of 100 and 6,000 isolated random directions, about 0.5 apart in
+   ensemble kept, and 10 AAE training steps under torch.profiler.
+10. batched attempts: (a) a loner-tail latent of 10,000 points (70 wide
+   clumps of 100 and 3,000 isolated random directions, about 0.5 apart in
    32 dimensions: loners) run to its last point at subset scope with
    attempt lanes on and off, on the card and on the CPU: the four
    emissions must be identical and the card's runs must launch
@@ -162,7 +162,7 @@ of `vamb_tpu`. Phases, each of which fails the run:
    4's f32 latent clustered at bf16 on the card agreeing with phase 4's
    f32 clusters on more than 0.95 of 1,000,000 sampled contig pairs
    (`vamb_tpu`'s criterion). Logged: stage times, the bins' pairwise
-   precision beside phase 4's, and 50 bf16 training steps under
+   precision beside phase 4's, and 20 bf16 training steps under
    torch.profiler beside phase 6's f32 steps.
 12. several processes: the four shard entry points (`medoid_sweep_shard`,
    `spec_sweep_shard`, `candidate_density_shard`, `gumbel_topc_shard`) on
@@ -177,13 +177,13 @@ of `vamb_tpu`. Phases, each of which fails the run:
    entry points on the shard, then timed (the gather beside
    `index_select`); (a) a world of one on NCCL: phase 4's dataset trained
    for 2 epochs at batch 512 with `mesh=` (the replicas checked after each
-   epoch), and 120
+   epoch), and 80
    clusters of its latent from the unsharded engine and from the
    row-sharded one, the counters set to 0 just before the sharded run and
    read just after (every shard entry point and `row_stats` launched, the
    index entry points of those kernels not; emission and every attempt's
    sums bit for bit the unsharded engine's), its NCCL collectives tallied
-   by kind, calls and bytes an attempt; then the same pair, 120 clusters
+   by kind, calls and bytes an attempt; then the same pair, 80 clusters
    each, at the forced subset scope with attempt lanes on and off
    (`gather_ball_shard` launched, `gather_ball`, `medoid_sweep` and
    `spec_sweep` not; the "ball" collectives logged an attempt) and at
@@ -191,7 +191,7 @@ of `vamb_tpu`. Phases, each of which fails the run:
    the unsharded engine, counters included; (b) two processes sharing the card
    over gloo (`--dist-rank`; gloo moves each collective through host
    memory): `bin default`'s library path at W = 2 on (a)'s composition
-   and abundance (2 epochs at batch 512, 120 clusters), the parameters'
+   and abundance (2 epochs at batch 512, 80 clusters), the parameters'
    checksums equal across ranks after every epoch, then the same W = 2
    engine on the CPU over the same group, its first 20 clusters identical
    to the card's; the W = 2
@@ -199,7 +199,7 @@ of `vamb_tpu`. Phases, each of which fails the run:
    processes sharing the card over gloo (`--dist-engine-rank`) clustering
    phase 5's 300,032-wide latent (in `--dist` mode, where phase 5 does not
    run, the 300,000-point latent of `--engine-ab`) at the engine's default
-   flags, so "auto" takes the subset wander and attempt lanes, 120
+   flags, so "auto" takes the subset wander and attempt lanes, 80
    clusters: the two ranks' clusters identical, the subset wander, lanes
    and `gather_ball_shard` run, and each rank's first 20 identical to the
    same W = 2 engine's on the CPU. A rank that fails or outlives its 420 s
@@ -216,7 +216,7 @@ of `vamb_tpu`. Phases, each of which fails the run:
    metrics within rtol 1e-3 and its weights within steps x lr); ms a step both ways and the collectives a
    step by kind logged; then the meshed AAE's z latent (degenerate after
    one epoch: a few clusters) clustered by the unsharded and the
-   row-sharded engine, and 120 clusters of a 283-wide latent of 200 clumps
+   row-sharded engine, and 80 clusters of a 283-wide latent of 200 clumps
    (`wide_latent`) likewise at full scope, forced subset and bfloat16, each
    bit for bit (emission and sums), the shard entry points launched at
    F_pad 288 alone and, at full scope, the index entry points not at all; (e) two processes sharing the card over gloo
@@ -225,9 +225,30 @@ of `vamb_tpu`. Phases, each of which fails the run:
    at (d)'s widths on (d)'s data (batch 1,024, one epoch each, 50 clusters
    a `bin`): each rank's
    parameter checksums equal every epoch, rank 0's artifacts and TSVs read
-   back, `.proc1` removed, and the first 20 z clusters of the W = 2 engine
-   on the CPU equal to the card's (all of them: the z latent holds a few),
-   as the first 20 of `wide_latent`'s.
+   back, `.proc1` removed, and the first 10 z clusters of the W = 2 engine
+   on the CPU equal to the card's (all of them where the z latent holds
+   fewer), as the first 10 of `wide_latent`'s.
+13. C above 32 and `wander_kernel`: (a) `gumbel_topc` (no, some and all
+   columns eligible, and a tie key) and `gumbel_topc_shard` (two shards,
+   merged) at 8,192, 100,096 and 300,032 columns, and the density kernel,
+   its shard entry point and its bf16 variant at those widths and at
+   100,096 at F_pad 288, at C 33, 40, 64 and 100: each bit for bit its
+   plain version on the card, its launches a call counted by the library
+   (`device_launches`) and its wrapper (ceil(C / 32) for the Gumbel
+   kernel, one for the density kernel); both timed at C 40 and 64 beside
+   their bounds, plain versions and, for `gumbel_topc`, `gumbel_scores` +
+   `torch.topk`; (b) the slice's path: the engine at maxsteps 40 and 64 on
+   phase 4's latent (in `--maxsteps` mode a synthetic 100,000-point one),
+   at full scope (6 clusters) and at the subset scope with attempt lanes
+   on (25), card vs CPU in lockstep as in phase 4 (scores and candidates
+   different in no step, every cluster identical), the counters set to 0
+   just before each run and read just after (the Gumbel kernel ceil(C /
+   32) launches a wander step, the library's counts the wrappers'); (c)
+   `wander_kernel` "auto", "pallas", "xla", "xla", "pallas", "auto" on the
+   card on the same latent at its defaults: ms a cluster, device kernels a
+   cluster, hand-written launches a cluster (none under "xla"), and one
+   emission; (d) "pallas" with maxsteps 40 and with bfloat16 distances
+   refused with ValueError.
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
@@ -237,9 +258,10 @@ phase 7's for `hmm_forward`; each row also holds every timed width under
 matrix kernels at the z latent's width, with phase 9's launches; the rows
 with `dtype` "bfloat16" are the bf16 variants, one a timed width, with
 phase 11's launches; the rows with `entry_point_of` are the shard entry
-points, with phase 12(a)'s launches, and at `f_pad` 288 12(d)'s), the
-card's `nvidia-smi` name and power limit, and
-`{"ok": true, "device": ...}`.
+points, with phase 12(a)'s launches, and at `f_pad` 288 12(d)'s; the rows
+with `c` are `gumbel_topc` and the density kernel at C 40 and 64, with
+phase 13(b)'s launches at that maxsteps), the card's `nvidia-smi` name and
+power limit, and `{"ok": true, "device": ...}`.
 
     python3 chip_smoke.py --kernels
 
@@ -266,6 +288,10 @@ profile, no card-vs-CPU run) and phase 11.
     python3 chip_smoke.py --dist
 
 runs phase 1 and phase 12 (about 5 minutes).
+
+    python3 chip_smoke.py --maxsteps
+
+runs phase 1 and phase 13 (about 2 minutes after the build).
 
     python3 chip_smoke.py --lanes
 
@@ -368,16 +394,16 @@ def nvidia_smi_line() -> str:
 # --------------------------------------------------------------- timing
 
 
-def time_ms(fn, iters: int = 50, cold_l2: bool = True) -> float:
-    """Device ms of one call of `fn`, the median over `iters` calls after a
-    warm-up, from CUDA events around each call. Before each call the card
+def time_ms(fn, iters: int = 30, cold_l2: bool = True, warmup: int = 5) -> float:
+    """Device ms of one call of `fn`, the median over `iters` calls after
+    `warmup` calls, from CUDA events around each call. Before each call the card
     sleeps ~2 ms, so the host has queued the whole call when the start
     event fires and the span holds device time only. With `cold_l2`, a
     64 MiB buffer is overwritten first, so the call finds the 50 MB L2
     cold; without it, the call finds its inputs where the last one left
     them, as the engine's back-to-back wander steps do."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold_l2 else None
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
@@ -1149,6 +1175,7 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
                                       **engine_kwargs)
         events = []
         step = gen._step
+        topc = gen._kernels.gumbel_topc  # the generator's own: the wrapper, or "xla"'s plain version
 
         def recorded_step(key, d, kept, tried, medoid, n, matrixT, wk):
             out = step(key, d, kept, tried, medoid, n, matrixT, wk)
@@ -1156,11 +1183,16 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
             events.append(("candidate densities", out[3].cpu()))
             return out
 
+        def recorded_topc(*args):
+            cand, valid, score = topc(*args, with_scores=True)
+            events.append(("gumbel scores", score.cpu()))
+            return cand, valid
+
         gen._step = recorded_step
+        gen._kernels.gumbel_topc = recorded_topc
         return gen, events
 
     find_threshold = engine.find_threshold
-    gumbel_topc = engine.gumbel_topc
 
     def next_cluster(gen, events):
         def recorded(hist, pvr):
@@ -1168,17 +1200,12 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
             events.append(("smoothed densities", engine.smooth_histogram(hist).cpu()))
             return find_threshold(hist, pvr)
 
-        def recorded_topc(*args):
-            cand, valid, score = gumbel_topc(*args, with_scores=True)
-            events.append(("gumbel scores", score.cpu()))
-            return cand, valid
-
         events.clear()
-        engine.find_threshold, engine.gumbel_topc = recorded, recorded_topc
+        engine.find_threshold = recorded
         try:
             return next(gen, None)
         finally:
-            engine.find_threshold, engine.gumbel_topc = find_threshold, gumbel_topc
+            engine.find_threshold = find_threshold
 
     t = time.time()
     card, cpu = instrumented(dev), instrumented("cpu")
@@ -1524,7 +1551,7 @@ def check_and_time_hmm(dev) -> dict:
                                  f"outside {HMM_TOL_ABS} + {HMM_TOL_REL} |score|")
         bnd = hmm_bound(codes, m)
         ms = time_ms(lambda: K.hmm_forward(*args), iters=20)
-        plain_ms = time_ms(lambda: K.hmm_forward_plain(*args), iters=3)
+        plain_ms = time_ms(lambda: K.hmm_forward_plain(*args), iters=3, warmup=1)
         out[key] = {"m": m, "genes": n_genes, "ms": ms, "plain_ms": plain_ms, "bound": bnd[:2],
                     "cells": bnd[2], "max_abs_err": err, "max_score": float(plain.abs().max())}
         log(f"hmm_forward at M {m}, {n_genes} {'length-sorted ' if sort else ''}genes of 30-1,000 residues "
@@ -1996,7 +2023,7 @@ def predictor_card_vs_cpu(model_path: Path, ds, threshold: float = 0.5) -> dict:
 
 def profile_taxonomy_training(dev, out: Path, targets: np.ndarray, nodes, parents) -> dict:
     """Optimizer steps of Taxometer (4 x 512, batch 1,024, its published
-    width; 100 steps) and VAEVAE (512-512-32, batch 256; 25 steps) under
+    width; 40 steps) and VAEVAE (512-512-32, batch 256; 10 steps) under
     torch.profiler, on the path's own data: ms and device kernels a step,
     busy share, top ops."""
     from vamb_torch.abundance import Abundance
@@ -2009,11 +2036,12 @@ def profile_taxonomy_training(dev, out: Path, targets: np.ndarray, nodes, parent
     comp = Composition.load(out / "composition.npz")
     ab = Abundance.load(out / "abundance.npz", comp.metadata.refhash)
     result = {}
-    # Taxometer: 100 steps (two epochs of 50 batches of 1,024). VAEVAE: 25
-    # steps of 256, as many device kernels as 100 of Taxometer's: the
-    # profiler's trace analysis costs the host ~0.5 ms an event, 83 s for
-    # 100 VAEVAE steps on an NVIDIA H100 80GB HBM3
-    for label, rows, bs, epochs in (("taxometer", 1024 * 50, 1024, 2), ("vaevae", 256 * 25, 256, 1)):
+    # Taxometer: 40 steps (two epochs of 20 batches of 1,024). VAEVAE: 10
+    # steps of 256, as many device kernels as 40 of Taxometer's: the
+    # profiler's trace analysis costs the host ~0.5 ms an event (83 s for
+    # 100 VAEVAE steps, 23 s for 25, on the NVIDIA H100 80GB HBM3
+    # (700.00 W) machine's host)
+    for label, rows, bs, epochs in (("taxometer", 1024 * 20, 1024, 2), ("vaevae", 256 * 10, 256, 1)):
         ds = make_dataset(ab.matrix[:rows], comp.matrix[:rows], comp.metadata.lengths[:rows])
         if label == "taxometer":
             model = Taxometer(N_SAMPLES, len(nodes), nodes, parents, nhiddens=[512] * 4,
@@ -2156,12 +2184,14 @@ AAE_PROBE_ROWS = 4096  # contigs on which the card's encode is held to the CPU's
 # f32 sums of 547-wide layers run in other orders on each); y: the margin
 # of the top two probabilities inside which the argmax may differ
 AAE_ENCODE_TOL = 1e-5
-AAE_PROFILE_STEPS = 25
+# 25 until the full run neared its limit: their analysis took 14 s on
+# the NVIDIA H100 80GB HBM3 (700.00 W) machine's host
+AAE_PROFILE_STEPS = 10
 # wander steps after which the card-vs-CPU engine comparison may end (at the
 # end of a cluster): phase 4's 50 clusters hold ~200; 100 (cut from 250,
 # then 150) keeps the full run, phase 12 included, inside its time limit
 # on a slow host
-AAE_AGREEMENT_STEPS = 100
+AAE_AGREEMENT_STEPS = 50
 # the ensemble's quality gates: the cut's bins are far from near-complete
 # (the AAE's z latent after 2 epochs holds a few giant clusters), so every
 # bin enters, and dereplication and ripping resolve the z and y bins' overlaps
@@ -2361,7 +2391,10 @@ def run_avamb_path(dev, tmp: Path) -> dict:
 
 # loner-tail latents: (clumps, points a clump, isolated points); isolated
 # random directions in 32 dimensions lie about 0.5 +- 0.09 apart: loners
-TAIL_CARD_VS_CPU = (140, 100, 6_000)  # 20,000 points, run on the card and the CPU
+# 10,000 points, run on the card and the CPU (20,000 until the full run neared
+# its time limit: the CPU's run with lanes on took 43 s of them on
+# the NVIDIA H100 80GB HBM3 (700.00 W) machine's host)
+TAIL_CARD_VS_CPU = (70, 100, 3_000)
 TAIL_BIG = (700, 100, 30_000)  # 100,000 points, on the card
 TAIL_PROFILED = (20, 400)  # clusters profiled before the loner tail and inside it
 AB_ORDER = ("off", "on", "on", "off")  # attempt_batch of phase 10(c)'s runs
@@ -2382,7 +2415,7 @@ def cluster_fields(c) -> tuple:
 
 
 def tail_card_vs_cpu(dev) -> dict:
-    """Phase 10(a): the 20,000-point loner tail (TAIL_CARD_VS_CPU) run to
+    """Phase 10(a): the 10,000-point loner tail (TAIL_CARD_VS_CPU) run to
     its last point at subset scope with attempt lanes on and off, each on
     the card and on the CPU: the four emissions must be identical, every
     point clustered, the card's runs must have launched `spec_sweep` and
@@ -2537,7 +2570,7 @@ def batched_attempts(dev) -> dict:
 
 BF16_FLAGS = ("--precision", "bf16", "--distance_dtype", "bfloat16")
 BF16_CLUSTERS = 2000  # -c, as phase 4
-BF16_PROFILE_STEPS = 50  # training steps profiled, as phase 6's
+BF16_PROFILE_STEPS = 20  # training steps profiled, as phase 6's
 BF16_PAIRS = 1_000_000  # contig pairs sampled for the agreement with f32
 
 
@@ -2674,13 +2707,17 @@ def run_bf16_path(dev, tmp: Path, f32_run: dict) -> dict:
 
 # Clusters a profiled window (was 100): a smaller window keeps the
 # profiler's events, and the run's time, down.
-PROFILE_CLUSTERS = 40
+PROFILE_CLUSTERS = 20
 
 
 # ------------------------------------------- phase 12: several processes
 
-DIST_CLUSTERS = 120  # clusters each of phase 12's engine runs takes: a cap on their time
+DIST_CLUSTERS = 80  # clusters each of phase 12's engine runs takes: a cap on their time
 DIST_CPU_CLUSTERS = 20  # clusters of 12(b)'s run on the card held to the same run on the CPU
+# 12(e)'s W = 2 runs held card vs CPU (the CPU's engine at F_pad 288 is slow:
+# 20 of the z latent's took 49 s on the NVIDIA H100 80GB HBM3 (700.00 W)
+# machine's host)
+DIST_E_CPU_CLUSTERS = 10
 # phase 12's training batch (doubled after epoch 1, as phase 4's -q 1): twice
 # phase 4's, half the steps, each of which gathers the gradient over gloo in 12(b)
 DIST_BATCH = 512
@@ -3554,7 +3591,7 @@ def run_dist_models_two(tmp: Path) -> dict:
     children are killed whatever happens. Gates: each rank's parameter
     checksums equal, epoch for epoch, in each command; process 0's
     artifacts and TSVs read back, each `.proc1` removed; each rank's first
-    DIST_CPU_CLUSTERS clusters of the AAE's z latent from the W = 2 engine
+    DIST_E_CPU_CLUSTERS clusters of the AAE's z latent from the W = 2 engine
     on the CPU equal to the card's (all of them where the degenerate latent
     holds fewer), and the same for `wide_latent`'s 283-wide clumps."""
     from vamb_torch.models.aae import AAE
@@ -3590,11 +3627,11 @@ def run_dist_models_two(tmp: Path) -> dict:
               f"phase 12(e): {cmd_name}: the ranks' parameter checksums differ: {sums}")
     for r in ranks:
         n_card, n_cpu = r["z_clusters"]
-        check(n_card == n_cpu == min(DIST_CPU_CLUSTERS, n_card) > 0
+        check(n_card == n_cpu == min(DIST_E_CPU_CLUSTERS, n_card) > 0
               and r["card_vs_cpu_identical"] == n_card,
               f"phase 12(e): rank {r['rank']}: the W = 2 z clusters on the card ({n_card}) differ from the "
               f"CPU's ({n_cpu}) after {r['card_vs_cpu_identical']}")
-        check(r["wide_card_vs_cpu_identical"] == DIST_CPU_CLUSTERS,
+        check(r["wide_card_vs_cpu_identical"] == DIST_E_CPU_CLUSTERS,
               f"phase 12(e): rank {r['rank']}: the W = 2 clusters of `wide_latent` on the card differ from "
               f"the CPU's after {r['wide_card_vs_cpu_identical']}")
         check(all(set(by) == {str(AAE_F_PAD)} for k, by in r["launches_by_fpad"]["avamb"].items()
@@ -3630,9 +3667,9 @@ def dist_main_rank(rendezvous: str, rank: int, data: Path, out: Path) -> int:
     DIST_E_CLUSTERS clusters a `bin`, with a barrier after each; each run's parameter checksums (this
     rank's own, recorded as `check_replicas` takes them) and launches.
     Then rank 0's z latent clustered by the W = 2 engine on the CPU over
-    the same group, its first DIST_CPU_CLUSTERS clusters held to rank 0's
+    the same group, its first DIST_E_CPU_CLUSTERS clusters held to rank 0's
     `aae_z_clusters_unsplit.tsv`, and `wide_latent`'s first
-    DIST_CPU_CLUSTERS clusters from the W = 2 engine on the card and on the
+    DIST_E_CPU_CLUSTERS clusters from the W = 2 engine on the card and on the
     CPU. Writes `out/rank<r>.json`."""
     import torch.distributed as dist
     from vamb_torch import kernels as K
@@ -3683,12 +3720,12 @@ def dist_main_rank(rendezvous: str, rank: int, data: Path, out: Path) -> int:
     lengths = Composition.load(out / "av" / "composition.npz").metadata.lengths
     t = time.time()
     gen = ClusterGenerator(latent, lengths, rng_seed=SEED, device="cpu", mesh=make_mesh(2, device="cpu"))
-    cpu = [sorted(int(i) for i in c.members) for c in itertools.islice(gen, DIST_CPU_CLUSTERS)]
+    cpu = [sorted(int(i) for i in c.members) for c in itertools.islice(gen, DIST_E_CPU_CLUSTERS)]
     result["cpu_engine_s"] = time.time() - t
     card = {}
     for name, contig in read_tsv(out / "av" / "aae_z_clusters_unsplit.tsv")[1:]:
         card.setdefault(name, []).append(int(contig.split("C")[1]))
-    card = [sorted(m) for m in card.values()][:DIST_CPU_CLUSTERS]
+    card = [sorted(m) for m in card.values()][:DIST_E_CPU_CLUSTERS]
     result["z_clusters"] = [len(card), len(cpu)]  # after one epoch the z latent holds a few
     result["card_vs_cpu_identical"] = next(
         (i for i, (a, b) in enumerate(zip(card, cpu)) if a != b), min(len(card), len(cpu)))
@@ -3696,7 +3733,7 @@ def dist_main_rank(rendezvous: str, rank: int, data: Path, out: Path) -> int:
     wide, wide_len = wide_latent(DIST_MODEL_CONTIGS // 100, 100, AAE_WIDTHS[1], SEED)
     runs = [[sorted(int(i) for i in c.members) for c in itertools.islice(
         ClusterGenerator(wide.copy(), wide_len, rng_seed=SEED, device=d, mesh=make_mesh(2, device=d)),
-        DIST_CPU_CLUSTERS)] for d in ("cuda", "cpu")]
+        DIST_E_CPU_CLUSTERS)] for d in ("cuda", "cpu")]
     result["wide_card_vs_cpu_identical"] = next(
         (i for i, (a, b) in enumerate(zip(*runs)) if a != b), min(map(len, runs)))
     (out / f"rank{rank}.json").write_text(json.dumps(result))
@@ -3860,7 +3897,7 @@ def profile_stages(dev, out: Path) -> dict:
     data: PROFILE_CLUSTERS clusters of the engine on its latent (a unit is
     a cluster; at 300,000 contigs these are subset-wander clusters, and as
     many more at full scope on the same latent follow for comparison), and
-    one training epoch of 50 steps at batch 256 on its first 12,800 contigs
+    one training epoch of 20 steps at batch 256 on its first 5,120 contigs
     (a unit is an optimizer step; the epoch's threefry draws are counted
     in). Short
     windows: the profiler's own bookkeeping grows with the number of
@@ -3907,7 +3944,7 @@ def profile_stages(dev, out: Path) -> dict:
         next(gen)
         result["cluster_full_scope"] = per_step("clustering at full scope")
     ab = Abundance.load(out / "abundance.npz", comp.metadata.refhash)
-    rows = 256 * 50  # 50 steps: the trace analysis costs the host ~19 s per 100
+    rows = 256 * 20  # 20 steps: the trace analysis costs the host ~19 s per 100
     ds = make_dataset(ab.matrix[:rows], comp.matrix[:rows], comp.metadata.lengths[:rows])
     vae = VAE(N_SAMPLES, seed=SEED, device=dev)
 
@@ -3917,6 +3954,303 @@ def profile_stages(dev, out: Path) -> dict:
 
     result["train"] = profiled(train_epoch, "training")
     return result
+
+
+# --------------------------------- phase 13: C above 32 and wander_kernel
+
+MANY_C = (33, 40, 64, 100)  # candidates a step above the kernels' old limit of 32
+TIMED_C = (40, 64)  # the maxsteps phase 13(b) runs the engine at
+MANY_C_WIDTHS = (BALL_KB * 128, -(-N_CONTIGS // 128) * 128, BIG_PAD)  # 8,192, 100,096, 300,032
+# clusters of 13(b)'s card-vs-CPU runs by scope: the CPU's full climb at C 64
+# took ~2 s a cluster at 100,096 columns on the NVIDIA H100 80GB HBM3
+# (700.00 W) machine's host
+ENGINE_C_CLUSTERS = {"full": 6, "subset": 25}
+KERNEL_AB = ("auto", "pallas", "xla", "xla", "pallas", "auto")  # 13(c)'s runs, in turns
+KERNEL_AB_CLUSTERS = 30  # clusters each 13(c) run times (after one warm-up)
+KERNEL_AB_PROFILED = 2  # clusters each 13(c) run profiles after those
+
+
+def maxsteps_latent():
+    "A 100,000 x 32 latent in 1,000 clumps and its lengths (13(b) and (c) outside the full run)."
+    rng = np.random.default_rng(SEED)
+    centers = rng.normal(size=(N_GENOMES, 32))
+    latent = (centers[rng.integers(0, N_GENOMES, N_CONTIGS)]
+              + rng.normal(scale=0.1, size=(N_CONTIGS, 32))).astype(np.float32)
+    return latent, rng.integers(2000, 50_001, N_CONTIGS).astype(np.float32)
+
+
+def check_many_candidates(dev) -> tuple[dict, dict]:
+    """Phase 13(a): at C 33, 40, 64 and 100, `gumbel_topc` (no, some and
+    all columns eligible, and a tie key) and `gumbel_topc_shard` (two
+    shards, merged) at 8,192, 100,096 and 300,032 columns, the density
+    kernel, its shard entry point and its bf16 variant at those widths at
+    F_pad 32 and at 100,096 at F_pad 288: each bit for bit its plain version
+    on the card, with its launches a call counted by its wrapper and by the
+    library (`device_launches`): ceil(C / 32) for the Gumbel kernel, one for
+    the density kernel. Then the two kernels timed at C 40 and 64 at those
+    widths (F_pad 32), beside their bounds, plain versions and, for
+    `gumbel_topc`, `gumbel_scores` + `torch.topk`. Returns (max|err| by
+    kernel, times by (name, C, N_pad))."""
+    from vamb_torch import kernels as K
+
+    def calls(kernel_name, fn, want):
+        "fn() once; its launches by the library's count and its wrapper's."
+        before = K.device_launches()[kernel_name]
+        out = fn()
+        torch.cuda.synchronize()
+        got = K.device_launches()[kernel_name] - before
+        check(got == want, f"phase 13(a): {kernel_name} launched {got} times for a call, not {want}")
+        return out
+
+    seen = {"gumbel_topc": 0, "gumbel_topc_shard": 0, "candidate_density_sweep": 0,
+            "candidate_density_shard": 0, "candidate_density_sweep bf16": 0}
+    for n in MANY_C_WIDTHS:
+        for c in MANY_C:
+            cases = [gumbel_inputs(n, dev, seed=n + c + i, mask=mask)
+                     for i, mask in enumerate(("none", "some", "all"))]
+            ones = torch.ones(n, dtype=torch.bool, device=dev)
+            cases.append((tie_key(TIE_STEPS[0]), torch.zeros(n, device=dev), ones, ~ones, 0))
+            for key, d, kept, tried, medoid in cases:
+                rounds = K.topc_launches(c)
+                before = K.gumbel_topc.launches
+                cand, valid, score = calls("gumbel_topc_kernel", lambda: K.gumbel_topc(
+                    key, d, kept, tried, medoid, c, with_scores=True), rounds)
+                check(K.gumbel_topc.launches == before + rounds, "gumbel_topc's wrapper miscounted")
+                cand_p, valid_p, score_p = K.gumbel_topc_plain(key, d, kept, tried, medoid, c,
+                                                               with_scores=True)
+                if not (torch.equal(cand, cand_p) and torch.equal(valid, valid_p)
+                        and torch.equal(score.view(torch.int32), score_p.view(torch.int32))):
+                    raise AssertionError(f"phase 13(a): gumbel_topc n={n} C={c}: candidates "
+                                         f"{cand.tolist()} vs the plain version's {cand_p.tolist()}")
+                keys = [calls("gumbel_topc_kernel", lambda lo=lo, hi=hi: K.gumbel_topc_shard(
+                    key, d[lo:hi], kept[lo:hi], tried[lo:hi], medoid, c, n, lo), rounds)
+                    for lo, hi in ((0, n // 2), (n // 2, n))]
+                for (lo, hi), k in zip(((0, n // 2), (n // 2, n)), keys):
+                    check(torch.equal(k, K.gumbel_topc_shard_plain(key, d[lo:hi], kept[lo:hi],
+                                                                   tried[lo:hi], medoid, c, lo)),
+                          f"phase 13(a): gumbel_topc_shard n={n} C={c} differs from its plain version")
+                merged = K.topc_merge(torch.stack(keys), c)
+                check(torch.equal(merged[0], cand) and torch.equal(merged[1], valid),
+                      f"phase 13(a): the merged shards' candidates n={n} C={c} are not gumbel_topc's")
+                seen["gumbel_topc"] += 1
+                seen["gumbel_topc_shard"] += 2
+    for f, widths in ((F_PAD, MANY_C_WIDTHS), (AAE_F_PAD, (MANY_C_WIDTHS[1],))):
+        for n in widths:
+            mT = torch.as_tensor(clumpy_matrixT(n, f, seed=n + f), device=dev)
+            w = torch.as_tensor(weights(n, seed=n, zero_half=True), device=dev)
+            bf = mT.to(torch.bfloat16)
+            for c in MANY_C:
+                cand = torch.as_tensor(np.random.default_rng(c).choice(n, c, replace=False), device=dev)
+                q = mT[:, cand].contiguous()
+                got = calls("candidate_density_kernel", lambda: K.candidate_density_sweep(mT, cand, w), 1)
+                shard = calls("candidate_density_kernel", lambda: K.candidate_density_shard(mT, q, cand, w), 1)
+                got_bf = calls("candidate_density_kernel", lambda: K.candidate_density_sweep(bf, cand, w), 1)
+                for label, a, b in (
+                        ("candidate_density_sweep", got, K.candidate_density_plain(mT, cand, w)),
+                        ("candidate_density_shard", shard, K.candidate_density_shard_plain(mT, q, cand, w)),
+                        ("candidate_density_shard on its own columns", shard, got),
+                        ("candidate_density_sweep bf16", got_bf, K.candidate_density_plain(bf, cand, w)),
+                        ("candidate_density_sweep bf16 vs f32 on the widened matrix", got_bf,
+                         K.candidate_density_sweep(bf.float(), cand, w))):
+                    check(torch.equal(a, b), f"phase 13(a): {label} at F_pad {f}, N_pad {n}, C {c} "
+                          "differs bit for bit")
+                    seen[label] = seen.get(label, 0) + 1
+    log("phase 13(a): every check bit for bit; calls checked " + json.dumps(seen))
+    errs = {name: 0.0 for name in ("gumbel_topc", "candidate_density_sweep")}
+
+    timed = {}
+    for n in MANY_C_WIDTHS:
+        mT = torch.as_tensor(clumpy_matrixT(n, F_PAD, seed=5), device=dev)
+        w = torch.as_tensor(weights(n, seed=5), device=dev)
+        kept = w > 0
+        n_kept = int(kept.sum())
+        gkey, gd, gkept, gtried, gmedoid = gumbel_inputs(n, dev, seed=8)
+        for c in TIMED_C:
+            cand = torch.as_tensor(np.random.default_rng(5).choice(n, c, replace=False), device=dev)
+            D = 0.5 - mT[:, cand].T @ mT
+            n_within = int(((D <= 0.05) & kept[None, :]).sum())
+            fns = {
+                "gumbel_topc": (
+                    lambda: K.gumbel_topc(gkey, gd, gkept, gtried, gmedoid, c),
+                    lambda: K.gumbel_topc_plain(gkey, gd, gkept, gtried, gmedoid, c),
+                    lambda: torch.topk(K.gumbel_scores(gkey, gd, gkept, gtried, gmedoid), c),
+                    bound(GUMBEL_READ_BYTES * n, GUMBEL_F32_OPS * n, GUMBEL_INT_OPS * n)),
+                "candidate_density_sweep": (
+                    lambda: K.candidate_density_sweep(mT, cand, w),
+                    lambda: K.candidate_density_plain(mT, cand, w), None,
+                    bound((F_PAD * n_kept + n + 2 * c) * 4, (2 * F_PAD + 1) * c * n_kept + 3 * n_within)),
+            }
+            for name, (kern, plain, lib, bnd) in fns.items():
+                r = {"bound": bnd, "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=20),
+                     "library_ms": None if lib is None else time_ms(lib),
+                     "launches_a_call": K.topc_launches(c) if name == "gumbel_topc" else 1}
+                timed[(name, c, n)] = r
+                libs = LIBRARY_NOTES.get(name, "none") if lib is None else f"{r['library_ms']:.5f} ms"
+                log(f"phase 13(a): {name} at C {c}, N_pad {n}: kernel {r['ms']:.5f} ms "
+                    f"({r['launches_a_call']} launches), plain {r['plain_ms']:.5f} ms, library {libs}, "
+                    f"bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), roofline share {bnd[0] / r['ms']:.3f}, L2 cold")
+    return errs, timed
+
+
+def engine_above_32(dev, latent: np.ndarray, lengths: np.ndarray) -> dict:
+    """Phase 13(b), this slice's path: the engine at maxsteps 40 and 64 on
+    the 100,000-contig latent, at full scope (6 clusters) and at the
+    subset scope with attempt lanes on (25), on the card and on the CPU in
+    lockstep (`engine_agreement`): the Gumbel scores and candidates must
+    differ in no step and the clusters must be identical. The launch
+    counters are set to 0 just before each run and read just after:
+    `gumbel_topc` and the density kernel must have run, the Gumbel kernel
+    ceil(C / 32) times a wander step, the library's counts equal to the
+    wrappers'."""
+    from vamb_torch import kernels as K
+
+    runs = {}
+    for c in TIMED_C:
+        for scope in ("full", "subset"):
+            kw = {"maxsteps": c, "wander_scope": scope,
+                  **({"attempt_batch": "on"} if scope == "subset" else {})}
+            K.reset_launch_counts()
+            before = K.device_launches()
+            agree = engine_agreement(dev, latent, lengths, ENGINE_C_CLUSTERS[scope],
+                                     label=f"the 100k latent at maxsteps {c}, {scope} scope", **kw)
+            launches = {k.__name__: k.launches for k in K.KERNELS}
+            lib = {k: v - before[k] for k, v in K.device_launches().items()}
+            steps = launches["candidate_density_sweep"]
+            for kind in ("gumbel scores", "candidates"):
+                check(agree["inputs_seen"][kind] > 0 and agree["inputs_that_differed"][kind] == 0,
+                      f"phase 13(b), maxsteps {c}, {scope}: the card's {kind} differ from the CPU's")
+            check(agree["identical_clusters"] == agree["clusters_compared"] == ENGINE_C_CLUSTERS[scope],
+                  f"phase 13(b), maxsteps {c}, {scope}: the card and the CPU emitted different clusters")
+            check(steps > 0 and launches["gumbel_topc"] == K.topc_launches(c) * steps,
+                  f"phase 13(b), maxsteps {c}, {scope}: {launches['gumbel_topc']} gumbel_topc launches "
+                  f"for {steps} wander steps")
+            check(lib["gumbel_topc_kernel"] == launches["gumbel_topc"]
+                  and lib["candidate_density_kernel"] == steps,
+                  f"phase 13(b): the library counted {lib}, the wrappers {launches}")
+            if scope == "subset":
+                check(launches["gather_blocks"] > 0 and launches["row_sweep"] > 0,
+                      f"phase 13(b), maxsteps {c}: the subset wander gathered no ball")
+            runs[f"maxsteps {c}, {scope}"] = {"card_vs_cpu": agree, "launches": launches,
+                                              "wander_steps": steps}
+            log(f"phase 13(b): maxsteps {c}, {scope} scope: {agree['identical_clusters']} of "
+                f"{ENGINE_C_CLUSTERS[scope]} clusters identical card vs CPU; launches "
+                f"{json.dumps(launches)}")
+    return runs
+
+
+def wander_kernel_ab(dev, latent: np.ndarray, lengths: np.ndarray) -> dict:
+    """Phase 13(c): the engine on the card on the 100,000-contig latent at
+    its defaults (full scope at 100,096 columns, maxsteps 25) under
+    `wander_kernel` "auto", "pallas", "xla", "xla", "pallas", "auto", in one
+    process: ms a cluster over 30 clusters after one warm-up, device kernels
+    a cluster over 2 more under the profiler, hand-written launches a
+    cluster (the library's count), and a hash of every cluster's medoid,
+    kind and members, which must agree; "xla" must launch no hand-written
+    kernel."""
+    import hashlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vamb_torch import kernels as K
+    from vamb_torch.cluster import ClusterGenerator
+
+    runs = []
+    for setting in KERNEL_AB:
+        gen = ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device=dev, wander_kernel=setting)
+        first = next(gen)
+        torch.cuda.synchronize()
+        before = K.device_launches()
+        t = time.time()
+        timed = list(itertools.islice(gen, KERNEL_AB_CLUSTERS))
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        handwritten = sum(v - before[k] for k, v in K.device_launches().items())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            more = list(itertools.islice(gen, KERNEL_AB_PROFILED))
+            torch.cuda.synchronize()
+        kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        digest = hashlib.sha256()
+        for c in (first, *timed, *more):
+            digest.update(np.array([c.medoid, len(c.members), *c.members], np.int64).tobytes())
+            digest.update(c.kind_str.encode())
+        runs.append({"wander_kernel": setting, "ms_per_cluster": wall / len(timed) * 1e3,
+                     "clusters": len(timed), "handwritten_launches_per_cluster": handwritten / len(timed),
+                     "kernels_per_cluster": kernels / len(more),
+                     "emission_sha": digest.hexdigest()[:16]})
+        log("phase 13(c): " + json.dumps(runs[-1]))
+    check(len({r["emission_sha"] for r in runs}) == 1,
+          "phase 13(c): auto, pallas and xla emitted different clusters")
+    check(all((r["handwritten_launches_per_cluster"] == 0) == (r["wander_kernel"] == "xla") for r in runs),
+          "phase 13(c): xla launched a hand-written kernel, or auto or pallas none")
+    summary = {s: {key: [r[key] for r in runs if r["wander_kernel"] == s]
+                   for key in ("ms_per_cluster", "kernels_per_cluster", "handwritten_launches_per_cluster")}
+               for s in ("auto", "pallas", "xla")}
+    log("phase 13(c) wander_kernel A/B on the 100k latent: " + json.dumps(summary))
+    return {"runs": runs, "summary": summary}
+
+
+def pallas_refusals(dev, latent: np.ndarray, lengths: np.ndarray) -> list:
+    """Phase 13(d): `wander_kernel="pallas"` is refused with ValueError where
+    `vamb_tpu` refuses it: maxsteps 40, bfloat16 distances."""
+    from vamb_torch.cluster import ClusterGenerator
+
+    refused = []
+    for kw in ({"maxsteps": 40}, {"distance_dtype": "bfloat16"}):
+        try:
+            ClusterGenerator(latent[:4096].copy(), lengths[:4096], device=dev, wander_kernel="pallas", **kw)
+        except ValueError as e:
+            refused.append({**kw, "error": str(e)})
+            continue
+        raise AssertionError(f"phase 13(d): wander_kernel='pallas' with {kw} was not refused")
+    log("phase 13(d): " + json.dumps(refused))
+    return refused
+
+
+def run_many_candidates(dev, data=None) -> tuple[dict, dict, dict]:
+    """Phase 13: (a)-(d), on `data` (the 100k path's latent and lengths) or
+    `maxsteps_latent()`. Returns (errs, times, the phase's results)."""
+    latent, lengths = maxsteps_latent() if data is None else data
+    out = {}
+    t = time.time()
+    errs, timed = check_many_candidates(dev)
+    out["kernels_seconds"] = time.time() - t
+    for key, fn in (("engine", lambda: engine_above_32(dev, latent, lengths)),
+                    ("wander_kernel_ab", lambda: wander_kernel_ab(dev, latent, lengths)),
+                    ("pallas_refused", lambda: pallas_refusals(dev, latent, lengths))):
+        t = time.time()
+        out[key] = fn()
+        out[key + "_seconds"] = time.time() - t
+        log(f"phase 13 part {key} took {out[key + '_seconds']:.1f} s")
+    return errs, timed, out
+
+
+def kernel_rows_many_c(errs: dict, timed: dict, phase13: dict) -> list:
+    """The kernels JSON line's rows of `gumbel_topc` and the density kernel
+    at C 40 and 64: phase 13(a)'s times at 100,096 columns (every width
+    under `at_widths`) and its checks, and the launches of phase 13(b)'s
+    runs at that maxsteps (full and subset scope)."""
+    rows = []
+    for name in ("gumbel_topc", "candidate_density_sweep"):
+        for c in TIMED_C:
+            r = timed[(name, c, MANY_C_WIDTHS[1])]
+            launches = sum(run["launches"][name] for label, run in phase13["engine"].items()
+                           if label.startswith(f"maxsteps {c},"))
+            rows.append({
+                "name": name, "route": "cuda", "source": CLUSTER_SOURCE, "replaces": REPLACES[name],
+                "c": c, "launches_a_call": r["launches_a_call"], "launches": launches,
+                "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+                **({"library_note": LIBRARY_NOTES[name]} if r["library_ms"] is None else
+                   {"library_what": "gumbel_scores + torch.topk"}),
+                **({"replaces_kind": REPLACES_KIND[name]} if name in REPLACES_KIND else {}),
+                "f_pad": F_PAD, "n_pad": MANY_C_WIDTHS[1],
+                "path": f"phase 13(b) (the engine at maxsteps {c})",
+                "at_widths": {n: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                                  "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+                              for (k, cc, n), t in timed.items() if k == name and cc == c},
+            })
+    return rows
 
 
 # ------------------------------------------------- engine A/B across checkouts
@@ -4478,7 +4812,7 @@ def build_all() -> Path:
 
 
 def main(mode: str = "full") -> int:
-    """mode "full" runs phases 1-12; "dist" phases 1 and 12; "kernels" phases 1-2; "recluster"
+    """mode "full" runs phases 1-13; "maxsteps" phases 1 and 13; "dist" phases 1 and 12; "kernels" phases 1-2; "recluster"
     phase 1, the Forward kernel's check and phase 7; "taxonomy" phases 1
     and 8; "avamb" phase 1, phase 2 at F_pad 288 and phase 9; "lanes"
     phase 1, phase 2's `spec_sweep` and `row_stats` and phase 10; "bf16"
@@ -4545,6 +4879,13 @@ def main(mode: str = "full") -> int:
         drop = ("launches_by_width",)
         print(json.dumps({"kernels": kernel_rows_bf16(timed_bf16, errs_bf16, run_bf16),
                           "bf16_path": {k: v for k, v in run_bf16.items() if k not in drop}}))
+        print(card)
+        return 0
+    if mode == "maxsteps":  # phase 1, then phase 13 alone
+        errs_c, timed_c, phase13 = run_many_candidates(dev)
+        phase_done("13 (C above 32 and wander_kernel)")
+        print(json.dumps({"kernels": kernel_rows_many_c(errs_c, timed_c, phase13),
+                          "many_candidates": phase13}))
         print(card)
         return 0
     if mode == "dist":  # phase 1, then phase 12 alone
@@ -4621,11 +4962,13 @@ def main(mode: str = "full") -> int:
     phase_done("11 (the bf16 path)")
     shard_rows, phase12 = run_dist(dev, (run_300k["_latent"], run_300k["_lengths"]))
     phase_done("12 (several processes)")
+    errs_c, timed_c, phase13 = run_many_candidates(dev, (run_100k["_latent"], run_100k["_lengths"]))
+    phase_done("13 (C above 32 and wander_kernel)")
 
     kernels = (kernel_rows(timed, errs, run_100k, run_300k, run_tax, run_avamb)
                + kernel_rows_aae(timed_aae, errs_aae, run_avamb)
                + kernel_rows_bf16(timed_bf16, errs_bf16, run_bf16) + shard_rows
-               + [hmm_row(hmm_timed, run_rc)])
+               + kernel_rows_many_c(errs_c, timed_c, phase13) + [hmm_row(hmm_timed, run_rc)])
     drop = ("launches", "launches_by_width", "launches_by_fpad", "_latent", "_lengths", "_labels")
     print(json.dumps({"kernels": kernels,
                       "main_path_100k": {k: v for k, v in run_100k.items() if k not in drop},
@@ -4635,7 +4978,7 @@ def main(mode: str = "full") -> int:
                       "avamb_path": {k: v for k, v in run_avamb.items() if k not in drop},
                       "batched_attempts": phase10,
                       "bf16_path": {k: v for k, v in run_bf16.items() if k not in drop},
-                      "dist": phase12}))
+                      "dist": phase12, "many_candidates": phase13}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -4668,5 +5011,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-engine-rank"]:  # one rank of phase 12(c)
         sys.exit(dist_engine_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5])))
     modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy",
-             "--avamb": "avamb", "--lanes": "lanes", "--bf16": "bf16", "--dist": "dist"}
+             "--avamb": "avamb", "--lanes": "lanes", "--bf16": "bf16", "--dist": "dist",
+             "--maxsteps": "maxsteps"}
     sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

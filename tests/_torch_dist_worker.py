@@ -56,6 +56,9 @@ TRAFFIC_CLUSTERS = 40  # clusters the traffic scenario takes at each width
 SUBSET_RUNS = ("sub_clumpy", "sub_uniform", "sub_off", "sub_compact", "sub_fallback", "bf16",
                "sub_wide283")
 ENGINE_RUNS = ("random300", "clumpy", "compact", "wide283")  # the engine scenario's runs
+# the maxsteps scenario's runs (tests/test_torch_wander.py): C above 32 at
+# full and subset scope, lanes on and off, compacting; one with "xla"
+MAXSTEPS_RUNS = ("ms33_full", "ms40_subset_on", "ms64_subset_off", "ms40_xla")
 
 
 def scenario_mesh(mesh, inp) -> dict:
@@ -206,9 +209,18 @@ def scenario_engine(mesh, inp) -> dict:
 
 
 def scenario_subset(mesh, inp) -> dict:
-    "Each run with its ball size `<name>_q`, where the inputs give one."
+    return _engine_runs(mesh, inp, SUBSET_RUNS)
+
+
+def scenario_maxsteps(mesh, inp) -> dict:
+    return _engine_runs(mesh, inp, MAXSTEPS_RUNS)
+
+
+def _engine_runs(mesh, inp, names) -> dict:
+    """Each run's emission, compactions and counters, with its ball size
+    `<name>_q` where the inputs give one."""
     out = {}
-    for name in SUBSET_RUNS:
+    for name in names:
         kw = dict(inp[f"{name}_kw"].item())
         cluster._SUBSET_Q = int(inp[f"{name}_q"]) if f"{name}_q" in inp.files else 1 << 13
         gen = ClusterGenerator(inp[f"{name}_m"].copy(), inp[f"{name}_len"], device="cpu",

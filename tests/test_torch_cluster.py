@@ -390,7 +390,9 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(IndexError):
         K.row_sweep(mT, 256)
     with pytest.raises(ValueError):
-        K.candidate_density_sweep(mT, torch.arange(33), torch.ones(256))
+        K.candidate_density_sweep(mT, torch.arange(0), torch.ones(256))  # no candidate
+    with pytest.raises(ValueError):
+        K.gumbel_topc((0, 1), torch.zeros(256), *[torch.ones(256, dtype=torch.bool)] * 2, 0, 257)
     with pytest.raises(ValueError):
         K.row_sweep(mT.T, 0)  # not contiguous
     with pytest.raises(ValueError):

@@ -15,7 +15,9 @@ kernel's order) and its row to row_sweep's; the gather and its side
 vectors array-equal. The widths are every width the main paths give the
 kernels (a subset ball's 8,192; 100,096-wide paths; 300,032 and, after
 compaction, 150,016) and an unaligned one. The one-pass kernels are one
-device kernel a call. `gumbel_scores` equals its plain version bit for bit
+device kernel a call: the library's own count of the named kernel
+(`device_launches`, kept by its C entry points) rises by one a call, as the
+profiler's launch calls do. `gumbel_scores` equals its plain version bit for bit
 (as int32 bit patterns) at the wander's widths, in one launch;
 `gumbel_topc`'s candidates and their validity equal its plain version's
 (array-equal; the optional scores bit for bit), tied scores included, in
@@ -30,7 +32,12 @@ each launch tallied under that width. On a bf16 matrix, the variants of
 `medoid_sweep`, `spec_sweep` and `candidate_density_sweep` equal the f32
 kernels on the widened matrix and their plain versions bit for bit, in
 one launch each, tallied as "bfloat16"; the engine with bfloat16
-distances emits on the card what it emits on the CPU.
+distances emits on the card what it emits on the CPU. At C above 32 (33,
+40, 64, 100) `gumbel_topc` and its shard entry point equal their plain
+versions in ceil(C / 32) launches a call, and the density kernel, its
+shard entry point and its bf16 variant equal theirs in one; the engine
+emits alike under `wander_kernel` "auto", "pallas" and "xla", and "xla"
+launches no hand-written kernel.
 """
 
 import numpy as np
@@ -152,31 +159,35 @@ def test_gather_ball_matches_plain(cuda, n_pad):
             assert a.dtype == b.dtype and torch.equal(a, b), (name, nb)
 
 
-def _one_launch(cuda, fn, kernel: str) -> list:
+def _one_launch(cuda, fn, kernel: str, per_call: int = 1) -> list:
     """The kernel launches of 3 calls of `fn` after a first one (build,
-    workspace), counted as the profiler's launch API calls
-    (`cudaLaunchKernel` and its kin); the device kernels it recorded must
-    all be one kernel, named `kernel`, and there must be at least one.
-    Launches are counted on the host: late in a long run of these tests on
-    the card (after the Forward tests) the profiler was seen to drop some of
-    a window's kernel records, or all of them, never its launch calls. So a
-    window that recorded no device kernel is profiled again, up to 3 times."""
+    workspace): the library's own count of `kernel`'s launches
+    (`K.device_launches`, which its C entry points keep on the host) must
+    rise by 3 x `per_call` and no other kernel's count may rise, and the
+    profiler's launch API calls (`cudaLaunchKernel` and its kin), which
+    are returned, must number as many; every device kernel the profiler
+    recorded must be `kernel`. The library's count names the kernel: late in
+    a long run of these tests on the card the profiler was seen to drop some
+    of a window's device records, or all of them, never its launch calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.events()
-        kernels = {e.name for e in events if e.device_type == DeviceType.CUDA}
-        if kernels:
-            break
-    assert len(kernels) == 1 and kernel in kernels.pop(), kernels
-    return [e.name for e in events if e.device_type == DeviceType.CPU and "Launch" in e.name]
+    before = K.device_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    after = K.device_launches()
+    grew = {name: after[name] - before[name] for name in after if after[name] != before[name]}
+    assert grew == {kernel: 3 * per_call}, grew
+    events = prof.events()
+    recorded = {e.name for e in events if e.device_type == DeviceType.CUDA}
+    assert all(kernel in name for name in recorded), recorded
+    launches = [e.name for e in events if e.device_type == DeviceType.CPU and "Launch" in e.name]
+    assert len(launches) == 3 * per_call, launches
+    return launches
 
 
 @pytest.mark.cuda
@@ -876,6 +887,116 @@ def test_gumbel_topc_matches_plain(cuda, n, case, c):
     if case == "some" and c == 25:  # the profiler, once a width: it drops records late in a run
         assert len(_one_launch(cuda, lambda: K.gumbel_topc(key, d, kept, tried, medoid, c),
                                "gumbel_topc_kernel")) == 3
+
+
+# C above 32: `gumbel_topc` in rounds of 32 (a launch each), the density
+# kernel in one launch whose last CTA sums 32 candidates a round
+_MANY_C = [33, 40, 64, 100]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8_192, 100_096, 300_032])
+@pytest.mark.parametrize("c", _MANY_C)
+def test_gumbel_topc_above_32_matches_plain(cuda, n, c):
+    """With no, some and all columns eligible and at a tie key: the
+    candidates and their validity equal the plain version's, the optional
+    scores bit for bit, in ceil(C / 32) launches a call; the shard entry
+    point's keys equal its plain version's on two shards, and merged they
+    give the same candidates."""
+    cases = [_gumbel_inputs(n, n + c + len(mask), mask) for mask in ("none", "some", "all")]
+    cases.append((_tie_key(745), np.zeros(n, np.float32), np.ones(n, bool), np.zeros(n, bool), 0))
+    for key, *arrays, medoid in cases:
+        d, kept, tried = (torch.as_tensor(a, device=cuda) for a in arrays)
+        before = K.gumbel_topc.launches
+        cand, valid, score = K.gumbel_topc(key, d, kept, tried, medoid, c, with_scores=True)
+        assert K.gumbel_topc.launches == before + K.topc_launches(c)
+        cand_p, valid_p, score_p = K.gumbel_topc_plain(key, d.cpu(), kept.cpu(), tried.cpu(),
+                                                       medoid, c, with_scores=True)
+        assert torch.equal(cand.cpu(), cand_p) and torch.equal(valid.cpu(), valid_p)
+        assert torch.equal(score.cpu().view(torch.int32), score_p.view(torch.int32))
+        assert torch.equal(K.gumbel_topc(key, d, kept, tried, medoid, c)[0], cand)
+        keys = []
+        for lo, hi in ((0, n // 2), (n // 2, n)):
+            k = K.gumbel_topc_shard(key, d[lo:hi], kept[lo:hi], tried[lo:hi], medoid, c, n, lo)
+            assert torch.equal(k.cpu(), K.gumbel_topc_shard_plain(
+                key, d[lo:hi].cpu(), kept[lo:hi].cpu(), tried[lo:hi].cpu(), medoid, c, lo))
+            keys.append(k)
+        merged = K.topc_merge(torch.stack(keys), c)
+        assert torch.equal(merged[0], cand) and torch.equal(merged[1], valid)
+    if n == 100_096:
+        key, d, kept, tried, medoid = _gumbel_inputs(n, 5, "some")
+        d, kept, tried = (torch.as_tensor(a, device=cuda) for a in (d, kept, tried))
+        assert len(_one_launch(cuda, lambda: K.gumbel_topc(key, d, kept, tried, medoid, c),
+                               "gumbel_topc_kernel", K.topc_launches(c))) == 3 * K.topc_launches(c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f", [(8_192, 32), (100_096, 32), (300_032, 32), (100_096, 288)])
+@pytest.mark.parametrize("c", _MANY_C)
+def test_density_above_32_matches_plain(cuda, n, f, c):
+    """The density kernel, its shard entry point and its bf16 variant at C
+    above 32: bit for bit their plain versions (and the shard entry point
+    on its own columns the index entry point), each in one launch a call."""
+    mT_np, lengths = _clumpy(n, f, seed=n + c)
+    lengths[np.random.default_rng(c).random(n) < 0.3] = 0.0
+    mT = torch.as_tensor(mT_np, device=cuda)
+    w = torch.as_tensor(lengths, device=cuda)
+    cand = torch.as_tensor(np.random.default_rng(n + c).choice(n, c, replace=False), device=cuda)
+    dens = K.candidate_density_sweep(mT, cand, w)
+    assert torch.equal(dens, K.candidate_density_plain(mT, cand, w))
+    q = mT[:, cand].contiguous()
+    shard = K.candidate_density_shard(mT, q, cand, w)
+    assert torch.equal(shard, K.candidate_density_shard_plain(mT, q, cand, w))
+    assert torch.equal(shard, dens)
+    bf = mT.to(torch.bfloat16)
+    dens_bf = K.candidate_density_sweep(bf, cand, w)
+    assert torch.equal(dens_bf, K.candidate_density_plain(bf, cand, w))
+    assert torch.equal(dens_bf, K.candidate_density_sweep(bf.float(), cand, w))
+    if n == 100_096 and f == 32:
+        for fn in (lambda: K.candidate_density_sweep(mT, cand, w),
+                   lambda: K.candidate_density_shard(mT, q, cand, w),
+                   lambda: K.candidate_density_sweep(bf, cand, w)):
+            assert len(_one_launch(cuda, fn, "candidate_density_kernel")) == 3
+
+
+@pytest.mark.cuda
+def test_wander_kernel_settings_on_the_card(cuda):
+    """"auto", "pallas" and "xla" on the card emit what the engine emits on
+    the CPU, at maxsteps 25 and 40 ("pallas" at 25: at 40 it is refused, as
+    `vamb_tpu` refuses it); "xla" launches no hand-written kernel (the
+    library's own count), "auto" and "pallas" launch `gumbel_topc` and the
+    density kernel, at maxsteps 40 in two Gumbel launches a wander step."""
+    from vamb_torch.cluster import ClusterGenerator
+    from vamb_torch.parallel import make_mesh
+
+    mT_np, lengths = _clumpy(6_000, 32, seed=14)
+    m = np.ascontiguousarray(mT_np.T)
+    fields = lambda c: (c.medoid, c.seed, c.kind_str, c.radius, c.members.tolist())  # noqa: E731
+    for maxsteps in (25, 40):
+        want = [fields(c) for c in ClusterGenerator(m.copy(), lengths, rng_seed=3, device="cpu",
+                                                    maxsteps=maxsteps)]
+        for setting in ("auto", "pallas", "xla"):
+            if setting == "pallas" and maxsteps > 32:
+                with pytest.raises(ValueError, match="requires maxsteps <= 32"):
+                    ClusterGenerator(m.copy(), lengths, device=cuda, maxsteps=maxsteps,
+                                     wander_kernel=setting)
+                continue
+            K.reset_launch_counts()
+            before = K.device_launches()
+            gen = ClusterGenerator(m.copy(), lengths, rng_seed=3, device=cuda, maxsteps=maxsteps,
+                                   wander_kernel=setting)
+            assert [fields(c) for c in gen] == want, (maxsteps, setting)
+            grew = {k: v - before[k] for k, v in K.device_launches().items() if v != before[k]}
+            if setting == "xla":
+                assert grew == {} and K.gumbel_topc.launches == 0
+            else:
+                steps = K.candidate_density_sweep.launches
+                assert steps > 0 and grew["candidate_density_kernel"] == steps
+                assert K.gumbel_topc.launches == K.topc_launches(maxsteps) * steps
+                assert grew["gumbel_topc_kernel"] == K.gumbel_topc.launches
+    for kw in ({"distance_dtype": "bfloat16"}, {"mesh": make_mesh(1, device=cuda)}):
+        with pytest.raises(ValueError, match="wander_kernel='pallas'"):
+            ClusterGenerator(m.copy(), lengths, device=cuda, wander_kernel="pallas", **kw)
 
 
 def _tiny_taxonomy_data(n=512, seed=0):

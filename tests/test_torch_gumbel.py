@@ -122,7 +122,7 @@ def test_gumbel_scores_rejects_bad_inputs():
 
 @pytest.mark.parametrize("c", [0, 33, -1, 17])
 def test_gumbel_topc_rejects_c_out_of_range(c):
-    "C lies in 1..32 and at most n (here 16)."
+    "C lies in 1..n (here 16): the kernel takes C above 32 in rounds."
     flags = torch.zeros(16, dtype=torch.bool)
     with pytest.raises(ValueError):
         K.gumbel_topc((1, 2), torch.zeros(16), flags, flags, 0, c)

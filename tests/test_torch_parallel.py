@@ -181,13 +181,14 @@ def make_inputs(world: int) -> dict:
     }
 
 
-def launch(world: int, d: Path) -> list:
+def launch(world: int, d: Path, scenarios=SCENARIOS, inputs=None) -> list:
+    "W ranks running `scenarios` on `inputs` (default `make_inputs`'s)."
     d.mkdir(parents=True, exist_ok=True)
-    np.savez(d / "inputs.npz", **make_inputs(world))
+    np.savez(d / "inputs.npz", **(make_inputs(world) if inputs is None else inputs))
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     return [subprocess.Popen([sys.executable, str(WORKER), str(d / "rendezvous"), str(world),
-                              str(r), str(d), *SCENARIOS],
+                              str(r), str(d), *scenarios],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                              env=env, cwd=str(ROOT))
             for r in range(world)]

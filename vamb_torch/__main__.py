@@ -22,8 +22,7 @@ taxvamb`, `bin avamb`, `taxometer`, `taxonomy_benchmark`, `recluster` and
 
 It runs on the CUDA card. `main(argv, device="cpu")` runs the same path on
 the CPU (the tests do). `--profile` writes a torch.profiler trace of the
-run under `<outdir>/profile`. The switches of paths not ported yet are
-accepted by the parser and fail with the ROADMAP item that will port them.
+run under `<outdir>/profile`.
 
 Several processes, one a card (torch's idiom; `vamb_tpu` drives every
 device of a host from one process): launch the same command in each with
@@ -47,9 +46,6 @@ from functools import partial  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 DEFAULT_THREADS = min(os.cpu_count() or 1, 8)
-
-# subcommands of vamb_tpu this port does not run yet -> their ROADMAP item
-_UNPORTED: dict = {}
 
 
 def add_help_arguments(parser):
@@ -830,19 +826,11 @@ quality source (--quality_report, --markers, or --hmm_path).""",
         add_abundance_arguments(tax_parser)
         add_taxonomy_arguments(tax_parser, taxonomy_only=True)
         add_predictor_arguments(tax_parser)
-    for names in _UNPORTED:
-        sub = subparsers_model if names[0] == "bin" else subparsers
-        sub.add_parser(names[-1], help="not ported yet", add_help=False)
-
     args, extra = parser.parse_known_args(args_in)
     if args.subcommand == "bin" and args.model_subcommand is None:
         bin_parser.print_help()
         sys.exit(1)
     command = (args.subcommand,) if args.subcommand != "bin" else ("bin", args.model_subcommand)
-    if command in _UNPORTED:
-        raise NotImplementedError(
-            f"`{' '.join(command)}` is not ported to vamb_torch yet: {_UNPORTED[command]}"
-        )
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
 

@@ -119,6 +119,20 @@ rank-order sum of the shards' sums, which differs from the one-device
 order in the last ulp (the class of "Distances are not XLA's"), and its
 emission is `vamb_tpu`'s mesh engine's.
 
+The kernels (`wander_kernel`, `vamb_tpu`'s switch of the Pallas kernels
+and the XLA expressions, cluster.py:1839-1870). "auto" and "pallas" call
+the CUDA kernels' wrappers, which launch the kernels on the card and run
+their plain versions on the CPU; "pallas" also requires what `vamb_tpu`'s
+does (a CUDA device for its TPU, no mesh, float32 distances, `maxsteps` <=
+32) and raises ValueError with the same list of problems otherwise, so a
+call fails in both packages or in neither. "xla" calls the plain versions
+themselves on the engine's device, the card included, so the engine
+launches no hand-written kernel: the kernels and their plain versions agree
+bit for bit, and so the emission is the same under all three. The choice
+is made once, at construction (`_wander_kernels`). `maxsteps` takes any
+value: C = min(maxsteps, N_pad) candidates a step, which `gumbel_topc`
+selects in rounds of 32 and the density kernel sums in one launch.
+
 bfloat16 distances (`distance_dtype="bfloat16"`, `vamb_tpu`'s opt-in
 reduced-precision mode, cluster.py:1836-1943): the engine order is taken
 from the float32 normalized matrix, which is then stored as bfloat16 (round
@@ -135,17 +149,15 @@ gather.
 
 from collections import deque
 from math import ceil
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
 
+from . import kernels as K
 from .device import resolve_device
-from .kernels import (
-    candidate_density_shard, candidate_density_sweep, gather_ball, gather_ball_shard, gumbel_topc,
-    gumbel_topc_shard, medoid_sweep, medoid_sweep_shard, row_stats, row_sweep, spec_sweep,
-    spec_sweep_shard, topc_merge,
-)
+from .kernels import topc_merge
 from .log import logger
 from .utils import threefry
 
@@ -402,7 +414,9 @@ class ClusterGenerator:
     Under each setting it emits what `vamb_tpu`'s generator emits with
     `compact_async=False` on the CPU. `distance_dtype` is "float32" or
     "bfloat16" (full scope only; see the module notes); `wander_kernel`
-    "auto" is the only value ported. Each compaction is
+    "auto", "pallas" (the CUDA kernels, where `vamb_tpu` would take its
+    Pallas kernels; else ValueError) or "xla" (the kernels' plain versions
+    on the engine's device). Each compaction is
     logged and recorded in `compactions` as (clusters emitted, old width,
     new width); `subset_counts` counts the exact attempts' subset wanders
     and how many fell back to the full climb because the ball overflowed
@@ -441,8 +455,6 @@ class ClusterGenerator:
             raise ValueError("Matrix must be of dtype float32")
         if maxsteps < 1:
             raise ValueError(f"maxsteps must be a positive integer, not {maxsteps}")
-        if maxsteps > 32:
-            raise ValueError(f"maxsteps must be at most 32 (the density kernel's limit), not {maxsteps}")
         if windowsize < 1:
             raise ValueError(f"windowsize must be at least 1, not {windowsize}")
         if minsuccesses < 1 or minsuccesses > windowsize:
@@ -455,10 +467,23 @@ class ClusterGenerator:
             raise ValueError("Matrix must have at least 1 observation.")
         if len(lengths) != len(matrix):
             raise ValueError("N sequences in lengths and matrix do not match")
-        _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch)
+        _check_values(distance_dtype, wander_kernel, wander_scope, attempt_batch)
         self._mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.device)
         bf16 = distance_dtype == "bfloat16"
+        if wander_kernel == "pallas":  # vamb_tpu/cluster.py:1847-1862, the card for its TPU
+            problems = []
+            if self.device.type != "cuda":
+                problems.append("requires a CUDA device")
+            if mesh is not None:
+                problems.append("does not support a sharded mesh")
+            if bf16:
+                problems.append("requires float32 distances")
+            if maxsteps > 32:
+                problems.append("requires maxsteps <= 32")
+            if problems:
+                raise ValueError("wander_kernel='pallas' " + "; ".join(problems))
+        self._kernels = _wander_kernels(plain=wander_kernel == "xla")
         if wander_scope == "subset" and bf16:  # vamb_tpu/cluster.py:1880-1881
             raise ValueError("wander_scope='subset' requires float32 distances")
         self._dtype = torch.bfloat16 if bf16 else torch.float32
@@ -742,8 +767,8 @@ class ClusterGenerator:
         eligible-untried columns in `jax.lax.top_k`'s order (one launch),
         their densities in one sweep. Returns (key, cand, cand_valid, dens)."""
         key, k1 = threefry.split_host(key)
-        cand, cand_valid = gumbel_topc(k1, d, kept, tried, medoid, self.C)
-        return key, cand, cand_valid, candidate_density_sweep(matrixT, cand, wk)
+        cand, cand_valid = self._kernels.gumbel_topc(k1, d, kept, tried, medoid, self.C)
+        return key, cand, cand_valid, self._kernels.candidate_density_sweep(matrixT, cand, wk)
 
     def _climb(self, medoid: int, sweep, density, tried, key, wk):
         """First-improvement hill climb over all columns (ref :415-450) from
@@ -819,7 +844,7 @@ class ClusterGenerator:
             j = int(np.argmax(better_h))
             tried_s[cand[: j + 1]] = True
             slot, medoid = int(cand_h[j]), int(col_h[j])
-            d_s = row_sweep(xsT, slot)
+            d_s = self._kernels.row_sweep(xsT, slot)
             density = dens[j]
             if drift_h[j] > np.float32(_SUBSET_ABORT):
                 status = "drift"
@@ -852,7 +877,7 @@ class ClusterGenerator:
         if nb > kb:
             return None
         bids = self._flagged_ids(block_any, kb)
-        return (*gather_ball(self.matrixT, bids, nb, wk, kept_t, d0), nb, before)
+        return (*self._kernels.gather_ball(self.matrixT, bids, nb, wk, kept_t, d0), nb, before)
 
     def _ball_shards(self, seed: int, block_any, kb: int, wk, kept_t, d0):
         """`_ball` under a mesh. A rank's columns are whole blocks, so its
@@ -876,8 +901,8 @@ class ClusterGenerator:
         nb, before = sum(nbs), int(counts[:, 1].sum())
         if nb > kb:
             return None
-        xs, _, kept_p, w_p, d0_p = gather_ball_shard(self.matrixT, bids, nbs[mesh.rank], wk, kept_t,
-                                                      d0, self.offset)
+        xs, _, kept_p, w_p, d0_p = self._kernels.gather_ball_shard(
+            self.matrixT, bids, nbs[mesh.rank], wk, kept_t, d0, self.offset)
         f = xs.shape[0]
         packed = torch.cat([xs, w_p[None], kept_p.float()[None], d0_p[None]])
         parts = mesh.all_gather(packed, "ball")  # (W, F_pad + 3, Q)
@@ -1176,24 +1201,25 @@ class ClusterGenerator:
     def _sweep(self, col: int, wk):
         "Column `col`'s (row, hist, density, n_close): `medoid_sweep`, or its shard entry point."
         if self._mesh is None:
-            return medoid_sweep(self.matrixT, col, wk)
+            return self._kernels.medoid_sweep(self.matrixT, col, wk)
         q = self._features(torch.tensor([col], device=self.device))[:, 0]
-        d, hist, dens, close = medoid_sweep_shard(self.matrixT, q, self._local_host(col), wk)
+        d, hist, dens, close = self._kernels.medoid_sweep_shard(self.matrixT, q,
+                                                               self._local_host(col), wk)
         hist, dens, close = self._shard_sums(hist[None], dens[None], close[None])
         return d, hist[0], dens[0], close[0]
 
     def _spec(self, cols: list, wk):
         "`spec_sweep` of global columns `cols`, or its shard entry point and the rank-order sums."
         if self._mesh is None:
-            return spec_sweep(self.matrixT, cols, wk)
-        rows, *sums = spec_sweep_shard(self.matrixT,
-                                       self._features(torch.tensor(cols, device=self.device)),
-                                       [self._local_host(c) for c in cols], wk)
+            return self._kernels.spec_sweep(self.matrixT, cols, wk)
+        rows, *sums = self._kernels.spec_sweep_shard(
+            self.matrixT, self._features(torch.tensor(cols, device=self.device)),
+            [self._local_host(c) for c in cols], wk)
         return (rows, *self._shard_sums(*sums))
 
     def _row_stats(self, rows, wk):
         "`row_stats` of the rows on this rank's columns, and the rank-order sums."
-        sums = row_stats(rows, wk)
+        sums = self._kernels.row_stats(rows, wk)
         return sums if self._mesh is None else self._shard_sums(*sums)
 
     def _shard_step(self, key, d, kept, tried, medoid: int, wk):
@@ -1201,11 +1227,14 @@ class ClusterGenerator:
         over its slice of the Gumbel stream (`gumbel_topc_shard`), merged
         into the global candidates, their features from their owners and
         each rank's densities of them (`candidate_density_shard`), added in
-        rank order. Returns (key, cand (global), cand_valid, dens)."""
+        rank order. A shard narrower than C gives all its keys. Returns (key,
+        cand (global), cand_valid, dens)."""
         key, k1 = threefry.split_host(key)
-        keys = gumbel_topc_shard(k1, d, kept, tried, medoid, self.C, self.n_pad, self.offset)
+        keys = self._kernels.gumbel_topc_shard(k1, d, kept, tried, medoid, min(self.C, self.n_loc),
+                                               self.n_pad, self.offset)
         cand, cand_valid = topc_merge(self._mesh.all_gather(keys, "wander keys"), self.C)
-        dens = candidate_density_shard(self.matrixT, self._features(cand), self._local(cand), wk)
+        dens = self._kernels.candidate_density_shard(self.matrixT, self._features(cand),
+                                                     self._local(cand), wk)
         return key, cand, cand_valid, self._mesh.sum_ranks(dens, "candidate densities")
 
     def _record(self, medoid: int, seed: int, kind: str, radius, observed_pvr) -> Cluster:
@@ -1234,16 +1263,31 @@ class ClusterGenerator:
         self._queue.append(rec)
 
 
-def _check_unported(distance_dtype, wander_kernel, wander_scope, attempt_batch):
-    "Reject bad values, and the `vamb_tpu` engine switches this port does not implement."
+def _wander_kernels(plain: bool) -> SimpleNamespace:
+    """The numeric steps the engine calls, by name: the CUDA kernels'
+    wrappers, or with `plain` (`wander_kernel="xla"`) their plain versions,
+    called on the engine's device, the card included, so that no
+    hand-written kernel is launched (`vamb_tpu`'s XLA expressions)."""
+    names = ("gumbel_topc", "candidate_density_sweep", "row_sweep", "gather_ball", "medoid_sweep",
+             "spec_sweep", "row_stats", "gumbel_topc_shard", "candidate_density_shard",
+             "gather_ball_shard", "medoid_sweep_shard", "spec_sweep_shard")
+    if not plain:
+        return SimpleNamespace(**{name: getattr(K, name) for name in names})
+    plain_of = {name: name + "_plain" for name in names}
+    plain_of["candidate_density_sweep"] = "candidate_density_plain"
+    kernels = {name: getattr(K, plain_of[name]) for name in names}
+    # the shard's plain version takes no global width
+    kernels["gumbel_topc_shard"] = (
+        lambda key, d, kept, tried, medoid, c, n_global, offset:
+        K.gumbel_topc_shard_plain(key, d, kept, tried, medoid, c, offset))
+    return SimpleNamespace(**kernels)
+
+
+def _check_values(distance_dtype, wander_kernel, wander_scope, attempt_batch):
+    "Reject values of the engine's switches that name no setting."
     if distance_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"distance_dtype must be float32/bfloat16, not {distance_dtype}")
-    if wander_kernel != "auto":
-        if wander_kernel in ("pallas", "xla"):
-            raise NotImplementedError(
-                f"wander_kernel={wander_kernel!r} names a TPU-package path; the "
-                "port always uses its CUDA kernels on the card (pass 'auto')"
-            )
+    if wander_kernel not in ("auto", "pallas", "xla"):
         raise ValueError(f"wander_kernel must be auto/pallas/xla, not {wander_kernel}")
     if wander_scope not in ("auto", "subset", "full"):
         raise ValueError(f"wander_scope must be auto/subset/full, not {wander_scope}")

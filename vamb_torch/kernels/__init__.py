@@ -7,6 +7,7 @@ from .cluster_kernels import (  # noqa: F401
     candidate_density_shard,
     candidate_density_shard_plain,
     candidate_density_sweep,
+    device_launches,
     gather_ball,
     gather_ball_plain,
     gather_ball_shard,
@@ -31,6 +32,7 @@ from .cluster_kernels import (  # noqa: F401
     spec_sweep_plain,
     spec_sweep_shard,
     spec_sweep_shard_plain,
+    topc_launches,
     topc_merge,
 )
 from .cluster_kernels import reset_launch_counts as _reset_cluster_counts

@@ -11,12 +11,14 @@ what its design does about it):
   columns and has all 32 of their 16-byte feature loads in flight as
   cp.async copies, 64 threads a CTA;
 * `candidate_density_sweep(matrixT, cand, wts)` replaces
-  `candidate_density_sweep` there: the local densities of C <= 32 wander
-  candidates in one matrix pass and one launch, no (C, N) matrix in device
-  memory. Bound by its FMA-free f32 operations; a thread computes a
+  `candidate_density_sweep` there: the local densities of C wander
+  candidates (any C; the Pallas kernel pads C to 32) in one matrix pass
+  and one launch, no (C, N) matrix in device memory. Bound by its
+  FMA-free f32 operations; a thread computes a
   (CT <= 16 candidates) x (2 columns) register tile, columns staged
   through shared memory by cp.async, candidates split into as few CTA rows
-  as fill the card; the last CTA (an integer ticket) sums the CTAs' rows.
+  as fill the card; the last CTA (an integer ticket) sums the CTAs' rows,
+  32 candidates at a time.
   Its sums follow an order that depends on N_pad alone, which
   `density_ordered_sum` reproduces, so kernel and plain version agree bit
   for bit and the engine decides alike on the card and on the CPU;
@@ -52,9 +54,11 @@ what its design does about it):
 * `gumbel_topc(key, d, kept, tried, medoid, C)` replaces a wander step's
   draw and selection (`vamb_tpu/cluster.py` :674-681, :775-782): every
   column's masked Gumbel score with jax's threefry bits and XLA's CPU log
-  spelled out rounding by rounding, and the C <= 32 candidates that
+  spelled out rounding by rounding, and the C candidates that
   `jax.lax.top_k` takes from them (score descending, index ascending on
-  equal scores), in one launch. Bound by its integer operations (the
+  equal scores), in one launch for C <= 32 and in ceil(C / 32) rounds, a
+  launch each, above (round r takes the 32 largest keys below round r - 1's
+  last, read on the card). Bound by its integer operations (the
   hash); the scores stay in registers as one 64-bit key a column (an
   order-preserving map of the score's bits, then the inverted index), which
   warps select by shuffle networks, CTAs through shared memory and the last
@@ -74,14 +78,18 @@ columns widened). `row_sweep` and the gathers run only inside the subset
 wander, which a bf16 engine never takes, and raise on a bf16 matrix.
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
-PyTorch version beside it only for a CPU tensor. It counts its launches in
+PyTorch version beside it only for a CPU tensor (the engine's
+`wander_kernel="xla"` calls the plain versions itself, on any device). It
+counts its launches in
 `<wrapper>.launches`, by N_pad in `<wrapper>.launches_by_width` and, for the
 wrappers that read the latent matrix, by F_pad in `<wrapper>.launches_by_fpad`
 and by the matrix's type ("float32" or "bfloat16") in
 `<wrapper>.launches_by_dtype` (the Gumbel kernels and `row_stats` see no
 matrix: theirs stay empty). The source is compiled by `nvcc` at first use
 into `kernels/_build/` and bound with ctypes; nothing is compiled or
-imported from CUDA while this module is imported.
+imported from CUDA while this module is imported. The library also
+counts, on the host, the launches each of its `__global__` functions was
+given without an error (`device_launches`), whatever wrapper made them.
 """
 
 import ctypes
@@ -96,7 +104,9 @@ import torch
 from ..utils import threefry
 
 _MEDOID_RADIUS = 0.05
-_MAX_CAND = 32  # kMaxCand in the CUDA source
+_CAND_GROUP = 32  # kCandGroup: candidates a gumbel_topc launch selects
+# the density kernel's most candidates: ceil(C/16) CTA rows, at most 65,535
+_DENS_MAX_CAND = 16 * 65_535
 _DENS_THREADS = 128  # kDensThreads: 4 warps
 _DENS_VEC = 2  # kDensVec: neighbouring columns a thread owns in a tile
 _DENS_TILE_COLS = _DENS_THREADS * _DENS_VEC  # kDensTileCols
@@ -201,7 +211,10 @@ def _load():
                 fn.restype = ci
             lib.vt_row_stats.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp]
             lib.vt_row_stats.restype = ci
-            consts = (lib.vt_max_candidates, lib.vt_density_threads, lib.vt_density_tile_cols,
+            lib.vt_launch_ids.argtypes, lib.vt_launch_ids.restype = [], ci
+            lib.vt_launch_name.argtypes, lib.vt_launch_name.restype = [ci], ctypes.c_char_p
+            lib.vt_launches.argtypes, lib.vt_launches.restype = [ci], ctypes.c_ulonglong
+            consts = (lib.vt_cand_group, lib.vt_density_threads, lib.vt_density_tile_cols,
                       lib.vt_density_max_blocks, lib.vt_density_tile, lib.vt_sweep_threads,
                       lib.vt_sweep_vec, lib.vt_sweep_max_blocks, lib.vt_sweep_slots,
                       lib.vt_block_cols, lib.vt_spec_seeds)
@@ -209,7 +222,7 @@ def _load():
                 fn.argtypes, fn.restype = [], ci
             # the scratch shapes, grid sizes and the plain versions' sum order
             # below assume the source's constants
-            if tuple(fn() for fn in consts) != (_MAX_CAND, _DENS_THREADS, _DENS_TILE_COLS,
+            if tuple(fn() for fn in consts) != (_CAND_GROUP, _DENS_THREADS, _DENS_TILE_COLS,
                                                 _DENS_MAX_BLOCKS, _DENS_TILE, _SWEEP_THREADS,
                                                 _SWEEP_VEC, _SWEEP_MAX_BLOCKS, _SWEEP_SLOTS,
                                                 _BLOCK, _SPEC_SEEDS):
@@ -248,16 +261,27 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
 
 
-def _count(kernel, n_pad: int, matrixT=None) -> None:
-    """One launch of `kernel` on the (F_pad, N_pad) matrix `matrixT` (or on
-    n_pad columns of a step or of rows, no matrix): its count and its
+def _count(kernel, n_pad: int, matrixT=None, launches: int = 1) -> None:
+    """`launches` launches of `kernel` on the (F_pad, N_pad) matrix `matrixT`
+    (or on n_pad columns of a step or of rows, no matrix): its count and its
     tallies by N_pad, by F_pad and by the matrix's type."""
-    kernel.launches += 1
-    kernel.launches_by_width[n_pad] = kernel.launches_by_width.get(n_pad, 0) + 1
+    kernel.launches += launches
+    kernel.launches_by_width[n_pad] = kernel.launches_by_width.get(n_pad, 0) + launches
     if matrixT is not None:
         f_pad, dtype = matrixT.shape[0], _MATRIX_DTYPES[matrixT.dtype]
-        kernel.launches_by_fpad[f_pad] = kernel.launches_by_fpad.get(f_pad, 0) + 1
-        kernel.launches_by_dtype[dtype] = kernel.launches_by_dtype.get(dtype, 0) + 1
+        kernel.launches_by_fpad[f_pad] = kernel.launches_by_fpad.get(f_pad, 0) + launches
+        kernel.launches_by_dtype[dtype] = kernel.launches_by_dtype.get(dtype, 0) + launches
+
+
+def device_launches() -> dict:
+    """{name of a `__global__` function of the library: the launches it was
+    given without an error}, counted on the host by the library itself (its
+    C entry points, after each launch's error check) since it was loaded:
+    a count of a named kernel that needs no profiler. Builds and loads the
+    library where that was not done yet."""
+    lib = _load()
+    return {lib.vt_launch_name(i).decode(): int(lib.vt_launches(i))
+            for i in range(lib.vt_launch_ids())}
 
 
 # ------------------------------------------------------------- row_sweep
@@ -395,15 +419,18 @@ def density_groups(c: int, col_blocks: int, sms: int) -> int:
 _density_ws: dict = {}
 
 
-def _density_workspace(dev: torch.device, stream: int):
-    """The density kernel's per-stream (32, 256) partials and int32 ticket
+def _density_workspace(dev: torch.device, stream: int, c: int):
+    """The density kernel's per-stream (C', 256) partials, C' the most
+    candidates it was given on the stream rounded up to 32 (grown where a
+    call brings more: calls on one stream are serialized), and int32 ticket
     (zeroed once; the kernel's last CTA resets it after every call)."""
     key = (dev.index, stream)
     ws = _density_ws.get(key)
-    if ws is None:
+    if ws is None or ws[0].shape[0] < c:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        ws = (torch.empty((_MAX_CAND, _DENS_MAX_BLOCKS), dtype=torch.float32, device=dev),
-              torch.zeros(1, dtype=torch.int32, device=dev), sms)
+        rows = -(-c // _CAND_GROUP) * _CAND_GROUP
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev) if ws is None else ws[1]
+        ws = (torch.empty((rows, _DENS_MAX_BLOCKS), dtype=torch.float32, device=dev), ticket, sms)
         _density_ws[key] = ws
     return ws
 
@@ -411,7 +438,7 @@ def _density_workspace(dev: torch.device, stream: int):
 def candidate_density_sweep(
     matrixT: torch.Tensor, cand: torch.Tensor, wts: torch.Tensor
 ) -> torch.Tensor:
-    """Densities of C <= 32 candidate medoids in one matrix pass.
+    """Densities of C candidate medoids in one matrix pass.
 
     matrixT (F_pad, N_pad) f32 or bf16, cand (C,) int64 or int32 columns,
     wts (N_pad,) f32 (= lengths where kept, else 0) -> (C,) f32. Launches
@@ -421,9 +448,8 @@ def candidate_density_sweep(
     those of its widened float32 copy."""
     _check_matrix(matrixT, bf16=True)
     f_pad, n_pad = matrixT.shape
-    c = int(cand.shape[0])
-    if not 1 <= c <= _MAX_CAND:
-        raise ValueError(f"need 1 to {_MAX_CAND} candidates, got {c}")
+    if cand.shape[0] < 1:
+        raise ValueError("need at least one candidate")
     if wts.shape != (n_pad,) or wts.dtype != torch.float32:
         raise ValueError("wts must be a float32 tensor of shape (N_pad,)")
     if matrixT.device.type == "cpu":
@@ -439,6 +465,8 @@ def _density_launch(kernel, matrixT, cand, q, wts) -> torch.Tensor:
     c = int(cand.shape[0])
     if matrixT.device.type != "cuda":
         raise ValueError(f"{kernel.__name__} runs on cuda or cpu, not {matrixT.device}")
+    if c > _DENS_MAX_CAND:
+        raise ValueError(f"the density kernel takes at most {_DENS_MAX_CAND} candidates, not {c}")
     if _DENS_TILE * f_pad * 4 > 48 * 1024:
         raise ValueError(f"F_pad {f_pad} exceeds the kernel's shared-memory tile")
     if cand.device != matrixT.device or wts.device != matrixT.device:
@@ -450,7 +478,7 @@ def _density_launch(kernel, matrixT, cand, q, wts) -> torch.Tensor:
     cand = cand.contiguous()
     wts = wts.contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    partials, ticket, sms = _density_workspace(dev, stream)
+    partials, ticket, sms = _density_workspace(dev, stream, c)
     groups = density_groups(c, density_col_blocks(n_pad)[1], sms)
     dens = torch.empty(c, dtype=torch.float32, device=dev)
     tail = (cand.data_ptr(), int(cand.dtype == torch.int64), c, wts.data_ptr(), groups,
@@ -493,7 +521,7 @@ def candidate_density_shard(
     matrixT: torch.Tensor, q: torch.Tensor, cand: torch.Tensor, wts: torch.Tensor
 ) -> torch.Tensor:
     """`candidate_density_sweep` on a shard of the matrix (f32 or bf16):
-    the C <= 32 candidates' features come from q (F_pad, C) f32, and `cand` (C,) holds
+    the C candidates' features come from q (F_pad, C) f32, and `cand` (C,) holds
     each one's local column or -1 where another rank holds it (its distance
     to itself is then not forced to 0 here). Returns the shard's (C,)
     densities over its N_local columns, summed in the order of that width.
@@ -504,8 +532,8 @@ def candidate_density_shard(
     _check_shard_matrix(matrixT)
     f_pad, n_pad = matrixT.shape
     c = int(cand.shape[0])
-    if not 1 <= c <= _MAX_CAND:
-        raise ValueError(f"need 1 to {_MAX_CAND} candidates, got {c}")
+    if c < 1:
+        raise ValueError("need at least one candidate")
     if wts.shape != (n_pad,) or wts.dtype != torch.float32:
         raise ValueError("wts must be a float32 tensor of shape (N_local,)")
     _check_query(q, (f_pad, c), matrixT.device)
@@ -1096,10 +1124,17 @@ def _topc_workspace(dev: torch.device, stream: int):
     return ws
 
 
+def topc_launches(c: int) -> int:
+    "The Gumbel kernel's launches for C candidates: rounds of 32."
+    return max(1, -(-c // _CAND_GROUP))
+
+
 def _gumbel_launch(k0: int, k1: int, d, kept, tried, medoid: int, c: int, score, cand, valid,
                    offset: int = 0, keys=None, name: str = "gumbel_topc"):
-    """One launch of the Gumbel kernel: the C candidates (C > 0), their keys
-    and/or the scores; a shard's columns are global columns offset.."""
+    """The Gumbel kernel's launches (`topc_launches(C)`, one C call): the C
+    candidates (C > 0), their keys (which C > 32 needs: a round reads the
+    last key of the round before) and/or the scores; a shard's columns are
+    global columns offset.."""
     lib = _load()
     dev = d.device
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1122,22 +1157,24 @@ def gumbel_topc(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Tensor, m
     > -inf). With `with_scores`, the (n,) scores too.
 
     `key` is a threefry key (two uint32 words), d (n,) f32, kept and tried
-    (n,) bool, 1 <= C <= min(32, n). Launches the CUDA kernel for CUDA
-    tensors (one launch, counted in `gumbel_topc.launches`; the scores reach
-    device memory only with `with_scores`), runs the plain version for CPU
-    tensors; both give `vamb_tpu`'s candidates."""
+    (n,) bool, 1 <= C <= n. Launches the CUDA kernel for CUDA tensors (one
+    launch for C <= 32, else `topc_launches(C)` rounds, counted in
+    `gumbel_topc.launches`; the scores reach device memory only with
+    `with_scores`), runs the plain version for CPU tensors; both give
+    `vamb_tpu`'s candidates."""
     medoid, c, n = int(medoid), int(c), d.shape[0]
     _check_step(d, kept, tried, medoid)
-    if not 1 <= c <= min(_MAX_CAND, n):
-        raise ValueError(f"C must lie in [1, {min(_MAX_CAND, n)}], not {c}")
+    if not 1 <= c <= n:
+        raise ValueError(f"C must lie in [1, {n}], not {c}")
     k0, k1 = (int(w) & 0xFFFFFFFF for w in key)
     if d.device.type == "cpu":
         return gumbel_topc_plain((k0, k1), d, kept, tried, medoid, c, with_scores)
     cand = torch.empty(c, dtype=torch.int64, device=d.device)
     valid = torch.empty(c, dtype=torch.bool, device=d.device)
     score = torch.empty(n, dtype=torch.float32, device=d.device) if with_scores else None
-    _gumbel_launch(k0, k1, d, kept, tried, medoid, c, score, cand, valid)
-    _count(gumbel_topc, n)
+    keys = torch.empty(c, dtype=torch.int64, device=d.device) if c > _CAND_GROUP else None
+    _gumbel_launch(k0, k1, d, kept, tried, medoid, c, score, cand, valid, keys=keys)
+    _count(gumbel_topc, n, launches=topc_launches(c))
     return (cand, valid, score) if with_scores else (cand, valid)
 
 
@@ -1164,17 +1201,17 @@ def gumbel_topc_shard(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Ten
     the shard's C largest selection keys (C,) int64, descending, in
     `topc_keys`' order over global indices: `topc_merge` of every rank's
     keys gives `gumbel_topc`'s candidates over the global width, bit for
-    bit. Launches the Gumbel kernel for CUDA tensors (one launch, counted
-    in `gumbel_topc_shard.launches`), runs the plain version for CPU
-    tensors."""
+    bit. Launches the Gumbel kernel for CUDA tensors (`topc_launches(C)`
+    launches, counted in `gumbel_topc_shard.launches`), runs the plain
+    version for CPU tensors."""
     medoid, c, n, offset = int(medoid), int(c), d.shape[0], int(offset)
     if not (0 <= offset and offset + n <= n_global):
         raise ValueError(f"the shard [{offset}, {offset + n}) lies outside [0, {n_global})")
     if not 0 <= medoid < n_global:
         raise IndexError(f"medoid {medoid} outside [0, {n_global})")
     _check_step(d, kept, tried, 0)
-    if not 1 <= c <= min(_MAX_CAND, n):
-        raise ValueError(f"C must lie in [1, {min(_MAX_CAND, n)}], not {c}")
+    if not 1 <= c <= n:
+        raise ValueError(f"C must lie in [1, {n}], not {c}")
     k0, k1 = (int(w) & 0xFFFFFFFF for w in key)
     if d.device.type == "cpu":
         return gumbel_topc_shard_plain((k0, k1), d, kept, tried, medoid, c, offset)
@@ -1183,7 +1220,7 @@ def gumbel_topc_shard(key, d: torch.Tensor, kept: torch.Tensor, tried: torch.Ten
     keys = torch.empty(c, dtype=torch.int64, device=d.device)
     _gumbel_launch(k0, k1, d, kept, tried, medoid, c, None, cand, valid, offset, keys,
                    "gumbel_topc_shard")
-    _count(gumbel_topc_shard, n)
+    _count(gumbel_topc_shard, n, launches=topc_launches(c))
     return keys
 
 

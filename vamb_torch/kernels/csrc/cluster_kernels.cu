@@ -27,6 +27,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kEngineF = 32;  // the engine's F_pad (latent width 32), compiled in
@@ -41,7 +43,9 @@ constexpr int kDensVec = 2;  // neighbouring columns a thread owns in one tile
 constexpr int kDensTileCols = kDensThreads * kDensVec;  // 256 columns a tile
 constexpr int kDensMaxBlocks = 256;  // column CTAs; the last CTA's tree spans 256
 constexpr int kDensTile = 16;  // most candidates in one CTA's register tile
-constexpr int kMaxCand = 32;
+// candidates a gumbel_topc round selects (a warp's list, one key a lane)
+// and the density kernel's last CTA sums at a time; either takes any C
+constexpr int kCandGroup = 32;
 constexpr float kMedoidRadius = 0.05f;
 constexpr int kGatherThreads = 256;
 constexpr int kGatherCopies = 1;  // 16-byte copies a gather thread makes (measured against 4)
@@ -57,6 +61,28 @@ constexpr int kSweepRows = kNbins + 1;  // a thread's sums: 60 bins, the density
 constexpr int kSweepSlots = 64;  // a CTA's partial row: its 61 sums, padded
 constexpr float kDeltaX = 0.005f;
 constexpr float kXmax = 0.3f;
+
+// The launches each __global__ function below was given without an error,
+// counted on the host by the C functions at the end (after each launch's
+// cudaGetLastError()) and read through vt_launches: a count of a named
+// kernel that does not depend on a profiler's device records.
+enum LaunchId {
+  kLaunchRowSweepF32, kLaunchRowSweepAny, kLaunchDensity, kLaunchGather, kLaunchMedoid,
+  kLaunchSpec, kLaunchRowStats, kLaunchGumbel, kLaunchIds
+};
+const char* const kLaunchNames[kLaunchIds] = {
+    "row_sweep_f32_kernel", "row_sweep_any_kernel", "candidate_density_kernel",
+    "gather_blocks_kernel", "medoid_sweep_kernel", "spec_sweep_kernel", "row_stats_kernel",
+    "gumbel_topc_kernel"};
+std::atomic<unsigned long long> g_launches[kLaunchIds];  // zero before any call
+
+// cudaGetLastError() right after a launch of kernel `id`: counts the
+// launch where there was no error, and returns the error.
+int counted(LaunchId id) {
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) g_launches[id].fetch_add(1, std::memory_order_relaxed);
+  return (int)e;
+}
 
 // acc + a * b with the product and the sum rounded separately (no FMA):
 // the plain versions' arithmetic, so distances agree bit for bit.
@@ -256,7 +282,7 @@ __global__ void row_sweep_any_kernel(const float* __restrict__ m, int f_pad,
 
 // -------------------------------------------------- candidate_density_sweep
 // Replaces vamb_tpu/ops/pallas_cluster.py:candidate_density_sweep
-// (_candidate_density_kernel): for C <= 32 candidates,
+// (_candidate_density_kernel): for C candidates (any C; Pallas pads C to 32),
 //   dens[c] = sum_n [D[c,n] <= 0.05 and w[n] > 0] * w[n] * (0.05 - D[c,n]),
 //   D[c,n] = 0.5 - M[:, cand[c]] . M[:, n], with D[c, cand[c]] = 0,
 // D summed in feature order with separately rounded products and sums
@@ -284,7 +310,9 @@ __global__ void row_sweep_any_kernel(const float* __restrict__ m, int f_pad,
 //   CTAs alone are fewer than two an SM (8,192 columns: 32 CTAs, G = 9).
 // * One launch. Each CTA writes its CT partial sums; the CTA that draws the
 //   last ticket of an integer atomic counter adds the partial rows and
-//   writes dens, then resets the counter to 0 for the next call. Calls on
+//   writes dens, 32 candidates at a time (a warp's 8 a lane of them, so
+//   any C takes one launch: C 64 two rounds of the finish, C 100 four),
+//   then resets the counter to 0 for the next call. Calls on
 //   one stream are serialized, and the wrapper keeps one counter and one
 //   partials buffer per stream. No float atomics: the engine's
 //   `dens > density` decides on knife edges.
@@ -346,7 +374,7 @@ __device__ __forceinline__ void add_terms(float (&acc)[CT],
 }
 
 // The CTA's CT sums (a halving tree over each warp's lanes, then over the
-// warps: (w0 + w2) + (w1 + w3) for 4) into its column of the (32, 256)
+// warps: (w0 + w2) + (w1 + w3) for 4) into its column of the (C, 256)
 // partials.
 template <int CT>
 __device__ __forceinline__ void cta_partials(const float (&acc)[CT], float* s_red,
@@ -596,36 +624,40 @@ candidate_density_kernel(const T* __restrict__ m, int f_pad, int n_pad,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  // the last CTA: warp w sums candidates w, w + 4, ... over the column CTAs
-  // with the 256-wide halving tree (lane l holds b = l + 32*k); all of a
-  // warp's loads are issued before any add
+  // the last CTA, 32 candidates a round: warp w sums candidates g + w,
+  // g + w + 4, ... of the round's group g over the column CTAs with the
+  // 256-wide halving tree (lane l holds b = l + 32*k); all of a warp's
+  // loads of a round are issued before any add. A candidate's sum is the
+  // same in any round: the rounds only bound the registers.
   static_assert(kDensMaxBlocks == 8 * 32, "8 partials a lane");
-  constexpr int kPerWarp = kMaxCand / kDensWarps;
+  constexpr int kPerWarp = kCandGroup / kDensWarps;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float v[kPerWarp][kDensMaxBlocks / 32];
+  for (int group = 0; group < n_cand; group += kCandGroup) {
+    float v[kPerWarp][kDensMaxBlocks / 32];
 #pragma unroll
-  for (int r = 0; r < kPerWarp; ++r) {
-    const int c = warp + r * kDensWarps;
+    for (int r = 0; r < kPerWarp; ++r) {
+      const int c = group + warp + r * kDensWarps;
 #pragma unroll
-    for (int k = 0; k < kDensMaxBlocks / 32; ++k) {
-      const int b = lane + 32 * k;
-      v[r][k] = (c < n_cand && b < (int)gridDim.x)
-                    ? __ldcg(partials + (size_t)c * kDensMaxBlocks + b)
-                    : 0.0f;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kPerWarp; ++r) {
-    const int c = warp + r * kDensWarps;
-    if (c < n_cand) {
-#pragma unroll
-      for (int h = kDensMaxBlocks / 64; h > 0; h >>= 1) {
-#pragma unroll
-        for (int k = 0; k < h; ++k) v[r][k] = __fadd_rn(v[r][k], v[r][k + h]);
+      for (int k = 0; k < kDensMaxBlocks / 32; ++k) {
+        const int b = lane + 32 * k;
+        v[r][k] = (c < n_cand && b < (int)gridDim.x)
+                      ? __ldcg(partials + (size_t)c * kDensMaxBlocks + b)
+                      : 0.0f;
       }
-      const float sum = warp_tree(v[r][0]);
-      if (lane == 0) dens[c] = sum;
+    }
+#pragma unroll
+    for (int r = 0; r < kPerWarp; ++r) {
+      const int c = group + warp + r * kDensWarps;
+      if (c < n_cand) {
+#pragma unroll
+        for (int h = kDensMaxBlocks / 64; h > 0; h >>= 1) {
+#pragma unroll
+          for (int k = 0; k < h; ++k) v[r][k] = __fadd_rn(v[r][k], v[r][k + h]);
+        }
+        const float sum = warp_tree(v[r][0]);
+        if (lane == 0) dens[c] = sum;
+      }
     }
   }
   if (threadIdx.x == 0) *ticket = 0u;
@@ -1513,7 +1545,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
 // `jax.lax.top_k(score, C)`. Each column's Gumbel score is
 // -log(-log(u + 1e-20) + 1e-20), u = jax.random.uniform(k1, (n,)), or -inf
 // where the column is not eligible ((d <= 0.05) & kept & ~tried, not the
-// medoid's slot); the step's candidates are the C <= 32 columns that top_k
+// medoid's slot); the step's candidates are the C columns that top_k
 // returns: score descending, equal scores by index ascending (XLA's CPU
 // TopK, which compares the scores' bits as integers, so -0.0 < +0.0 and
 // -inf lowest; the -inf slots are the lowest-index ineligible columns). One
@@ -1551,6 +1583,14 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
 //     first C and resets the counter. The top C of a total order is
 //     unique, so the result does not depend on which CTA finishes last or
 //     on the grid. No float atomics.
+//   * C above 32 goes in rounds of 32, a launch each (C 40 and 64: two, C
+//     100: four): round r takes the 32 largest keys strictly below round
+//     r - 1's last, which it reads on the card from the keys round r - 1
+//     wrote, so the host never waits. The keys are unique and totally
+//     ordered, so the rounds' lists, one after another, are the top C in
+//     top_k's order, -inf slots included. Each round hashes every column
+//     again (the hash is the bound; the scores are written once, in round
+//     0, where asked).
 // With C = 0 it writes the scores alone (`gumbel_scores`).
 
 constexpr int kTopcThreads = 512;  // gumbel_topc: 16 warps a CTA
@@ -1692,11 +1732,15 @@ __global__ void __launch_bounds__(kTopcThreads) gumbel_topc_kernel(
     const unsigned char* __restrict__ kept, const unsigned char* __restrict__ tried, int medoid,
     int c, float* __restrict__ score, TopKey* __restrict__ partials,
     unsigned int* __restrict__ ticket, long long* __restrict__ cand,
-    unsigned char* __restrict__ valid, TopKey* __restrict__ keys) {
+    unsigned char* __restrict__ valid, TopKey* __restrict__ keys,
+    const TopKey* __restrict__ prev) {
   __shared__ TopKey s_top[kTopcWarps][32];
   __shared__ bool s_last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // a later round's columns: those whose keys lie below the last key of the
+  // round before, `prev` (stored with its sign bit flipped); all in round 0
+  const TopKey below = prev == nullptr ? ~0ull : *prev ^ 0x8000000000000000ull;
   TopKey top = 0;  // the warp's 32 largest keys so far, descending across the lanes
   TopKey kth = 0;  // top's C-th: a key at or below it cannot enter the top C
   const int stride = gridDim.x * kTopcThreads;
@@ -1707,6 +1751,7 @@ __global__ void __launch_bounds__(kTopcThreads) gumbel_topc_kernel(
       const float s = gumbel_score(k0, k1, i, offset, d, kept, tried, medoid);
       if (score != nullptr) score[i] = s;
       key = topc_key(s, offset + i);
+      if (key >= below) key = 0;  // taken by an earlier round
     }
     if (c > 0 && __any_sync(kFullMask, key > kth)) {
       top = warp_top(top, warp_sort_ascending(key, lane), lane);
@@ -1758,7 +1803,7 @@ template <class T>
 int density_launch(const T* m, int f_pad, int n_pad, const void* cand, int cand64, int c,
                    const float* q, const float* w, int groups, float* partials, unsigned int* ticket,
                    float* dens, void* stream) {
-  if (c < 1 || c > kMaxCand || groups < 1 || groups > c ||
+  if (c < 1 || groups < 1 || groups > c || groups > 65535 ||
       (c + groups - 1) / groups > kDensTile || n_pad < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1777,7 +1822,7 @@ int density_launch(const T* m, int f_pad, int n_pad, const void* cand, int cand6
     candidate_density_kernel<T, false><<<grid, kDensThreads, smem, (cudaStream_t)stream>>>(
         m, f_pad, n_pad, cand, cand64, c, q, w, partials, ticket, dens);
   }
-  return (int)cudaGetLastError();
+  return counted(kLaunchDensity);
 }
 
 template <class T>
@@ -1803,7 +1848,7 @@ int medoid_sweep_launch(const T* m, int f_pad, int n_pad, int idx, const float* 
                                     (cudaStream_t)stream>>>(
         m, f_pad, n_pad, idx, q, w, d, partials, close_partials, ticket, hist, density, n_close);
   }
-  return (int)cudaGetLastError();
+  return counted(kLaunchMedoid);
 }
 
 template <class T>
@@ -1831,7 +1876,7 @@ int spec_sweep_launch(const T* m, int f_pad, int n_pad, int c0, int c1, int c2, 
   kernel<<<sweep_col_blocks(n_pad), kSpecThreads, smem, (cudaStream_t)stream>>>(
       m, f_pad, n_pad, c0, c1, c2, c3, c4, c5, c6, c7, s_count, q, w, rows, partials,
       count_partials, tickets, sums, counts);
-  return (int)cudaGetLastError();
+  return counted(kLaunchSpec);
 }
 
 int gather_launch(const float* m, int f_pad, int n_pad, const int* bids, int kb, float* out,
@@ -1844,7 +1889,7 @@ int gather_launch(const float* m, int f_pad, int n_pad, const int* bids, int kb,
   gather_blocks_kernel<<<grid, kGatherThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)m, f_pad, n_pad / 4, bids, (float4*)out, kb * (kBlockCols / 4), nb, w, kept,
       d0, cols, kept_out, w_out, d0_out, col_offset);
-  return (int)cudaGetLastError();
+  return counted(kLaunchGather);
 }
 
 }  // namespace
@@ -1858,12 +1903,12 @@ int vt_row_sweep(const float* m, int f_pad, int n_pad, int idx, float* d,
     constexpr int cols = kRowThreads * kRowVec;
     row_sweep_f32_kernel<<<(n_pad + cols - 1) / cols, kRowThreads, 0,
                            (cudaStream_t)stream>>>(m, n_pad, idx, d);
-  } else {
-    row_sweep_any_kernel<<<(n_pad + kRowAnyThreads - 1) / kRowAnyThreads,
-                           kRowAnyThreads, f_pad * sizeof(float),
-                           (cudaStream_t)stream>>>(m, f_pad, n_pad, idx, d);
+    return counted(kLaunchRowSweepF32);
   }
-  return (int)cudaGetLastError();
+  row_sweep_any_kernel<<<(n_pad + kRowAnyThreads - 1) / kRowAnyThreads,
+                         kRowAnyThreads, f_pad * sizeof(float),
+                         (cudaStream_t)stream>>>(m, f_pad, n_pad, idx, d);
+  return counted(kLaunchRowSweepAny);
 }
 
 int vt_candidate_density(const float* m, int f_pad, int n_pad, const void* cand,
@@ -2005,7 +2050,7 @@ int vt_row_stats(const float* rows, int n_pad, int s_count, const float* w, floa
   const dim3 grid(sweep_col_blocks(n_pad), s_count);
   kernel<<<grid, kSweepThreads, smem, (cudaStream_t)stream>>>(rows, n_pad, w, partials,
                                                               count_partials, tickets, sums, counts);
-  return (int)cudaGetLastError();
+  return counted(kLaunchRowStats);
 }
 
 int vt_spec_seeds() { return kSpecSeeds; }
@@ -2015,8 +2060,8 @@ int vt_gumbel_topc(unsigned int k0, unsigned int k1, int n, int offset, const fl
                    float* score, unsigned long long* partials, unsigned int* ticket,
                    long long* cand, unsigned char* valid, unsigned long long* keys, int max_ctas,
                    void* stream) {
-  if (n < 1 || offset < 0 || c < 0 || c > kMaxCand || c > n || max_ctas < 1 ||
-      (c == 0 && score == nullptr)) {
+  if (n < 1 || offset < 0 || c < 0 || c > n || max_ctas < 1 || (c == 0 && score == nullptr) ||
+      (c > kCandGroup && keys == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   // scores alone: a thread a column; with the selection, at most
@@ -2025,12 +2070,31 @@ int vt_gumbel_topc(unsigned int k0, unsigned int k1, int n, int offset, const fl
   int ctas = (n + kTopcThreads - 1) / kTopcThreads;
   const int most = max_ctas < kTopcMaxCtas ? max_ctas : kTopcMaxCtas;
   if (c > 0 && ctas > most) ctas = most;
-  gumbel_topc_kernel<<<ctas, kTopcThreads, 0, (cudaStream_t)stream>>>(
-      k0, k1, n, offset, d, kept, tried, medoid, c, score, partials, ticket, cand, valid, keys);
-  return (int)cudaGetLastError();
+  // C in rounds of kCandGroup, a launch each; round r > 0 reads the last key
+  // of round r - 1 from `keys`
+  const int rounds = c == 0 ? 1 : (c + kCandGroup - 1) / kCandGroup;
+  for (int r = 0; r < rounds; ++r) {
+    const int lo = r * kCandGroup;
+    const int cr = c - lo < kCandGroup ? c - lo : kCandGroup;
+    gumbel_topc_kernel<<<ctas, kTopcThreads, 0, (cudaStream_t)stream>>>(
+        k0, k1, n, offset, d, kept, tried, medoid, cr, r == 0 ? score : nullptr, partials,
+        ticket, cand == nullptr ? nullptr : cand + lo, valid == nullptr ? nullptr : valid + lo,
+        keys == nullptr ? nullptr : keys + lo, r == 0 ? nullptr : keys + lo - 1);
+    const int e = counted(kLaunchGumbel);
+    if (e != 0) return e;
+  }
+  return 0;
 }
 
-int vt_max_candidates() { return kMaxCand; }
+int vt_cand_group() { return kCandGroup; }
+
+int vt_launch_ids() { return kLaunchIds; }
+
+const char* vt_launch_name(int id) { return id >= 0 && id < kLaunchIds ? kLaunchNames[id] : nullptr; }
+
+unsigned long long vt_launches(int id) {
+  return id >= 0 && id < kLaunchIds ? g_launches[id].load(std::memory_order_relaxed) : 0ull;
+}
 
 int vt_density_threads() { return kDensThreads; }
 
