@@ -249,6 +249,34 @@ of `vamb_tpu`. Phases, each of which fails the run:
    cluster, hand-written launches a cluster (none under "xla"), and one
    emission; (d) "pallas" with maxsteps 40 and with bfloat16 distances
    refused with ValueError.
+14. the work counters and the workflow: (a) the engine's counters
+   (`n_dists`, `n_dists_effective`, `emitted_total`, `dist_terms`) on
+   every card-vs-CPU lockstep run (phases 4, 9, 11 and 13(b)): where the
+   two emitted alike, the effective count and the emitted total must be
+   equal and the raw counts must differ by the kernels' terms alone (one
+   row more a full-scope wander step, seven fewer a subset final row),
+   exactly while both sums are below 2^31; and phase 10(c)'s timed windows
+   on the 300,000-point latent logged in the system's headline unit:
+   raw and effective dists, clusters decided, clusters/s and effective
+   dists/s. (b) the documented workflow on the port: three sample
+   assemblies of 3,000 contigs from phase 7's recipe (its synthetic
+   genomes carrying its 40 marker profiles); `python -m
+   vamb_torch.tools.concatenate` as a subprocess; workflow_avamb/
+   run_local_torch.py (`--mock-mapping --epochs 1`: mock BAMs, `bin avamb`
+   at 547 / 283 / 700 with `-c 1000`, `avamb_ensemble --write_bins
+   --hmm_path` with the profiles and its quality gates open, as phase 9's),
+   the counters set to 0 just before and read just after; and
+   `python -m vamb_torch.tools.create_fasta` on the z clusters as a
+   subprocess. Gates: every subprocess exits 0; the catalogue's names
+   `S{n}C{name}`; every bin file holds exactly its cluster's contigs;
+   `quality_report.tsv` and `Final_bins/` written, with its bins' FASTAs;
+   `gumbel_topc`,
+   `candidate_density_sweep`, `medoid_sweep`, `spec_sweep` (the library's
+   own counts and the wrappers') and `hmm_forward` launched; the
+   catalogue's TNF projected on the card (`use_device=True`) equal to
+   `bin avamb`'s host-path `composition.npz` but where the two products'
+   float32 roundings straddle a mask step (at most one step of the row's
+   largest value, under 1% of the values).
 
 Each kernel's launches x (ms - bound) on each path, summed over widths, is
 logged after phase 6. The last three lines of standard output are the
@@ -293,6 +321,11 @@ runs phase 1 and phase 12 (about 5 minutes).
 
 runs phase 1 and phase 13 (about 2 minutes after the build).
 
+    python3 chip_smoke.py --workflow
+
+runs phase 1 and phase 14(b), then 14(a) on the workflow's own 283-wide z
+latent: 30 clusters (or 60 wander steps) card vs CPU in lockstep.
+
     python3 chip_smoke.py --lanes
 
 runs phase 1, phase 2's checks and times of `spec_sweep` and `row_stats`
@@ -306,6 +339,17 @@ scope (list a parent and a change alternately, e.g. P C C P), and prints
 one JSON line per run: ms per cluster over 200 clusters, device kernels
 a cluster and an attempt over 50 more, and a hash of the emitted medoids,
 which must agree between checkouts that emit alike.
+
+    python3 chip_smoke.py --stage-ab DIR [DIR ...]
+
+times `bin default`'s clustering stage, the engine at its default flags
+to `-c` clusters, at 100,000 contigs (full scope, 2,000 clusters) and
+300,000 (subset wander, lanes, a compaction; 3,200 clusters), each
+checkout DIR in turn in a process of its own, on the latents of this
+checkout's `bin default` on phases 4 and 5's datasets; prints one JSON
+line per run: seconds, clusters/s, the lane and subset counts, the work
+counters where the checkout keeps them, and a hash of the medoids, which
+must agree between all checkouts.
 
     python3 chip_smoke.py --density-layouts
 
@@ -1244,8 +1288,11 @@ def engine_agreement(dev, latent: np.ndarray, lengths: np.ndarray, n_clusters: i
               "engines_exhausted": exhausted, "step_cap_reached": capped, "identical_clusters": identical,
               "first_differing_cluster": first_cluster, "first_differing_input": first_input,
               "inputs_seen": seen, "inputs_that_differed": differed, "max_abs_gaps": gap,
-              "seconds": time.time() - t}
+              "work": work_agreement(card[0], cpu[0]), "seconds": time.time() - t}
     log(f"engine on the card vs the CPU on {label}: " + json.dumps(result))
+    # phase 14(a): runs that emitted alike did the same work
+    check(result["work"]["ok"] or identical != compared,
+          f"phase 14(a): the work counters on {label} differ between the card and the CPU")
     return result
 
 
@@ -2551,7 +2598,11 @@ def lanes_ab() -> dict:
                                             if r["attempt_batch"] == ab]}
                for ab in ("off", "on")}
     log("phase 10(c) lanes A/B on the 300,000-point latent: " + json.dumps(summary))
-    return {"runs": runs, "summary": summary}
+    # phase 14(a): the headline unit, effective dists/s, over each run's timed window
+    headline = [{"attempt_batch": r["attempt_batch"], **r["work"]} for r in runs]
+    log("phase 14(a): work of the 300,000-point latent's timed windows (n_dists, n_dists_effective, "
+        "emitted_total, clusters/s, effective dists/s): " + json.dumps(headline))
+    return {"runs": runs, "summary": summary, "headline": headline}
 
 
 def batched_attempts(dev) -> dict:
@@ -4253,6 +4304,224 @@ def kernel_rows_many_c(errs: dict, timed: dict, phase13: dict) -> list:
     return rows
 
 
+# ------------------------- phase 14: the work counters and the workflow
+
+WF_SAMPLES = 3
+WF_CONTIGS = 9_000  # 3,000 contigs a sample
+# the workflow's config: `bin avamb` capped at 1,000 z clusters (-c, a cap
+# on the clustering's time: all 9,000 contigs take some 2,900 clusters and
+# 15 s), and the ensemble's quality gates open, as phase 9's, so that its
+# bins are written (one epoch leaves no bin near-complete)
+WF_CONFIG = {"min_contig_size": 2000, "min_bin_size": 20_000, "min_identity": 0.95,
+             "avamb_params": f"-o C --seed {SEED} -c 1000", "min_comp": 0.0, "max_cont": 1.0,
+             "scoring": "native", "threads": 8}
+WF_AGREEMENT_CLUSTERS = 30  # --workflow mode's 14(a): clusters of the z latent card vs CPU
+WF_AGREEMENT_STEPS = 60  # ... or fewer, where this many wander steps come first
+
+
+def work_agreement(card, cpu) -> dict:
+    """Phase 14(a): the work counters of one engine run on the card and on
+    the CPU that emitted alike. The effective count and the emitted total
+    must be equal (float32 sums of the same terms in the same order); the
+    raw counts differ by the kernels' terms alone, the "pallas" family's
+    on the card and the "xla" family's on the CPU: one row more a
+    full-scope wander step and seven rows fewer a subset final row, whose
+    sums of N (`dist_terms`) the two runs must share. Every term is a
+    multiple of 128, so both raw sums are exact below 2^31 and their
+    difference must then equal those terms exactly; above, the float32
+    sums round, and it must lie within 2^-20 of the larger."""
+    card.drain()
+    terms = card.dist_terms
+    delta = terms["full_steps"] - 7 * terms["final_rows"]
+    gap = card.n_dists - cpu.n_dists
+    exact = max(card.n_dists, cpu.n_dists) < 2 ** 31
+    raw_ok = gap == delta if exact else abs(gap - delta) <= 2 ** -20 * max(card.n_dists, cpu.n_dists)
+    out = {"n_dists": {"card": card.n_dists, "cpu": cpu.n_dists},
+           "n_dists_effective": {"card": card.n_dists_effective, "cpu": cpu.n_dists_effective},
+           "emitted_total": {"card": card.emitted_total, "cpu": cpu.emitted_total},
+           "dist_terms": {"card": terms, "cpu": cpu.dist_terms}, "kernel_terms_sum": delta,
+           "raw_gap": gap, "raw_exact": exact}
+    out["ok"] = bool(card._kernel_terms and not cpu._kernel_terms and raw_ok
+                     and card.n_dists_effective == cpu.n_dists_effective > 0
+                     and card.emitted_total == cpu.emitted_total and terms == cpu.dist_terms)
+    return out
+
+
+def headline_of(gen, before: tuple, wall: float) -> dict:
+    """The work of a timed window of `gen` (drained), from its counters
+    `before` it: raw and effective distance evaluations, clusters decided,
+    clusters/s and effective dists/s (the system's headline unit)."""
+    gen.drain()
+    d_raw, d_eff, d_em = (a - b for a, b in zip(
+        (gen.n_dists, gen.n_dists_effective, gen.emitted_total), before))
+    return {"n_dists": d_raw, "n_dists_effective": d_eff, "emitted_total": d_em,
+            "clusters_per_s": d_em / wall, "effective_dists_per_s": d_eff / wall,
+            "raw_dists_per_s": d_raw / wall, "window_s": wall}
+
+
+def write_samples(dev, d: Path, rng) -> tuple[list[Path], Path, np.ndarray]:
+    """Phase 14(b)'s inputs: WF_CONTIGS contigs of phase 7's recipe (its
+    synthetic genomes, each carrying a variant of each of its 40 marker
+    profiles) split into WF_SAMPLES sample assemblies, contig i named
+    `c{i}` in sample i % 3, and the profiles' HMM file. Returns the sample
+    FASTAs, the HMM file and each contig's genome."""
+    from vamb_torch.ops import hmm
+
+    profiles, consensi = marker_profiles(rng)
+    calibrate_cutoffs(rng, profiles, consensi, dev)
+    (d / "markers.hmm").write_text("".join(hmm.format_hmm(p) for p in profiles))
+    plant, _ = marker_planter(rng, consensi)
+    genome = write_dataset(d, WF_CONTIGS, RC_GENOMES, WF_SAMPLES, SEED + 14, plant=plant)
+    lines = (d / "contigs.fna").read_bytes().split(b"\n")
+    paths = [d / f"assembly_s{s}.fna" for s in range(WF_SAMPLES)]
+    for s, path in enumerate(paths):
+        path.write_bytes(b"".join(b">c%d\n%s\n" % (i, lines[2 * i + 1])
+                                  for i in range(s, WF_CONTIGS, WF_SAMPLES)))
+    return paths, d / "markers.hmm", genome
+
+
+def fasta_names(path: Path) -> list[str]:
+    import gzip
+
+    opener = gzip.open if path.suffix == ".gz" else open
+    with opener(path, "rt") as f:
+        return [line[1:].split()[0] for line in f if line.startswith(">")]
+
+
+def run_workflow_path(dev, tmp: Path) -> dict:
+    """Phase 14(b): the documented workflow on the port, on the card. Three
+    sample assemblies (`write_samples`); `python -m
+    vamb_torch.tools.concatenate` as a subprocess; then
+    workflow_avamb/run_local_torch.py's `main` (`--mock-mapping --epochs
+    1`: run_local.py's mock BAMs, `bin avamb` at its published widths 547 /
+    283 / 700, `avamb_ensemble --write_bins` scored with the profiles
+    through `hmm_forward`), the launch counters set to 0 just before and
+    read just after; then `python -m vamb_torch.tools.create_fasta` on the
+    z clusters as a subprocess. Gates: every subprocess exits 0; the
+    catalogue's names are `S{n}C{name}`, each in its sample; every bin file
+    holds exactly its cluster's contigs; `quality_report.tsv` and
+    `Final_bins/` are written, bins in it, one FASTA a reported bin; the clustering
+    kernels and `hmm_forward` launched (the library's own counts); and the
+    catalogue's composition projected on the card (`use_device=True`)
+    equals `bin avamb`'s host-path `composition.npz` but for the values
+    whose float32 roundings straddle a mask step (one step of the row's
+    largest value, under 1% of them)."""
+    import importlib.util
+    import os
+
+    from vamb_torch import kernels as K
+    from vamb_torch.composition import Composition
+    from vamb_torch.utils import Reader
+
+    times = {}
+    t = time.time()
+    data = tmp / "data"
+    data.mkdir()
+    samples, hmm_path, genome = write_samples(dev, data, np.random.default_rng(SEED + 14))
+    times["write_inputs_s"] = time.time() - t
+    out = tmp / "workflow"
+    out.mkdir()
+    (data / "contigs.txt").write_text("".join(f"{p}\n" for p in samples))
+    config = {"contigs": str(data / "contigs.txt"), "sample_data": "unused with --mock-mapping",
+              "outdir": str(out), "hmm_path": str(hmm_path), **WF_CONFIG}
+    (data / "config.json").write_text(json.dumps(config))
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+
+    def tool(name, *args):
+        t = time.time()
+        proc = subprocess.run([sys.executable, "-m", f"vamb_torch.tools.{name}", *map(str, args)],
+                              capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+        times[f"{name}_s"] = time.time() - t
+        check(proc.returncode == 0, f"phase 14: vamb_torch.tools.{name} exited {proc.returncode}: "
+                                    f"{proc.stderr[-2000:]}")
+
+    catalogue = out / "contigs.flt.fna.gz"
+    tool("concatenate", catalogue, *samples, "-m", WF_CONFIG["min_contig_size"])
+    names = fasta_names(catalogue)
+    check(len(names) == WF_CONTIGS and all(
+        re.fullmatch(rf"S{1 + int(n.split('Cc')[1]) % WF_SAMPLES}Cc\d+", n) for n in names),
+        "phase 14: the catalogue's names are not S{n}C{name}, each in its sample")
+
+    spec = importlib.util.spec_from_file_location("run_local_torch",
+                                                  ROOT / "workflow_avamb" / "run_local_torch.py")
+    workflow = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(workflow)
+    K.reset_launch_counts()
+    before = K.device_launches()
+    t = time.time()
+    workflow.main(["--config", str(data / "config.json"), "--device", str(dev), "--mock-mapping",
+                   "--epochs", "1"])
+    torch.cuda.synchronize()
+    times["run_local_torch_s"] = time.time() - t
+    launches = {"hmm_forward": K.hmm_forward.launches, **{k.__name__: k.launches for k in K.KERNELS}}
+    library = {k: v - before[k] for k, v in K.device_launches().items() if v != before[k]}
+    log(f"phase 14: run_local_torch.py ran in {times['run_local_torch_s']:.1f} s; wrapper launches "
+        f"{json.dumps(launches)}; the library's own {json.dumps(library)}")
+    for name, kernel in (("gumbel_topc", "gumbel_topc_kernel"),
+                         ("candidate_density_sweep", "candidate_density_kernel"),
+                         ("medoid_sweep", "medoid_sweep_kernel"), ("spec_sweep", "spec_sweep_kernel")):
+        check(launches[name] > 0 and library.get(kernel, 0) > 0,
+              f"phase 14: the workflow never launched {name} ({kernel})")
+    check(launches["hmm_forward"] > 0, "phase 14: the workflow never launched hmm_forward")
+
+    avamb = out / "avamb"
+    final = out / "Final_bins"
+    report = final / "quality_report.tsv"
+    check(report.is_file() and final.is_dir(), "phase 14: no Final_bins/quality_report.tsv")
+    rows = read_tsv(report)[1:]
+    fastas = sorted((final / "bins").rglob("*.fna*")) if (final / "bins").is_dir() else []
+    check(0 < len(fastas) == len(rows), f"phase 14: {len(rows)} bins reported, {len(fastas)} FASTAs")
+    bins_out = tmp / "z_bins"
+    tool("create_fasta", catalogue, avamb / "aae_z_clusters_unsplit.tsv", 0, bins_out)
+    z_bins = read_bins(avamb / "aae_z_clusters_unsplit.tsv", None)
+    written = {p.name.removesuffix(".fna"): set(fasta_names(p)) for p in bins_out.iterdir()}
+    check(written == z_bins, "phase 14: a bin file does not hold exactly its cluster's contigs")
+
+    t = time.time()
+    with Reader(catalogue) as f:
+        on_card = Composition.from_file(f, str(catalogue), minlength=WF_CONFIG["min_contig_size"],
+                                        use_device=True, device=dev)
+    times["tnf_on_card_s"] = time.time() - t
+    host = Composition.load(avamb / "composition.npz")
+    a, b = on_card.matrix, host.matrix
+    row = np.maximum(np.abs(a), np.abs(b)).max(axis=1, keepdims=True).astype(np.float32)
+    within = bool((np.abs(a.astype(np.float64) - b) <= np.spacing(row) * 4096).all())
+    same = float((a == b).mean())
+    check(np.array_equal(on_card.metadata.identifiers, host.metadata.identifiers) and within
+          and same > 0.99 and not (a.view(np.uint32) & np.uint32(0xFFF)).any(),
+          f"phase 14: the card's TNF projection differs from the host path's ({same} identical)")
+    log(f"phase 14: composition on the card vs the host path: {same} of the values identical, "
+        f"max |diff| {float(np.abs(a - b).max())}, all within one mask step of their row's largest")
+    final_bins = {p.name: {n.replace("Cc", "C") for n in fasta_names(p)} for p in fastas}
+    result = {"contigs": len(names), "samples": WF_SAMPLES, "launches": launches,
+              "library_launches": library, "z_bins": len(z_bins), "final_bins": len(rows),
+              "final_bins_precision": pairwise_precision(final_bins, genome),
+              "tnf_card_identical": same, "times": times,
+              "_z_latent": avamb / "aae_z_latent.npz", "_composition": avamb / "composition.npz"}
+    log("phase 14(b): " + json.dumps({k: v for k, v in result.items() if not k.startswith("_")}))
+    return result
+
+
+def workflow_agreement(dev, phase14: dict) -> dict:
+    """Phase 14(a) in `--workflow` mode, where phases 4 and 10 do not run:
+    WF_AGREEMENT_CLUSTERS clusters of the workflow's 283-wide z latent
+    (fewer where WF_AGREEMENT_STEPS wander steps come first) on the card
+    and on the CPU in lockstep, as in phase 4: the same clusters, and the
+    work counters as `work_agreement` requires."""
+    from vamb_torch.composition import Composition
+    from vamb_torch.utils import read_npz
+
+    latent = read_npz(phase14["_z_latent"])
+    lengths = Composition.load(phase14["_composition"]).metadata.lengths
+    agree = engine_agreement(dev, latent, lengths, WF_AGREEMENT_CLUSTERS,
+                             label="phase 14's 283-wide z latent", max_steps=WF_AGREEMENT_STEPS)
+    for kind in ("gumbel scores", "candidates"):
+        check(agree["inputs_that_differed"][kind] == 0, f"phase 14(a): the card's {kind} differ")
+    check(agree["identical_clusters"] == agree["clusters_compared"] > 0 and agree["work"]["ok"],
+          "phase 14(a): the card and the CPU emitted different clusters or did different work")
+    return agree
+
+
 # ------------------------------------------------- engine A/B across checkouts
 
 
@@ -4278,10 +4547,13 @@ def engine_time(n_clusters: int = 200, profiled: int = 50, data=None, **kwargs) 
     gen = ClusterGenerator(latent.copy(), lengths, rng_seed=SEED, device="cuda", **kwargs)
     next(gen)
     torch.cuda.synchronize()
+    counted = hasattr(gen, "n_dists_effective")  # another checkout's engine may keep no counters
+    before = (gen.n_dists, gen.n_dists_effective, gen.emitted_total) if counted else None
     t = time.time()
     medoids = [c.medoid for c in itertools.islice(gen, n_clusters)]
     torch.cuda.synchronize()
     wall = time.time() - t
+    work = {"work": headline_of(gen, before, wall)} if counted else {}
     # then clusters under the profiler: device kernels a cluster and an
     # attempt (one seed chosen each; a wrapper that any checkout's engine takes)
     from torch.autograd import DeviceType
@@ -4296,7 +4568,7 @@ def engine_time(n_clusters: int = 200, profiled: int = 50, data=None, **kwargs) 
             "subset_ball": gen.Q, "subset_counts": gen.subset_counts,
             **({"lane_counts": gen.lane_counts} if hasattr(gen, "lane_counts") else {}),
             "kernels_per_cluster": kernels / len(more), "kernels_per_attempt": kernels / attempts[0],
-            "medoids_sha": hashlib.sha256(np.array(medoids).tobytes()).hexdigest()[:16]}
+            "medoids_sha": hashlib.sha256(np.array(medoids).tobytes()).hexdigest()[:16], **work}
 
 
 def engine_ab(dirs: list[str]) -> int:
@@ -4307,6 +4579,83 @@ def engine_ab(dirs: list[str]) -> int:
                              text=True, check=True, timeout=600)
         runs.append({"checkout": d, **json.loads(out.stdout.strip().splitlines()[-1])})
         log(json.dumps(runs[-1]))
+    print(nvidia_smi_line())
+    return 0
+
+
+STAGE_AB_SIZES = ((N_CONTIGS, N_GENOMES, 2000), (BIG_CONTIGS, BIG_GENOMES, BIG_CLUSTERS))
+STAGE_WARM = 20_000  # rows of the 100k latent a `--stage-time` process warms its kernels on
+
+
+def stage_time(data: Path) -> dict:
+    """`bin default`'s clustering stage on the latents in `data` (see
+    `stage_ab`) with the engine of the checkout on `sys.path`, after a
+    warm-up that builds and first launches every clustering kernel."""
+    import hashlib
+
+    from vamb_torch.cluster import ClusterGenerator
+
+    latent, lengths = (np.load(data / str(N_CONTIGS) / f) for f in ("latent.npy", "lengths.npy"))
+    warm = ClusterGenerator(latent[:STAGE_WARM].copy(), lengths[:STAGE_WARM], rng_seed=SEED,
+                            device="cuda", wander_scope="subset", attempt_batch="on")
+    list(itertools.islice(warm, 20))
+    out = {}
+    for n, _, clusters in STAGE_AB_SIZES:
+        latent, lengths = (np.load(data / str(n) / f) for f in ("latent.npy", "lengths.npy"))
+        torch.cuda.synchronize()
+        t = time.time()
+        gen = ClusterGenerator(latent, lengths, rng_seed=SEED, device="cuda", destroy=True)
+        medoids = [c.medoid for c in itertools.islice(gen, clusters)]
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        out[str(n)] = {
+            "s": wall, "clusters": len(medoids), "clusters_per_s": len(medoids) / wall,
+            "subset_ball": gen.Q, "subset_counts": gen.subset_counts,
+            "lane_counts": gen.lane_counts, "compactions": len(gen.compactions),
+            "medoids_sha": hashlib.sha256(np.array(medoids).tobytes()).hexdigest()[:16],
+            **({"n_dists": gen.n_dists, "n_dists_effective": gen.n_dists_effective,
+                "dist_terms": gen.dist_terms} if hasattr(gen, "n_dists") else {})}
+    return out
+
+
+def stage_ab(dirs: list[str]) -> int:
+    """`bin default` on phases 4 and 5's datasets with this checkout, then
+    its clustering stage on their latents with each checkout in `dirs`, in
+    turn, each in its own process (`stage_time`). Fails unless every run
+    emits the same medoids."""
+    from vamb_torch.__main__ import main
+    from vamb_torch.composition import Composition
+    from vamb_torch.utils import read_npz
+
+    if not torch.cuda.is_available():
+        log("no CUDA device: --stage-ab needs the card")
+        return 1
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp)
+        for n, genomes, clusters in STAGE_AB_SIZES:
+            d = data / str(n)
+            d.mkdir()
+            write_dataset(d, n, genomes, N_SAMPLES, SEED)
+            main(["bin", "default", "--outdir", str(d / "run"), "--fasta", str(d / "contigs.fna"),
+                  "--abundance_tsv", str(d / "abundance.tsv"), "-e", "2", "-q", "1",
+                  "-c", str(clusters), "--seed", str(SEED)], device="cuda")
+            log(f"bin default on {n} contigs, stage times: "
+                + json.dumps(stage_times(d / "run" / "log.txt")))
+            np.save(d / "latent.npy", read_npz(d / "run" / "latent.npz"))
+            np.save(d / "lengths.npy", Composition.load(d / "run" / "composition.npz").metadata.lengths)
+        runs = []
+        for d in dirs:
+            out = subprocess.run([sys.executable, __file__, "--stage-time", d, str(data)],
+                                 capture_output=True, text=True, timeout=900)
+            if out.returncode != 0:
+                log(out.stderr[-4000:])
+                return 1
+            runs.append({"checkout": d, **json.loads(out.stdout.strip().splitlines()[-1])})
+            log(json.dumps(runs[-1]))
+    for n, _, _ in STAGE_AB_SIZES:
+        shas = {r[str(n)]["medoids_sha"] for r in runs}
+        check(len(shas) == 1, f"--stage-ab: the checkouts emitted different medoids at {n}: {shas}")
+        log(f"clustering stage at {n}, s: " + json.dumps([[r["checkout"], r[str(n)]["s"]] for r in runs]))
     print(nvidia_smi_line())
     return 0
 
@@ -4812,7 +5161,7 @@ def build_all() -> Path:
 
 
 def main(mode: str = "full") -> int:
-    """mode "full" runs phases 1-13; "maxsteps" phases 1 and 13; "dist" phases 1 and 12; "kernels" phases 1-2; "recluster"
+    """mode "full" runs phases 1-14; "workflow" phases 1 and 14; "maxsteps" phases 1 and 13; "dist" phases 1 and 12; "kernels" phases 1-2; "recluster"
     phase 1, the Forward kernel's check and phase 7; "taxonomy" phases 1
     and 8; "avamb" phase 1, phase 2 at F_pad 288 and phase 9; "lanes"
     phase 1, phase 2's `spec_sweep` and `row_stats` and phase 10; "bf16"
@@ -4894,6 +5243,14 @@ def main(mode: str = "full") -> int:
         print(json.dumps({"kernels": shard_rows, "dist": phase12}))
         print(card)
         return 0
+    if mode == "workflow":  # phase 1, then phase 14: the workflow, and the counters on its z latent
+        with tempfile.TemporaryDirectory() as tmp:
+            phase14 = run_workflow_path(dev, Path(tmp))
+            phase14["z_card_vs_cpu"] = workflow_agreement(dev, phase14)
+        phase_done("14 (the work counters and the workflow)")
+        print(json.dumps({"workflow": {k: v for k, v in phase14.items() if not k.startswith("_")}}))
+        print(card)
+        return 0
     if mode == "taxonomy":  # phase 1, then phase 8 alone
         with tempfile.TemporaryDirectory() as tmp:
             run_tax = run_taxonomy_path(dev, Path(tmp))
@@ -4964,6 +5321,11 @@ def main(mode: str = "full") -> int:
     phase_done("12 (several processes)")
     errs_c, timed_c, phase13 = run_many_candidates(dev, (run_100k["_latent"], run_100k["_lengths"]))
     phase_done("13 (C above 32 and wander_kernel)")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase14 = run_workflow_path(dev, Path(tmp))
+    phase14["counters_100k_card_vs_cpu"] = run_100k["card_vs_cpu"]["work"]
+    phase14["headline_300k"] = phase10["lanes_ab"]["headline"]
+    phase_done("14 (the work counters and the workflow)")
 
     kernels = (kernel_rows(timed, errs, run_100k, run_300k, run_tax, run_avamb)
                + kernel_rows_aae(timed_aae, errs_aae, run_avamb)
@@ -4978,7 +5340,8 @@ def main(mode: str = "full") -> int:
                       "avamb_path": {k: v for k, v in run_avamb.items() if k not in drop},
                       "batched_attempts": phase10,
                       "bf16_path": {k: v for k, v in run_bf16.items() if k not in drop},
-                      "dist": phase12, "many_candidates": phase13}))
+                      "dist": phase12, "many_candidates": phase13,
+                      "workflow": {k: v for k, v in phase14.items() if not k.startswith("_")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -4993,6 +5356,13 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--engine-ab"]:
         sys.exit(engine_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--stage-time"]:  # one run of `stage_ab`, in the checkout named
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(stage_time(Path(sys.argv[3]))))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--stage-ab"]:
+        sys.exit(stage_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--density-layouts"]:
         sys.exit(density_layouts() if torch.cuda.is_available() else 1)
     if sys.argv[1:2] == ["--layouts"]:
@@ -5012,5 +5382,5 @@ if __name__ == "__main__":
         sys.exit(dist_engine_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5])))
     modes = {"--kernels": "kernels", "--recluster": "recluster", "--taxonomy": "taxonomy",
              "--avamb": "avamb", "--lanes": "lanes", "--bf16": "bf16", "--dist": "dist",
-             "--maxsteps": "maxsteps"}
+             "--maxsteps": "maxsteps", "--workflow": "workflow"}
     sys.exit(main(modes.get(sys.argv[1] if len(sys.argv) > 1 else "", "full")))

@@ -25,7 +25,9 @@ Scenarios:
           (`train_models`), each model's parameters, BatchNorm statistics,
           epoch metrics and replica checks;
   grads   each model's first summed gradient (each of the AAE's three
-          phases') over an uneven split of a 90-row batch.
+          phases') over an uneven split of a 90-row batch;
+  counters the row-sharded engine's work counters (tests/test_torch_counters.py)
+          at full scope, at the subset scope with lanes and compacting.
 """
 
 import itertools
@@ -46,7 +48,7 @@ from vamb_torch.models.aae import AAE  # noqa: E402
 from vamb_torch.models.taxometer import Taxometer  # noqa: E402
 from vamb_torch.models.vaevae import VAEVAE  # noqa: E402
 from vamb_torch.parallel import (  # noqa: E402
-    distributed_init, make_mesh, replicate, shard_rows, shard_rows_padded,
+    distributed_close, distributed_init, make_mesh, replicate, shard_rows, shard_rows_padded,
 )
 from vamb_torch.utils.checkpoint import params_to_jax  # noqa: E402
 
@@ -59,6 +61,8 @@ ENGINE_RUNS = ("random300", "clumpy", "compact", "wide283")  # the engine scenar
 # the maxsteps scenario's runs (tests/test_torch_wander.py): C above 32 at
 # full and subset scope, lanes on and off, compacting; one with "xla"
 MAXSTEPS_RUNS = ("ms33_full", "ms40_subset_on", "ms64_subset_off", "ms40_xla")
+# the counters scenario's runs (tests/test_torch_counters.py)
+COUNTER_RUNS = ("cnt_full", "cnt_subset", "cnt_compact")
 
 
 def scenario_mesh(mesh, inp) -> dict:
@@ -216,9 +220,15 @@ def scenario_maxsteps(mesh, inp) -> dict:
     return _engine_runs(mesh, inp, MAXSTEPS_RUNS)
 
 
+def scenario_counters(mesh, inp) -> dict:
+    return _engine_runs(mesh, inp, COUNTER_RUNS)
+
+
 def _engine_runs(mesh, inp, names) -> dict:
-    """Each run's emission, compactions and counters, with its ball size
-    `<name>_q` where the inputs give one."""
+    """Each run's emission, compactions, its subset and lane counters and
+    its work counters (n_dists, n_dists_effective, emitted_total; the lanes
+    not climbed), with its
+    ball size `<name>_q` where the inputs give one."""
     out = {}
     for name in names:
         kw = dict(inp[f"{name}_kw"].item())
@@ -231,6 +241,8 @@ def _engine_runs(mesh, inp, names) -> dict:
         out[f"{name}_subset_counts"] = np.array(list(gen.subset_counts.values()))
         out[f"{name}_lane_counts"] = np.array(list(gen.lane_counts.values()))
         out[f"{name}_lanes"] = np.array(gen.lane_counts["lanes"])
+        out[f"{name}_work"] = np.array([gen.n_dists, gen.n_dists_effective, gen.emitted_total])
+        out[f"{name}_unclimbed"] = np.array(gen.dist_terms["unclimbed_lanes"])
     return out
 
 
@@ -268,7 +280,8 @@ def main() -> None:
     for name in sys.argv[5:]:
         result = globals()[f"scenario_{name}"](mesh, inp)
         np.savez(outdir / f"{name}_r{rank}.npz", **result)
-    torch.distributed.destroy_process_group()
+    del mesh  # the group's last reference goes before the group
+    distributed_close()
     print("WORKER_OK", rank, flush=True)
 
 

@@ -1052,3 +1052,62 @@ def test_taxonomy_models_train_on_the_card_as_on_the_cpu(cuda, model):
     for (name, a), (_, b) in zip(cpu.state_dict().items(), card.state_dict().items()):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4, atol=1e-6, err_msg=name)
 
+
+
+@pytest.mark.cuda
+def test_work_counters_card_equal_cpu_on_a_compacting_subset_run(cuda):
+    """The engine's work counters on a compacting subset-scope run with
+    lanes, on the card and on the CPU: one emission, the same effective
+    count and emitted total (float32, exactly), and raw counts that differ
+    by the kernels' terms alone (one row more a full-scope step, seven rows
+    fewer a subset final row: `dist_terms`, exact below 2^31)."""
+    from vamb_torch import cluster
+    from vamb_torch.cluster import ClusterGenerator
+
+    mT_np, lengths = _clumpy(6_000, 32, seed=21)
+    m = np.ascontiguousarray(mT_np.T)
+    kw = dict(rng_seed=5, wander_scope="subset", compact_min_pad=128, batch_clusters=16)
+    fields = lambda c: (c.medoid, c.seed, c.kind_str, c.radius, c.members.tolist())  # noqa: E731
+    q = cluster._SUBSET_Q
+    cluster._SUBSET_Q = 1024
+    try:
+        runs = {}
+        for dev in ("cpu", cuda):
+            gen = ClusterGenerator(m.copy(), lengths, device=dev, **kw)
+            runs[str(dev)] = ([fields(c) for c in gen], gen)
+    finally:
+        cluster._SUBSET_Q = q
+    (want, cpu), (got, card) = runs["cpu"], runs[str(cuda)]
+    assert got == want
+    assert card.compactions and card.lane_counts["admitted"] > 0
+    assert card.n_dists_effective == cpu.n_dists_effective > 0
+    assert card.emitted_total == cpu.emitted_total == len(want)
+    assert card.dist_terms == cpu.dist_terms and card._kernel_terms and not cpu._kernel_terms
+    terms = card.dist_terms
+    assert max(card.n_dists, cpu.n_dists) < 2 ** 31
+    assert card.n_dists - cpu.n_dists == terms["full_steps"] - 7 * terms["final_rows"]
+    card.drain()
+
+
+@pytest.mark.cuda
+def test_use_device_composition_on_the_card(cuda):
+    """`Composition.from_file(use_device=True)` on the card: the host path's
+    metadata, and its matrix within one mask step (2^12 ulps) of each row's
+    largest value, in under 1% of the values (the card's product sums in
+    another order than BLAS)."""
+    import io
+
+    from vamb_torch.composition import Composition
+
+    rng = np.random.default_rng(4)
+    data = b"".join(b">c%d\n%s\n" % (i, bytes(rng.choice(list(b"ACGT"), int(n)).tolist()))
+                    for i, n in enumerate(rng.integers(1500, 6000, 2500)))
+    host = Composition.from_file(io.BytesIO(data), None)
+    card = Composition.from_file(io.BytesIO(data), None, use_device=True, device=cuda)
+    assert np.array_equal(card.metadata.identifiers, host.metadata.identifiers)
+    assert np.array_equal(card.metadata.mask, host.metadata.mask)
+    a, b = card.matrix, host.matrix
+    assert a.shape == b.shape and (a.view(np.uint32) & np.uint32(0xFFF) == 0).all()
+    row = np.maximum(np.abs(a), np.abs(b)).max(axis=1, keepdims=True).astype(np.float32)
+    assert (np.abs(a.astype(np.float64) - b) <= np.spacing(row) * 4096).all()
+    assert (a == b).mean() > 0.99

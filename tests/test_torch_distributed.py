@@ -3,6 +3,9 @@
 * The fail-fast cases of `_maybe_init_distributed`, as `vamb_tpu`'s
   (tests/test_distributed.py:150-189): a partial triple exits before any
   work, and a run that asks for nothing is a no-op.
+* `main` leaves the process group it initialised when it returns or
+  raises, a world of one under `--dist` included, so the same process can
+  call it again.
 * `bin default` through `vamb_torch.__main__.main` in two processes on the
   CPU (gloo), `--coordinator 127.0.0.1:<free port> --nprocs 2 --procid r`,
   on make_golden's synthetic dataset: only process 0's outputs remain
@@ -69,6 +72,32 @@ def test_no_multiprocess_flags_is_a_no_op():
 
     _maybe_init_distributed(_args(), device="cpu")
     assert process_info() == (0, 1)
+
+
+_TWICE = """
+import sys
+import torch.distributed as dist
+from vamb_torch.__main__ import main
+for i in range(2):
+    try:
+        main(["bin", "default", "--outdir", sys.argv[1] + f"/o{i}", "--fasta",
+              sys.argv[1] + "/absent.fna", "--abundance_tsv", sys.argv[1] + "/absent.tsv",
+              "--dist"], device="cpu")
+    except FileNotFoundError:
+        pass
+    print("GROUP", i, dist.is_initialized(), flush=True)
+"""
+
+
+def test_main_leaves_the_group_it_joined(tmp_path):
+    """Two `main` calls in one process under `--dist` with WORLD_SIZE 1:
+    each joins a group, fails on its missing input, and leaves the group."""
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    proc = subprocess.run([sys.executable, "-c", _TWICE, str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=JOIN_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr
+    assert re.findall(r"^GROUP .*$", proc.stdout, re.M) == ["GROUP 0 False", "GROUP 1 False"]
 
 
 def _argv(data: Path, out: Path) -> list:

@@ -213,11 +213,15 @@ def test_array_helpers_identical():
 
 def test_import_without_jax_or_vamb_tpu(tmp_path):
     """A fresh interpreter with `jax` blocked and only vamb_torch on the
-    path imports every port module; none pulls in jax or vamb_tpu."""
+    path imports every port module, the workflow tools and
+    workflow_avamb/run_local_torch.py; none pulls in jax or vamb_tpu."""
     shutil.copytree(
         REPO / "vamb_torch", tmp_path / "vamb_torch",
         ignore=shutil.ignore_patterns("_build", "*.so", "__pycache__"),
     )
+    (tmp_path / "workflow_avamb").mkdir()
+    for name in ("run_local_torch.py", "run_local.py"):
+        shutil.copy(REPO / "workflow_avamb" / name, tmp_path / "workflow_avamb" / name)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -229,6 +233,14 @@ def test_import_without_jax_or_vamb_tpu(tmp_path):
         "import vamb_torch.ops.kmeans, vamb_torch.reclustering, vamb_torch.taxonomy\n"
         "import vamb_torch.kernels.hmm_kernels, vamb_torch.models.hier\n"
         "import vamb_torch.models.taxometer, vamb_torch.models.vaevae, vamb_torch.optim.adam\n"
+        "import vamb_torch.tools.concatenate, vamb_torch.tools.create_fasta\n"
+        "import vamb_torch.tools.create_kernel, vamb_torch.ops.kernel, vamb_torch.ops.tnf\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    'run_local_torch', sys.argv[1] + '/workflow_avamb/run_local_torch.py')\n"
+        "wf = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(wf)\n"
+        "assert callable(wf.main) and callable(wf.mock_mapping)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vamb_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

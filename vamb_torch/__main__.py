@@ -838,8 +838,29 @@ quality source (--quality_report, --markers, or --hmm_path).""",
     from .device import resolve_device
 
     device = str(resolve_device(device))
+    had_group = _group_up()
     _maybe_init_distributed(args, device)
-    device = pipeline.process_device(device)
+    joined = _group_up() and not had_group
+    try:
+        _dispatch(command, args, pipeline.process_device(device))
+    finally:
+        if joined:  # a group this call initialised goes with it, whatever its size
+            from .parallel import distributed_close
+
+            distributed_close()
+
+
+def _group_up() -> bool:
+    "Whether this process is in a torch.distributed process group."
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _dispatch(command: tuple, args, device: str) -> None:
+    "Run the subcommand `command` with its parsed `args` on `device`."
+    from . import pipeline
+
     if command == ("recluster",):
         opt = _recluster_options_from_args(args, device)
         runner = pipeline.run_reclustering

@@ -68,10 +68,11 @@ come from one `spec_sweep` and their thresholds from one batched scan,
 their decisions reach the host in one sync, and the sequential acceptance
 scan admits lanes by `vamb_tpu`'s conditions (a cut lane consumes no key
 and reruns as an exact attempt; the lanes after one that needs the full
-climb are not climbed, and a loner lane's conflict region is its row
-within 0.3, which holds every point its outcome reads). None of this
-changes a decision (oracle_cluster.py:301-305): the port emits what
-`vamb_tpu` emits under each setting. Subset-wander attempts
+climb are not climbed; a loner lane's conflict region is its row within
+0.3 and its ball's blocks, as `vamb_tpu` builds it). None of this changes
+a decision (oracle_cluster.py:301-305): the port emits what `vamb_tpu`
+emits under each setting, and groups the attempts into lanes as it does,
+so the effective work count agrees too. Subset-wander attempts
 take the final row from `medoid_sweep` (`row_sweep`'s arithmetic), not
 from `vamb_tpu`'s batched einsum: distances that differ in the last ulp,
 the divergence class the full path already has.
@@ -260,6 +261,9 @@ class Cluster:
             return "normal"
         return "loner" if self.radius is None else "fallback"
 
+    def as_tuple(self) -> tuple[int, np.ndarray]:
+        return (self.medoid, self.members)
+
 
 def _pad_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
@@ -429,6 +433,20 @@ class ClusterGenerator:
     (d) the batch's capacity or no points left. A list in `sums_trace`
     receives each attempt's decision inputs (seed, medoid, histogram bytes,
     density, close count; a loner seed's near count), for comparisons.
+
+    The work counters are `vamb_tpu`'s (cluster.py:2064-2093): `n_dists`,
+    the distance evaluations made, and `n_dists_effective`, those the
+    reference's sequential sampler would have made, both float32 sums of
+    `vamb_tpu`'s terms added in its order (see `_Tally`): the effective
+    count equals `vamb_tpu`'s value on the same latent and settings, and
+    so does the raw one where no lane went unclimbed. `vamb_tpu` climbs the
+    lanes after one that needs the full climb, which decide nothing; the
+    port does not, and its raw count holds only the evaluations it makes.
+    `emitted_total` is the clusters decided, those not yet returned
+    included; `dist_terms` the exact sums of N over the terms where the two
+    accounting families differ (full-scope wander steps, the subset
+    wander's final rows) and the lanes not climbed. `drain()` waits for
+    the engine's queued device work.
     """
 
     def __init__(
@@ -484,6 +502,11 @@ class ClusterGenerator:
             if problems:
                 raise ValueError("wander_kernel='pallas' " + "; ".join(problems))
         self._kernels = _wander_kernels(plain=wander_kernel == "xla")
+        # the raw count's family: the hand-written kernels add `vamb_tpu`'s
+        # "pallas" terms (cluster.py:842, :927-929), the plain versions its
+        # "xla" terms; a mesh adds its mesh engine's, which are "xla"'s
+        self._kernel_terms = (wander_kernel != "xla" and self.device.type == "cuda"
+                              and mesh is None)
         if wander_scope == "subset" and bf16:  # vamb_tpu/cluster.py:1880-1881
             raise ValueError("wander_scope='subset' requires float32 distances")
         self._dtype = torch.bfloat16 if bf16 else torch.float32
@@ -557,6 +580,8 @@ class ClusterGenerator:
             ("refills", "bursts", "burst_loners", "burst_capacity_stops", "passes", "lanes",
              "admitted", "deferred", "cut_conflict", "cut_pvr", "cut_full", "cut_capacity"), 0)
         self._queue: deque = deque()  # clusters an iteration emitted, not yet returned
+        self._tally = _Tally()
+        self.dist_terms = {"full_steps": 0, "final_rows": 0, "unclimbed_lanes": 0}
         self._removals = 0  # points removed so far: the cached sums' clock
         self.sums_trace: Optional[list] = None
         self._clear_cache()
@@ -569,6 +594,33 @@ class ClusterGenerator:
 
     def __iter__(self):
         return self
+
+    # -- the work counters (vamb_tpu/cluster.py:356-363, :2064-2093) -------
+
+    @property
+    def n_dists(self) -> float:
+        """Raw medoid-to-point distance evaluations so far, in `vamb_tpu`'s
+        accounting for the code family that runs (float32)."""
+        return float(self._tally.raw)
+
+    @property
+    def n_dists_effective(self) -> float:
+        """Reference-equivalent distance evaluations so far: one row a seed
+        and, a wander step, the candidates the reference's one-at-a-time
+        sampler would have evaluated (float32; the same on every device)."""
+        return float(self._tally.eff)
+
+    @property
+    def emitted_total(self) -> int:
+        "Clusters decided so far, those queued but not yet returned included."
+        return self.n_emitted_clusters
+
+    def drain(self) -> None:
+        """Wait for the engine's queued device work, so that none of it runs
+        into whatever the caller times next. The port keeps no batch in
+        flight, so this changes no later emission."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- the live columns: the compaction ladder and the wander scope ------
 
@@ -710,6 +762,7 @@ class ClusterGenerator:
         self._stats, self._stats_at, self._near = tuple(stats), self._removals, None
         self._spec_next = 0
         self.lane_counts["refills"] += 1
+        self._tally.add(raw=_f32(_SPEC_SEEDS) * _f32(self.n_pad))  # the cache's rows (:1075)
 
     def _slot_stats(self):
         """The cached rows' (hist, density, n_close) under the current kept
@@ -786,8 +839,11 @@ class ClusterGenerator:
                 key, cand, cand_valid, dens = self._shard_step(key, sweep[0], kept_t, tried,
                                                                medoid, wk)
             better = cand_valid & (dens > density)
-            # one host sync per step: which candidate (if any) won
-            better_h = better.cpu().numpy()
+            # one host sync per step: which candidate (if any) won, and
+            # which were valid (the step's effective count)
+            better_h, valid_h = torch.stack([better, cand_valid]).cpu().numpy()
+            self._count_full_step(int(np.argmax(better_h)) + 1 if better_h.any()
+                                  else int(valid_h.sum()))
             if not better_h.any():
                 return medoid, sweep
             j = int(np.argmax(better_h))
@@ -803,7 +859,7 @@ class ClusterGenerator:
         self._set_tried(tried, seed)
         return self._climb(seed, sweep, sweep[2], tried, key, wk)
 
-    def _subset_phase1(self, seed: int, d0, density, wk, key):
+    def _subset_phase1(self, seed: int, d0, density, wk, key, tally):
         """Phase 1 of the subset wander (subset_phase1, cluster.py:555-748;
         oracle_cluster.py:473-561) from a seed with a kept neighbour within
         0.05: the first KB = Q/128 blocks (ascending) holding a kept column
@@ -818,7 +874,7 @@ class ClusterGenerator:
         `_SUBSET_ABORT` from the seed), where the climb must go on over all
         columns; `block_any` the flagged blocks of this rank's columns (a
         lane's conflict region); `ball` (cols, tried_s, nb) of the gathered
-        slots, None on overflow."""
+        slots, None on overflow. Each step's counts go to `tally`."""
         B, Q = _SUBSET_BLOCK, self.Q
         kept_t, dev = self.kept_t, self.device
         block_any = (kept_t & (d0 <= _SUBSET_RADIUS)).view(-1, B).any(dim=1)
@@ -833,12 +889,16 @@ class ClusterGenerator:
         while True:
             key, cand, cand_valid, dens = self._step(key, d_s, kept_s, tried_s, slot, Q, xsT, wk_s)
             better = cand_valid & (dens > density)
-            # one host sync per step: the winner, its slot and column, and
-            # its drift (float64 holds all of them exactly)
-            better_h, cand_h, col_h, drift_h = torch.stack(
+            # one host sync per step: the winner, its slot and column, its
+            # drift and the valid candidates (float64 holds all exactly)
+            better_h, cand_h, col_h, drift_h, valid_h = torch.stack(
                 [better.to(torch.float64), cand.to(torch.float64),
-                 cols[cand].to(torch.float64), d0_s[cand].to(torch.float64)]
+                 cols[cand].to(torch.float64), d0_s[cand].to(torch.float64),
+                 cand_valid.to(torch.float64)]
             ).cpu().numpy()
+            # C x Q evaluated, `upto` x N effective (:722-723)
+            upto = int(np.argmax(better_h)) + 1 if better_h.any() else int(valid_h.sum())
+            tally.add(raw=_f32(self.C) * _f32(Q), eff=_f32(upto) * _f32(self.n_pad))
             if not better_h.any():
                 break
             j = int(np.argmax(better_h))
@@ -922,10 +982,12 @@ class ClusterGenerator:
         its sweep)."""
         self.subset_counts["attempts"] += 1
         medoid, status, density, key, _, ball = self._subset_phase1(seed, sweep[0], sweep[2], wk,
-                                                                    key)
+                                                                    key, self._tally)
         if status == "done":
             return medoid, sweep if medoid == seed else self._sweep(medoid, wk)
         self.subset_counts[status] += 1
+        if medoid != seed:  # the moved medoid's row for the full climb (:907-909)
+            self._tally.add(raw=self.n_pad)
         tried = torch.zeros(self.n_loc, dtype=torch.bool, device=self.device)
         if ball is None:
             self._set_tried(tried, seed)
@@ -958,6 +1020,25 @@ class ClusterGenerator:
             return self._update_successes(True)
         return False
 
+    def _count_full_step(self, upto: int) -> None:
+        """A full-scope wander step's counts (:842-848): C x N evaluated (and
+        under the kernels the medoid's row again), `upto` x N effective."""
+        n = self.n_pad
+        self._tally.add(raw=self.C * n, eff=_f32(upto) * _f32(n))
+        if self._kernel_terms:
+            self._tally.add(raw=n)
+        self.dist_terms["full_steps"] += n
+
+    def _count_attempt_rows(self) -> None:
+        """An attempt's rows after its wander: under the subset wander the
+        final row (:927-934; one row under the kernels, the plain versions'
+        8-row product else), then the histogram pass (:1264-1271)."""
+        n = self.n_pad
+        if self.Q:
+            self._tally.add(raw=n if self._kernel_terms else _f32(_SPEC_SEEDS) * _f32(n))
+            self.dist_terms["final_rows"] += n
+        self._tally.add(raw=n)
+
     def __next__(self) -> Cluster:
         while not self._queue:
             if self.n_remaining == 0:
@@ -976,16 +1057,19 @@ class ClusterGenerator:
         self._spec_next = slot + 1
         hist, dens, n_close, near = self._slot_stats()
         self.key, sub = threefry.split_host(self.key)
+        self._tally.add(eff=self.n_pad)  # the reference's one row a seed (:852)
         if near[slot] == 1:  # a loner: no wander, no threshold (ref :457, :550-562)
             if self.sums_trace is not None:
                 self.sums_trace.append((seed, near[slot]))
             self._commit(self._record(seed, seed, "loner", None, None), np.array([seed]))
+            self._count_attempt_rows()
             self._burst(slot)
         else:
             wk = self._weights()  # kept is frozen per attempt
             sweep = (self._spec_d[slot], hist[slot], dens[slot], n_close[slot])
             wander = self._wander_subset if self.Q else self._wander
             medoid, (d, hist_m, dens_m, close_m) = wander(seed, sweep, wk, sub)
+            self._count_attempt_rows()
             if self.sums_trace is not None:
                 self.sums_trace.append((seed, medoid, hist_m.cpu().numpy().tobytes(),
                                         float(dens_m), int(close_m)))
@@ -1017,20 +1101,27 @@ class ClusterGenerator:
         start = slot0 + 1
         while True:
             near = self._slot_stats()[3]  # the loner flags: one pass, one sync
+            loners, stopped = 0, False
             for s in range(start, _SPEC_SEEDS):
                 c = self._spec_cols[s]
                 if not self.kept[c]:
                     continue
                 if near[s] != 1:
-                    return
+                    stopped = True
+                    break
                 if self._in_batch >= self._batch_clusters:
                     self.lane_counts["burst_capacity_stops"] += 1
-                    return
+                    stopped = True
+                    break
                 self.key = threefry.split_host(self.key)[0]
                 self.order_pos = int(self.ranks[c]) + 1
                 self._commit(self._record(c, c, "loner", None, None), np.array([c]))
                 self.lane_counts["burst_loners"] += 1
-            if self._in_batch >= self._batch_clusters or self.n_remaining == 0:
+                loners += 1
+            # a loner's seed row and histogram pass, added once a pass (:1204-1207)
+            term = _f32(loners) * _f32(self.n_pad)
+            self._tally.add(raw=term, eff=term)
+            if stopped or self._in_batch >= self._batch_clusters or self.n_remaining == 0:
                 return
             self._refill()
             start = 0
@@ -1063,18 +1154,23 @@ class ClusterGenerator:
         for _ in alive:
             key, sub = threefry.split_host(key)
             links.append((key, sub))
-        medoids, blocks = [], []
-        for (_, sub), s in zip(links, alive):
+        medoids, blocks, tallies = [], [], []
+        for i, ((_, sub), s) in enumerate(zip(links, alive)):
             seed = self._spec_cols[s]
+            tallies.append(_Tally(eff=self.n_pad))  # a lane counts from (0, N) (:1433-1436)
             counts["lanes"] += 1
             if near[s] == 1:
                 medoids.append(seed)
-                blocks.append(None)
+                blocks.append(s)  # its ball's blocks, below
                 continue
             medoid, status, _, _, block_any, _ = self._subset_phase1(
-                seed, self._spec_d[s], dens[s], wk, sub)
+                seed, self._spec_d[s], dens[s], wk, sub, tallies[-1])
             if status != "done":
-                break  # (c): this lane and the ones after it rerun as exact attempts
+                # (c): this lane and the ones after it rerun as exact
+                # attempts; `vamb_tpu` climbs the later ones all the same
+                # (:1439-1444), for its raw count alone, and the port not
+                self.dist_terms["unclimbed_lanes"] += sum(near[s2] != 1 for s2 in alive[i + 1:])
+                break
             medoids.append(medoid)
             blocks.append(block_any)
         n = len(medoids)
@@ -1087,8 +1183,11 @@ class ClusterGenerator:
             med_t = torch.as_tensor(medoids, device=dev)
             sel = torch.where((n_close == 1)[:, None], self.iota[None, :] == med_t[:, None],
                               rows <= radius[:, None]) & self.kept_t
-            no_ball = torch.zeros(self.n_loc // _SUBSET_BLOCK, dtype=torch.bool, device=dev)
-            ball = torch.stack([no_ball if b is None else b for b in blocks])
+            loners = [b for b in blocks if isinstance(b, int)]
+            if loners:
+                loner_blocks = dict(zip(loners, self._loner_blocks(loners)))
+                blocks = [loner_blocks[b] if isinstance(b, int) else b for b in blocks]
+            ball = torch.stack(blocks)
             region = (rows <= _XMAX) | ball.repeat_interleave(_SUBSET_BLOCK, dim=1)
             # hits[k, r]: how many of lane k's members lie in lane r's region
             # (one small product; integers, exact in float32 below 2^24)
@@ -1130,6 +1229,16 @@ class ClusterGenerator:
                     break
         counts["admitted"] += admitted
         counts["deferred"] += len(alive) - admitted
+        # raw: every climbed lane's climb, the 8 final rows and their 8
+        # histogram passes; effective: the processed lanes' (:1592-1600). The
+        # lane sums are multiples of 128 far below 2^31, exact in any order
+        climbs, processed = _Tally(), _Tally()
+        for i, t in enumerate(tallies):
+            climbs.add(raw=t.raw)
+            if i < admitted:
+                processed.add(eff=t.eff)
+        self._tally.add(raw=climbs.raw)
+        self._tally.add(raw=_f32(2 * _SPEC_SEEDS) * _f32(self.n_pad), eff=processed.eff)
         if cut is not None:
             counts["cut_" + cut] += 1
         # the emitted lanes' members in one sync (under a mesh one gather of
@@ -1147,6 +1256,22 @@ class ClusterGenerator:
                 members[r] = nz[nz[:, 0] == i, 1]
         for rec, r in emitted:
             self._commit(rec, members.get(r, np.array([medoids[r]])))
+
+    def _loner_blocks(self, slots: list) -> torch.Tensor:
+        """The ball blocks of the loner lanes in cache `slots`, which climb
+        not: as `vamb_tpu` gathers them with no climb (:742-744), the first
+        KB blocks, in global order, holding a kept column within 0.15 of the
+        seed, a part of the lane's conflict region. (L, N_local / 128) on
+        this rank's columns; under a mesh one gather brings the flagged
+        counts of the ranks before it."""
+        B, kb = _SUBSET_BLOCK, self.Q // _SUBSET_BLOCK
+        near = (self._spec_d[slots] <= _SUBSET_RADIUS) & self.kept_t
+        flagged = near.view(len(slots), -1, B).any(dim=2)
+        upto = torch.cumsum(flagged, dim=1)
+        if self._mesh is not None:
+            counts = self._mesh.all_gather(flagged.sum(dim=1), "lane balls")  # (W, L)
+            upto = upto + counts[: self._mesh.rank].sum(dim=0)[:, None]
+        return flagged & (upto <= kb)
 
     def _members(self, d: torch.Tensor, radius: np.float32) -> np.ndarray:
         sel = (d <= float(radius)) & self.kept_t
@@ -1261,6 +1386,26 @@ class ClusterGenerator:
         self.n_emitted_clusters += 1
         self._in_batch += 1
         self._queue.append(rec)
+
+
+_f32 = np.float32
+
+
+class _Tally:
+    """Float32 distance-evaluation counters, each term rounded to float32
+    and added as `vamb_tpu`'s device scalars add it (cluster.py:356-363):
+    `raw`, the evaluations made, and `eff`, the reference-equivalent ones.
+    Every term is a multiple of 128 (N and Q are), so the sums are exact
+    below 2^31 and round as `vamb_tpu`'s above it."""
+
+    __slots__ = ("raw", "eff")
+
+    def __init__(self, raw=0.0, eff=0.0):
+        self.raw, self.eff = _f32(raw), _f32(eff)
+
+    def add(self, raw=0.0, eff=0.0) -> None:
+        self.raw = _f32(self.raw + _f32(raw))
+        self.eff = _f32(self.eff + _f32(eff))
 
 
 def _wander_kernels(plain: bool) -> SimpleNamespace:

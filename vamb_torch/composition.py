@@ -1,20 +1,25 @@
 """Composition: streaming FASTA -> 4-mer counts -> 103-dim TNF per contig.
 
-Host-side copy of `vamb_tpu/composition.py` (the TNF stage runs on numpy in
-both packages, so `composition.npz` is bit-identical). The host streams and
-counts k-mers with bounded buffers (batches of ~1000 contigs of counts) and
-projects them with BLAS. The final matrix has its 12 low mantissa bits
-zeroed for cross-platform stability (reference parsecontigs.py:211).
+Copy of `vamb_tpu/composition.py`. The host streams and counts k-mers with
+bounded buffers (batches of ~1000 contigs of counts) and by default
+projects them with BLAS, as `vamb_tpu` does by default, so
+`composition.npz` is bit-identical between the packages;
+`from_file(..., use_device=True)` projects each batch on a torch device
+instead. The final matrix has its 12 low mantissa bits zeroed for
+cross-platform stability (reference parsecontigs.py:211).
 """
 
 from pathlib import Path
 from typing import IO, Iterable, Optional, Sequence, TypeVar, Union
 
 import numpy as np
+import torch
 
+from .device import resolve_device
 from .utils import PushArray, RefHasher, byte_iterfasta, mask_lower_bits
 from .utils.arrays import numpy_inplace_maskarray, validate_input_array
-from .ops.tnf import project_fourmers_numpy
+from .ops.kernel import load_tnf_kernel
+from .ops.tnf import project_fourmers_device, project_fourmers_numpy
 from .utils.kmers import kmercounts_batch
 
 # Flush raw counts to the projection whenever this many float32s
@@ -141,6 +146,8 @@ class Composition:
         filehandle: Iterable[bytes],
         filename: Optional[str],
         minlength: int = 2000,
+        use_device: bool = False,
+        device="cuda",
     ) -> C:
         """Stream a binary FASTA filehandle into a Composition.
 
@@ -148,13 +155,21 @@ class Composition:
         A contig with zero countable 4-mers is an error, as it carries no
         composition signal.
 
-        The 256->103 projection runs on the host (BLAS sgemm): it does ~53
-        FLOPs per input byte, so shipping the 256-dim counts to the card
-        would move 3.5x the bytes of uploading the finished 103-dim
-        features once for training.
+        The 256->103 projection runs on the host by default (BLAS sgemm):
+        it does ~53 FLOPs per input byte, so shipping the 256-dim counts to
+        the card moves 3.5x the bytes of uploading the finished 103-dim
+        features once for training. `use_device=True` projects each batch
+        on `device` instead (`vamb_tpu`'s `use_device`,
+        vamb_tpu/composition.py:140-245): the kernel is held there once,
+        the batches' features stay there, and they are copied back once at
+        the end. Asking for a card where there is none raises.
         """
         if minlength < 4:
             raise ValueError(f"Minlength must be at least 4, not {minlength}")
+        if use_device:
+            dev = resolve_device(device)
+            kernel_t = torch.as_tensor(load_tnf_kernel(), device=dev)
+            device_chunks: list[torch.Tensor] = []
 
         projected = PushArray(np.float32)
         lengths = PushArray(np.int32)
@@ -183,6 +198,10 @@ class Composition:
                 )
             seq_buf.clear()
             hdr_buf.clear()
+            if use_device:
+                counts_t = torch.from_numpy(counts_mat).to(dev)
+                device_chunks.append(project_fourmers_device(counts_t, kernel_t))
+                return
             projected.extend(project_fourmers_numpy(counts_mat).ravel())
 
         for entry in byte_iterfasta(filehandle, filename):
@@ -201,7 +220,11 @@ class Composition:
             contignames.append(entry.identifier)
 
         flush()
-        tnfs_arr = projected.take()
+        if use_device and device_chunks:
+            # one copy back; a flat, owning array (filter_min_length resizes it in place)
+            tnfs_arr = torch.cat(device_chunks).cpu().numpy().reshape(-1).copy()
+        else:
+            tnfs_arr = projected.take()
         mask_lower_bits(tnfs_arr, 12)
 
         assert tnfs_arr.shape[0] % 103 == 0

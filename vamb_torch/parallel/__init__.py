@@ -27,6 +27,7 @@ NCCL's or gloo's order, so each rank decides alike.
 
 from .mesh import (  # noqa: F401
     Mesh,
+    distributed_close,
     distributed_init,
     make_mesh,
     process_info,

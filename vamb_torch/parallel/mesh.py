@@ -20,6 +20,7 @@ device). Every process group is created with a finite timeout, so a rank
 that dies makes the others fail rather than hang.
 """
 
+import gc
 import os
 from datetime import timedelta
 from typing import Any, Optional
@@ -89,6 +90,19 @@ def distributed_init(
     _local_rank = local
     _process_info = (dist.get_rank(), dist.get_world_size())
     return _process_info[1] > 1
+
+
+def distributed_close() -> None:
+    """Leave the run's process group, if this process joined one. Drop every
+    reference to it first (the meshes that hold it): a group whose last
+    reference outlives `destroy_process_group` is torn down at the
+    interpreter's exit, where gloo's threads can abort the process after
+    its work is done."""
+    global _process_info
+    if dist.is_available() and dist.is_initialized():
+        gc.collect()
+        dist.destroy_process_group()
+    _process_info = (0, 1)
 
 
 class Mesh:

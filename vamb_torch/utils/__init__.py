@@ -16,6 +16,8 @@ from .io import (
     write_clusters,
     read_clusters,
     write_bins,
+    concatenate_fasta,
+    concatenate_fasta_ios,
     CLUSTERS_HEADER,
 )
 from .hashing import RefHasher
@@ -34,6 +36,8 @@ __all__ = [
     "write_clusters",
     "read_clusters",
     "write_bins",
+    "concatenate_fasta",
+    "concatenate_fasta_ios",
     "CLUSTERS_HEADER",
     "RefHasher",
     "BinSplitter",

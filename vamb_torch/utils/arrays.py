@@ -30,6 +30,10 @@ class PushArray:
     def __len__(self) -> int:
         return self.length
 
+    @property
+    def capacity(self) -> int:
+        return len(self.data)
+
     def _reserve(self, extra: int) -> None:
         needed = self.length + extra
         if needed <= len(self.data):

@@ -113,6 +113,11 @@ class FastaEntry:
     def header(self) -> str:
         return self.identifier + self.description
 
+    def rename(self, header: bytes) -> None:
+        identifier, description = self._verify_header(header)
+        self.identifier = identifier
+        self.description = description
+
     def __len__(self) -> int:
         return len(self.sequence)
 
@@ -298,3 +303,48 @@ def write_bins(
                 file.write(gzip.decompress(bytes_by_id[contig]))
                 file.write(b"\n")
 
+
+def concatenate_fasta_ios(
+    outfile: IO[str],
+    readers: Iterable[Iterable[bytes]],
+    minlength: int = 2000,
+    rename: bool = True,
+):
+    """Concatenate multiple FASTA inputs, renaming to 'S{n}C{identifier}'.
+
+    The rename scheme is what makes default binsplitting on 'C' work
+    (reference vambtools.py:765-813).
+    """
+    identifiers: set[str] = set()
+    for reader_no, reader in enumerate(readers):
+        if rename:
+            identifiers.clear()
+
+        for entry in byte_iterfasta(reader, None):
+            if len(entry) < minlength:
+                continue
+            if rename:
+                entry.rename(f"S{reader_no + 1}C{entry.identifier}".encode())
+            if entry.identifier in identifiers:
+                raise ValueError(
+                    f'Multiple sequences would be given identifier "{entry.identifier}".'
+                )
+            identifiers.add(entry.identifier)
+            print(entry.format(), file=outfile)
+
+
+def concatenate_fasta(
+    outfile: IO[str],
+    inpaths: Iterable[Path],
+    minlength: int = 2000,
+    rename: bool = True,
+):
+    concatenate_fasta_ios(
+        outfile, _open_file_iterator(inpaths), minlength=minlength, rename=rename
+    )
+
+
+def _open_file_iterator(paths: Iterable[Path]) -> Iterable[Reader]:
+    for path in paths:
+        with Reader(path) as io:
+            yield io
